@@ -25,19 +25,43 @@ Phases, in order (any failure raises; no CPU fallback):
                (search_block per block, staged budget 0), card vs CPU
   7. launches  every kernel launched at least once by phases 5-6 (wrapper
                calls; the __global__ launches behind them are logged)
-The line before the last is the kernel table (JSON); the last line is
-{"ok": true, "device": {...}}.
+  4b. (in phase 4) B5a with 16 same-shape programs (operands taken from
+               block 0's own spans, so each matches), B5b at k = 64 over
+               their rows, B6 for `rate() by (resource.service.name)` and
+               `avg_over_time(duration) by (name)` at a 60 s step, plus a
+               dyadic-value fold; each against its plain version (B6's
+               f32 sum at rtol 1e-5, exact on dyadic values)
+  8. batched search on block 0: the 16 queries as one
+               search_blocks_multi group (1 B5a + 1 B5b launch, occupancy
+               16) and from 16 threads; a mixed burst with ineligible
+               queries (fallbacks); a search_block_shard_multi burst over
+               row-group ranges; each response equal to the CPU port's
+               unbatched answer; no fused_error; the host-clock wall of
+               the 16-query burst batched vs sequential
+  9. batched find: the 64 ids of phase 5 through find_in_blocks_multi
+               and from 16 threads, equal to phase 5's sequential traces
+  10. metrics  4 TraceQL metrics range queries over the 10 blocks at a
+               60 s step, each launching B6 once per block, series equal
+               to TempoDB(device="cpu")
+Each path's launch counts are set to 0 just before it and read just
+after. The line before the last is the kernel table (JSON); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import cProfile
+import dataclasses
 import json
 import os
+import pstats
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,6 +88,26 @@ SEARCH_QUERIES = [q for _, q in K1_QUERIES] + [
     '{ duration > 500ms && duration < 600ms }',
     '{ status = error } || { span.http.status_code = 404 }',
 ]
+# the batcher-eligible forms of tests/test_batchexec.py:48-56 over the
+# synth corpus, then forms the batcher refuses (regex table, structural
+# relation, generic attr table)
+BATCH_FORMS = [
+    '{ name = "op-0042" }',
+    '{ duration > 900ms }',
+    '{ status = error && kind = server }',
+    '{ name = "op-0100" || duration < 1ms }',
+    '{ span.http.status_code >= 500 }',
+    '{ name = "op-0007" && resource.service.name = "svc-007" }',
+]
+INELIGIBLE = ['{ name =~ "op-00[0-3].*" }', '{ name = "op-0001" } >> { kind = client }',
+              '{ span.attr.key005 = "value-00042" }']
+METRICS_QUERIES = [
+    '{ true } | rate() by (resource.service.name)',
+    '{ span.http.status_code = 500 } | count_over_time() by (kind)',
+    '{ true } | avg_over_time(duration) by (name)',
+    '{ kind = server } | max_over_time(duration) by (resource.service.name)',
+]
+METRICS_STEP_S = 60  # about 60 buckets over the corpus's hour
 
 
 def log(*a) -> None:
@@ -121,6 +165,33 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def batch_queries(blk, n: int = 16) -> list[str]:
+    """n queries of one shape, `{ name = .. && resource.service.name = .. }`,
+    their operands read off n random spans of the block, so each
+    matches at least the trace of its span."""
+    names, ridx = blk.pack.read("span.name_id"), blk.pack.read("span.res_idx")
+    svc, d = blk.pack.read("res.service_id"), blk.dictionary
+    rows = np.random.default_rng(17).choice(names.shape[0], n, replace=False)
+    return [f'{{ name = "{d.string(int(names[r]))}" && '
+            f'resource.service.name = "{d.string(int(svc[ridx[r]]))}" }}' for r in rows]
+
+
+def same_series(a, b) -> bool:
+    """Counts and value counts exact; min and max exact; the f32 sums
+    (merged in f64) at rtol 1e-5."""
+    if set(a.series) != set(b.series) or a.inspected_spans != b.inspected_spans:
+        return False
+    for k, st in a.series.items():
+        for f, arr in st.items():
+            other = b.series[k][f]
+            if f == "vsum":
+                if not np.allclose(arr, other, rtol=1e-5, atol=0):
+                    return False
+            elif not np.array_equal(arr, other):
+                return False
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -131,13 +202,17 @@ def main() -> int:
     from tempo_tpu_torch.block import open_block
     from tempo_tpu_torch.block import schema as S
     from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
+    from tempo_tpu_torch.db import batchexec as BX
+    from tempo_tpu_torch.db import metrics_exec as ME
     from tempo_tpu_torch.db import search as SM
     from tempo_tpu_torch.ops import filter as F
     from tempo_tpu_torch.ops import find as FD
+    from tempo_tpu_torch.ops import multiquery as MQ
     from tempo_tpu_torch.ops import select as SE
     from tempo_tpu_torch.ops import stage as ST
+    from tempo_tpu_torch.ops import timeseries as TS
     from tempo_tpu_torch.ops.device import PAD_I32, bucket, pad_rows
-    from tempo_tpu_torch.traceql.plan import plan_search_request
+    from tempo_tpu_torch.traceql.plan import plan_metrics_filter, plan_search_request
     from tempo_tpu_torch.util.synth import synth_block
 
     # ---- 1. device
@@ -353,14 +428,154 @@ def main() -> int:
                       "replaces": "tempo_tpu/ops/stage.py:178", "launches": 0, "max_abs_err": err,
                       "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lms})
+
+        # B5a -- 16 programs of one shape over block 0, different operands
+        batch_q = batch_queries(blk0)
+        bplans = [plan_search_request(blk0.dictionary, {}, query=q) for q in batch_q]
+        lowered = [MQ.lower_plan(p) for p in bplans]
+        if any(lq is None or lq.shape != lowered[0].shape for lq in lowered):
+            raise AssertionError("B5a: the 16 queries do not lower to one program shape")
+        shape = lowered[0].shape
+        mq_staged = ST.stage_block(
+            blk0, F.required_columns(bplans[0].conds) + ["trace.start_ms"], cache=False,
+            device=dev)
+        progs = MQ.pack_queries(lowered, 16)
+        prog_t, dims, ptr_t = MQ.device_program(lowered, mq_staged, progs)
+        sc = [mq_staged.cols[n] for n in shape.span_cols]
+        tc = [mq_staged.cols[n] for n in shape.trace_cols]
+        span_off = mq_staged.cols["trace.span_off"]
+
+        def b5a():
+            return kernels.multiquery(prog_t, dims, ptr_t, len(sc), len(tc), span_off, ns, nt, ntb)
+
+        tprogs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in progs.items()}
+
+        def b5a_plain():
+            return MQ._multiquery_plain(sc, tc, span_off, tprogs, ns, nt, nsb, ntb)
+
+        mq_tm, mq_cnt = b5a()
+        err = max_abs_err((mq_tm, mq_cnt), b5a_plain())
+        per_row = mq_tm.sum(dim=1).tolist()
+        if err or min(per_row) < 1:
+            raise AssertionError(f"B5a: err {err}, matched traces per query {per_row}")
+        ms = cuda_ms(b5a)
+        pms = cuda_ms(b5a_plain, reps=3, warm=1)
+        n_conds = max(len(p.conds) for p in bplans)
+        b_ms, b_by = bound(4 * ns * len(sc) + 4 * (ntb + 1) + 4 * nt * len(tc)
+                           + 16 * 4 * kernels.MQ_W + 16 * ntb * 5, 16 * ns * n_conds)
+        log(f"[B5a] Q=16 {shape.span_cols}: {per_row} traces, {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {b_ms:.4f} ms")
+        table.append({"name": "multiquery", "route": "cuda",
+                      "source": "tempo_tpu_torch/csrc/multiquery.cu",
+                      "replaces": "tempo_tpu/ops/multiquery.py:356", "launches": 0,
+                      "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None})
+
+        # B5b -- the 16 rows, k = 64; yardstick: one torch.topk of the
+        # (Q, T) composite keys (unique, so its order is defined)
+        mq_key = mq_staged.cols["trace.start_ms"]
+        got = kernels.mq_select(mq_tm, mq_key, mq_cnt, 64)
+        err = max_abs_err(got, MQ._mq_select_plain(mq_tm, mq_key, mq_cnt, 64))
+        comp16 = (torch.where(mq_tm, mq_key[None, :], int(PAD_I32)).to(torch.int64) * (1 << 32)
+                  + ((1 << 32) - 1 - torch.arange(ntb, device=dev))[None, :])
+        lib_idx = torch.topk(comp16, 64, dim=1).indices
+        if err or not torch.equal(lib_idx.to(torch.int32), got[:, :64]):
+            raise AssertionError("B5b differs from its plain version or from torch.topk's order")
+        ms = cuda_ms(lambda: kernels.mq_select(mq_tm, mq_key, mq_cnt, 64))
+        pms = cuda_ms(lambda: MQ._mq_select_plain(mq_tm, mq_key, mq_cnt, 64))
+        lms = cuda_ms(lambda: torch.topk(comp16, 64, dim=1))
+        b_ms, b_by = bound(16 * ntb * 5 + ntb * 4 + 16 * (3 * 64 + 1) * 4, 16 * ntb)
+        log(f"[B5b] Q=16 N={ntb} k=64: {ms:.4f} ms, plain {pms:.4f} ms, torch.topk {lms:.4f} ms, "
+            f"bound {b_ms:.5f} ms")
+        table.append({"name": "mq_select", "route": "cuda",
+                      "source": "tempo_tpu_torch/csrc/multiquery.cu",
+                      "replaces": "tempo_tpu/ops/multiquery.py:461", "launches": 0,
+                      "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lms})
+        del mq_staged, sc, tc, span_off, tprogs, mq_tm, mq_cnt, comp16, lib_idx
+
+        # B6 -- two metrics folds over block 0 at a 60 s step, then the
+        # 512-group value fold again on dyadic values (exact sums)
+        base_s = metas[0].start_time_unix_nano // 10**9
+        b6 = {"ms": 0.0, "plain_ms": 0.0, "nbytes": 0, "ops": 0, "err": 0}
+        for label, mq_text, dyadic in (("rate by service", METRICS_QUERIES[0], False),
+                                       ("avg(duration) by name", METRICS_QUERIES[2], False),
+                                       ("avg by name, dyadic", METRICS_QUERIES[2], True)):
+            mq = ME.parse_metrics_query(mq_text)
+            planned = plan_metrics_filter(mq, blk0.dictionary)
+            gid, labels = ME.resolve_groups(blk0, mq.agg.by)
+            mreq = ME.align_params(mq_text, base_s, base_s + 3600, METRICS_STEP_S)
+            _, n_b, t0_rel = ME._block_axis(blk0, mreq)
+            needed_ts = [n for n in F.required_columns(planned.conds)
+                         if n != "trace.span_off"] + ["span.start_ms"]
+            ts_staged = ST.stage_block(blk0, needed_ts, cache=False, device=dev)
+            gid_t = torch.from_numpy(pad_rows(gid, nsb, np.int32(-1))).to(dev)
+            val_t = pres_t = None
+            if mq.agg.field is not None:
+                val, pres = ME._value_column(blk0, mq.agg.field)
+                if dyadic:
+                    val = np.random.default_rng(3).integers(-511, 512, ns) / 8
+                val_t = torch.from_numpy(pad_rows(val.astype(np.float32), nsb, np.float32(0))).to(dev)
+                pres_t = torch.from_numpy(pad_rows(pres, nsb, False)).to(dev)
+            ops_ts = F.Operands.build(planned.rows, planned.tables or None)
+            prog = TS._span_program(planned.tree, tuple(planned.conds))
+            buf = prog.buffer(ts_staged.cols, ops_ts, {})
+            G = len(labels)
+
+            def b6_run():
+                return kernels.timeseries(prog, buf, ts_staged.cols, ts_staged.cols["span.start_ms"],
+                                          gid_t, val_t, pres_t, t0_rel, mreq.step_ms, ns, nrb,
+                                          ntb, n_b, G)
+
+            ops_i = torch.from_numpy(ops_ts.ints).to(dev)
+            ops_f = torch.from_numpy(ops_ts.floats).to(dev)
+
+            def b6_plain():
+                return TS._timeseries_plain(planned.tree, planned.conds, ts_staged.cols, ops_i,
+                                            ops_f, {}, gid_t, val_t, pres_t, t0_rel,
+                                            mreq.step_ms, ns, n_b, G, nsb, nrb, ntb)
+
+            got, want = b6_run(), b6_plain()
+            same = all(torch.equal(g, w) for i, (g, w) in enumerate(zip(got, want))
+                       if i != 2 or dyadic)
+            err = 0.0
+            if len(got) == 5 and not dyadic:  # the f32 sum: atomics add in any order
+                diff = (got[2] - want[2]).abs()
+                err = float(diff.max())
+                same = same and float((diff / want[2].abs().clamp_min(1e-30)).max()) <= 1e-5
+            folded = int(got[0].sum().item())
+            if not same or folded != ns:
+                raise AssertionError(f"B6 {label}: differs from its plain version "
+                                     f"(folded {folded} of {ns} spans)")
+            ms = cuda_ms(b6_run)
+            pms = cuda_ms(b6_plain, reps=5, warm=1)
+            n_out = len(got)
+            nbytes = ns * 8 + (ns * 5 if val_t is not None else 0) + G * n_b * 4 * n_out
+            b_ms, _ = bound(nbytes, ns * 4)
+            log(f"[B6 {label}] {G} groups x {n_b} buckets: {folded} spans folded, {ms:.4f} ms, "
+                f"plain {pms:.4f} ms, bound {b_ms:.5f} ms")
+            if not dyadic:
+                b6["ms"] += ms
+                b6["plain_ms"] += pms
+                b6["nbytes"] += nbytes
+                b6["ops"] += ns * 4
+            b6["err"] = max(b6["err"], err)
+            del ts_staged, gid_t, val_t, pres_t, buf, got, want
+        b_ms, b_by = bound(b6["nbytes"], b6["ops"])
+        table.append({"name": "timeseries", "route": "cuda",
+                      "source": "tempo_tpu_torch/csrc/timeseries.cu",
+                      "replaces": "tempo_tpu/ops/timeseries.py:53", "launches": 0,
+                      "max_abs_err": b6["err"], "ms": b6["ms"], "plain_ms": b6["plain_ms"],
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         del staged, cols, sib_cols, blks, ids, mask10, key10, cnt10, comp
         torch.cuda.synchronize()
 
         # ---- 5./6. the main path: counts from 0, read right after
         kernels.reset_counts()
         t0 = time.perf_counter()
+        seq_found = {}  # phase 9's reference answers
         for tid in present:
-            tr = db.find_trace_by_id(TENANT, tid)
+            tr = seq_found[tid] = db.find_trace_by_id(TENANT, tid)
             if tr is None or tr.span_count() != SPANS_PER or tr.trace_id() != tid:
                 raise AssertionError(f"find {tid.hex()}: wrong trace")
         for tid in absent:
@@ -398,11 +613,183 @@ def main() -> int:
 
         # ---- 7. launches
         log(f"[launches] wrapper calls {counts_after}, __global__ launches {grids_after}")
-        for row in table:
-            row["launches"] = counts_after[row["name"]]
-        missing = [k for k, v in counts_after.items() if v <= 0]
+        missing = [k for k in ("filter", "select", "find", "res_to_span") if counts_after[k] <= 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: {missing}")
+        launches = dict(counts_after)
+
+        # ---- 8. batched search on block 0
+        meta0 = metas[0]
+        seq_db = TempoDB(TempoDBConfig(batch_enabled=False), backend=backend, device="cpu")
+        seq_db.poll_now()
+        cblk = seq_db.open_block(meta0)
+
+        def unbatched(req, groups=None):
+            """The CPU port's answer without batching: the single-block
+            engine for batcher-eligible plans (the batcher's own fallback),
+            the fused engine otherwise (the route the card takes too)."""
+            p = SM._plan_for_block(cblk, req)
+            if groups is not None or (not p.prune and MQ.lower_plan(p) is not None):
+                return SM.search_block(cblk, req, groups_range=groups, device="cpu")
+            return seq_db.search_blocks(TENANT, [meta0], req)
+
+        reqs16 = [SearchRequest(query=q, limit=20) for q in batch_q]
+        want16 = [unbatched(r) for r in reqs16]
+        routing0 = BX.routing_counts()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        got16 = db.search_blocks_multi([(TENANT, [meta0], r) for r in reqs16])
+        first_s = time.perf_counter() - t0
+        group_counts = dict(kernels.LAUNCHES)
+        group_grids = kernels.grid_launches()
+        if not all(same_response(g, w) for g, w in zip(got16, want16)):
+            raise AssertionError("batched search: a response differs from the unbatched CPU answer")
+        occ = db.batchers.search.stats["max_occupancy"]
+        if group_counts["multiquery"] != 1 or group_counts["mq_select"] != 1 or \
+                group_counts["filter"] or occ != 16:
+            raise AssertionError(f"batched search: launches {group_counts}, occupancy {occ}")
+        log(f"[batch] 16 queries, one group (first run of this column set, {first_s:.2f} s): "
+            f"occupancy {occ}, wrapper calls {group_counts}, __global__ launches {group_grids}")
+        with ThreadPoolExecutor(16) as ex:
+            got = [f.result() for f in [ex.submit(db.search_blocks, TENANT, [meta0], r)
+                                        for r in reqs16]]
+        if not all(same_response(g, w) for g, w in zip(got, want16)):
+            raise AssertionError("threaded batched search differs from the unbatched CPU answer")
+        mixed = [SearchRequest(query=q, limit=20) for q in BATCH_FORMS + INELIGIBLE] + reqs16[:7]
+        got = db.search_blocks_multi([(TENANT, [meta0], r) for r in mixed])
+        for r, g in zip(mixed, got):
+            if isinstance(g, Exception) or not same_response(g, unbatched(r)):
+                raise AssertionError(f"mixed burst {r.query}: differs from the unbatched CPU answer")
+        n_groups = len(meta0.row_groups)
+        ranges = [list(range(i, min(i + 4, n_groups))) for i in range(0, n_groups, 4)]
+        jobs = [(TENANT, meta0, r, g) for g in ranges for r in reqs16[:4]]
+        got = db.search_block_shard_multi(jobs)
+        for (_, _, r, g), resp in zip(jobs, got):
+            if isinstance(resp, Exception) or not same_response(resp, unbatched(r, g)):
+                raise AssertionError(f"shard burst {r.query} {g}: differs from the CPU answer")
+        path_counts = dict(kernels.LAUNCHES)
+        routing = {k: v - routing0.get(k, 0) for k, v in BX.routing_counts().items()
+                   if v != routing0.get(k, 0)}
+        log(f"[batch] threads, mixed burst ({len(mixed)}) and shard burst ({len(jobs)} jobs over "
+            f"{len(ranges)} ranges) agree with the CPU; routing {routing}; wrapper calls "
+            f"{path_counts}; stats {db.batchers.search.stats}")
+        if any(k[2] == "fused_error" for k in routing) or path_counts["multiquery"] <= 0 \
+                or path_counts["mq_select"] <= 0:
+            raise AssertionError(f"batched search path: routing {routing}, launches {path_counts}")
+        launches["multiquery"], launches["mq_select"] = path_counts["multiquery"], \
+            path_counts["mq_select"]
+        # the 16-query burst on the warm block, batched vs sequential, in turns
+        walls = {"batched": [], "sequential": []}
+        blk0_db = db.open_block(meta0)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            db.search_blocks_multi([(TENANT, [meta0], r) for r in reqs16])
+            walls["batched"].append(time.perf_counter() - t0)
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            for r in reqs16:
+                SM.search_block(blk0_db, r, device=dev)
+            walls["sequential"].append(time.perf_counter() - t0)
+            seq_counts = dict(kernels.LAUNCHES)
+        log(f"[batch] 16-query burst host-clock wall (s): batched {walls['batched']}, "
+            f"sequential {walls['sequential']}; sequential wrapper calls {seq_counts}")
+
+        # ---- 9. batched find: phase 5's ids, as multi-lookups and from threads
+        ids64 = present + absent
+
+        def cands(tid):
+            return [m for m in metas if m.may_contain_id(tid.rjust(16, b"\x00").hex())]
+
+        def same_trace(a, b) -> bool:
+            return (a is None) == (b is None) and (a is None or
+                                                   dataclasses.asdict(a) == dataclasses.asdict(b))
+
+        # every fused find group, logged as its ids, the blocks past its
+        # bloom gate and the Q of its K3 call (0: no block passed, no K3)
+        group_log, tls = [], threading.local()
+        fused0, lookup0 = BX._run_find_group_fused, FD.lookup_ids_blocks_cached
+
+        def fused_spy(items):
+            tls.rec = {"ids": len(items), "blocks": 0, "q": 0}
+            group_log.append(tls.rec)
+            try:
+                return fused0(items)
+            finally:
+                tls.rec = None
+
+        def lookup_spy(blocks, query, device):
+            if getattr(tls, "rec", None) is not None:
+                tls.rec["blocks"], tls.rec["q"] = len(blocks), int(query.shape[0])
+            return lookup0(blocks, query, device)
+
+        BX._run_find_group_fused, FD.lookup_ids_blocks_cached = fused_spy, lookup_spy
+        routing0 = BX.routing_counts()
+        kernels.reset_counts()
+        try:
+            t0 = time.perf_counter()
+            got = db.find_in_blocks_multi([(TENANT, t, cands(t)) for t in ids64])
+            multi_s = time.perf_counter() - t0
+            multi_finds, multi_groups = kernels.LAUNCHES["find"], list(group_log)
+            with ThreadPoolExecutor(16) as ex:
+                got_t = [f.result() for f in [ex.submit(db.find_trace_by_id, TENANT, t)
+                                              for t in ids64]]
+        finally:
+            BX._run_find_group_fused, FD.lookup_ids_blocks_cached = fused0, lookup0
+        find_counts = dict(kernels.LAUNCHES)
+        routing = {k: v - routing0.get(k, 0) for k, v in BX.routing_counts().items()
+                   if v != routing0.get(k, 0)}
+        for t, a, b in zip(ids64, got, got_t):
+            if not (same_trace(a, seq_found.get(t)) and same_trace(b, seq_found.get(t))):
+                raise AssertionError(f"batched find {t.hex()}: differs from the sequential trace")
+        fstats = db.batchers.find.stats
+        wide = [g for g in group_log if g["q"] > 1]
+        log(f"[find batch] 64 ids: find_in_blocks_multi {multi_s:.2f} s in {multi_finds} K3 "
+            f"calls, fused groups (ids, blocks past the bloom gate, K3 Q) "
+            f"{[(g['ids'], g['blocks'], g['q']) for g in multi_groups]}; then 16 threads, "
+            f"fused groups {[(g['ids'], g['blocks'], g['q']) for g in group_log[len(multi_groups):]]}"
+            f"; wrapper calls {find_counts}; routing {routing}; stats {fstats}")
+        if ("find_batch", "fallback", "fused_error") in routing or not wide \
+                or find_counts["find"] < len(wide) or fstats["max_occupancy"] < 2:
+            raise AssertionError(f"batched find: routing {routing}, K3 calls with Q > 1 "
+                                 f"{len(wide)}, launches {find_counts}, stats {fstats}")
+
+        # ---- 10. metrics over the 10 blocks, card vs TempoDB(device="cpu")
+        lo_s = min(m.start_time_unix_nano for m in metas) // 10**9
+        hi_s = -(-max(m.end_time_unix_nano for m in metas) // 10**9)
+        ts_total = 0
+        for mq_text in METRICS_QUERIES:
+            mreq = ME.align_params(mq_text, lo_s, hi_s, METRICS_STEP_S)
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            r = db.metrics_query_range(TENANT, mreq)
+            card_s = time.perf_counter() - t0
+            n_ts = kernels.LAUNCHES["timeseries"]
+            n_grid = kernels.grid_launches()["timeseries"]
+            t0 = time.perf_counter()
+            c = cpu_db.metrics_query_range(TENANT, mreq)
+            cpu_s = time.perf_counter() - t0
+            if n_ts != N_BLOCKS or not r.series or not same_series(r, c):
+                raise AssertionError(f"metrics {mq_text}: {n_ts} B6 launches, series "
+                                     f"{len(r.series)} vs CPU {len(c.series)}")
+            ts_total += n_ts
+            log(f"[metrics] {mq_text}: {len(r.series)} series x {mreq.n_buckets} buckets, "
+                f"{n_ts} B6 calls ({n_grid} __global__), card {card_s:.2f} s, CPU check {cpu_s:.2f} s")
+        launches["timeseries"] = ts_total
+        # where a warm metrics query's host-clock wall goes: a profile of
+        # the first query run once more, the top functions by own time
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        db.metrics_query_range(TENANT, ME.align_params(METRICS_QUERIES[0], lo_s, hi_s,
+                                                       METRICS_STEP_S))
+        prof.disable()
+        wall = time.perf_counter() - t0
+        own = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:5]
+        log(f"[metrics profile] {METRICS_QUERIES[0]}: {wall:.2f} s under the profiler; own time "
+            + "; ".join(f"{os.path.basename(f)}:{ln} {fn} {tt:.2f} s" for (f, ln, fn), (_, _, tt, _, _)
+                        in own))
+        for row in table:
+            row["launches"] = launches[row["name"]]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

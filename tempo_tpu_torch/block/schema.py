@@ -44,6 +44,12 @@ AX_EVATTR = "evattr"
 AX_LINK = "ln"
 AX_LNATTR = "lnattr"
 
+WELL_KNOWN_SPAN_ATTRS = {
+    # attr key -> dedicated span column (vparquet's dedicated-column idea)
+    "http.status_code": "span.http_status",
+    "http.method": "span.http_method_id",
+    "http.url": "span.http_url_id",
+}
 WELL_KNOWN_RES_ATTRS = {
     "service.name": "res.service_id",
     "k8s.cluster.name": "res.cluster_id",

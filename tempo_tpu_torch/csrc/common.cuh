@@ -14,15 +14,20 @@
 #define PAD_I32 ((int32_t)0x80000000)
 #define INT32_MAXV ((int32_t)0x7FFFFFFF)
 
-// __global__ launches this library has made: one wrapper call may make
-// several (a filter program run, a bitonic select). Each launch site is
-// followed by TT_LAUNCHED(); kernels.grid_launches() reads the count.
-static std::atomic<unsigned long long> tt_grid_launches_{0};
-#define TT_LAUNCHED() tt_grid_launches_.fetch_add(1, std::memory_order_relaxed)
+// __global__ launches this library has made, per kernel slot (a library
+// holding two kernels, like multiquery.cu, counts each in its own slot):
+// one wrapper call may make several (a filter program run, a bitonic
+// select). Each launch site is followed by TT_LAUNCHED() (slot 0) or
+// TT_LAUNCHED_SLOT(i); kernels.grid_launches() reads the counts.
+#define TT_SLOTS 4
+static std::atomic<unsigned long long> tt_grid_launches_[TT_SLOTS];
+#define TT_LAUNCHED_SLOT(i) tt_grid_launches_[i].fetch_add(1, std::memory_order_relaxed)
+#define TT_LAUNCHED() TT_LAUNCHED_SLOT(0)
 
-// the count so far; reset != 0 also sets it back to 0
-TT_EXPORT unsigned long long tt_grid_launches(int reset) {
-    return reset ? tt_grid_launches_.exchange(0) : tt_grid_launches_.load();
+// the count of one slot so far; reset != 0 also sets it back to 0
+TT_EXPORT unsigned long long tt_grid_launches(int reset, int slot) {
+    if (slot < 0 || slot >= TT_SLOTS) return 0;
+    return reset ? tt_grid_launches_[slot].exchange(0) : tt_grid_launches_[slot].load();
 }
 
 static inline int tt_blocks(long long n, int threads) {

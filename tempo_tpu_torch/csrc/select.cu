@@ -2,115 +2,18 @@
 //
 // Replaces tempo_tpu/ops/select.py:42 `_compiled_select` and :84
 // `_compiled_select_multi` (`lax.top_k` over `where(mask, key, -2^31)`).
-// Each row becomes one 64-bit composite key
-//     (u32(key ^ 0x80000000) << 32) | (0xFFFFFFFF - idx)
-// with masked rows at key -2^31. All composites are distinct, and their
-// descending order is exactly lax.top_k's: larger key first, equal keys
-// by lower index, masked rows last in index order. A bitonic sort over
-// the power-of-two-padded length (pad composite 0 sorts after every real
-// row) orders them; the first k are emitted as the packed buffer
-// [idx(k) | count(k) | valid(k) | n_match].
+// The composite-key bitonic select itself is in select.cuh, shared with
+// the row-wise B5b (multiquery.cu); this is its one-row entry.
 //
 // Bound: the function must read mask+key+counts (9 B a row) once; the
 // sort makes log^2 passes over 8 B a row instead, so the kernel is
 // bandwidth-bound at many times that floor. Sub-sequences of up to
 // TILE rows sort in shared memory, which removes the short-stride
 // passes from device memory.
-#include "common.cuh"
-
-typedef unsigned long long u64;
-#define TILE 2048
-
-__global__ void select_keys_kernel(const uint8_t* __restrict__ mask,
-                                   const int32_t* __restrict__ key, int n, int n_pad,
-                                   u64* __restrict__ comp, int32_t* __restrict__ n_match) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    int hit = 0;
-    if (i < n_pad) {
-        u64 c = 0;
-        if (i < n) {
-            hit = mask[i] != 0;
-            int k = hit ? key[i] : PAD_I32;
-            c = ((u64)((uint32_t)k ^ 0x80000000u) << 32) | (u64)(0xFFFFFFFFu - (uint32_t)i);
-        }
-        comp[i] = c;
-    }
-    // one atomic per warp for the match count
-    unsigned ballot = __ballot_sync(0xFFFFFFFFu, hit);
-    if ((threadIdx.x & 31) == 0 && ballot) atomicAdd(n_match, __popc(ballot));
-}
-
-// one compare-exchange pass of the bitonic network over device memory
-// (strides >= TILE)
-__global__ void bitonic_global_kernel(u64* __restrict__ a, int n_pad, int j, int kk) {
-    int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n_pad / 2) return;
-    int i = (t / j) * 2 * j + (t % j);
-    int l = i + j;
-    bool desc = (i & kk) == 0;
-    u64 x = a[i], y = a[l];
-    if ((x < y) == desc) {
-        a[i] = y;
-        a[l] = x;
-    }
-}
-
-// every pass with stride < TILE for the merge sizes kk in [kk_lo, kk_hi],
-// inside one TILE-row tile in shared memory (TILE/2 threads)
-__global__ void bitonic_tile_kernel(u64* __restrict__ a, int kk_lo, int kk_hi) {
-    __shared__ u64 s[TILE];
-    int base = blockIdx.x * TILE;
-    for (int x = threadIdx.x; x < TILE; x += blockDim.x) s[x] = a[base + x];
-    __syncthreads();
-    int t = threadIdx.x;
-    for (int kk = kk_lo; kk <= kk_hi; kk <<= 1) {
-        for (int j = min(kk >> 1, TILE >> 1); j > 0; j >>= 1) {
-            int i = (t / j) * 2 * j + (t % j);
-            int l = i + j;
-            bool desc = ((base + i) & kk) == 0;
-            u64 x = s[i], y = s[l];
-            if ((x < y) == desc) {
-                s[i] = y;
-                s[l] = x;
-            }
-            __syncthreads();
-        }
-    }
-    for (int x = threadIdx.x; x < TILE; x += blockDim.x) a[base + x] = s[x];
-}
-
-__global__ void select_emit_kernel(const u64* __restrict__ comp, const uint8_t* __restrict__ mask,
-                                   const int32_t* __restrict__ counts, int k,
-                                   int32_t* __restrict__ out) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= k) return;
-    uint32_t idx = 0xFFFFFFFFu - (uint32_t)(comp[i] & 0xFFFFFFFFull);
-    out[i] = (int32_t)idx;
-    out[k + i] = counts[idx];
-    out[2 * k + i] = mask[idx] != 0;
-}
+#include "select.cuh"
 
 // n_pad: power of two >= max(n, TILE); comp: n_pad scratch; out: 3k+1
 TT_EXPORT int tt_select(const uint8_t* mask, const int32_t* key, const int32_t* counts,
                         int n, int k, u64* comp, int n_pad, int32_t* out, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (n_pad < TILE || (n_pad & (n_pad - 1)) || n_pad < n || k > n) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaMemsetAsync(out + 3 * k, 0, sizeof(int32_t), st);
-    if (e != cudaSuccess) return (int)e;
-    select_keys_kernel<<<tt_blocks(n_pad, 256), 256, 0, st>>>(mask, key, n, n_pad, comp, out + 3 * k);
-    TT_LAUNCHED();
-    int tiles = n_pad / TILE;
-    bitonic_tile_kernel<<<tiles, TILE / 2, 0, st>>>(comp, 2, TILE);
-    TT_LAUNCHED();
-    for (int kk = 2 * TILE; kk <= n_pad; kk <<= 1) {
-        for (int j = kk >> 1; j >= TILE; j >>= 1) {
-            bitonic_global_kernel<<<tt_blocks(n_pad / 2, 256), 256, 0, st>>>(comp, n_pad, j, kk);
-            TT_LAUNCHED();
-        }
-        bitonic_tile_kernel<<<tiles, TILE / 2, 0, st>>>(comp, kk, kk);
-        TT_LAUNCHED();
-    }
-    select_emit_kernel<<<tt_blocks(k, 256), 256, 0, st>>>(comp, mask, counts, k, out);
-    TT_LAUNCHED();
-    return (int)cudaGetLastError();
+    return tt_select_rows(mask, key, counts, n, 1, k, comp, n_pad, out, (cudaStream_t)stream, 0);
 }

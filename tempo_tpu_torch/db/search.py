@@ -11,8 +11,9 @@ only those are exactly re-verified on the host (device encodings are
 conservative).
 
 Every live block goes to the card: the host engine and its
-temperature routing, streaming, batching and the mesh path of the JAX
-package are not part of this port yet.
+temperature routing, streaming and the mesh path of the JAX package are
+not part of this port yet. Concurrent single-block jobs coalesce in
+db/batchexec.py, which calls back into this module for its fallbacks.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 
 from ..block import schema as S
 from ..block.reader import BackendBlock
-from ..ops.filter import Operands, eval_block, required_columns
+from ..ops.filter import T_RATTR, T_RES, T_TRACE, Operands, eval_block, required_columns
 from ..ops.select import k_bucket, select_topk_device, select_topk_device_multi
 from ..ops.stage import stage_block
 from ..traceql.plan import plan_search_request
@@ -32,6 +33,10 @@ DEFAULT_LIMIT = 20
 # staged span-axis bytes of one fused multi-block search before it falls
 # back to per-block search (as in the JAX package)
 _DEVICE_SEARCH_MAX_BYTES = 512 << 20
+# staged span-axis bytes past which the reference streams row-group
+# chunks; the port has no streaming yet (ROADMAP A4), and the batching
+# executor keeps the reference's routing at this threshold
+_STREAM_MIN_STAGE_BYTES = 512 << 20
 
 
 @dataclass
@@ -71,7 +76,7 @@ class SearchResponse:
         self.inspected_spans += other.inspected_spans
 
 
-def _plan_for_block(blk: BackendBlock, req: SearchRequest):
+def _plan_for_block(blk: BackendBlock, req: SearchRequest, allow_struct: bool = True):
     start_rel = None
     if req.start or req.end:
         base_ms = blk.meta.start_time_unix_nano // 1_000_000
@@ -89,7 +94,7 @@ def _plan_for_block(blk: BackendBlock, req: SearchRequest):
         max_duration_ms=req.max_duration_ms,
         start_rel_ms=start_rel,
         # struct nodes need the block to carry the parent-row column
-        allow_struct=blk.pack.has("span.parent_idx"),
+        allow_struct=allow_struct and blk.pack.has("span.parent_idx"),
     )
 
 
@@ -157,11 +162,12 @@ def _materialize(cand: tuple) -> SearchResult:
 
 
 def _collect_topk(blk: BackendBlock, req: SearchRequest, needs_verify: bool,
-                  selector, limit: int):
+                  selector, limit: int, materialize: bool = True):
     """Escalating top-k collect: select k candidates (newest first),
     verify exactly, and only widen k (x4) when verification rejected
     enough to fall short of the limit. selector(k) -> (sids, counts,
-    n_match)."""
+    n_match). materialize=False returns candidate records (_candidates)
+    for a caller that materializes them itself (the batched search)."""
     nt = blk.meta.total_traces
     if nt == 0:
         return []
@@ -181,7 +187,7 @@ def _collect_topk(blk: BackendBlock, req: SearchRequest, needs_verify: bool,
                 _candidates(blk, req, [s for s, _ in fresh if s in okset], dict(fresh))
             )
         if len(out) >= limit or len(seen) >= n_match or k >= nt:
-            return [_materialize(c) for c in out]
+            return [_materialize(c) for c in out] if materialize else out
         k = min(k_bucket(k * 4), nt)
 
 
@@ -220,21 +226,40 @@ def _collect_topk_multi(blocks, plans, offsets, req: SearchRequest, selector, li
         k = min(k_bucket(k * 4), total)
 
 
-def search_block(blk: BackendBlock, req: SearchRequest, device=None) -> SearchResponse:
-    """Search one block on the device: stage -> eval_block (K1) ->
-    select_topk_device (K2)."""
+def _tres_eligible(blk: BackendBlock, p) -> bool:
+    """Res/trace-only condition trees can evaluate over the tres
+    membership axis (one row per (trace, resource) pair) instead of the
+    span axis. The host engine that would take them is not part of the
+    port yet (ROADMAP A1); the batching executor reads this predicate to
+    route such plans exactly as the reference does."""
+    return (blk.pack.has("tres.res") and bool(p.conds)
+            and not getattr(p, "has_struct", False)  # struct needs span rows
+            and all(c.target in (T_RES, T_RATTR, T_TRACE) for c in p.conds))
+
+
+def search_block(blk: BackendBlock, req: SearchRequest, groups_range: list[int] | None = None,
+                 device=None) -> SearchResponse:
+    """Search one block (optionally one row-group shard of it) on the
+    device: stage -> eval_block (K1) -> select_topk_device (K2)."""
     resp = SearchResponse()
     if not blk.meta.overlaps_time(req.start, req.end):
         return resp
     planned = _plan_for_block(blk, req)
     if planned.prune:
         return resp
+    if groups_range is not None and planned.has_struct:
+        # struct nodes resolve parent links by GLOBAL row index; a
+        # row-group slice would sever links across group boundaries, so
+        # shards take the conservative plan (trace-AND + host verify)
+        planned = _plan_for_block(blk, req, allow_struct=False)
+        if planned.prune:  # the conservative fold may prove "no match"
+            return resp
     limit = req.limit or DEFAULT_LIMIT
     operands = Operands.build(planned.rows, planned.tables or None)
     needed = required_columns(planned.conds) + list(planned.extra_cols)
     pack = blk.pack
     io0 = pack.bytes_read
-    staged = stage_block(blk, needed + ["trace.start_ms"], device=device)
+    staged = stage_block(blk, needed + ["trace.start_ms"], groups=groups_range, device=device)
     tm, counts = eval_block(
         (planned.tree, planned.conds), staged.cols, operands,
         staged.n_spans, staged.n_traces, staged.n_spans_b, staged.n_res_b, staged.n_traces_b,
@@ -272,6 +297,8 @@ def search_blocks_fused(
         return resp
     est = 0
     for blk, p in live:
+        # the touch count the batching executor's promotion rule reads
+        blk.search_touches = getattr(blk, "search_touches", 0) + 1
         needed = required_columns(p.conds) + list(p.extra_cols) + ["trace@gkey_s"]
         n_span_cols = max(1, sum(1 for n in needed if n.startswith(("span.", "sattr."))))
         est += blk.pack.axes[S.AX_SPAN].n_rows * 4 * n_span_cols

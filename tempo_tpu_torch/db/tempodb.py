@@ -4,9 +4,12 @@ tempo_tpu/db/tempodb.py).
 Blocks are written to and listed from a backend; find-by-ID runs the
 host bloom gate and ONE batched bisection (K3) over every surviving
 block's device index; search runs the fused multi-block device search
-(db/search.py: K1 per block, one K2 across blocks). The WAL,
-compaction, batching, mesh, chaos wrap, metrics and cost ledger of the
-JAX package are not part of this port yet.
+(db/search.py: K1 per block, one K2 across blocks). Concurrent
+single-block search jobs and finds coalesce through the batching
+executors (db/batchexec.py: B5a + B5b per search group, K3 with Q > 1
+per find group), and TraceQL metrics range queries fold per block on
+B6 (db/metrics_exec.py). The WAL, compaction, mesh, chaos wrap and cost
+ledger of the JAX package are not part of this port yet.
 
 The device is the first card unless the caller names another one
 (`device="cpu"` runs every kernel's plain PyTorch version).
@@ -30,6 +33,15 @@ from ..ops.device import resolve_device
 from ..ops.find import lookup_ids_blocks_cached
 from ..wire.combine import combine_traces
 from ..wire.model import Trace
+from .batchexec import (
+    QueryBatchers,
+    _FindItem,
+    batched_find,
+    batched_search_block,
+    batched_search_block_many,
+    find_key,
+)
+from .metrics_exec import MetricsRequest, MetricsResponse, metrics_query_range_blocks
 from .search import SearchRequest, SearchResponse, search_block, search_blocks_fused
 
 
@@ -41,6 +53,14 @@ class TempoDBConfig:
     block_codec: str = "zstd"
     block_cache_blocks: int = 64
     search_default_limit: int = 20
+    # searches of a block before the batching executor takes it (the
+    # touch count of search_blocks_fused)
+    device_promote_touches: int = 2
+    # cross-query batching executor (db/batchexec): None fields resolve
+    # from the TEMPO_BATCH / TEMPO_BATCH_WINDOW_MS / TEMPO_BATCH_MAX env
+    batch_enabled: bool | None = None
+    batch_window_ms: float | None = None
+    batch_max: int | None = None
 
 
 def open_backend(cfg: dict) -> RawBackend:
@@ -60,6 +80,11 @@ class TempoDB:
         self._metas: dict[str, list[BlockMeta]] = {}
         self._block_cache: dict[tuple[str, str], BackendBlock] = {}
         self._lock = threading.Lock()
+        # concurrent search / find jobs that share a coalesce key merge
+        # into one fused kernel launch
+        self.batchers = QueryBatchers(
+            enabled=cfg.batch_enabled, window_ms=cfg.batch_window_ms,
+            max_batch=cfg.batch_max, device=self.device)
 
     # ------------------------------------------------------------ blocks
     def open_block(self, meta: BlockMeta) -> BackendBlock:
@@ -68,6 +93,10 @@ class TempoDB:
             blk = self._block_cache.get(key)
             if blk is None:
                 blk = open_block_versioned(self.backend, meta)
+                # cached readers are long-lived over immutable blocks:
+                # mark them device-worthy (row-group shard jobs batch on
+                # them, metrics fold them on the card)
+                blk.device_pinned = True
                 if len(self._block_cache) >= self.cfg.block_cache_blocks:
                     self._block_cache.pop(next(iter(self._block_cache)))
                 self._block_cache[key] = blk
@@ -124,10 +153,34 @@ class TempoDB:
     def find_in_blocks(
         self, tenant: str, trace_id: bytes, candidates: list[BlockMeta]
     ) -> Trace | None:
+        """Lookup restricted to an explicit block set; concurrent lookups
+        against the same candidate partition share one K3 launch."""
         if not candidates:
             return None
+        if self.batchers.enabled:
+            return batched_find(self.batchers.find, self, candidates, trace_id)
         found = self._device_find(candidates, trace_id)
         return combine_traces(found) if found else None
+
+    def find_in_blocks_multi(self, items: list) -> list:
+        """Many (tenant, trace_id, candidates) lookups at once: jobs
+        sharing a candidate partition submit to the find batcher as one
+        group from this thread (and merge with any window-mates)."""
+        out: list = [None] * len(items)
+        groups: dict[tuple, list[tuple[int, object]]] = {}
+        for i, (tenant, trace_id, candidates) in enumerate(items):
+            if not candidates:
+                continue
+            if not self.batchers.enabled:
+                out[i] = self.find_in_blocks(tenant, trace_id, candidates)
+                continue
+            groups.setdefault(find_key(candidates), []).append((i, _FindItem(
+                metas=candidates, trace_id=trace_id, db=self)))
+        for key, pairs in groups.items():
+            results = self.batchers.find.submit_many(key, [it for _, it in pairs])
+            for (i, _), r in zip(pairs, results):
+                out[i] = r
+        return out
 
     def _device_find(self, candidates: list[BlockMeta], trace_id: bytes) -> list[Trace]:
         """Host bloom gate (one shard read per block), then ONE K3 launch
@@ -149,13 +202,24 @@ class TempoDB:
         metas = [m for m in self.metas(tenant) if m.overlaps_time(req.start, req.end)]
         return self.search_blocks(tenant, metas, req)
 
-    def search_blocks(self, tenant: str, metas: list[BlockMeta],
-                      req: SearchRequest) -> SearchResponse:
-        """Fused per-block filters + ONE cross-block top-k sync; per-block
-        search when the fused footprint exceeds the device budget."""
+    def search_blocks(self, tenant: str, metas: list[BlockMeta], req: SearchRequest,
+                      _skip_batcher: bool = False) -> SearchResponse:
+        """Search a set of blocks as one unit. A single-block unit goes
+        through the search batcher when eligible; otherwise fused
+        per-block filters + ONE cross-block top-k sync, and per-block
+        search when the fused footprint exceeds the device budget.
+        _skip_batcher: the caller already probed batch eligibility for
+        this query and got a fallback -- don't plan and count it twice."""
         limit = req.limit or self.cfg.search_default_limit
         if not metas:
             return SearchResponse()
+        if len(metas) == 1 and self.batchers.enabled and not _skip_batcher:
+            got = batched_search_block(
+                self.batchers.search, self.open_block(metas[0]), req,
+                promote_touches=self.cfg.device_promote_touches,
+                default_limit=self.cfg.search_default_limit)
+            if got is not None:
+                return got
         blocks = [self.open_block(m) for m in metas]
         got = search_blocks_fused(blocks, req, default_limit=self.cfg.search_default_limit,
                                   device=self.device)
@@ -168,3 +232,66 @@ class TempoDB:
                 break
         resp.traces.sort(key=lambda t: -t.start_time_unix_nano)
         return resp
+
+    def search_block_shard(self, tenant: str, meta: BlockMeta, req: SearchRequest,
+                           groups_range) -> SearchResponse:
+        """One row-group shard job; concurrent shard jobs over the same
+        range coalesce through the search batcher."""
+        blk = self.open_block(meta)
+        if self.batchers.enabled:
+            got = batched_search_block(
+                self.batchers.search, blk, req, groups_range=groups_range,
+                promote_touches=self.cfg.device_promote_touches)
+            if got is not None:
+                return got
+        return search_block(blk, req, groups_range=groups_range, device=self.device)
+
+    def search_block_shard_multi(self, items: list) -> list:
+        """Many (tenant, meta, req, groups_range) shard jobs at once;
+        same-shard jobs submit to the batcher together."""
+        out: list = [None] * len(items)
+        if self.batchers.enabled:
+            entries = [(self.open_block(m), req, groups) for (tenant, m, req, groups) in items]
+            out = batched_search_block_many(
+                self.batchers.search, entries,
+                promote_touches=self.cfg.device_promote_touches)
+        for i, (tenant, m, req, groups) in enumerate(items):
+            if out[i] is None:
+                out[i] = search_block(self.open_block(m), req, groups_range=groups,
+                                      device=self.device)
+        return out
+
+    def search_blocks_multi(self, items: list) -> list:
+        """Execute many (tenant, metas, req) search jobs at once: a whole
+        burst handed over by one caller thread still forms full fused
+        batches. Single-block jobs group by coalesce key and join the
+        batcher window together; everything else runs the normal path."""
+        out: list = [None] * len(items)
+        singles: list[tuple[int, tuple]] = []
+        for i, (tenant, metas, req) in enumerate(items):
+            if self.batchers.enabled and len(metas) == 1:
+                singles.append((i, (self.open_block(metas[0]), req, None)))
+        if singles:
+            got = batched_search_block_many(
+                self.batchers.search, [e for _, e in singles],
+                promote_touches=self.cfg.device_promote_touches,
+                default_limit=self.cfg.search_default_limit)
+            for (i, _), r in zip(singles, got):
+                out[i] = r
+        for i, (tenant, metas, req) in enumerate(items):
+            if out[i] is None:
+                # single-block entries were already probed (and refused)
+                # by the batcher above: go straight to the engine
+                out[i] = self.search_blocks(tenant, metas, req,
+                                            _skip_batcher=len(metas) == 1)
+        return out
+
+    # ------------------------------------------------------------ metrics
+    def metrics_query_range(self, tenant: str, req: MetricsRequest) -> MetricsResponse:
+        """TraceQL metrics range query over the blocklist
+        (db/metrics_exec): per-block filter -> bucketize -> fold on B6,
+        partial series merged by label."""
+        start_s, end_s = req.start_ms // 1000, -(-req.end_ms // 1000)
+        metas = [m for m in self.metas(tenant) if m.overlaps_time(start_s, end_s)]
+        blocks = [self.open_block(m) for m in metas]
+        return metrics_query_range_blocks(blocks, req, device=self.device)

@@ -13,15 +13,23 @@ filter program, which launches a res pass, a span pass per slot, its
 struct kernels (`>>` alone is init + n_passes doubling + final) and a
 trace pass; one select_topk launches a key pass, its bitonic passes and
 an emit. grid_launches() reads the __global__ launches each library
-counts itself. There is no CPU path here: the ops modules send CPU tensors to their
+counts itself, per kernel. There is no CPU path here: the ops modules send CPU tensors to their
 plain PyTorch versions and only CUDA tensors to these wrappers.
 
-| kernel      | source           | replaces (JAX package)                         |
-|-------------|------------------|------------------------------------------------|
-| filter      | csrc/filter.cu   | tempo_tpu/ops/filter.py:286 _compiled(...).run |
-| select      | csrc/select.cu   | tempo_tpu/ops/select.py:42, :84                |
-| find        | csrc/find.cu     | tempo_tpu/ops/find.py:68 _lookup_blocks_kernel |
-| res_to_span | csrc/stage.cu    | tempo_tpu/ops/stage.py:178 _res_to_span        |
+Every failure to build, load, accept arguments or launch raises
+KernelError. Callers that isolate per-item failures (the batching
+executor's group fallback) let this class through: a kernel fault is
+never hidden behind a plain version or another route.
+
+| kernel      | source             | replaces (JAX package)                         |
+|-------------|--------------------|------------------------------------------------|
+| filter      | csrc/filter.cu     | tempo_tpu/ops/filter.py:286 _compiled(...).run |
+| select      | csrc/select.cu     | tempo_tpu/ops/select.py:42, :84                |
+| find        | csrc/find.cu       | tempo_tpu/ops/find.py:68 _lookup_blocks_kernel |
+| res_to_span | csrc/stage.cu      | tempo_tpu/ops/stage.py:178 _res_to_span        |
+| multiquery  | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:356 run (B5a)      |
+| mq_select   | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:461 sel (B5b)      |
+| timeseries  | csrc/timeseries.cu | tempo_tpu/ops/timeseries.py:53 run (B6)        |
 """
 
 from __future__ import annotations
@@ -37,13 +45,22 @@ import torch
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "tempo_tpu_torch")
-SOURCES = ("filter", "select", "find", "stage")
+SOURCES = ("filter", "select", "find", "stage", "multiquery", "timeseries")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# launches per kernel, counted where each wrapper launches
-LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0}
-_KERNEL_OF = {"filter": "filter", "select": "select", "find": "find", "stage": "res_to_span"}
+# launches per kernel, counted where each wrapper launches (under a
+# lock: the batchers launch from several threads)
+LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
+            "multiquery": 0, "mq_select": 0, "timeseries": 0}
+# source -> its kernels, in the library's launch-counter slot order
+_KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find",),
+              "stage": ("res_to_span",), "multiquery": ("multiquery", "mq_select"),
+              "timeseries": ("timeseries",)}
+
+
+class KernelError(RuntimeError):
+    """A kernel did not build, load, take its arguments or launch."""
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -55,18 +72,35 @@ _SIGNATURES = {
     "tt_filter_struct": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
     "tt_filter_trace_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P]),
     "tt_filter_span_epilogue": ("filter", [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
+    "tt_multiquery": ("multiquery", [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
+                                     _I, _I, _I, _P, _P, _P]),
+    "tt_mq_select": ("multiquery", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
+    "tt_timeseries": ("timeseries", [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
 }
 
-_lock = threading.Lock()
+# one lock over build and load: the first use may come from several
+# batcher threads at once; the first builds and binds, the rest wait and
+# find the bound table
+_lock = threading.RLock()
 _fns: dict[str, ctypes._CFuncPtr] | None = None
 _grid_fns: dict[str, ctypes._CFuncPtr] = {}  # source -> tt_grid_launches of its library
+
+
+_count_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for fn in _grid_fns.values():
-        fn(1)
+    for src, fn in _grid_fns.items():
+        for slot in range(len(_KERNEL_OF[src])):
+            fn(1, slot)
 
 
 def grid_launches() -> dict[str, int]:
@@ -74,7 +108,8 @@ def grid_launches() -> dict[str, int]:
     counted inside each library (0 before the libraries are loaded)."""
     out = dict.fromkeys(LAUNCHES, 0)
     for src, fn in _grid_fns.items():
-        out[_KERNEL_OF[src]] = int(fn(0))
+        for slot, name in enumerate(_KERNEL_OF[src]):
+            out[name] = int(fn(0, slot))
     return out
 
 
@@ -85,8 +120,11 @@ def _nvcc() -> str:
 
 
 def _digest(src: str) -> str:
+    """Flags, the source and every shared header (a source may include
+    any of them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (src + ".cu", "common.cuh"):
+    names = [src + ".cu"] + sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in names:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -95,35 +133,42 @@ def _digest(src: str) -> str:
 def build() -> dict[str, str]:
     """Compile every source that has no up-to-date library (one nvcc
     process per source, run in parallel). Returns source -> .so path."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    libs, procs = {}, []
-    for src in SOURCES:
-        lib = os.path.join(BUILD_DIR, f"lib{src}-{_digest(src)}.so")
-        libs[src] = lib
-        if os.path.exists(lib):
-            continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src + ".cu")]
-        procs.append((src, tmp, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    errors = []
-    for src, tmp, lib, p in procs:
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"nvcc {src}.cu failed ({p.returncode}):\n{out}")
-        else:
-            os.replace(tmp, lib)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return libs
+    with _lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        libs, procs = {}, []
+        try:
+            for src in SOURCES:
+                lib = os.path.join(BUILD_DIR, f"lib{src}-{_digest(src)}.so")
+                libs[src] = lib
+                if os.path.exists(lib):
+                    continue
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src + ".cu")]
+                procs.append((src, tmp, lib, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        except OSError as e:  # no nvcc
+            raise KernelError(f"nvcc could not start: {e}") from e
+        errors = []
+        for src, tmp, lib, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"nvcc {src}.cu failed ({p.returncode}):\n{out}")
+            else:
+                os.replace(tmp, lib)
+        if errors:
+            raise KernelError("\n".join(errors))
+        return libs
 
 
 def _load() -> dict:
     global _fns
     with _lock:
         if _fns is None:
-            libs = {src: ctypes.CDLL(path) for src, path in build().items()}
-            fns = {}
+            try:
+                libs = {src: ctypes.CDLL(path) for src, path in build().items()}
+            except OSError as e:
+                raise KernelError(f"kernel library did not load: {e}") from e
+            fns, grid_fns = {}, {}
             for name, (src, argtypes) in _SIGNATURES.items():
                 fn = getattr(libs[src], name)
                 fn.argtypes = argtypes
@@ -131,9 +176,10 @@ def _load() -> dict:
                 fns[name] = fn
             for src, lib in libs.items():
                 fn = lib.tt_grid_launches
-                fn.argtypes = [_I]
+                fn.argtypes = [_I, _I]
                 fn.restype = ctypes.c_ulonglong
-                _grid_fns[src] = fn
+                grid_fns[src] = fn
+            _grid_fns.update(grid_fns)
             _fns = fns
         return _fns
 
@@ -141,7 +187,7 @@ def _load() -> dict:
 def _call(name: str, *args) -> None:
     err = _load()[name](*args)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}")
+        raise KernelError(f"{name}: CUDA error {err}")
 
 
 def _stream() -> int:
@@ -151,18 +197,18 @@ def _stream() -> int:
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device,
            shape: tuple | None = None) -> None:
     if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
+        raise KernelError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        raise KernelError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+        raise KernelError(f"{name}: not contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise KernelError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
 def _cuda_device(t: torch.Tensor) -> torch.device:
     if t.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called with a tensor on {t.device}")
+        raise KernelError(f"CUDA kernel called with a tensor on {t.device}")
     return t.device
 
 
@@ -178,12 +224,12 @@ def res_to_span(res: torch.Tensor, res_idx: torch.Tensor) -> torch.Tensor:
     _check(res, "res", torch.int32, dev)
     _check(res_idx, "res_idx", torch.int32, dev)
     if res.dim() != 1 or res_idx.dim() != 1 or res.shape[0] == 0:
-        raise ValueError("res_to_span: 1-D res (non-empty) and res_idx expected")
+        raise KernelError("res_to_span: 1-D res (non-empty) and res_idx expected")
     out = torch.empty_like(res_idx)
     with torch.cuda.device(dev):
         _call("tt_res_to_span", res.data_ptr(), res.shape[0], res_idx.data_ptr(),
               out.data_ptr(), res_idx.shape[0], _stream())
-    LAUNCHES["res_to_span"] += 1
+    _count("res_to_span")
     return out
 
 
@@ -198,18 +244,18 @@ def find_rows(ids: torch.Tensor, queries: torch.Tensor, n_valid: torch.Tensor,
     _check(queries, "queries", torch.int32, dev)
     _check(n_valid, "n_valid", torch.int32, dev)
     if ids.dim() != 3 or ids.shape[2] != 4 or queries.dim() != 2 or queries.shape[1] != 4:
-        raise ValueError("find_rows: ids (B,T,4) and queries (Q,4) expected")
+        raise KernelError("find_rows: ids (B,T,4) and queries (Q,4) expected")
     B, T, _ = ids.shape
     Q = queries.shape[0]
     if n_valid.shape != (B,) or T == 0:
-        raise ValueError("find_rows: n_valid (B,) and T > 0 expected")
+        raise KernelError("find_rows: n_valid (B,) and T > 0 expected")
     if ids.data_ptr() % 16 or queries.data_ptr() % 16:
-        raise ValueError("find_rows: ids and queries must be 16-byte aligned")
+        raise KernelError("find_rows: ids and queries must be 16-byte aligned")
     out = torch.empty((B, Q), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _call("tt_find", ids.data_ptr(), B, T, queries.data_ptr(), Q, n_valid.data_ptr(),
               int(n_steps), out.data_ptr(), _stream())
-    LAUNCHES["find"] += 1
+    _count("find")
     return out
 
 
@@ -228,14 +274,14 @@ def select_topk(mask: torch.Tensor, key: torch.Tensor, counts: torch.Tensor,
     _check(key, "key", torch.int32, dev, (n,))
     _check(counts, "counts", torch.int32, dev, (n,))
     if not 0 < k <= n:
-        raise ValueError(f"select_topk: need 0 < k <= n, got k={k} n={n}")
+        raise KernelError(f"select_topk: need 0 < k <= n, got k={k} n={n}")
     n_pad = max(_SELECT_TILE, 1 << (n - 1).bit_length())
     comp = torch.empty(n_pad, dtype=torch.int64, device=dev)
     out = torch.empty(3 * k + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _call("tt_select", mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n, int(k),
               comp.data_ptr(), n_pad, out.data_ptr(), _stream())
-    LAUNCHES["select"] += 1
+    _count("select")
     return out
 
 
@@ -258,7 +304,7 @@ def filter_run(prog, buf: torch.Tensor, cols: dict, n_spans: int, n_traces: int,
         need.append("span.res_idx")
     for name in need:
         if name not in cols:
-            raise KeyError(f"filter: staged column {name} missing")
+            raise KernelError(f"filter: staged column {name} missing")
         _check(cols[name], name, torch.int32, dev)
     slots = torch.empty((max(prog.n_slots, 1), n_spans_b), dtype=torch.uint8, device=dev)
     resmask = (torch.empty((len(prog.rconds), n_res_b), dtype=torch.uint8, device=dev)
@@ -302,5 +348,110 @@ def filter_run(prog, buf: torch.Tensor, cols: dict, n_spans: int, n_traces: int,
                   len(prog.tslots), n_spans_b, n_spans, cols["span.trace_sid"].data_ptr(),
                   trace_mask.data_ptr(), n_traces_b, cols["trace.span_off"].data_ptr(),
                   span_mask.data_ptr(), counts.data_ptr(), st)
-    LAUNCHES["filter"] += 1
+    _count("filter")
     return span_mask, trace_mask, counts
+
+
+# ------------------------------------------------------------------ B5a
+MQ_MAX = (32, 16, 8, 16, 16, 8)  # csrc/multiquery.cu MQ_P, MQ_NC, MQ_NG, MQ_PT, MQ_NA, MQ_TC
+MQ_W = 296  # csrc/multiquery.cu MQ_W: int32 words of one packed program row
+
+
+def multiquery(progs: torch.Tensor, dims: tuple, col_ptrs: torch.Tensor, n_sc: int, n_tc: int,
+               span_off: torch.Tensor, n_spans: int, n_traces: int, n_traces_b: int):
+    """B5a: q_b packed CNF programs (progs (q_b, MQ_W) int32, table dims
+    (P, NC, NG, PT, NA, TC)) over one staged block whose span columns
+    and then trace columns are the n_sc + n_tc int64 device pointers of
+    col_ptrs. Returns (tm (q_b, n_traces_b) bool, counts int32).
+    Bound: bytes -- the named span columns read once per query."""
+    dev = _cuda_device(progs)
+    q_b = progs.shape[0]
+    _check(progs, "progs", torch.int32, dev, (q_b, MQ_W))
+    _check(col_ptrs, "col_ptrs", torch.int64, dev, (max(n_sc + n_tc, 1),))
+    _check(span_off, "span_off", torch.int32, dev, (n_traces_b + 1,))
+    if len(dims) != 6 or any(not 1 <= d <= m for d, m in zip(dims, MQ_MAX)):
+        raise KernelError(f"multiquery: program dims {dims} outside {MQ_MAX}")
+    tm = torch.empty((q_b, n_traces_b), dtype=torch.bool, device=dev)
+    counts = torch.empty((q_b, n_traces_b), dtype=torch.int32, device=dev)
+    base = col_ptrs.data_ptr()
+    with torch.cuda.device(dev):
+        _call("tt_multiquery", progs.data_ptr(), q_b, *(int(d) for d in dims), base, n_sc,
+              base + 8 * n_sc, n_tc, span_off.data_ptr(), int(n_spans), int(n_traces),
+              n_traces_b, tm.data_ptr(), counts.data_ptr(), _stream())
+    _count("multiquery")
+    return tm, counts
+
+
+# ------------------------------------------------------------------ B5b
+def mq_select(tm: torch.Tensor, key: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
+    """B5b: K2's masked top-k on every row of tm (Q, n) in one launch
+    sequence; key (n,) is shared by the rows. Returns (Q, 3k+1) int32
+    rows [idx(k) | count(k) | valid(k) | n_match]. Bound: bytes; as
+    K2, the bitonic passes re-read 8 B an element per pass."""
+    dev = _cuda_device(tm)
+    if tm.dim() != 2:
+        raise KernelError("mq_select: tm (Q, n) expected")
+    q, n = tm.shape
+    _check(tm, "tm", torch.bool, dev)
+    _check(key, "key", torch.int32, dev, (n,))
+    _check(counts, "counts", torch.int32, dev, (q, n))
+    if not 0 < k <= n:
+        raise KernelError(f"mq_select: need 0 < k <= n, got k={k} n={n}")
+    n_pad = max(_SELECT_TILE, 1 << (n - 1).bit_length())
+    comp = torch.empty((q, n_pad), dtype=torch.int64, device=dev)
+    out = torch.empty((q, 3 * k + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_mq_select", tm.data_ptr(), key.data_ptr(), counts.data_ptr(), n, q, int(k),
+              comp.data_ptr(), n_pad, out.data_ptr(), _stream())
+    _count("mq_select")
+    return out
+
+
+# ------------------------------------------------------------------ B6
+def timeseries(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid: torch.Tensor,
+               val: torch.Tensor | None, vpres: torch.Tensor | None, t0: int, step: int,
+               n_spans: int, n_res_b: int, n_traces_b: int, n_buckets: int, n_groups: int):
+    """B6: the span program of `prog` (ops/timeseries._SpanProgram, its
+    descriptor buffer `buf` on the card) -> (n_groups, n_buckets)
+    accumulators: (counts,) or (counts, vcnt, vsum, vmin, vmax).
+    Bound: bytes -- one read of every column the program names plus
+    start_ms, gid, val and vpres."""
+    dev = _cuda_device(buf)
+    _check(buf, "program buffer", torch.uint8, dev)
+    n_spans_b = start_ms.shape[0]
+    _check(start_ms, "span.start_ms", torch.int32, dev, (n_spans_b,))
+    _check(gid, "gid", torch.int32, dev, (n_spans_b,))
+    has_val = val is not None
+    if has_val:
+        _check(val, "val", torch.float32, dev, (n_spans_b,))
+        _check(vpres, "vpres", torch.bool, dev, (n_spans_b,))
+    _check(cols["span.trace_sid"], "span.trace_sid", torch.int32, dev)
+    if prog.rconds:
+        _check(cols["span.res_idx"], "span.res_idx", torch.int32, dev)
+    if step < 1 or not 0 < n_buckets or not 0 < n_groups or not 0 <= n_spans <= n_spans_b:
+        raise KernelError(f"timeseries: step {step}, {n_groups} x {n_buckets} cells, "
+                          f"{n_spans} spans of {n_spans_b}")
+    (_, off, ln, _), = prog.steps
+    base = buf.data_ptr()
+    shape = (n_groups, n_buckets)
+    counts = torch.empty(shape, dtype=torch.int32, device=dev)
+    outs = [counts]
+    if has_val:
+        outs += [torch.empty(shape, dtype=torch.int32, device=dev),
+                 torch.empty(shape, dtype=torch.float32, device=dev),
+                 torch.empty(shape, dtype=torch.int32, device=dev),
+                 torch.empty(shape, dtype=torch.int32, device=dev)]
+    resmask = (torch.empty((len(prog.rconds), n_res_b), dtype=torch.uint8, device=dev)
+               if prog.rconds else None)
+    with torch.cuda.device(dev):
+        _call("tt_timeseries", base + prog.desc_off, base + off, ln, base + prog.rconds_off,
+              len(prog.rconds), _ptr(resmask), n_res_b, _ptr(cols.get("span.res_idx")),
+              cols["span.trace_sid"].data_ptr(), n_traces_b, start_ms.data_ptr(), gid.data_ptr(),
+              _ptr(val), _ptr(vpres), int(t0), int(step), int(n_spans), int(n_buckets),
+              int(n_groups), int(has_val), counts.data_ptr(),
+              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream())
+    _count("timeseries")
+    if not has_val:
+        return (counts,)
+    # vmin / vmax come back as f32 bit patterns in int32 storage
+    return counts, outs[1], outs[2], outs[3].view(torch.float32), outs[4].view(torch.float32)

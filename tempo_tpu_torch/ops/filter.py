@@ -373,7 +373,8 @@ def _run_plain(tree, conds, cols, ops_i, ops_f, tables, n_spans, n_traces,
 
 _OP_CODE = {op: i for i, op in enumerate(OPS)}  # csrc/filter.cu enum Op
 _KIND = {T_SPAN: 0, T_TRACE: 1, T_RES: 2, T_SATTR: 3, T_RATTR: 4}
-C_COND, C_MASK, C_TRUE, C_FALSE, C_AND, C_OR, C_TRACIFY = range(7)
+# C_TCOND: a trace-target leaf read at the span's trace (B6's span programs)
+C_COND, C_MASK, C_TRUE, C_FALSE, C_AND, C_OR, C_TRACIFY, C_TCOND = range(8)
 DW = 17  # descriptor row width (csrc/filter.cu)
 (D_OP, D_KIND, D_FLOATCMP, D_COLFLOAT, D_VT, D_COL, D_KEYCOL, D_VTCOL, D_OFF,
  D_TABLE, D_TABLEN, D_V0, D_V1, D_KEY, D_F0, D_F1, D_RSLOT) = range(DW)
@@ -504,7 +505,9 @@ class _FilterProgram:
         """The per-call program buffer on the card: descriptors with this
         call's column pointers and operand values, the cached programs,
         and this call's dictionary tables -- one upload."""
-        dev = cols["trace.span_off"].device
+        # span.trace_sid is staged for every program (required_columns);
+        # trace.span_off is not staged for the span-level metrics fold
+        dev = cols["span.trace_sid"].device
         tbl_offs, total = {}, self.tables_off
         for i, t in tables.items():
             tbl_offs[i] = total

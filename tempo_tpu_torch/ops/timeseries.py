@@ -1,0 +1,208 @@
+"""Time-bucketed segmented reductions: the TraceQL-metrics fold (port of
+tempo_tpu/ops/timeseries.py).
+
+One device pass per (block, query): evaluate the span-level predicate
+tree (the same data-driven condition machinery as ops/filter, so
+`{span.foo = "bar"} | rate()` and `{span.foo = "baz"} | rate()` share a
+compiled program), bucketize each surviving span's start time onto the
+request's step-aligned axis, and fold into [num_groups, num_buckets]
+accumulators: counts, and for value folds the value count, f32 sum,
+min and max.
+
+CUDA tensors run kernel B6 (csrc/timeseries.cu) on a `_SpanProgram`
+(K1's span program plus trace-target leaves); CPU tensors run
+`_timeseries_plain`, the reference's jitted `run` in torch. Both return
+the (n_groups, n_buckets) slice the reference's caller keeps.
+
+Group ids arrive as a per-span int32 column computed host-side from the
+by() field's dictionary codes (db/metrics_exec); -1 drops the span.
+Value folds take a per-span f32 value + presence mask derived host-side
+from the exact host columns, so the only device-side loss is the f32
+cast -- integer counts are exact on every engine.
+
+`eval_timeseries_host` mirrors the semantics in numpy over raw columns
+(int64 bucket math, f64 accumulation): the route for a step or origin
+past int32 milliseconds.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .device import bucket, pad_rows
+from .filter import C_TCOND, T_TRACE, Cond, Operands, _cmp, _cond_mask, _FilterProgram
+from .hostfilter import eval_span_mask_host
+
+
+class _SpanProgram(_FilterProgram):
+    """A span-level tree (no tracify) compiled as ONE postfix span
+    program over K1's descriptor table; trace-target conditions become
+    C_TCOND leaves. tree None matches every valid span."""
+
+    def __init__(self, tree, conds: tuple[Cond, ...]):
+        super().__init__(("tracify", ("true",) if tree is None else tree), conds)
+
+    def _span_code(self, t, code: list[int]) -> None:
+        if t[0] == "cond" and self.conds[t[1]].target == T_TRACE:
+            self.trace_conds.add(t[1])
+            code += [C_TCOND, t[1]]
+        elif t[0] == "struct":
+            raise ValueError("timeseries: structural nodes have no span-level plan")
+        else:
+            super()._span_code(t, code)
+
+
+@lru_cache(maxsize=256)
+def _span_program(tree, conds: tuple[Cond, ...]) -> _SpanProgram:
+    return _SpanProgram(tree, conds)
+
+
+def _timeseries_plain(tree, conds, cols, ops_i, ops_f, tables, gid, val, vpres,
+                      t0_ms: int, step_ms: int, n_spans: int, n_buckets: int,
+                      n_groups: int, n_spans_b: int, n_res_b: int, n_traces_b: int):
+    """Plain version of B6: the reference's `run`
+    (tempo_tpu/ops/timeseries.py:53-106) in torch, returning the
+    (n_groups, n_buckets) slice of its accumulators."""
+    dev = gid.device
+    valid = torch.arange(n_spans_b, device=dev) < n_spans
+
+    def ev(t):
+        if t == ("true",):
+            return valid
+        if t == ("false",):
+            return torch.zeros_like(valid)
+        if t[0] == "cond":
+            i = t[1]
+            c = conds[i]
+            if c.target == T_TRACE:
+                tm = _cmp(c.op, cols[c.col], ops_i[i, 1], ops_i[i, 2],
+                          ops_f[i, 0], ops_f[i, 1], c.is_float, tables.get(i))
+                sid = torch.clamp(cols["span.trace_sid"], 0, n_traces_b - 1).long()
+                return tm[sid] & valid
+            return _cond_mask(c, i, cols, ops_i, ops_f, tables, n_spans_b, n_res_b, valid)
+        ms = [ev(ch) for ch in t[1:]]
+        out = ms[0]
+        for m in ms[1:]:
+            out = (out & m) if t[0] == "and" else (out | m)
+        return out
+
+    sm = valid if tree is None else (ev(tree) & valid)
+    # int32 bucket math with int32 wrap-around, as XLA's
+    start = cols["span.start_ms"].to(torch.int64)
+    diff = (start - int(t0_ms) + 2**31) % 2**32 - 2**31
+    b = torch.div(diff, int(step_ms), rounding_mode="floor")
+    ok = sm & (b >= 0) & (b < n_buckets) & (gid >= 0) & (gid < n_groups)
+    nseg = n_groups * n_buckets
+    seg = torch.where(ok, gid.to(torch.int64) * n_buckets + torch.clamp(b, 0, n_buckets - 1),
+                      nseg)
+    counts = torch.zeros(nseg + 1, dtype=torch.int32, device=dev).index_add_(
+        0, seg, ok.to(torch.int32))[:-1].reshape(n_groups, n_buckets)
+    if val is None:
+        return (counts,)
+    pres = ok & vpres
+    segv = torch.where(pres, seg, nseg)
+    vcnt = torch.zeros(nseg + 1, dtype=torch.int32, device=dev).index_add_(
+        0, segv, pres.to(torch.int32))[:-1].reshape(n_groups, n_buckets)
+    v = torch.where(pres, val, torch.zeros((), dtype=torch.float32, device=dev))
+    vsum = torch.zeros(nseg + 1, dtype=torch.float32, device=dev).index_add_(
+        0, segv, v)[:-1].reshape(n_groups, n_buckets)
+    vmin = torch.full((nseg + 1,), float("inf"), dtype=torch.float32, device=dev).scatter_reduce_(
+        0, segv, torch.where(pres, val, float("inf")), "amin")[:-1].reshape(n_groups, n_buckets)
+    vmax = torch.full((nseg + 1,), float("-inf"), dtype=torch.float32, device=dev).scatter_reduce_(
+        0, segv, torch.where(pres, val, float("-inf")), "amax")[:-1].reshape(n_groups, n_buckets)
+    return counts, vcnt, vsum, vmin, vmax
+
+
+def _table_list(operands: Operands) -> dict[int, np.ndarray]:
+    return {i: pad_rows(np.asarray(t, dtype=np.uint8), bucket(max(1, len(t))), 0)
+            for i, t in (operands.tables or {}).items()}
+
+
+def timeseries_fold(query, cols: dict, operands: Operands, gid, val, vpres,
+                    t0_ms: int, step_ms: int, n_spans: int, n_buckets: int, n_groups: int,
+                    n_spans_b: int, n_res_b: int, n_traces_b: int) -> tuple:
+    """B6 on CUDA tensors, its plain version on CPU tensors. gid / val /
+    vpres are padded span-length tensors on the columns' device; t0_ms
+    and step_ms must fit int32. Returns tensors of shape (n_groups,
+    n_buckets): (counts,) or (counts, vcnt, vsum, vmin, vmax)."""
+    tree, conds = query
+    tables = _table_list(operands)
+    if gid.device.type == "cpu":
+        ops_i = torch.from_numpy(np.ascontiguousarray(operands.ints, np.int32))
+        ops_f = torch.from_numpy(np.ascontiguousarray(operands.floats, np.float32))
+        return _timeseries_plain(tree, conds, cols, ops_i, ops_f,
+                                 {i: torch.from_numpy(t) for i, t in tables.items()},
+                                 gid, val, vpres, t0_ms, step_ms, n_spans, n_buckets,
+                                 n_groups, n_spans_b, n_res_b, n_traces_b)
+    from .. import kernels
+
+    prog = _span_program(tree, tuple(conds))
+    buf = prog.buffer(cols, operands, tables)
+    return kernels.timeseries(prog, buf, cols, cols["span.start_ms"], gid, val, vpres,
+                              t0_ms, step_ms, n_spans, n_res_b, n_traces_b, n_buckets, n_groups)
+
+
+def eval_timeseries_device(query, staged, operands: Operands,
+                           gid: np.ndarray, val: np.ndarray | None,
+                           vpres: np.ndarray | None,
+                           t0_rel_ms: int, step_ms: int,
+                           n_buckets: int, n_groups: int):
+    """One fold over a StagedBlock (ops/stage). gid/val/vpres are raw
+    span-length host arrays for the staged span slice; their padded
+    copies go up in one upload. Returns numpy accumulators of shape
+    (n_groups, n_buckets): (counts,) or (counts, vcnt, vsum, vmin, vmax)."""
+    dev = staged.cols["span.start_ms"].device
+    nb = staged.n_spans_b
+    has_val = val is not None
+    gid_p = pad_rows(np.asarray(gid, np.int32), nb, np.int32(-1))
+    if has_val:
+        val_p = pad_rows(np.asarray(val, np.float32), nb, np.float32(0))
+        pres_p = pad_rows(np.asarray(vpres, bool).view(np.uint8), nb, np.uint8(0))
+        host = torch.from_numpy(np.concatenate([gid_p.view(np.uint8), val_p.view(np.uint8),
+                                                pres_p]))
+        buf = host.to(dev)
+        gid_t = buf[: 4 * nb].view(torch.int32)
+        val_t = buf[4 * nb : 8 * nb].view(torch.float32)
+        pres_t = buf[8 * nb :].view(torch.bool)
+    else:
+        gid_t, val_t, pres_t = torch.from_numpy(gid_p).to(dev), None, None
+    t0 = int(np.clip(t0_rel_ms, -(2**31) + 1, 2**31 - 1))
+    outs = timeseries_fold(query, staged.cols, operands, gid_t, val_t, pres_t,
+                           t0, max(1, int(step_ms)), staged.n_spans, n_buckets, n_groups,
+                           nb, staged.n_res_b, staged.n_traces_b)
+    return tuple(o.cpu().numpy() for o in outs)
+
+
+def eval_timeseries_host(query, cols: dict[str, np.ndarray],
+                         operands: Operands, n_spans: int, n_traces: int,
+                         gid: np.ndarray, val: np.ndarray | None,
+                         vpres: np.ndarray | None,
+                         t0_rel_ms: int, step_ms: int,
+                         n_buckets: int, n_groups: int):
+    """Numpy twin of the device fold over RAW host columns: same masks,
+    same bucketing in int64, f64 value accumulation. Returns the same
+    accumulator tuple shapes as the device path."""
+    sm = eval_span_mask_host(query, cols, operands, n_spans, n_traces)
+    b = (cols["span.start_ms"].astype(np.int64) - int(t0_rel_ms)) // int(step_ms)
+    ok = sm & (b >= 0) & (b < n_buckets) & (gid >= 0)
+    nb = int(n_buckets)
+    key = gid.astype(np.int64) * nb + np.clip(b, 0, nb - 1)
+    nk = max(n_groups, 1) * nb
+    counts = np.bincount(key[ok], minlength=nk)[:nk].reshape(-1, nb)
+    counts = counts[:n_groups]
+    if val is None:
+        return (counts,)
+    pres = ok & vpres
+    kp = key[pres]
+    vcnt = np.bincount(kp, minlength=nk)[:nk].reshape(-1, nb)[:n_groups]
+    vv = val.astype(np.float64)[pres]
+    vsum = np.bincount(kp, weights=vv, minlength=nk)[:nk].reshape(-1, nb)[:n_groups]
+    vmin = np.full(nk, np.inf)
+    vmax = np.full(nk, -np.inf)
+    np.minimum.at(vmin, kp, vv)
+    np.maximum.at(vmax, kp, vv)
+    return (counts, vcnt, vsum,
+            vmin.reshape(-1, nb)[:n_groups], vmax.reshape(-1, nb)[:n_groups])

@@ -507,6 +507,50 @@ def _finish(p: Plan, children: list) -> PlannedQuery:
                         needs_verify=nv, extra_cols=extra)
 
 
+def plan_metrics_filter(q: MetricsQuery, d: Dictionary) -> PlannedQuery:
+    """Span-LEVEL plan for a metrics query's spanset filter: unlike the
+    search planner, the tree is NOT lifted to trace level (no tracify) --
+    the timeseries fold consumes per-span masks directly, with
+    trace-target conds gathered to spans through span.trace_sid.
+
+    Only a single-spanset filter compiles; pipelines with intermediate
+    stages and combinator/structural spansets force the exact engine
+    (force-verify plan), mirroring the conservative-filter/exact-verify
+    split of the search path."""
+    p = Plan()
+    filt = q.filter
+    force = bool(q.stages)
+    if isinstance(filt, Pipeline):
+        force = True
+        filt = filt.filter
+    if isinstance(filt, SpansetOp):
+        # conservative SPAN-level prefilter: the OR of every leaf
+        # spanset's tree over-matches any combinator/structural result
+        # (candidate traces = traces holding any leaf span); the exact
+        # engine settles the relation over materialized traces
+        def leaves(e):
+            if isinstance(e, SpansetOp):
+                return leaves(e.lhs) + leaves(e.rhs)
+            if isinstance(e, Pipeline):
+                return leaves(e.filter)
+            return [e]
+
+        trees = [TRUE if lf.expr is None else _plan_expr(p, d, lf.expr)
+                 for lf in leaves(filt)]
+        tree = _fold("or", trees)
+        force = True
+    elif filt.expr is None:
+        tree = TRUE
+    else:
+        tree = _plan_expr(p, d, filt.expr)
+    if tree == FALSE:
+        return PlannedQuery(None, (), [], {}, prune=True)
+    if tree == TRUE:
+        tree = None
+    nv = force or p.force_verify or any(c.needs_verify for c in p.conds)
+    return PlannedQuery(tree, tuple(p.conds), p.rows, p.tables, needs_verify=nv)
+
+
 def plan_search_request(
     d: Dictionary,
     tags: dict[str, str],

@@ -181,3 +181,123 @@ def filter_cases():
                          [row(v0=6 + i) for i in range(39)] + [row(v0=3)], None),
     })
     return cases
+
+
+# ------------------------------------------------- multi-query programs (B5a)
+
+MQ_SPAN_COLS = ("span.dur_us", "span.http_status", "span.kind", "span@res.service_id")
+MQ_TRACE_COLS = ("trace.dur_us",)
+MQ_DIMS = dict(n_conds_b=8, n_clauses_b=4, n_groups_b=2, n_tconds_b=2, n_atoms_b=4,
+               n_tclauses_b=2)
+
+
+def mq_cols(seed: int = 0) -> dict[str, np.ndarray]:
+    """make_cols, with a span layout that has empty traces and traces
+    longer than a warp (0-70 spans each), for the multi-query program."""
+    rng = np.random.default_rng(seed)
+    cols = make_cols(seed)
+    per = rng.integers(0, 16, N_TRACES)
+    per[::9] = 0
+    per[5::23] = 70
+    per = np.floor(per * (N_SPANS / per.sum())).astype(np.int64)
+    per[-1] += N_SPANS - per.sum()
+    span_off = np.concatenate([[0], np.cumsum(per)]).astype(np.int32)
+    cols["trace.span_off"] = _pad(span_off, N_TRACES_B + 1, span_off[-1])
+    cols["span.trace_sid"] = _pad(np.repeat(np.arange(N_TRACES, dtype=np.int32), per),
+                                  N_SPANS_B, INT_MIN)
+    return cols
+
+
+def _mq_operands(rng, col: str) -> tuple[int, int]:
+    lo, hi = {"span.dur_us": (0, 3_000_000), "span.http_status": (-1, 600),
+              "span.kind": (0, 7), "span@res.service_id": (-1, 13),
+              "trace.dur_us": (0, 5_000_000)}[col]
+    a, b = sorted(int(x) for x in rng.integers(lo, hi, 2))
+    return a, b
+
+
+def random_program(rng, n_groups: int | None = None) -> dict:
+    """One well-formed CNF program over mq_cols at MQ_DIMS, as the
+    arrays LoweredQuery.from_arrays takes (monotone offsets, padded
+    slots op -1, span@res conditions guarded)."""
+    d = MQ_DIMS
+    P, NC, NG = d["n_conds_b"], d["n_clauses_b"], d["n_groups_b"]
+    PT, NA, TC = d["n_tconds_b"], d["n_atoms_b"], d["n_tclauses_b"]
+    ng = int(rng.integers(0, NG + 1)) if n_groups is None else n_groups
+    cond_col, cond_op = np.zeros(P, np.int32), np.full(P, -1, np.int32)
+    cond_v0, cond_v1 = np.zeros(P, np.int32), np.zeros(P, np.int32)
+    guard = np.zeros(P, bool)
+    clause_off, group_off = np.zeros(NC + 1, np.int32), np.zeros(NG + 1, np.int32)
+    s = c = 0
+    for g in range(ng):
+        group_off[g] = c
+        for _ in range(int(rng.integers(0, (NC // NG) + 1))):
+            clause_off[c] = s
+            for _ in range(int(rng.integers(1, (P // NC) + 1))):
+                j = int(rng.integers(0, len(MQ_SPAN_COLS)))
+                cond_col[s], cond_op[s] = j, int(rng.integers(0, 8))
+                cond_v0[s], cond_v1[s] = _mq_operands(rng, MQ_SPAN_COLS[j])
+                guard[s] = MQ_SPAN_COLS[j].startswith("span@")
+                s += 1
+            c += 1
+            clause_off[c] = s
+    group_off[ng:] = c
+    clause_off[c:] = s
+    tcond_col, tcond_op = np.zeros(PT, np.int32), np.full(PT, -1, np.int32)
+    tcond_v0, tcond_v1 = np.zeros(PT, np.int32), np.zeros(PT, np.int32)
+    for j in range(int(rng.integers(0, PT + 1))):
+        tcond_op[j] = int(rng.integers(0, 8))
+        tcond_v0[j], tcond_v1[j] = _mq_operands(rng, "trace.dur_us")
+    atom_kind, atom_idx = np.full(NA, -1, np.int32), np.zeros(NA, np.int32)
+    tclause_off = np.zeros(TC + 1, np.int32)
+    ntc = int(rng.integers(0, TC + 1))
+    a = 0
+    for t in range(ntc):
+        tclause_off[t] = a
+        for _ in range(int(rng.integers(1, NA // TC + 1))):
+            kind = 0 if ng and rng.random() < 0.6 else 1
+            atom_kind[a] = kind
+            atom_idx[a] = rng.integers(0, ng) if kind == 0 else rng.integers(0, PT)
+            a += 1
+        tclause_off[t + 1] = a
+    tclause_off[ntc:] = a
+    return dict(cond_col=cond_col, cond_op=cond_op, cond_v0=cond_v0, cond_v1=cond_v1,
+                cond_guard=guard, clause_off=clause_off, group_off=group_off, n_groups=ng,
+                tcond_col=tcond_col, tcond_op=tcond_op, tcond_v0=tcond_v0, tcond_v1=tcond_v1,
+                atom_kind=atom_kind, atom_idx=atom_idx, tclause_off=tclause_off,
+                n_tclauses=ntc, span_cols=MQ_SPAN_COLS, trace_cols=MQ_TRACE_COLS)
+
+
+# ------------------------------------------------------ timeseries fold (B6)
+
+
+def span_level_cases() -> dict:
+    """The filter cases whose tree is span level (no tracify, no struct):
+    the trees the metrics planner emits."""
+    def lifted(t):
+        return isinstance(t, tuple) and (t[0] in ("tracify", "struct")
+                                         or any(lifted(c) for c in t[1:]))
+    return {k: v for k, v in filter_cases().items() if not lifted(v[1])}
+
+
+def ts_inputs(seed: int, n_groups: int, dyadic: bool = False) -> dict[str, np.ndarray]:
+    """Per-span inputs of the timeseries fold over make_cols' spans:
+    span.start_ms (block-relative, some negative), group ids with -1,
+    f32 values and a presence mask. Plain values are positive, so an f32
+    sum taken in another order stays within rtol 1e-5, with a few NaNs,
+    which a cell's sum, min and max must propagate; dyadic values are
+    signed multiples of 1/8 below 64 in magnitude, whose sums are exact
+    in f32 in any order, with signed zeros (-0.0 below +0.0 in min and
+    max, as in XLA)."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(-5_000, 600_000, N_SPANS).astype(np.int32)
+    gid = rng.integers(-1, n_groups, N_SPANS).astype(np.int32)
+    if dyadic:
+        val = (rng.integers(-511, 512, N_SPANS) / 8).astype(np.float32)
+        val[::41] = np.float32(-0.0)
+    else:
+        val = rng.lognormal(0, 2, N_SPANS).astype(np.float32)
+        val[::211] = np.float32(np.nan)
+    return {"span.start_ms": _pad(start, N_SPANS_B, INT_MIN), "gid": _pad(gid, N_SPANS_B, -1),
+            "val": _pad(val, N_SPANS_B, np.float32(0)),
+            "vpres": _pad(rng.random(N_SPANS) < 0.8, N_SPANS_B, False)}

@@ -101,7 +101,10 @@ def test_search_block_matches_reference(dbs, query):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    code = ("import sys, tempo_tpu_torch.db, tempo_tpu_torch.kernels, tempo_tpu_torch.util.synth; "
+    code = ("import sys, tempo_tpu_torch.db, tempo_tpu_torch.kernels, tempo_tpu_torch.util.synth, "
+            "tempo_tpu_torch.ops.multiquery, tempo_tpu_torch.ops.timeseries, "
+            "tempo_tpu_torch.ops.hostfilter, tempo_tpu_torch.db.batchexec, "
+            "tempo_tpu_torch.db.metrics_exec; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tempo_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
