@@ -1,5 +1,5 @@
 """Chip smoke for the PyTorch/CUDA port (tempo_tpu_torch): drives its read
-path on one NVIDIA card and holds every kernel against its plain
+and write paths on one NVIDIA card and holds every kernel against its plain
 PyTorch version.
 
     python3 chip_smoke.py
@@ -43,6 +43,24 @@ Phases, in order (any failure raises; no CPU fallback):
   10. metrics  4 TraceQL metrics range queries over the 10 blocks at a
                60 s step, each launching B6 once per block, series equal
                to TempoDB(device="cpu")
+  4c. (in phase 4) B9a over block 0's span.name_id with a seeded
+               permutation of its dictionary, B9b of block 0's 32,768 ids
+               (equal to its stored bloom), B9c of its 16 row groups (equal
+               to its stored stats), B10a over blocks 0-3's blooms and 4
+               seeded 12-shard blooms, B10b of 48 own and 16 absent ids,
+               each against its plain version, bit for bit
+  11. cut      every trace of block 0 materialized and cut by
+               TempoDB.write_block on the card (B9a/B9b/B9c launched) and
+               by a CPU TempoDB into another store: equal blocks; 48
+               finds in the new tenant equal the materialized traces; 2
+               searches card vs CPU; the cut's host/kernel split
+  12. compact  compact_once over the 10 corpus blocks on the card and on
+               a CPU copy of the store: equal outputs; phase 5's 64 finds
+               unchanged; 2 searches card vs CPU; then 4 blocks of 8
+               traces merged on the union route (one B10a, no bloom
+               rebuilt, every id tests present through B10b), the same 4
+               blocks on the default concat route (parts readable by
+               find); retention_once on each tenant
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -190,6 +208,394 @@ def same_series(a, b) -> bool:
             elif not np.array_equal(arr, other):
                 return False
     return True
+
+
+CUT_TENANT, SMALL_TENANT, CONCAT_TENANT = "smoke-cut", "smoke-small", "smoke-concat"
+
+
+def canon_trace(t) -> list:
+    """A trace as a sorted list of its spans with their resource, scope,
+    attributes, events and links: equal for equal traces whatever the
+    order of their batches."""
+    if t is None:
+        return None
+    out = []
+    for res, scope, sp in t.all_spans():
+        out.append(repr((sp.span_id, sp.parent_span_id, sp.name, sp.kind, sp.start_unix_nano,
+                         sp.end_unix_nano, sp.status_code, sp.status_message, sp.trace_state,
+                         sorted(sp.attrs.items()), sorted(res.attrs.items()),
+                         (scope.name, scope.version),
+                         [(e.name, e.time_unix_nano, sorted(e.attrs.items())) for e in sp.events],
+                         [(ln.trace_id, ln.span_id, sorted(ln.attrs.items())) for ln in sp.links])))
+    return sorted(out)
+
+
+def same_block(be_a, meta_a, be_b, meta_b, what: str) -> None:
+    """Raise unless two blocks are equal column for column, with equal
+    dictionary, bloom words, row groups and meta (block id aside)."""
+    from tempo_tpu_torch.block.versioned import open_block_versioned
+
+    da, db_ = json.loads(meta_a.to_json()), json.loads(meta_b.to_json())
+    da.pop("block_id"), db_.pop("block_id")
+    if da != db_:
+        raise AssertionError(f"{what}: metas differ: "
+                             f"{ {k: (v, db_.get(k)) for k, v in da.items() if db_.get(k) != v} }")
+    a, b = open_block_versioned(be_a, meta_a), open_block_versioned(be_b, meta_b)
+    if a.pack.names() != b.pack.names():
+        raise AssertionError(f"{what}: column sets differ")
+    for name in a.pack.names():
+        if not np.array_equal(a.pack.read(name), b.pack.read(name)):
+            raise AssertionError(f"{what}: column {name} differs")
+    ra, rb = a.dictionary.raw(), b.dictionary.raw()
+    if ra[0] != rb[0] or not np.array_equal(ra[1], rb[1]):
+        raise AssertionError(f"{what}: dictionaries differ")
+    for i in range(meta_a.bloom_shards):
+        if not np.array_equal(a.bloom_shard(i), b.bloom_shard(i)):
+            raise AssertionError(f"{what}: bloom shard {i} differs")
+
+
+class CallTimes:
+    """Host-clock seconds spent in patched callables, by label; kernel
+    wrappers are timed between two synchronizes, so their time is the
+    launch and the kernel's run."""
+
+    def __init__(self):
+        self.s: dict[str, float] = {}
+        self._undo = []
+
+    def patch(self, owner, attr: str, label: str, sync: bool = False) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                self.s[label] = self.s.get(label, 0.0) + time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+
+def phase_4c(blocks, metas, absent, dev, table) -> None:
+    """B9a/B9b/B9c and B10a/B10b against their plain versions at full
+    width on block 0 (and blocks 0-3 for the union)."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.block import schema as S
+    from tempo_tpu_torch.ops import blockcut as BC
+    from tempo_tpu_torch.ops import bloom_ops as BO
+
+    blk0, meta0 = blocks[0], metas[0]
+    ids0 = blk0.trace_index["trace.id"]
+    rng = np.random.default_rng(19)
+
+    def row(name, source, replaces, err, ms, pms, b, lms):
+        table.append({"name": name, "route": "cuda", "source": f"tempo_tpu_torch/csrc/{source}",
+                      "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+                      "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": lms})
+
+    # B9a -- span.name_id through a seeded permutation of the dictionary
+    col = torch.from_numpy(blk0.pack.read("span.name_id").copy()).to(dev)
+    r = len(blk0.dictionary)
+    remap = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(dev)
+    err = max_abs_err(kernels.remap_codes(col, remap), BC._remap_plain(col, remap))
+    if err:
+        raise AssertionError("B9a differs from its plain version")
+    n = col.shape[0]
+    ms = cuda_ms(lambda: kernels.remap_codes(col, remap))
+    pms = cuda_ms(lambda: BC._remap_plain(col, remap))
+    b = bound(n * 8 + r * 4, n)
+    log(f"[B9a] {n} codes, table of {r}: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+    row("remap", "blockcut.cu", "tempo_tpu/ops/blockcut.py:53-58", err, ms, pms, b, None)
+
+    # B9b -- block 0's ids into its own geometry, from zero words: the
+    # result is block 0's stored bloom
+    n_shards, bits = meta0.bloom_shards, meta0.bloom_shard_bits
+    t0 = time.perf_counter()
+    word_idx, onehot, _ = BC.bloom_scatter([bytes(x) for x in ids0], n_shards, bits)
+    hash_s = time.perf_counter() - t0
+    wi = torch.from_numpy(word_idx).to(dev)
+    bt = torch.from_numpy(onehot.view(np.int32)).to(dev)
+    zeros = torch.zeros((n_shards, bits // 32), dtype=torch.int32, device=dev)
+    got = kernels.bloom_bits(zeros, wi, bt)
+    err = max_abs_err(got, BC._bloom_bits_plain(zeros, wi, bt))
+    stored = np.stack([blk0.bloom_shard(i) for i in range(n_shards)]).view(np.int32)
+    wi64, lib_out = wi.long(), torch.zeros(zeros.numel(), dtype=torch.int32, device=dev)
+    lib_out.index_put_((wi64,), bt, accumulate=True)
+    if err or not np.array_equal(got.cpu().numpy(), stored) or \
+            not np.array_equal(lib_out.view(zeros.shape).cpu().numpy(), stored):
+        raise AssertionError("B9b differs from its plain version, index_put_ or block 0's bloom")
+    m = wi.shape[0]
+    ms = cuda_ms(lambda: kernels.bloom_bits(zeros, wi, bt))
+    pms = cuda_ms(lambda: BC._bloom_bits_plain(zeros, wi, bt), reps=5, warm=1)
+    lms = cuda_ms(lambda: lib_out.index_put_((wi64,), bt, accumulate=True))
+    b = bound(zeros.numel() * 8 + m * 8, m)
+    log(f"[B9b] {len(ids0)} ids -> {m} distinct bits in {n_shards} x {bits} bits (host hashing "
+        f"{hash_s:.2f} s): {ms:.4f} ms, plain {pms:.4f} ms, index_put_ {lms:.4f} ms, bound "
+        f"{b[0]:.5f} ms; equal to block 0's stored bloom")
+    row("bloom_bits", "blockcut.cu", "tempo_tpu/ops/blockcut.py:104-112", err, ms, pms, b, lms)
+
+    # B9c -- block 0's row groups of 65,536 spans
+    rgs = S.DEFAULT_ROW_GROUP_SPANS
+    sm = torch.from_numpy(blk0.pack.read("span.start_ms").copy()).to(dev)
+    du = torch.from_numpy(blk0.pack.read("span.dur_us").copy()).to(dev)
+    got = kernels.rowgroup_minmax(sm, du, rgs)
+    err = max_abs_err(got, BC._rowgroup_plain(sm, du, rgs))
+    stored = np.asarray([[g.start_ms_min for g in meta0.row_groups],
+                         [g.start_ms_max for g in meta0.row_groups],
+                         [g.dur_us_max for g in meta0.row_groups]], np.int32)
+    if err or not np.array_equal(got.cpu().numpy(), stored):
+        raise AssertionError("B9c differs from its plain version or block 0's row groups")
+    n, G = sm.shape[0], got.shape[1]
+    lengths = torch.full((G,), rgs, dtype=torch.int64, device=dev)
+    lengths[-1] = n - rgs * (G - 1)
+    seg = torch.stack([-sm, sm, du], dim=1)  # one max gives -min, max, max
+    try:
+        torch.segment_reduce(seg, "max", lengths=lengths, axis=0)
+        seg_kind = "int32"
+    except RuntimeError:  # no integer kernel: float64 holds int32 exactly
+        seg, seg_kind = seg.double(), "float64"
+    lib = torch.segment_reduce(seg, "max", lengths=lengths, axis=0)
+    if not torch.equal(lib.to(torch.int64).T, torch.stack([-got[0], got[1], got[2]]).to(torch.int64)):
+        raise AssertionError("B9c differs from torch.segment_reduce")
+    ms = cuda_ms(lambda: kernels.rowgroup_minmax(sm, du, rgs))
+    pms = cuda_ms(lambda: BC._rowgroup_plain(sm, du, rgs))
+    lms = cuda_ms(lambda: torch.segment_reduce(seg, "max", lengths=lengths, axis=0))
+    b = bound(n * 8 + G * 12, 3 * n)
+    log(f"[B9c] {n} spans in {G} groups: {ms:.4f} ms, plain {pms:.4f} ms, segment_reduce "
+        f"({seg_kind}) {lms:.4f} ms, bound {b[0]:.5f} ms; equal to block 0's row groups")
+    row("rowgroup", "blockcut.cu", "tempo_tpu/ops/blockcut.py:149-158", err, ms, pms, b, lms)
+
+    # B10a -- the blooms of blocks 0-3, then 4 seeded 12-shard blooms
+    stacked = torch.from_numpy(np.stack([np.stack([blk.bloom_shard(i) for i in range(n_shards)])
+                                         for blk in blocks[:4]]).view(np.int32)).to(dev)
+    wide = torch.from_numpy(rng.integers(0, 2**32, (4, 12, 1 << 15), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    for label, x in (("blocks 0-3", stacked), ("4 x 12 x 2^20 bits", wide)):
+        got = kernels.bloom_union(x)
+        err = max_abs_err(got, BO._union_plain(x))
+        host = np.bitwise_or.reduce(x.cpu().numpy(), axis=0)
+        if err or not np.array_equal(got.cpu().numpy(), host):
+            raise AssertionError(f"B10a {label} differs from its plain version")
+        ms = cuda_ms(lambda: kernels.bloom_union(x))
+        pms = cuda_ms(lambda: BO._union_plain(x))
+        b = bound(x.numel() * 4 + got.numel() * 4, x.numel())
+        log(f"[B10a {label}] {tuple(x.shape)}: {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {b[0]:.5f} ms")
+        if x is stacked:
+            row("bloom_union", "bloom.cu", "tempo_tpu/ops/bloom_ops.py:20", err, ms, pms, b, None)
+
+    # B10b -- 48 of block 0's own ids (all present) and phase 5's 16
+    # absent ids against block 0's bloom
+    own = [bytes(ids0[i]) for i in rng.choice(len(ids0), 48, replace=False)]
+    q_ids = own + absent
+    word_idx, bit_idx = BO.positions(q_ids, n_shards, bits)
+    words = torch.from_numpy(np.stack([blk0.bloom_shard(i) for i in range(n_shards)])
+                             .view(np.int32)).to(dev)
+    wq, bq = torch.from_numpy(word_idx).to(dev), torch.from_numpy(bit_idx).to(dev)
+    got = kernels.bloom_test(words, wq, bq)
+    err = max_abs_err(got, BO._test_plain(words, wq, bq))
+    hits = got.cpu().numpy()
+    host = [blk0.bloom_test(t) for t in q_ids]
+    if err or not hits[:48].all() or hits.tolist() != host:
+        raise AssertionError("B10b differs from its plain version or the host bloom test")
+    ms = cuda_ms(lambda: kernels.bloom_test(words, wq, bq))
+    pms = cuda_ms(lambda: BO._test_plain(words, wq, bq))
+    q, k = bit_idx.shape
+    b = bound(q * k * 16 + q, q * k)
+    log(f"[B10b] {q} ids x {k} bits: 48 of 48 present ids test present, "
+        f"{int(hits[48:].sum())} of 16 absent ids pass (false positives); {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b[0]:.6f} ms")
+    row("bloom_test", "bloom.cu", "tempo_tpu/ops/bloom_ops.py:48", err, ms, pms, b, None)
+
+
+def phase_11(db, blk0, dev, tmp) -> dict:
+    """The cut at full width: every trace of block 0 materialized and cut
+    on the card by TempoDB.write_block, and again by a CPU TempoDB into
+    another store; the two blocks equal; finds and searches on the new
+    tenant. Returns the cut's wrapper calls."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.backend import LocalBackend
+    from tempo_tpu_torch.block import builder as BB
+    from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
+    from tempo_tpu_torch.ops import blockcut as BC
+
+    t0 = time.perf_counter()
+    n = blk0.meta.total_traces
+    traces = blk0.materialize_traces(list(range(n)))
+    tid_rows = blk0.trace_index["trace.id"]
+    pairs = [(tid_rows[i].tobytes(), t) for i, t in enumerate(traces)]
+    mat_s = time.perf_counter() - t0
+    times = CallTimes()
+    times.patch(BB.BlockBuilder, "add_trace", "add_trace")
+    times.patch(BB, "write_block", "write objects")
+    for name in ("remap", "bloom_bits", "rowgroup_minmax"):
+        times.patch(BC.CutEngine, name, "device steps (upload, kernel, download)")
+    times.patch(BC, "bloom_scatter", "bloom hashing (host)")
+    for name in ("remap_codes", "bloom_bits", "rowgroup_minmax"):
+        times.patch(kernels, name, "kernels (synchronized)", sync=True)
+    kernels.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        meta = db.write_block(CUT_TENANT, pairs)
+        card_s = time.perf_counter() - t0
+    finally:
+        times.restore()
+    counts, grids = dict(kernels.LAUNCHES), kernels.grid_launches()
+    log(f"[cut] {n} traces, {meta.total_spans} spans materialized from block 0 in {mat_s:.1f} s; "
+        f"card cut {card_s:.2f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.s.items())
+        + f"; wrapper calls {counts}; __global__ launches {grids}")
+    if counts["remap"] < 1 or counts["bloom_bits"] != 1 or counts["rowgroup"] != 1:
+        raise AssertionError(f"cut: B9a/B9b/B9c not all launched: {counts}")
+    cpu_be = LocalBackend(os.path.join(tmp, "cut-cpu"))
+    cpu_db = TempoDB(TempoDBConfig(), backend=cpu_be, device="cpu")
+    t0 = time.perf_counter()
+    cmeta = cpu_db.write_block(CUT_TENANT, pairs)
+    cpu_s = time.perf_counter() - t0
+    same_block(db.backend, meta, cpu_be, cmeta, "cut card vs CPU")
+    log(f"[cut] CPU cut {cpu_s:.2f} s; card and CPU blocks equal (columns, dictionary of "
+        f"{meta.dict_size}, bloom {meta.bloom_shards} x {meta.bloom_shard_bits} bits, "
+        f"{len(meta.row_groups)} row groups)")
+    pick = np.random.default_rng(29).choice(n, 48, replace=False)
+    t0 = time.perf_counter()
+    for i in pick:
+        got = db.find_trace_by_id(CUT_TENANT, pairs[i][0])
+        if canon_trace(got) != canon_trace(traces[i]):
+            raise AssertionError(f"cut find {pairs[i][0].hex()}: not the materialized trace")
+    find_s = time.perf_counter() - t0
+    # two queries read off block 0's own spans, so each matches (the synth
+    # corpus keeps http status in a dedicated column only, so a
+    # materialized trace carries no http.status_code attribute)
+    for q in batch_queries(blk0, 2):
+        req = SearchRequest(query=q, limit=20)
+        r = db.search(CUT_TENANT, req)
+        if not r.traces or not same_response(r, cpu_db.search(CUT_TENANT, req)):
+            raise AssertionError(f"cut search {q}: card and CPU differ")
+    log(f"[cut] 48 finds in the new tenant equal block 0's traces ({find_s:.2f} s); 2 searches "
+        f"card vs CPU agree")
+    return counts
+
+
+def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
+    """Compaction last: the 10 corpus blocks on the card and on a CPU
+    copy of the store; the union route on small blocks; the concat route;
+    retention. Returns the union path's wrapper calls."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.backend import LocalBackend
+    from tempo_tpu_torch.block.bloom import ShardedBloom
+    from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
+    from tempo_tpu_torch.db import compactor as comp
+    from tempo_tpu_torch.ops import blockcut as BC
+    from tempo_tpu_torch.ops import bloom_ops as BO
+    from tempo_tpu_torch.util.testdata import make_traces
+
+    copy = os.path.join(tmp, "store-cpu")
+    shutil.copytree(store, copy)
+    cpu = TempoDB(TempoDBConfig(), backend=LocalBackend(copy), device="cpu")
+    cpu.poll_now()
+    cfg = db.cfg.compaction
+    for job in comp.select_jobs(TENANT, db.metas(TENANT), cfg):
+        ids_n, need, have = comp.union_capacity([db.open_block(m) for m in job.blocks])
+        log(f"[compact] job {job.hash}: {len(job.blocks)} blocks, route "
+            f"{comp.route(job, cfg)}, union needs {need:.0f} bits for {ids_n} ids of "
+            f"{have} -> {'fits' if need <= have else 'rebuild'}")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = db.compact_once(TENANT)
+    card_s = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    cres = cpu.compact_once(TENANT)
+    cpu_s = time.perf_counter() - t0
+    if len(res) != len(cres) or not res:
+        raise AssertionError(f"compaction: {len(res)} card jobs, {len(cres)} CPU jobs")
+    for r, c in zip(res, cres):
+        if sorted(r.compacted_ids) != sorted(c.compacted_ids) or \
+                len(r.new_blocks) != len(c.new_blocks):
+            raise AssertionError("compaction: card and CPU jobs differ")
+        for m, cm in zip(r.new_blocks, c.new_blocks):
+            same_block(db.backend, m, cpu.backend, cm, f"compaction output {m.block_id}")
+    log(f"[compact] {len(res)} jobs ({[len(r.compacted_ids) for r in res]} blocks in, "
+        f"{[len(r.new_blocks) for r in res]} out) card {card_s:.1f} s, CPU {cpu_s:.1f} s; "
+        f"outputs equal; wrapper calls {counts}")
+    t0 = time.perf_counter()
+    for tid in present + absent:
+        got = db.find_trace_by_id(TENANT, tid)
+        want = seq_found.get(tid)
+        if (got is None) != (want is None) or (got is not None and
+                                               dataclasses.asdict(got) != dataclasses.asdict(want)):
+            raise AssertionError(f"find {tid.hex()} after compaction differs from phase 5")
+    log(f"[compact] phase 5's 64 finds on the compacted blocklist "
+        f"({len(db.metas(TENANT))} blocks) equal phase 5's answers, {time.perf_counter() - t0:.2f} s")
+    for q in (SEARCH_QUERIES[0], SEARCH_QUERIES[5]):
+        req = SearchRequest(query=q, limit=20)
+        r = db.search(TENANT, req)
+        if not r.traces or not same_response(r, cpu.search(TENANT, req)):
+            raise AssertionError(f"search {q} after compaction: card and CPU differ")
+
+    # the union route: 4 blocks of 8 traces cut on the card, merged with
+    # the concat route off; one B10a call, no bloom rebuilt
+    small = make_traces(32, seed=71, n_spans=6)
+    for t in (SMALL_TENANT, CONCAT_TENANT):
+        for i in range(4):
+            db.write_block(t, small[i * 8:(i + 1) * 8])
+
+    def no_rebuild(*a, **k):
+        raise AssertionError("bloom rebuilt id by id; the union route was not taken")
+
+    saved = [(ShardedBloom, n, getattr(ShardedBloom, n)) for n in ("add", "add_many", "add_array")]
+    saved.append((BC.CutEngine, "bloom_bits", BC.CutEngine.bloom_bits))
+    concat0, cfg.concat_small_input_bytes = cfg.concat_small_input_bytes, 0
+    for owner, name, _ in saved:
+        setattr(owner, name, no_rebuild)
+    kernels.reset_counts()
+    try:
+        sres = db.compact_once(SMALL_TENANT)
+        (out,) = db.metas(SMALL_TENANT)
+        blk = db.open_block(out)
+        words = np.stack([blk.bloom_shard(i) for i in range(out.bloom_shards)])
+        hits = BO.batch_test(words, out.bloom_shard_bits, out.bloom_shards,
+                             [t for t, _ in small], dev)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        cfg.concat_small_input_bytes = concat0
+    union_counts = dict(kernels.LAUNCHES)
+    if len(sres) != 1 or union_counts["bloom_union"] != len(sres) or not hits.all():
+        raise AssertionError(f"union route: {len(sres)} jobs, wrapper calls {union_counts}, "
+                             f"{int(hits.sum())} of 32 ids test present")
+    log(f"[compact union] 4 blocks of 8 traces: {len(sres)} job, wrapper calls {union_counts}; "
+        f"bloom {out.bloom_shards} x {out.bloom_shard_bits} bits unioned, all 32 ids test "
+        f"present on the card")
+    cres2 = db.compact_once(CONCAT_TENANT)
+    parts = [m for r in cres2 for m in r.new_blocks]
+    if not parts or not all("/" in m.block_id for m in parts):
+        raise AssertionError("default config: the small blocks did not take the concat route")
+    for tid, t in small[::3]:
+        got = db.find_trace_by_id(CONCAT_TENANT, tid)
+        if got is None or got.span_count() != t.span_count():
+            raise AssertionError(f"concat part find {tid.hex()}")
+    log(f"[compact concat] the same 4 blocks by default: a compound of {len(parts)} parts, "
+        f"readable by find")
+    for t in (TENANT, SMALL_TENANT, CONCAT_TENANT):
+        r = db.retention_once(t)
+        log(f"[retention] {t}: marked {len(r.marked)}, deleted {len(r.deleted)}")
+        if t == TENANT:
+            marked = len(r.marked)
+    rc = cpu.retention_once(TENANT)
+    log(f"[retention] {TENANT} on the CPU copy: marked {len(rc.marked)}, deleted {len(rc.deleted)}")
+    if len(rc.marked) != marked:
+        raise AssertionError("retention: card and CPU marked different block counts")
+    return union_counts
 
 
 def main() -> int:
@@ -567,6 +973,9 @@ def main() -> int:
                       "replaces": "tempo_tpu/ops/timeseries.py:53", "launches": 0,
                       "max_abs_err": b6["err"], "ms": b6["ms"], "plain_ms": b6["plain_ms"],
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+        # ---- 4c. the write path's kernels (B9a/B9b/B9c, B10a/B10b)
+        phase_4c(blks, metas, absent, dev, table)
         del staged, cols, sib_cols, blks, ids, mask10, key10, cnt10, comp
         torch.cuda.synchronize()
 
@@ -788,8 +1197,23 @@ def main() -> int:
         log(f"[metrics profile] {METRICS_QUERIES[0]}: {wall:.2f} s under the profiler; own time "
             + "; ".join(f"{os.path.basename(f)}:{ln} {fn} {tt:.2f} s" for (f, ln, fn), (_, _, tt, _, _)
                         in own))
+
+        # ---- 11. the cut at full width; 12. compaction, last
+        t0 = time.perf_counter()
+        cut_counts = phase_11(db, open_block(backend, TENANT, metas[0].block_id), dev, tmp)
+        log(f"[cut] phase 11 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        union_counts = phase_12(db, os.path.join(tmp, "store"), tmp, dev, present, absent,
+                                seq_found)
+        log(f"[compact] phase 12 took {time.perf_counter() - t0:.1f} s")
+        for name in ("remap", "bloom_bits", "rowgroup"):
+            launches[name] = cut_counts[name]
+        for name in ("bloom_union", "bloom_test"):
+            launches[name] = union_counts[name]
         for row in table:
             row["launches"] = launches[row["name"]]
+        if len(table) != len(kernels.LAUNCHES) or any(r["launches"] <= 0 for r in table):
+            raise AssertionError(f"kernel table: {[(r['name'], r['launches']) for r in table]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

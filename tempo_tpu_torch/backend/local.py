@@ -9,9 +9,10 @@ crashed writer never leaves a half-written meta visible to pollers.
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
 
-from .base import META_NAME, Appender, DoesNotExist, RawBackend
+from .base import COMPACTED_META_NAME, META_NAME, Appender, DoesNotExist, RawBackend
 
 _TENANT_OBJECT_DIR = "__tenant__"
 
@@ -79,6 +80,26 @@ class LocalBackend(RawBackend):
     def open_append(self, tenant: str, block_id: str, name: str) -> Appender:
         return _FileAppender(self, tenant, block_id, name)
 
+    def copy_object(self, tenant: str, src_block_id: str, name: str,
+                    dst_block_id: str) -> int:
+        """A hardlink: block objects are immutable and writes replace
+        directory entries (tmp + rename), never inodes, so sharing the
+        inode is safe. Falls back to read + write where the filesystem
+        refuses the link."""
+        src = self._obj_path(tenant, src_block_id, name)
+        dst = self._obj_path(tenant, dst_block_id, name)
+        try:
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            os.link(src, dst)
+            return os.path.getsize(dst)
+        except FileNotFoundError:
+            raise DoesNotExist(src) from None
+        except OSError:
+            return super().copy_object(tenant, src_block_id, name, dst_block_id)
+
+    def write_tenant_object(self, tenant: str, name: str, data: bytes) -> None:
+        self.write(tenant, _TENANT_OBJECT_DIR, name, data)
+
     def read(self, tenant: str, block_id: str, name: str) -> bytes:
         path = self._obj_path(tenant, block_id, name)
         try:
@@ -86,6 +107,9 @@ class LocalBackend(RawBackend):
                 return f.read()
         except FileNotFoundError:
             raise DoesNotExist(path) from None
+
+    def read_tenant_object(self, tenant: str, name: str) -> bytes:
+        return self.read(tenant, _TENANT_OBJECT_DIR, name)
 
     def read_range(self, tenant: str, block_id: str, name: str, offset: int, length: int) -> bytes:
         path = self._obj_path(tenant, block_id, name)
@@ -112,5 +136,25 @@ class LocalBackend(RawBackend):
             return []
         return sorted(
             d for d in entries
-            if d != _TENANT_OBJECT_DIR and os.path.exists(os.path.join(tdir, d, META_NAME))
+            if d != _TENANT_OBJECT_DIR and any(
+                os.path.exists(os.path.join(tdir, d, n)) for n in (META_NAME, COMPACTED_META_NAME))
         )
+
+    def delete_block(self, tenant: str, block_id: str) -> None:
+        """Recursive: a compound block nests its parts as subdirectories."""
+        bdir = os.path.join(self.path, tenant, block_id)
+        if not os.path.isdir(bdir):
+            return
+
+        def _onexc(fn, path, exc):
+            # a concurrent deletion is fine; anything else surfaces
+            if not isinstance(exc, FileNotFoundError):
+                raise exc
+
+        shutil.rmtree(bdir, onexc=_onexc)
+
+    def _delete_object(self, tenant: str, block_id: str, name: str) -> None:
+        try:
+            os.unlink(self._obj_path(tenant, block_id, name))
+        except FileNotFoundError:
+            pass

@@ -4,9 +4,11 @@ Same role as the reference's ShardedBloomFilter (common/bloom.go:20-93):
 the find-by-ID fast path tests ONE shard (selected by a hash of the
 trace id) so a lookup fetches bloom_shard_size bytes, not the whole
 filter. Bits live in a flat uint32 array, bit-identical to the JAX package's
-filter, so either package reads the other's bloom objects. Only the
-pure-Python insert path is kept: the find gate tests one shard per
-block on the host.
+filter, so either package reads the other's bloom objects. Inserts and
+tests here are pure Python / numpy (the JAX package's fallbacks of its
+native helpers); a block cut sets its bits with the B9b kernel
+(ops/blockcut.py) and compaction unions filters with B10a
+(ops/bloom_ops.py).
 
 Shard count is derived from the expected item count and target false
 positive rate, like the reference sizes shards from fp+shard size.
@@ -63,6 +65,22 @@ class ShardedBloom:
         for tid in trace_ids:
             self.add(tid)
 
+    def add_array(self, ids: np.ndarray) -> None:
+        """Insert a (n, 16) uint8 id array."""
+        ids = np.ascontiguousarray(ids, dtype=np.uint8)
+        if ids.size:
+            self.add_many([ids[i].tobytes() for i in range(ids.shape[0])])
+
+    def test(self, trace_id: bytes) -> bool:
+        shard = shard_for_trace_id(trace_id, self.n_shards)
+        return self.test_shard(self.words[shard], trace_id)
+
+    def test_shard(self, shard_words: np.ndarray, trace_id: bytes) -> bool:
+        for pos in bloom_hashes(trace_id, _K, self.shard_bits):
+            if not (int(shard_words[pos // WORD_BITS]) >> (pos % WORD_BITS)) & 1:
+                return False
+        return True
+
     # ---- serialization: one object per shard, like the reference's
     # bloom-0..bloom-N block objects
     def shard_bytes(self, shard: int) -> bytes:
@@ -75,3 +93,9 @@ class ShardedBloom:
     @staticmethod
     def positions(trace_id: bytes, shard_bits: int) -> list[int]:
         return bloom_hashes(trace_id, _K, shard_bits)
+
+
+def union_shards(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Host-side union; compaction unions on the device instead
+    (ops/bloom_ops.union_blooms)."""
+    return np.bitwise_or(a, b)

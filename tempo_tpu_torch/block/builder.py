@@ -2,9 +2,13 @@
 
 The write-side analog of vparquet's create.go:37-67 (WAL iterator ->
 rows -> row-group cuts -> backend), but producing the span-major SoA
-layout of schema.py. Host code only: blocks it writes are the same
-vtpu2 blocks the JAX package writes (tempo_tpu/block/builder.py), and
-either package reads the other's. Traces MUST be added in ascending trace-id order
+layout of schema.py. Blocks it writes are the same vtpu2 blocks the JAX
+package writes (tempo_tpu/block/builder.py), and either package reads
+the other's. The rows accumulate on the host; finalize runs the cut's
+three device steps -- the dictionary remap of every code column (B9a),
+the bloom bits (B9b) and the row-group stats (B9c) -- through
+ops/blockcut.py on the builder's device: the kernels on a card, their
+plain versions on the CPU. Traces MUST be added in ascending trace-id order
 (the WAL iterator and compaction merge both yield sorted streams), which
 makes `trace.id_codes` sorted => device lookup is a searchsorted.
 """
@@ -17,12 +21,13 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..backend.base import RawBackend
+from ..ops import blockcut
 from ..wire.model import Trace
 from ..wire.otlp_json import _value_from_json, _value_to_json
 from . import schema as S
 from .bloom import ShardedBloom
 from .colio import AxisChunks, pack_columns_stream
-from .dictionary import DictBuilder, Dictionary, apply_remap
+from .dictionary import DictBuilder, Dictionary
 from .meta import BlockMeta, RowGroupStats
 
 DATA_NAME = "data.vtpu"
@@ -114,8 +119,10 @@ class BlockBuilder:
         estimated_traces: int = 0,
         compaction_level: int = 0,
         replication_factor: int = 1,
+        device="cpu",
     ):
         self.meta = BlockMeta.new(tenant, block_id)
+        self.device = device
         self.meta.compaction_level = compaction_level
         self.meta.replication_factor = replication_factor
         self.row_group_spans = row_group_spans
@@ -297,13 +304,17 @@ class BlockBuilder:
         self.tr_root_name.append(root_name if root_name is not None else (first_name or 0))
 
     # ------------------------------------------------------------------
-    def finalize(self) -> FinalizedBlock:
-        """Assemble columns + meta + bloom."""
+    def finalize(self, bloom: ShardedBloom | None = None) -> FinalizedBlock:
+        """Assemble columns + meta. `bloom` (optional) is a precomputed
+        filter covering every added trace id: compaction passes the OR
+        union of the input blocks' filters (ops/bloom_ops.py) instead of
+        re-inserting every id."""
         n_spans = len(self.sp_trace_sid)
         n_traces = len(self.tr_ids)
         dictionary, remap = self.dictb.finalize()
-        rm_arr = apply_remap
-        rm = lambda lst: rm_arr(np.asarray(lst, dtype=np.int32), remap)  # noqa: E731
+        cut = blockcut.CutEngine(self.device)
+        codes = cut.table(remap)
+        rm = lambda lst: cut.remap(lst, codes)  # noqa: E731
 
         start_ns = np.asarray(self.sp_start_ns, dtype=np.uint64)
         end_ns = np.asarray(self.sp_end_ns, dtype=np.uint64)
@@ -389,12 +400,12 @@ class BlockBuilder:
             (self.lnattr, "lnattr", "ln"),
         ):
             tcols = table.columns(prefix, owner)
-            tcols[f"{prefix}.key_id"] = rm_arr(tcols[f"{prefix}.key_id"], remap)
-            tcols[f"{prefix}.str_id"] = rm_arr(tcols[f"{prefix}.str_id"], remap)
+            tcols[f"{prefix}.key_id"] = rm(tcols[f"{prefix}.key_id"])
+            tcols[f"{prefix}.str_id"] = rm(tcols[f"{prefix}.str_id"])
             cols.update(tcols)
 
         axes, col_axis, row_groups = compute_row_groups(cols, start_ms, dur_us,
-                                                        self.row_group_spans)
+                                                        self.row_group_spans, kernels=cut)
 
         m = self.meta
         m.total_traces = n_traces
@@ -406,11 +417,13 @@ class BlockBuilder:
         m.dict_size = len(dictionary)
         m.row_groups = row_groups
 
-        if self.estimated_traces:
-            bloom = ShardedBloom.for_estimated_items(max(self.estimated_traces, n_traces))
-        else:
-            bloom = ShardedBloom.for_estimated_items(max(n_traces, 1))
-        bloom.add_many(self.tr_ids)
+        if bloom is None:
+            if self.estimated_traces:
+                bloom = ShardedBloom.for_estimated_items(max(self.estimated_traces, n_traces))
+            else:
+                bloom = ShardedBloom.for_estimated_items(max(n_traces, 1))
+            if self.tr_ids:
+                bloom.words = cut.bloom_bits(bloom.words, self.tr_ids, bloom.shard_bits)
         m.bloom_shards = bloom.n_shards
         m.bloom_shard_bits = bloom.shard_bits
 
@@ -441,9 +454,11 @@ def build_tres(trace_sid: np.ndarray, res_idx: np.ndarray, n_traces: int) -> dic
     }
 
 
-def compute_row_groups(cols, start_ms, dur_us, row_group_spans):
+def compute_row_groups(cols, start_ms, dur_us, row_group_spans, kernels=None):
     """Row-group boundaries + per-group pruning stats from assembled
-    columns (shared by the builder and util/synth.py)."""
+    columns (shared by the builder, the columnar compactor and
+    util/synth.py). `kernels` (an ops/blockcut.CutEngine, optional) runs
+    the per-group min/max as B9c; the stats are identical either way."""
     n_spans = len(cols["span.trace_sid"])
     bounds = list(range(0, n_spans, row_group_spans)) + [n_spans]
     if len(bounds) < 2:
@@ -483,6 +498,9 @@ def compute_row_groups(cols, start_ms, dur_us, row_group_spans):
             col_axis[name] = ax
 
     trace_sid = cols["span.trace_sid"]
+    # with any spans at all, every group is non-empty; no spans, no launch
+    mm = (kernels.rowgroup_minmax(start_ms, dur_us, row_group_spans)
+          if kernels is not None and n_spans > 0 else None)
     row_groups = []
     for g in range(span_ax.n_groups):
         lo, hi = bounds[g], bounds[g + 1]
@@ -495,9 +513,9 @@ def compute_row_groups(cols, start_ms, dur_us, row_group_spans):
                 span_hi=hi,
                 trace_lo=int(trace_sid[lo]),
                 trace_hi=int(trace_sid[hi - 1]) + 1,
-                start_ms_min=int(start_ms[lo:hi].min()),
-                start_ms_max=int(start_ms[lo:hi].max()),
-                dur_us_max=int(dur_us[lo:hi].max()),
+                start_ms_min=int(mm[0][g] if mm else start_ms[lo:hi].min()),
+                start_ms_max=int(mm[1][g] if mm else start_ms[lo:hi].max()),
+                dur_us_max=int(mm[2][g] if mm else dur_us[lo:hi].max()),
             )
         )
     return axes, col_axis, row_groups
@@ -553,8 +571,12 @@ def build_block_from_traces(
     row_group_spans: int = S.DEFAULT_ROW_GROUP_SPANS,
     compaction_level: int = 0,
     codec: str = "zstd",
+    device="cpu",
 ) -> BlockMeta:
-    b = BlockBuilder(tenant, block_id, row_group_spans, compaction_level=compaction_level)
+    """Cut one block from (trace id, trace) pairs on `device` and write it.
+    The block layer defaults to the host; TempoDB passes its own device."""
+    b = BlockBuilder(tenant, block_id, row_group_spans, compaction_level=compaction_level,
+                     device=device)
     for tid, t in sorted(traces, key=lambda p: p[0]):
         b.add_trace(tid, t)
     return write_block(backend, b.finalize(), codec=codec)

@@ -43,6 +43,13 @@ _MIN_COMPRESS = 128
 _CONST_MIN = 64  # don't bother const-marking chunks smaller than this
 
 
+def is_broadcast(arr: np.ndarray) -> bool:
+    """True for stride-0 first-dim views (np.broadcast_to of one row):
+    the in-memory marker for "this column is constant" (read_all's
+    broadcast_const, the compaction merge's const fast path)."""
+    return arr.ndim >= 1 and arr.size > 0 and arr.strides[0] == 0
+
+
 def _gzip_c(data: bytes, level: int) -> bytes:
     import gzip
 
@@ -134,7 +141,11 @@ def pack_columns_stream(
                 col_raw = True
             elif ov is not None:
                 col_level = ov
-        arr = np.ascontiguousarray(arr)
+        # a broadcast view is constant by construction: const chunks,
+        # never materialized (a raw pack stores bytes verbatim instead)
+        bcast = codec != CODEC_RAW and is_broadcast(arr)
+        if not bcast:
+            arr = np.ascontiguousarray(arr)
         axis = col_axis.get(name)
         row_bytes = arr.dtype.itemsize * int(np.prod(arr.shape[1:], dtype=np.int64))
         if axis is not None:
@@ -146,8 +157,21 @@ def pack_columns_stream(
                       for g in range(ax.n_groups)]
         else:
             bounds = [(0, arr.shape[0] * row_bytes)]
-        buf = arr.reshape(-1).view(np.uint8) if arr.size else np.empty(0, np.uint8)
         recs: list[list] = []
+        if bcast:
+            row = np.ascontiguousarray(arr[:1]).tobytes()
+            for lo, hi in bounds:
+                if hi == lo:
+                    recs.append([offset, 0, 0, CODEC_RAW])
+                    continue
+                recs.append([offset, len(row), hi - lo, CODEC_CONST])
+                offset += len(row)
+                yield row
+            footer_tbl["cols"][name] = {
+                "dtype": str(arr.dtype), "shape": list(arr.shape), "axis": axis, "chunks": recs,
+            }
+            continue
+        buf = arr.reshape(-1).view(np.uint8) if arr.size else np.empty(0, np.uint8)
         for lo, hi in bounds:
             raw_len = hi - lo
             chunk = buf[lo:hi]
@@ -280,6 +304,7 @@ class ColumnPack:
     def __init__(self, read_range, total_size: int):
         """read_range(offset, length) -> bytes."""
         self._read_range = read_range
+        self._size = total_size
         tail = self._read_range(total_size - _TAIL.size, _TAIL.size)
         flen, magic = _TAIL.unpack(tail)
         if magic != MAGIC:
@@ -305,6 +330,19 @@ class ColumnPack:
 
     def names(self) -> list[str]:
         return list(self._cols)
+
+    def preload(self) -> None:
+        """Fetch the whole pack with one ranged read and serve later
+        reads from memory (small compaction inputs). Idempotent."""
+        if getattr(self, "_preloaded", False):
+            return
+        data = self._read_range(0, self._size)
+        self._read_range = lambda off, ln: data[off : off + ln]
+        self._preloaded = True
+
+    def chunk_codecs(self) -> set[str]:
+        """Every chunk codec in the pack (footer metadata only, no IO)."""
+        return {r[3] for meta in self._cols.values() for r in meta["chunks"]}
 
     def has(self, name: str) -> bool:
         return name in self._cols
@@ -382,3 +420,26 @@ class ColumnPack:
 
     def read_many(self, names: list[str]) -> dict[str, np.ndarray]:
         return {n: self.read(n) for n in names if n in self._cols}
+
+    def _broadcast_const_cols(self) -> dict[str, np.ndarray]:
+        """Columns whose every non-empty chunk is const with one identical
+        row, as stride-0 broadcast views (zero decode, zero memory)."""
+        out: dict[str, np.ndarray] = {}
+        for name, meta in self._cols.items():
+            chs = [c for c in meta["chunks"] if c[2] > 0]
+            if not chs or any(c[3] != CODEC_CONST for c in chs):
+                continue
+            rows = {self._read_range(c[0], c[1]) for c in chs}
+            if len(rows) != 1:
+                continue
+            shape = tuple(meta["shape"])
+            rv = np.frombuffer(next(iter(rows)), dtype=np.dtype(meta["dtype"])).reshape(shape[1:])
+            out[name] = np.broadcast_to(rv, shape)
+        return out
+
+    def read_all(self, broadcast_const: bool = False) -> dict[str, np.ndarray]:
+        """Every column. broadcast_const=True returns fully-constant
+        columns as read-only stride-0 views (the compaction merge's const
+        fast path)."""
+        bc = self._broadcast_const_cols() if broadcast_const else {}
+        return {n: bc[n] if n in bc else self.read(n) for n in self._cols}

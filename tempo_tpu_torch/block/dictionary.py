@@ -60,6 +60,26 @@ class DictBuilder:
         return Dictionary(strings), remap
 
 
+def dict_union(raws: list[tuple[bytes, np.ndarray]]):
+    """K-way union of K sorted dictionaries given as (blob, u32 offsets)
+    pairs (Dictionary.raw()). Returns (merged_blob, merged_offsets,
+    [per-source int32 remap]). Byte-level, so the order is utf-8 byte
+    order, the dictionaries' own; the JAX package's numpy fallback
+    (tempo_tpu/native/__init__.py `_dict_union_py`) in the same form."""
+    if sum(len(offs) - 1 for _, offs in raws) == 0:
+        return b"", np.zeros(1, dtype=np.uint32), [np.zeros(0, np.int32) for _ in raws]
+    per_src: list[list[bytes]] = []
+    for blob, offs in raws:
+        o = offs.tolist()
+        per_src.append([blob[o[i] : o[i + 1]] for i in range(len(o) - 1)])
+    merged = sorted(set().union(*[set(s) for s in per_src]))
+    code_of = {s: i for i, s in enumerate(merged)}
+    remaps = [np.asarray([code_of[s] for s in src], dtype=np.int32) for src in per_src]
+    offs = np.zeros(len(merged) + 1, dtype=np.uint32)
+    np.cumsum([len(s) for s in merged], out=offs[1:])
+    return b"".join(merged), offs, remaps
+
+
 def apply_remap(col: np.ndarray, remap: np.ndarray) -> np.ndarray:
     """Remap a code column, passing through NO_CODE sentinels."""
     out = np.where(col >= 0, remap[np.maximum(col, 0)], col)

@@ -1,15 +1,20 @@
-"""TempoDB: the storage-engine facade of the port's read path (port of
+"""TempoDB: the storage-engine facade of the port (port of
 tempo_tpu/db/tempodb.py).
 
-Blocks are written to and listed from a backend; find-by-ID runs the
+write_block cuts a block on the device (B9a/B9b/B9c, block/builder.py)
+and adds it to the blocklist (db/blocklist.py, refreshed by poll_now);
+compact_once and retention_once compact and expire a tenant's blocks
+(db/compactor.py: concat, columnar and wire routes; the bloom union on
+B10a). Find-by-ID runs the
 host bloom gate and ONE batched bisection (K3) over every surviving
 block's device index; search runs the fused multi-block device search
 (db/search.py: K1 per block, one K2 across blocks). Concurrent
 single-block search jobs and finds coalesce through the batching
 executors (db/batchexec.py: B5a + B5b per search group, K3 with Q > 1
 per find group), and TraceQL metrics range queries fold per block on
-B6 (db/metrics_exec.py). The WAL, compaction, mesh, chaos wrap and cost
-ledger of the JAX package are not part of this port yet.
+B6 (db/metrics_exec.py). The WAL, the pipelined compaction sweep, the
+mesh, the chaos wrap and the cost ledger of the JAX package are not
+part of this port yet.
 
 The device is the first card unless the caller names another one
 (`device="cpu"` runs every kernel's plain PyTorch version).
@@ -22,7 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..backend import DoesNotExist, LocalBackend, MemBackend
+from ..backend import LocalBackend, MemBackend
 from ..backend.base import RawBackend
 from ..block import schema as S
 from ..block.builder import build_block_from_traces
@@ -33,6 +38,7 @@ from ..ops.device import resolve_device
 from ..ops.find import lookup_ids_blocks_cached
 from ..wire.combine import combine_traces
 from ..wire.model import Trace
+from . import compactor as comp
 from .batchexec import (
     QueryBatchers,
     _FindItem,
@@ -41,6 +47,7 @@ from .batchexec import (
     batched_search_block_many,
     find_key,
 )
+from .blocklist import Blocklist, Poller
 from .metrics_exec import MetricsRequest, MetricsResponse, metrics_query_range_blocks
 from .search import SearchRequest, SearchResponse, search_block, search_blocks_fused
 
@@ -61,6 +68,7 @@ class TempoDBConfig:
     batch_enabled: bool | None = None
     batch_window_ms: float | None = None
     batch_max: int | None = None
+    compaction: comp.CompactorConfig = field(default_factory=comp.CompactorConfig)
 
 
 def open_backend(cfg: dict) -> RawBackend:
@@ -77,7 +85,10 @@ class TempoDB:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = backend or open_backend(cfg.backend)
-        self._metas: dict[str, list[BlockMeta]] = {}
+        self.blocklist = Blocklist()
+        self.poller = Poller(self.backend)
+        # compaction ownership hook; a compactor ring would override it
+        self.owns_job = lambda job_hash: True
         self._block_cache: dict[tuple[str, str], BackendBlock] = {}
         self._lock = threading.Lock()
         # concurrent search / find jobs that share a coalesce key merge
@@ -103,38 +114,35 @@ class TempoDB:
             return blk
 
     def write_block(self, tenant: str, traces: list[tuple[bytes, Trace]]) -> BlockMeta:
-        """Build + flush a complete block from (trace id, trace) pairs."""
+        """Cut a complete block from (trace id, trace) pairs on this
+        database's device and flush it (the ingester's CompleteBlock +
+        WriteBlock path, tempodb.go:199-251)."""
         meta = build_block_from_traces(
             self.backend, tenant, traces, row_group_spans=self.cfg.row_group_spans,
-            codec=self.cfg.block_codec,
+            codec=self.cfg.block_codec, device=self.device,
         )
-        with self._lock:
-            metas = self._metas.setdefault(tenant, [])
-            if all(m.block_id != meta.block_id for m in metas):
-                metas.append(meta)
+        self.blocklist.update(tenant, add=[meta])
         return meta
 
     def metas(self, tenant: str) -> list[BlockMeta]:
-        with self._lock:
-            return list(self._metas.get(tenant, []))
+        return self.blocklist.metas(tenant)
+
+    def tenants(self) -> list[str]:
+        return self.blocklist.tenants()
 
     def poll_now(self) -> None:
-        """Replace the blocklist with the backend's listing: every tenant's
-        live block metas, ordered by block id."""
-        fresh: dict[str, list[BlockMeta]] = {}
-        for tenant in self.backend.tenants():
-            metas = []
-            for block_id in self.backend.blocks(tenant):
-                try:
-                    metas.append(BlockMeta.from_json(
-                        self.backend.read(tenant, block_id, "meta.json")))
-                except DoesNotExist:
-                    continue  # removed between listing and read
-            fresh[tenant] = sorted(metas, key=lambda m: m.block_id)
+        """Refresh the blocklist from the backend (compound blocks
+        expanded, recently compacted ones kept for their grace window)."""
+        metas, compacted = self.poller.poll()
+        self.blocklist.apply_poll_results(metas, compacted)
+        self._drop_readers({(t, m.block_id) for t in metas for m in metas[t]})
+
+    def _drop_readers(self, live: set | None = None, gone: set | None = None) -> None:
+        """Forget cached readers of blocks outside `live` or inside `gone`."""
         with self._lock:
-            self._metas = fresh
-            live = {(t, m.block_id) for t, ms in fresh.items() for m in ms}
-            for key in [k for k in self._block_cache if k not in live]:
+            for key in [k for k in self._block_cache
+                        if (live is not None and k not in live)
+                        or (gone is not None and k in gone)]:
                 del self._block_cache[key]
 
     # ------------------------------------------------------------- find
@@ -295,3 +303,40 @@ class TempoDB:
         metas = [m for m in self.metas(tenant) if m.overlaps_time(start_s, end_s)]
         blocks = [self.open_block(m) for m in metas]
         return metrics_query_range_blocks(blocks, req, device=self.device)
+
+    # --------------------------------------------------------- compaction
+    def _apply_compaction_result(self, tenant: str, res: comp.CompactionResult,
+                                 metas_by_id: dict[str, BlockMeta]) -> None:
+        removed = set(res.compacted_ids)
+        self.blocklist.update(
+            tenant,
+            add=res.new_blocks,
+            remove=list(removed),
+            add_compacted=[m for bid, m in metas_by_id.items() if bid in removed],
+        )
+        self._drop_readers(gone={(tenant, bid) for bid in removed})
+
+    def compact_once(self, tenant: str) -> list[comp.CompactionResult]:
+        """One compaction sweep for a tenant: select jobs, run the owned
+        ones on this database's device."""
+        metas = self.blocklist.metas(tenant)
+        metas_by_id = {m.block_id: m for m in metas}
+        results = []
+        for job in comp.select_jobs(tenant, metas, self.cfg.compaction):
+            if not self.owns_job(job.hash):
+                continue
+            res = comp.compact(self.backend, job, self.cfg.compaction, self.device)
+            self._apply_compaction_result(tenant, res, metas_by_id)
+            results.append(res)
+        return results
+
+    def retention_once(self, tenant: str) -> comp.RetentionResult:
+        """Mark blocks past retention compacted and delete compacted
+        blocks past compacted retention."""
+        res = comp.apply_retention(
+            self.backend, tenant, self.blocklist.metas(tenant),
+            self.blocklist.compacted_metas(tenant), self.cfg.compaction, owns=self.owns_job)
+        if res.marked:
+            self.blocklist.update(tenant, remove=res.marked)
+            self._drop_readers(gone={(tenant, bid) for bid in res.marked})
+        return res

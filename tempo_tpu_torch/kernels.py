@@ -30,6 +30,23 @@ never hidden behind a plain version or another route.
 | multiquery  | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:356 run (B5a)      |
 | mq_select   | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:461 sel (B5b)      |
 | timeseries  | csrc/timeseries.cu | tempo_tpu/ops/timeseries.py:53 run (B6)        |
+| remap       | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:53-58 (B9a)          |
+| bloom_bits  | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:104-112 (B9b)        |
+| rowgroup    | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:149-158 (B9c)        |
+| bloom_union | csrc/bloom.cu      | tempo_tpu/ops/bloom_ops.py:20 _union_kernel    |
+| bloom_test  | csrc/bloom.cu      | tempo_tpu/ops/bloom_ops.py:48 _test_kernel     |
+
+The write path's kernels: launches on their path, what bounds them, and
+the one PyTorch call that computes the same function (the yardstick
+chip_smoke.py times; the port calls none):
+
+| kernel      | launches on its path                     | bound (bytes moved)                 | one PyTorch call                                   |
+|-------------|------------------------------------------|-------------------------------------|----------------------------------------------------|
+| remap       | one per code column of a cut (29)        | 8 B a code + the table              | none: a clamp, a gather and a select               |
+| bloom_bits  | one per cut without a given bloom        | words read and written, 8 B a pair  | index_put_(accumulate=True) on zeroed words        |
+| rowgroup    | one per cut with spans                   | 8 B a span + 12 B a group           | torch.segment_reduce (max of [-start, start, dur]) |
+| bloom_union | one per compaction job whose union fits  | K + 1 words per output word         | none: no bitwise-OR reduction over a dimension     |
+| bloom_test  | none (no caller, as in the JAX package)  | K words and K index triples a query | none: a gather, a shift and an all                 |
 """
 
 from __future__ import annotations
@@ -45,24 +62,27 @@ import torch
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "tempo_tpu_torch")
-SOURCES = ("filter", "select", "find", "stage", "multiquery", "timeseries")
+SOURCES = ("filter", "select", "find", "stage", "multiquery", "timeseries", "blockcut",
+           "bloom")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # launches per kernel, counted where each wrapper launches (under a
 # lock: the batchers launch from several threads)
 LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
-            "multiquery": 0, "mq_select": 0, "timeseries": 0}
+            "multiquery": 0, "mq_select": 0, "timeseries": 0, "remap": 0, "bloom_bits": 0,
+            "rowgroup": 0, "bloom_union": 0, "bloom_test": 0}
 # source -> its kernels, in the library's launch-counter slot order
 _KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find",),
               "stage": ("res_to_span",), "multiquery": ("multiquery", "mq_select"),
-              "timeseries": ("timeseries",)}
+              "timeseries": ("timeseries",), "blockcut": ("remap", "bloom_bits", "rowgroup"),
+              "bloom": ("bloom_union", "bloom_test")}
 
 
 class KernelError(RuntimeError):
     """A kernel did not build, load, take its arguments or launch."""
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "tt_res_to_span": ("stage", [_P, _I, _P, _P, _I, _P]),
     "tt_find": ("find", [_P, _I, _I, _P, _I, _P, _I, _P, _P]),
@@ -77,6 +97,11 @@ _SIGNATURES = {
     "tt_mq_select": ("multiquery", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
     "tt_timeseries": ("timeseries", [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "tt_remap": ("blockcut", [_P, _I, _P, _I, _P, _P]),
+    "tt_bloom_bits": ("blockcut", [_P, _L, _P, _P, _I, _P, _P]),
+    "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _P, _I, _P]),
+    "tt_bloom_union": ("bloom", [_P, _I, _L, _P, _P]),
+    "tt_bloom_test": ("bloom", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
 }
 
 # one lock over build and load: the first use may come from several
@@ -455,3 +480,94 @@ def timeseries(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid:
         return (counts,)
     # vmin / vmax come back as f32 bit patterns in int32 storage
     return counts, outs[1], outs[2], outs[3].view(torch.float32), outs[4].view(torch.float32)
+
+
+# ------------------------------------------------------------------ B9a
+def remap_codes(col: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
+    """B9a: where(col >= 0, remap[min(col, r - 1)], col) over an int32
+    code column. Bound: bytes (8 B a code; the table stays in L2)."""
+    dev = _cuda_device(col)
+    _check(col, "col", torch.int32, dev)
+    _check(remap, "remap", torch.int32, dev)
+    if col.dim() != 1 or remap.dim() != 1 or remap.shape[0] == 0:
+        raise KernelError("remap_codes: 1-D col and a non-empty 1-D remap expected")
+    out = torch.empty_like(col)
+    with torch.cuda.device(dev):
+        _call("tt_remap", col.data_ptr(), col.shape[0], remap.data_ptr(), remap.shape[0],
+              out.data_ptr(), _stream())
+    _count("remap")
+    return out
+
+
+# ------------------------------------------------------------------ B9b
+def bloom_bits(words: torch.Tensor, word_idx: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """B9b: a copy of words (any shape, uint32 bit patterns in int32)
+    with bits[i] ORed into flat word word_idx[i]. Bound: bytes (the
+    words read and written once, 8 B a pair)."""
+    dev = _cuda_device(words)
+    _check(words, "words", torch.int32, dev)
+    m = word_idx.shape[0]
+    _check(word_idx, "word_idx", torch.int32, dev, (m,))
+    _check(bits, "bits", torch.int32, dev, (m,))
+    out = torch.empty_like(words)
+    with torch.cuda.device(dev):
+        _call("tt_bloom_bits", words.data_ptr(), words.numel(), word_idx.data_ptr(),
+              bits.data_ptr(), m, out.data_ptr(), _stream())
+    _count("bloom_bits")
+    return out
+
+
+# ------------------------------------------------------------------ B9c
+def rowgroup_minmax(start_ms: torch.Tensor, dur_us: torch.Tensor, group: int) -> torch.Tensor:
+    """B9c: (3, G) int32 rows [min start_ms | max start_ms | max dur_us]
+    of the contiguous groups of `group` rows (the last one partial).
+    Bound: bytes (8 B a span)."""
+    dev = _cuda_device(start_ms)
+    n = start_ms.shape[0]
+    _check(start_ms, "start_ms", torch.int32, dev, (n,))
+    _check(dur_us, "dur_us", torch.int32, dev, (n,))
+    if n == 0 or group < 1:
+        raise KernelError(f"rowgroup_minmax: {n} rows in groups of {group}")
+    n_groups = -(-n // group)
+    out = torch.empty((3, n_groups), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_rowgroup", start_ms.data_ptr(), dur_us.data_ptr(), n, int(group),
+              out.data_ptr(), n_groups, _stream())
+    _count("rowgroup")
+    return out
+
+
+# ------------------------------------------------------------------ B10a
+def bloom_union(stacked: torch.Tensor) -> torch.Tensor:
+    """B10a: OR-reduce of (K, S, W) uint32 blooms (int32 storage) ->
+    (S, W). Bound: bytes (K + 1 words moved per output word)."""
+    dev = _cuda_device(stacked)
+    _check(stacked, "stacked", torch.int32, dev)
+    if stacked.dim() != 3 or stacked.shape[0] == 0:
+        raise KernelError("bloom_union: (K, S, W) with K > 0 expected")
+    out = torch.empty(stacked.shape[1:], dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_bloom_union", stacked.data_ptr(), stacked.shape[0], out.numel(),
+              out.data_ptr(), _stream())
+    _count("bloom_union")
+    return out
+
+
+# ------------------------------------------------------------------ B10b
+def bloom_test(words: torch.Tensor, word_idx: torch.Tensor, bit_idx: torch.Tensor) -> torch.Tensor:
+    """B10b: words (S, W) uint32 (int32 storage), word_idx (Q, K, 2)
+    [shard, word], bit_idx (Q, K) -> (Q,) bool: every bit set. Bound:
+    bytes (K words and K index triples a query)."""
+    dev = _cuda_device(words)
+    _check(words, "words", torch.int32, dev)
+    if words.dim() != 2 or 0 in words.shape:
+        raise KernelError("bloom_test: non-empty (S, W) words expected")
+    q, k = bit_idx.shape if bit_idx.dim() == 2 else (-1, -1)
+    _check(bit_idx, "bit_idx", torch.int32, dev, (q, k))
+    _check(word_idx, "word_idx", torch.int32, dev, (q, k, 2))
+    out = torch.empty(q, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_bloom_test", words.data_ptr(), words.shape[0], words.shape[1],
+              word_idx.data_ptr(), bit_idx.data_ptr(), q, k, out.data_ptr(), _stream())
+    _count("bloom_test")
+    return out

@@ -1,0 +1,144 @@
+"""Block-cut kernels (B9): the device steps of a block's finalize.
+
+Port of tempo_tpu/ops/blockcut.py. Three per-row host loops of a cut
+become kernels: the dictionary remap of every code column through the
+sort permutation (B9a), the bloom's K = 7 bits per trace id (B9b) and
+the per-row-group pruning stats (B9c). Each op sends CUDA tensors to its
+kernel (csrc/blockcut.cu through kernels.py) and CPU tensors to its
+plain PyTorch version below; every output is an integer, so the two
+agree exactly. The hashing of ids to (word, bit) pairs stays on the
+host, as in the JAX package (`bloom_scatter`).
+
+The JAX package picks its engine by its backend and an env override
+(TEMPO_CUT_ENGINE); the port picks by the device of the tensors, so a
+cut on a card always runs these kernels. `CutEngine` is the builder's
+numpy-facing side: it uploads, launches and downloads.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..block.bloom import _K, WORD_BITS, shard_for_trace_id
+from ..util.hashing import bloom_hashes
+
+
+# ---------------------------------------------------------------- B9a
+def remap_codes(col: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
+    """Dictionary-finalize remap of one int32 code column: negatives
+    (absent / sentinel codes) pass through, everything else gathers
+    through the sort permutation. A code past the table takes its last
+    entry (the kernel never reads outside it; a cut makes no such code)."""
+    if col.device.type == "cuda":
+        return kernels.remap_codes(col, remap)
+    return _remap_plain(col, remap)
+
+
+def _remap_plain(col: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
+    if col.numel() == 0:
+        return col.clone()
+    idx = col.clamp(0, remap.shape[0] - 1).long()
+    return torch.where(col >= 0, remap[idx], col)
+
+
+# ---------------------------------------------------------------- B9b
+def bloom_scatter(trace_ids: list[bytes], n_shards: int, shard_bits: int):
+    """Host control plane: hash every id to (global word index, one-bit
+    word) pairs, deduped, as the JAX package's `_bloom_scatter`.
+    Returns (word_idx int32, bits uint32, total words)."""
+    n_words_per_shard = shard_bits // WORD_BITS
+    keys = set()
+    for tid in trace_ids:
+        base = shard_for_trace_id(tid, n_shards) * shard_bits
+        for pos in bloom_hashes(tid, _K, shard_bits):
+            keys.add(base + pos)  # global bit index
+    bit_idx = np.fromiter(keys, dtype=np.int64, count=len(keys))
+    word_idx = (bit_idx // WORD_BITS).astype(np.int32)
+    bits = (np.uint32(1) << (bit_idx % WORD_BITS).astype(np.uint32)).astype(np.uint32)
+    return word_idx, bits, n_shards * n_words_per_shard
+
+
+def bloom_bits(words: torch.Tensor, word_idx: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """words (uint32 bit patterns in int32 storage, any shape) with
+    bits[i] ORed into flat word word_idx[i]; pairs past the words drop."""
+    if words.device.type == "cuda":
+        return kernels.bloom_bits(words, word_idx, bits)
+    return _bloom_bits_plain(words, word_idx, bits)
+
+
+def _bloom_bits_plain(words: torch.Tensor, word_idx: torch.Tensor,
+                      bits: torch.Tensor) -> torch.Tensor:
+    flat = words.reshape(-1).long() & 0xFFFFFFFF
+    keep = (word_idx >= 0) & (word_idx < flat.shape[0])
+    idx = word_idx[keep].long()
+    b = bits[keep].long() & 0xFFFFFFFF
+    # OR as a sum: split every pair into its set bits, keep each distinct
+    # (word, bit) once, and add -- distinct bits of a word add without carries
+    shift = torch.arange(WORD_BITS, device=words.device)
+    rows, cols = (((b[:, None] >> shift) & 1) == 1).nonzero(as_tuple=True)
+    key = torch.unique(idx[rows] * WORD_BITS + cols)
+    acc = torch.zeros_like(flat).index_add_(0, key // WORD_BITS,
+                                            torch.ones_like(key) << (key % WORD_BITS))
+    return (flat | acc).to(torch.int32).reshape(words.shape)
+
+
+# ---------------------------------------------------------------- B9c
+def rowgroup_minmax(start_ms: torch.Tensor, dur_us: torch.Tensor, group: int) -> torch.Tensor:
+    """(3, G) int32 [min start_ms | max start_ms | max dur_us] of the
+    contiguous groups of `group` rows (the last may be partial; every
+    group is non-empty). Needs at least one row."""
+    if start_ms.device.type == "cuda":
+        return kernels.rowgroup_minmax(start_ms, dur_us, group)
+    return _rowgroup_plain(start_ms, dur_us, group)
+
+
+def _rowgroup_plain(start_ms: torch.Tensor, dur_us: torch.Tensor, group: int) -> torch.Tensor:
+    n = start_ms.shape[0]
+    if n == 0:
+        raise ValueError("rowgroup_minmax: no rows")
+    n_groups = -(-n // group)
+    gid = torch.arange(n, device=start_ms.device) // group
+    lo = torch.full((n_groups,), 2**31 - 1, dtype=torch.int32, device=start_ms.device)
+    hi = torch.full((n_groups,), -(2**31), dtype=torch.int32, device=start_ms.device)
+    du = hi.clone()
+    lo.scatter_reduce_(0, gid, start_ms, "amin")
+    hi.scatter_reduce_(0, gid, start_ms, "amax")
+    du.scatter_reduce_(0, gid, dur_us, "amax")
+    return torch.stack([lo, hi, du])
+
+
+# ------------------------------------------------------ builder side
+class CutEngine:
+    """A cut's device steps on one device, numpy in and numpy out: the
+    builder uploads each column, the op runs its kernel (card) or plain
+    version (CPU), and the result comes back as int32 / uint32 numpy."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def table(self, remap: np.ndarray) -> torch.Tensor:
+        """The remap table on the device, uploaded once per cut."""
+        return self._t(np.asarray(remap, dtype=np.int32))
+
+    def remap(self, col, table: torch.Tensor) -> np.ndarray:
+        col = np.asarray(col, dtype=np.int32)
+        return remap_codes(self._t(col), table).cpu().numpy()
+
+    def bloom_bits(self, words: np.ndarray, trace_ids: list[bytes], shard_bits: int) -> np.ndarray:
+        """Every trace id's K bits set in a copy of the (n_shards, W)
+        uint32 words."""
+        word_idx, bits, _ = bloom_scatter(trace_ids, words.shape[0], shard_bits)
+        out = bloom_bits(self._t(words.view(np.int32)), self._t(word_idx),
+                         self._t(bits.view(np.int32)))
+        return out.cpu().numpy().view(np.uint32)
+
+    def rowgroup_minmax(self, start_ms: np.ndarray, dur_us: np.ndarray,
+                        group: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        out = rowgroup_minmax(self._t(np.asarray(start_ms, dtype=np.int32)),
+                              self._t(np.asarray(dur_us, dtype=np.int32)), group).cpu().numpy()
+        return out[0], out[1], out[2]

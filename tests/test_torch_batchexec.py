@@ -270,12 +270,13 @@ def test_kernel_load_builds_once_under_concurrent_first_use(monkeypatch):
 
 
 def test_grid_launch_counts_per_kernel_slot(monkeypatch):
-    """multiquery.cu counts B5a in slot 0 and B5b in slot 1; every other
-    library one kernel in slot 0; reset_counts clears every slot."""
+    """multiquery.cu counts B5a in slot 0 and B5b in slot 1, blockcut.cu
+    B9a/B9b/B9c in slots 0-2, bloom.cu B10a/B10b in slots 0-1; every
+    other library one kernel in slot 0; reset_counts clears every slot."""
     from tempo_tpu_torch import kernels
 
     counts = {(src, slot): 10 * i + slot for i, src in enumerate(kernels.SOURCES)
-              for slot in range(2)}
+              for slot in range(len(kernels._KERNEL_OF[src]))}
 
     def fake(src):
         def fn(reset, slot):
@@ -290,6 +291,10 @@ def test_grid_launch_counts_per_kernel_slot(monkeypatch):
     i = kernels.SOURCES.index("multiquery")
     assert (got["multiquery"], got["mq_select"]) == (10 * i, 10 * i + 1)
     assert got["timeseries"] == 10 * kernels.SOURCES.index("timeseries")
+    i = kernels.SOURCES.index("blockcut")
+    assert (got["remap"], got["bloom_bits"], got["rowgroup"]) == (10 * i, 10 * i + 1, 10 * i + 2)
+    i = kernels.SOURCES.index("bloom")
+    assert (got["bloom_union"], got["bloom_test"]) == (10 * i, 10 * i + 1)
     assert set(got) == set(kernels.LAUNCHES)
     kernels.reset_counts()
     assert set(kernels.grid_launches().values()) == {0}

@@ -1,0 +1,153 @@
+"""Kernel-vs-plain tests of the write path's CUDA kernels (B9a-B9c,
+B10a, B10b) on the card, and TempoDB's cut and compaction on the card
+against TempoDB(device="cpu").
+
+Marked `cuda`; the fixture below skips them where no card exists. Run
+on a machine with one H100:
+
+    python -m pytest -m cuda tests/test_torch_*.py
+
+Every output is an integer, a bool or bytes, so every comparison is
+exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from tempo_tpu_torch.backend import MemBackend
+from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+from tempo_tpu_torch.util.testdata import make_traces
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _rand_i32(rng, shape):
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("n,r", [(0, 5), (1, 1), (5000, 5677), (1 << 20, 5677)])
+def test_remap_kernel(cuda, n, r):
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import blockcut as BC
+
+    rng = np.random.default_rng(n + r)
+    col = rng.integers(-3, r + 4, size=n).astype(np.int32)  # negatives and codes past the table
+    if n:
+        col[::7] = r - 1
+        col[::11] = -(2**31)
+    remap = rng.permutation(r).astype(np.int32)
+    c, m = torch.from_numpy(col).to(cuda), torch.from_numpy(remap).to(cuda)
+    kernels.reset_counts()
+    got = BC.remap_codes(c, m)
+    assert kernels.LAUNCHES["remap"] == 1
+    assert torch.equal(got.cpu(), BC._remap_plain(c.cpu(), m.cpu()))
+
+
+@pytest.mark.parametrize("shards,words,m", [(1, 16384, 229_000), (12, 32768, 5000), (2, 32, 0)])
+def test_bloom_bits_kernel(cuda, shards, words, m):
+    from tempo_tpu_torch.ops import blockcut as BC
+
+    rng = np.random.default_rng(shards + m)
+    w = torch.from_numpy(_rand_i32(rng, (shards, words)) & 0x0F0F0F0F).to(cuda)
+    idx = rng.integers(-2, shards * words + 3, size=m).astype(np.int32)  # dropped past the ends
+    bits = (np.uint32(1) << rng.integers(0, 32, size=m).astype(np.uint32)).view(np.int32)
+    i, b = torch.from_numpy(idx).to(cuda), torch.from_numpy(bits).to(cuda)
+    got = BC.bloom_bits(w, i, b)
+    assert torch.equal(got.cpu(), BC._bloom_bits_plain(w.cpu(), i.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("n,group", [(1, 1), (1000, 333), (70_000, 65_536), (1 << 20, 65_536)])
+def test_rowgroup_kernel(cuda, n, group):
+    from tempo_tpu_torch.ops import blockcut as BC
+
+    rng = np.random.default_rng(n)
+    sm = rng.integers(-(2**31), 2**31, size=n, dtype=np.int64).astype(np.int32)
+    du = rng.integers(-(2**31), 2**31, size=n, dtype=np.int64).astype(np.int32)
+    s, d = torch.from_numpy(sm).to(cuda), torch.from_numpy(du).to(cuda)
+    got = BC.rowgroup_minmax(s, d, group)
+    assert torch.equal(got.cpu(), BC._rowgroup_plain(s.cpu(), d.cpu(), group))
+
+
+@pytest.mark.parametrize("shape", [(4, 12, 32768), (1, 1, 32), (3, 2, 100)])
+def test_bloom_union_kernel(cuda, shape):
+    from tempo_tpu_torch.ops import bloom_ops as BO
+
+    x = torch.from_numpy(_rand_i32(np.random.default_rng(sum(shape)), shape)).to(cuda)
+    assert torch.equal(BO.union(x).cpu(), BO._union_plain(x.cpu()))
+
+
+def test_bloom_test_kernel(cuda):
+    from tempo_tpu_torch.ops import bloom_ops as BO
+
+    rng = np.random.default_rng(4)
+    words = torch.from_numpy(_rand_i32(rng, (3, 64)) | 0x11111111).to(cuda)
+    wi = torch.from_numpy(rng.integers(-2, 70, size=(500, 7, 2)).astype(np.int32)).to(cuda)
+    bi = torch.from_numpy(rng.integers(-1, 34, size=(500, 7)).astype(np.int32)).to(cuda)
+    got = BO.bits_set(words, wi, bi)
+    want = BO._test_plain(words.cpu(), wi.cpu(), bi.cpu())
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < 500
+
+
+def test_tempodb_cut_card_matches_cpu(cuda):
+    """write_block on the card (B9a/B9b/B9c launched) writes the same
+    objects as on the CPU."""
+    from tempo_tpu_torch import kernels
+
+    traces = make_traces(300, seed=8, n_spans=12)
+    dev_db = TempoDB(TempoDBConfig(row_group_spans=256), backend=MemBackend(), device=cuda)
+    cpu_db = TempoDB(TempoDBConfig(row_group_spans=256), backend=MemBackend(), device="cpu")
+    kernels.reset_counts()
+    dm = dev_db.write_block("t", traces)
+    assert kernels.LAUNCHES["remap"] > 0
+    assert kernels.LAUNCHES["bloom_bits"] == kernels.LAUNCHES["rowgroup"] == 1
+    cm = cpu_db.write_block("t", traces)
+    assert len(dm.row_groups) > 1
+    for name in ["data.vtpu", "dict.vtpu"] + [f"bloom-{i}" for i in range(dm.bloom_shards)]:
+        assert dev_db.backend.read("t", dm.block_id, name) == cpu_db.backend.read("t", cm.block_id,
+                                                                                   name), name
+
+
+@pytest.mark.parametrize("route", ["union", "columnar", "wire"])
+def test_tempodb_compaction_card_matches_cpu(cuda, route):
+    """compact_once on the card and on the CPU over copies of one store:
+    equal outputs; the union route launches B10a once; the wire route's
+    cut runs B9a and B9c but no B9b (the union is its bloom)."""
+    from tempo_tpu_torch import kernels
+
+    inputs = MemBackend()
+    writer = TempoDB(TempoDBConfig(), backend=inputs, device="cpu")
+    n = 8 if route != "columnar" else 200  # 4 x 200 traces: the union does not fit
+    all_traces = make_traces(4 * n, seed=21, n_spans=4)
+    for i in range(4):
+        writer.write_block("t", all_traces[i * n:(i + 1) * n])
+    dbs = []
+    for dev in (cuda, "cpu"):
+        store = MemBackend()
+        store._objects = dict(inputs._objects)
+        db = TempoDB(TempoDBConfig(), backend=store, device=dev)
+        db.cfg.compaction.concat_small_input_bytes = 0
+        db.cfg.compaction.columnar = route != "wire"
+        db.poll_now()
+        dbs.append(db)
+    kernels.reset_counts()
+    got = dbs[0].compact_once("t")
+    counts = dict(kernels.LAUNCHES)
+    want = dbs[1].compact_once("t")
+    assert counts["bloom_union"] == (0 if route == "columnar" else 1)
+    if route == "wire":
+        assert counts["remap"] > 0 and counts["rowgroup"] == 1 and counts["bloom_bits"] == 0
+    assert len(got) == len(want) == 1
+    (g,), (w,) = got[0].new_blocks, want[0].new_blocks
+    for name in ["data.vtpu", "dict.vtpu"] + [f"bloom-{i}" for i in range(g.bloom_shards)]:
+        assert dbs[0].backend.read("t", g.block_id, name) == dbs[1].backend.read("t", w.block_id,
+                                                                                 name), name
+    for tid, t in all_traces[::9]:
+        found = dbs[0].find_trace_by_id("t", tid)
+        assert found is not None and found.span_count() == t.span_count()
