@@ -1,5 +1,5 @@
-"""Chip smoke for the PyTorch/CUDA port (tempo_tpu_torch): drives its read
-and write paths on one NVIDIA card and holds every kernel against its plain
+"""Chip smoke for the PyTorch/CUDA port (tempo_tpu_torch): drives its read,
+write and ingest paths on one NVIDIA card and holds every kernel against its plain
 PyTorch version.
 
     python3 chip_smoke.py
@@ -61,6 +61,19 @@ Phases, in order (any failure raises; no CPU fallback):
                rebuilt, every id tests present through B10b), the same 4
                blocks on the default concat route (parts readable by
                find); retention_once on each tenant
+  13. ingest   the ingest plane and the live head: block 0's first 16,384
+               traces (phase 11's materialized pairs) pushed as segments
+               in 64 windows of 256 into an Ingester on the card and one
+               on the CPU, 1,024 of them in two segments (the second half
+               1-6 windows later), every live trace cut after window 32;
+               a live search and a WAL feature checkpoint every 8 windows,
+               each refresh's route logged and its device columns held
+               against the host tails; 10 live searches equal to the CPU
+               ingester and the index walk; 48 present + 16 absent finds
+               on the map and the device route; rate() over the live head
+               card vs CPU; the flush (B9a-B9c) after a copy of the WAL,
+               and a replay of that copy into a new Ingester; then B7a-B7d
+               against their plain versions on the staged 16,384-slot head
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -216,13 +229,14 @@ CUT_TENANT, SMALL_TENANT, CONCAT_TENANT = "smoke-cut", "smoke-small", "smoke-con
 def canon_trace(t) -> list:
     """A trace as a sorted list of its spans with their resource, scope,
     attributes, events and links: equal for equal traces whatever the
-    order of their batches."""
+    order of their batches (kind and status as ints: a decoded proto
+    carries ints where a materialized trace carries the enums)."""
     if t is None:
         return None
     out = []
     for res, scope, sp in t.all_spans():
-        out.append(repr((sp.span_id, sp.parent_span_id, sp.name, sp.kind, sp.start_unix_nano,
-                         sp.end_unix_nano, sp.status_code, sp.status_message, sp.trace_state,
+        out.append(repr((sp.span_id, sp.parent_span_id, sp.name, int(sp.kind), sp.start_unix_nano,
+                         sp.end_unix_nano, int(sp.status_code), sp.status_message, sp.trace_state,
                          sorted(sp.attrs.items()), sorted(res.attrs.items()),
                          (scope.name, scope.version),
                          [(e.name, e.time_unix_nano, sorted(e.attrs.items())) for e in sp.events],
@@ -418,11 +432,12 @@ def phase_4c(blocks, metas, absent, dev, table) -> None:
     row("bloom_test", "bloom.cu", "tempo_tpu/ops/bloom_ops.py:48", err, ms, pms, b, None)
 
 
-def phase_11(db, blk0, dev, tmp) -> dict:
+def phase_11(db, blk0, dev, tmp) -> tuple[dict, list]:
     """The cut at full width: every trace of block 0 materialized and cut
     on the card by TempoDB.write_block, and again by a CPU TempoDB into
     another store; the two blocks equal; finds and searches on the new
-    tenant. Returns the cut's wrapper calls."""
+    tenant. Returns the cut's wrapper calls and the materialized (trace
+    id, trace) pairs, which phase 13 pushes."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.backend import LocalBackend
     from tempo_tpu_torch.block import builder as BB
@@ -482,7 +497,7 @@ def phase_11(db, blk0, dev, tmp) -> dict:
             raise AssertionError(f"cut search {q}: card and CPU differ")
     log(f"[cut] 48 finds in the new tenant equal block 0's traces ({find_s:.2f} s); 2 searches "
         f"card vs CPU agree")
-    return counts
+    return counts, pairs
 
 
 def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
@@ -596,6 +611,407 @@ def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
     if len(rc.marked) != marked:
         raise AssertionError("retention: card and CPU marked different block counts")
     return union_counts
+
+
+ING_TENANT = "smoke-ingest"
+N_LIVE, WINDOW, N_SPLIT = 1 << 14, 256, 1024  # the reference ingester's 64 MiB head, in windows
+
+
+def split_trace(t):
+    """Two partial traces holding the first and the second half of t's
+    spans, each under its own copy of the resource and scope batches."""
+    from tempo_tpu_torch.wire.model import ResourceSpans, ScopeSpans, Trace
+
+    spans = [(ri, si, sp) for ri, rs in enumerate(t.resource_spans)
+             for si, ss in enumerate(rs.scope_spans) for sp in ss.spans]
+    halves = []
+    for part in (spans[:len(spans) // 2], spans[len(spans) // 2:]):
+        tr, batches = Trace(), {}
+        for ri, si, sp in part:
+            rs = t.resource_spans[ri]
+            if ri not in batches:
+                batches[ri] = ResourceSpans(resource=rs.resource)
+                tr.resource_spans.append(batches[ri])
+            new_rs = batches[ri]
+            scope = rs.scope_spans[si].scope
+            if not new_rs.scope_spans or new_rs.scope_spans[-1].scope is not scope:
+                new_rs.scope_spans.append(ScopeSpans(scope=scope))
+            new_rs.scope_spans[-1].spans.append(sp)
+        halves.append(tr)
+    return halves
+
+
+def dump(resp) -> list:
+    """Every wire-relevant field of a live search response, in order."""
+    return [(t.trace_id, t.start_time_unix_nano, t.root_service_name, t.root_trace_name,
+             t.duration_ms) for t in resp.traces]
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
+             n_split=N_SPLIT) -> dict:
+    """The ingest plane and the live head: block 0's first n_live traces
+    pushed in windows into an Ingester on the card and one on the CPU,
+    searched (`queries`: two TraceQL queries that match), found, folded
+    by metrics over `span_s` (the block's first and last second),
+    flushed and replayed. Returns the live path's wrapper calls and the
+    staged head's last snapshot before the flush."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.backend import LocalBackend
+    from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
+    from tempo_tpu_torch.db.metrics_exec import align_params
+    from tempo_tpu_torch.db.wal import WAL
+    from tempo_tpu_torch.services.ingester import Ingester
+    from tempo_tpu_torch.services.overrides import Overrides
+    from tempo_tpu_torch.wire.segment import segment_for_write
+
+    def seg_of(tid, t):
+        lo, hi = t.time_range_nanos()
+        return (tid, lo // 10**9, hi // 10**9 + 1, segment_for_write(t, lo // 10**9, hi // 10**9 + 1))
+
+    # ---- a. setup: a card ingester over the card TempoDB, a CPU twin
+    ing = Ingester(WAL(os.path.join(tmp, "ingest-wal")), db, Overrides(), device=dev)
+    cpu_db = TempoDB(TempoDBConfig(), backend=LocalBackend(os.path.join(tmp, "ingest-cpu")),
+                     device="cpu")
+    cpu_ing = Ingester(WAL(os.path.join(tmp, "ingest-wal-cpu")), cpu_db, Overrides(),
+                       device="cpu")
+    inst, cinst = ing.instance(ING_TENANT), cpu_ing.instance(ING_TENANT)
+    st = inst.live_engine.stager
+
+    # ---- b. pushes: windows of `window` traces; n_split traces in two
+    # segments, the second half `lag` windows later
+    t0 = time.perf_counter()
+    live = pairs[:n_live]
+    n_win = n_live // window
+    rng = np.random.default_rng(37)
+    split = set(rng.choice(n_live - window, n_split, replace=False).tolist())
+    windows = [[] for _ in range(n_win)]
+    for i, (tid, t) in enumerate(live):
+        if i in split:
+            a, b = split_trace(t)
+            windows[i // window].append(seg_of(tid, a))
+            windows[min(i // window + int(rng.integers(1, 7)), n_win - 1)].append(seg_of(tid, b))
+        else:
+            windows[i // window].append(seg_of(tid, t))
+    n_segs = sum(len(w) for w in windows)
+    log(f"[ingest] {n_live} traces ({sum(t.span_count() for _, t in live)} spans) encoded as "
+        f"{n_segs} segments ({n_split} traces in two) in {n_win} windows in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def check_columns(snap):
+        """The first n rows and slots of the device columns equal the
+        host tails, bit for bit."""
+        n = snap.n_slots
+        for name in ("start_s", "end_s", "dur_ms", "key_s", "alive", "id_codes"):
+            if not np.array_equal(snap.dev[name][:n].cpu().numpy(), getattr(snap, name)):
+                raise AssertionError(f"device column {name} differs from the host tail")
+        for name, k in (("kv_owner", snap.n_kv), ("kv_code", snap.n_kv),
+                        ("name_owner", snap.n_name), ("name_code", snap.n_name)):
+            if not np.array_equal(snap.dev[name][:k].cpu().numpy(), getattr(snap, name)):
+                raise AssertionError(f"device column {name} differs from the host tail")
+
+    times = CallTimes()
+    times.patch(kernels, "live_append", "B7c", sync=True)
+    times.patch(kernels, "live_patch", "B7d", sync=True)
+    push_s, refreshes = [], []
+    kernels.reset_counts()
+    try:
+        for w, batch in enumerate(windows):
+            t0 = time.perf_counter()
+            inst.push_segments(batch)
+            push_s.append(time.perf_counter() - t0)
+            cinst.push_segments(batch)
+            if w == n_win // 2 - 1:
+                n_cut = inst.cut_complete_traces(force=True)
+                if n_cut != cinst.cut_complete_traces(force=True):
+                    raise AssertionError("cut: card and CPU cut different counts")
+                log(f"[ingest] after window {w + 1}: {n_cut} live traces cut")
+            if w % 8 == 7:
+                s0 = dict(st.stats)
+                t0 = time.perf_counter()
+                r = inst.search_live(SearchRequest(limit=20))
+                wall = time.perf_counter() - t0
+                snap = st._snap
+                check_columns(snap)
+                up = st.last_upload if st.stats["bytes"] != s0["bytes"] else None
+                refreshes.append(up)
+                feats = inst.flush_wal_features(), cinst.flush_wal_features()
+                log(f"[ingest] window {w + 1}: refresh {'full' if up and up['full'] else 'delta'} "
+                    f"({up['rows'] if up else 0} rows, {up['bytes'] if up else 0} B sent), "
+                    f"{snap.n_slots} slots / {snap.n_kv} kv rows / {snap.n_name} name rows in "
+                    f"buckets {snap.slot_b} / {snap.kv_b} / {snap.name_b}; encode "
+                    f"{st.stats['encode_s'] - s0['encode_s']:.2f} s, upload "
+                    f"{st.stats['upload_s'] - s0['upload_s']:.3f} s; search {wall:.2f} s, "
+                    f"{len(r.traces)} traces; device columns equal the host tails; "
+                    f"{feats[0]} features checkpointed")
+    finally:
+        times.restore()
+    push_counts = dict(kernels.LAUNCHES)
+    if not any(u is not None and not u["full"] for u in refreshes):
+        raise AssertionError(f"no delta refresh among {refreshes}")
+    if dev.type == "cuda" and (push_counts["live_append"] < 1 or push_counts["live_patch"] < 1):
+        raise AssertionError(f"no delta refresh launched B7c and B7d: {push_counts}")
+    log(f"[ingest] push wall a window (WAL append included): p50 {pct(push_s, 50) * 1e3:.2f} ms, "
+        f"p99 {pct(push_s, 99) * 1e3:.2f} ms; refreshes: encode {st.stats['encode_s']:.2f} s, "
+        f"upload {st.stats['upload_s']:.3f} s of which B7c {times.s.get('B7c', 0):.4f} s and "
+        f"B7d {times.s.get('B7d', 0):.4f} s (synchronized); {st.stats}; "
+        f"features decoded {inst.columnar.decodes} ({inst.columnar.decode_s:.1f} s); "
+        f"wrapper calls {nonzero(push_counts)}")
+
+    # ---- c. searches: card engine == CPU ingester == the card's index walk
+    r0 = live[123][1]
+    res0, sp0 = r0.resource_spans[0].resource, r0.resource_spans[0].scope_spans[0].spans[0]
+    (ak, av), = list(sp0.attrs.items())[:1]
+    durs = sorted(max(0, t.time_range_nanos()[1] - t.time_range_nanos()[0]) // 10**6
+                  for _, t in live[:2000])
+    lo_s = min(t.time_range_nanos()[0] for _, t in live[:2000]) // 10**9
+    reqs = [
+        (SearchRequest(tags={"service.name": res0.service_name}, limit=20), True),
+        (SearchRequest(tags={"name": sp0.name}, limit=20), True),
+        (SearchRequest(tags={"service.name": res0.service_name, ak: str(av)}, limit=20), True),
+        (SearchRequest(min_duration_ms=durs[len(durs) * 9 // 10], limit=20), True),
+        (SearchRequest(max_duration_ms=durs[len(durs) // 10], limit=20), True),
+        (SearchRequest(start=lo_s + 600, end=lo_s + 900, limit=20), True),
+        (SearchRequest(limit=20), True),
+        (SearchRequest(tags={"service.name": res0.service_name}, min_duration_ms=durs[len(durs) // 2],
+                       limit=20), False),
+    ] + [(SearchRequest(query=q, limit=20), True) for q in queries]
+    kernels.reset_counts()
+    card_s, index_s = [], []
+    for req, must in reqs:
+        t0 = time.perf_counter()
+        got = inst.search_live(req)
+        card_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        oracle = inst.search_live_index(req)
+        index_s.append(time.perf_counter() - t0)
+        want = cinst.search_live(req)
+        if dump(got) != dump(want) or dump(got) != dump(oracle) or (must and not got.traces):
+            raise AssertionError(f"live search {req}: card {len(got.traces)}, CPU "
+                                 f"{len(want.traces)}, index walk {len(oracle.traces)}")
+    search_counts = dict(kernels.LAUNCHES)
+    if dev.type == "cuda" and (search_counts["live_filter"] != len(reqs)
+                               or search_counts["select"] < len(reqs)):
+        raise AssertionError(f"live searches: wrapper calls {nonzero(search_counts)}")
+    log(f"[ingest] {len(reqs)} live searches equal the CPU ingester and the index walk; card "
+        f"engine {[round(s * 1e3, 1) for s in card_s]} ms, index walk "
+        f"{[round(s * 1e3, 1) for s in index_s]} ms (the first walk builds every trace's "
+        f"index); wrapper calls {nonzero(search_counts)}")
+    # where a warm live tag search's host-clock wall goes: the first
+    # search run once more under the profiler, the top functions by own time
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    inst.search_live(reqs[0][0])
+    prof.disable()
+    wall = time.perf_counter() - t0
+    own = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:6]
+    log(f"[ingest profile] live tag search: {wall * 1e3:.1f} ms under the profiler; own time "
+        + "; ".join(f"{os.path.basename(f)}:{ln} {fn} {tt * 1e3:.1f} ms"
+                    for (f, ln, fn), (_, _, tt, _, _) in own))
+
+    # ---- d. finds: 48 present (16 split) and 16 absent, map and device
+    split_l = sorted(split)
+    pick = ([split_l[i] for i in rng.choice(len(split_l), 16, replace=False)]
+            + [int(i) for i in rng.choice(sorted(set(range(n_live)) - split), 32, replace=False)])
+    absent = []
+    known = {tid for tid, _ in pairs}
+    while len(absent) < 16:
+        t = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+        if t not in known:
+            absent.append(t)
+    find_s = {}
+    kernels.reset_counts()
+    for route in ("map", "device"):
+        if route == "device":
+            os.environ["TEMPO_LIVE_FIND_DEVICE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            got = [inst.find_trace_by_id(live[i][0]) for i in pick] + \
+                  [inst.find_trace_by_id(t) for t in absent]
+            find_s[route] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("TEMPO_LIVE_FIND_DEVICE", None)
+        for i, g in zip(pick, got):
+            if canon_trace(g) != canon_trace(live[i][1]):
+                raise AssertionError(f"live find {route} {live[i][0].hex()}: not the trace")
+        if any(g is not None for g in got[len(pick):]):
+            raise AssertionError(f"live find {route}: an absent id returned a trace")
+    find_counts = dict(kernels.LAUNCHES)
+    if dev.type == "cuda" and find_counts["live_find"] != len(pick) + len(absent):
+        raise AssertionError(f"live finds: wrapper calls {nonzero(find_counts)}")
+    log(f"[ingest] {len(pick)} present ({sum(i in split for i in pick)} split) + {len(absent)} "
+        f"absent live finds equal the materialized traces on both routes: map "
+        f"{find_s['map']:.2f} s, device {find_s['device']:.2f} s; wrapper calls {nonzero(find_counts)}")
+
+    # ---- e. metrics over the live head, card vs CPU
+    mq = METRICS_QUERIES[0]
+    mreq = align_params(mq, span_s[0], span_s[1], METRICS_STEP_S)
+    t0 = time.perf_counter()
+    a = inst.metrics_query_range(mreq)
+    metrics_s = time.perf_counter() - t0
+    b = cinst.metrics_query_range(mreq)
+    if not a.series or not same_series(a, b):
+        raise AssertionError(f"live metrics {mq}: card {len(a.series)} series, CPU {len(b.series)}")
+    log(f"[ingest] {mq} over the live head: {len(a.series)} series, {a.inspected_spans} spans, "
+        f"card {metrics_s:.2f} s, equal to the CPU ingester")
+    full_snap = st._snap
+
+    # ---- f. flush: copy the WAL, then cut and write the head
+    wal_copy = os.path.join(tmp, "ingest-wal-copy")
+    shutil.copytree(ing.wal.dir, wal_copy)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    inst.cut_complete_traces(force=True)
+    meta = inst.cut_block_if_ready(force=True)
+    flush_s = time.perf_counter() - t0
+    flush_counts = dict(kernels.LAUNCHES)
+    if dev.type == "cuda" and (flush_counts["remap"] < 1 or flush_counts["bloom_bits"] != 1
+                               or flush_counts["rowgroup"] != 1):
+        raise AssertionError(f"flush: B9a-B9c not all launched: {flush_counts}")
+    if meta.total_traces != n_live:
+        raise AssertionError(f"flush wrote {meta.total_traces} traces of {n_live}")
+    for i in pick:
+        if canon_trace(db.find_trace_by_id(ING_TENANT, live[i][0])) != canon_trace(live[i][1]):
+            raise AssertionError(f"flushed find {live[i][0].hex()}: not the trace")
+    if inst.search_live(SearchRequest(limit=20)).traces or inst.live or inst.cut or inst.flushing:
+        raise AssertionError("the live head is not empty after the flush")
+    log(f"[ingest] flush of {meta.total_traces} traces ({meta.total_spans} spans) in "
+        f"{flush_s:.2f} s; wrapper calls {nonzero(flush_counts)}; 48 finds in the block equal the "
+        f"materialized traces; the live head searches empty")
+
+    # ---- g. replay the WAL copy into a new ingester over a new card TempoDB
+    rdb = TempoDB(TempoDBConfig(), backend=LocalBackend(os.path.join(tmp, "ingest-replay")),
+                  device=dev)
+    ring = Ingester(WAL(wal_copy), rdb, Overrides(), device=dev)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    n_rec = ring.replay_wal()
+    replay_s = time.perf_counter() - t0
+    rinst = ring.instances[ING_TENANT]
+    if n_rec != n_segs or rinst.columnar.seeded <= 0 or rinst.blocks_flushed != 1:
+        raise AssertionError(f"replay: {n_rec} records of {n_segs}, seeded "
+                             f"{rinst.columnar.seeded}, {rinst.blocks_flushed} blocks")
+    for i in pick:
+        if canon_trace(rdb.find_trace_by_id(ING_TENANT, live[i][0])) != canon_trace(live[i][1]):
+            raise AssertionError(f"replayed find {live[i][0].hex()}: not the trace")
+    log(f"[ingest] replay of {n_rec} records in {replay_s:.2f} s ({rinst.columnar.seeded} "
+        f"features seeded, {rinst.columnar.decodes} decoded); wrapper calls "
+        f"{nonzero(kernels.LAUNCHES)}; 48 finds equal the materialized traces")
+    return {"counts": {k: push_counts[k] + search_counts[k] + find_counts[k]
+                       for k in push_counts}, "snap": full_snap}
+
+
+def phase_13_table(snap, table) -> None:
+    """B7a-B7d against their plain versions on the staged live head at
+    full width; times by CUDA events, the byte bound, yardsticks."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    d, n = snap.dev, snap.n_slots
+    dev = d["alive"].device
+
+    def row(name, replaces, err, ms, pms, b, lms):
+        table.append({"name": name, "route": "cuda",
+                      "source": "tempo_tpu_torch/csrc/livestage.cu", "replaces": replaces,
+                      "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                      "bound_ms": b[0], "bound_by": b[1], "library_ms": lms})
+
+    # B7a -- two tag codes and one name code read off a staged trace,
+    # with the window and min-duration prefilters on
+    tid = snap.slot_tid[n // 3]
+    rows = snap.kv_owner == n // 3
+    tag = [int(c) for c in snap.kv_code[rows][:2]]
+    name = [int(snap.name_code[snap.name_owner == n // 3][0])]
+    q = torch.tensor(tag + name, dtype=torch.int32, device=dev)
+    slots = (d["start_s"], d["end_s"], d["dur_ms"], d["alive"])
+    kv, nm = (d["kv_owner"], d["kv_code"]), (d["name_owner"], d["name_code"])
+    t0, t1, dmin = int(snap.end_s.min()), int(snap.start_s.max()), int(snap.dur_ms[n // 3])
+
+    def b7a():
+        return kernels.live_filter(slots, kv, nm, q, 2, t0, t1, dmin, n)
+
+    def b7a_plain():
+        return L._live_filter_plain(slots, kv, nm, q, 2, t0, t1, dmin, n)
+
+    got = b7a()
+    err = max_abs_err(got, b7a_plain())
+    if err or not bool(got[n // 3]):
+        raise AssertionError("B7a differs from its plain version or misses its own trace")
+    ms, pms = cuda_ms(b7a), cuda_ms(b7a_plain, reps=5, warm=1)
+    # bytes: the four slot columns read and the mask written (17 B a
+    # slot), every row's code read, and the owner read only by a row
+    # whose code is a query code (this run's data: the hits below)
+    sb, kb, nb = snap.slot_b, snap.kv_b, snap.name_b
+    hits = int(np.isin(snap.kv_code, tag).sum()) + int(np.isin(snap.name_code, name).sum())
+    b = bound(sb * 17 + (kb + nb) * 4 + hits * 4, (kb * 2 + nb) + sb * 4)
+    log(f"[B7a] {n} slots in {sb}, {kb} kv + {nb} name rows, 2 tag codes + 1 name code: "
+        f"{hits} rows hit, {int(got.sum())} slots, {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {b[0]:.5f} ms")
+    row("live_filter", "tempo_tpu/ops/livestage.py:147", err, ms, pms, b, None)
+
+    # B7b -- the id codes of that trace
+    from tempo_tpu_torch.block import schema as S
+
+    qid = torch.tensor(S.trace_id_to_codes(tid), dtype=torch.int32, device=dev)
+    got = kernels.live_find(d["id_codes"], d["alive"], qid, n)
+    err = max_abs_err(got, L._live_find_plain(d["id_codes"], d["alive"], qid, n))
+    if err or int(got.item()) != n // 3:
+        raise AssertionError("B7b differs from its plain version or misses its slot")
+    ms = cuda_ms(lambda: kernels.live_find(d["id_codes"], d["alive"], qid, n))
+    pms = cuda_ms(lambda: L._live_find_plain(d["id_codes"], d["alive"], qid, n))
+    b = bound(sb * 20 + 16 + 4, sb * 5)
+    log(f"[B7b] {sb} slots: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.6f} ms")
+    row("live_find", "tempo_tpu/ops/livestage.py:243", err, ms, pms, b, None)
+
+    # B7c -- one refresh's delta of kv rows (2,048 traces x about 70
+    # rows, bucket 2^18) into the staged kv code column
+    dst, start = d["kv_code"], snap.n_kv // 2
+    m = min(1 << 18, dst.shape[0] // 4)
+    src = torch.arange(m, dtype=torch.int32, device=dev)
+    got = kernels.live_append(dst, src, start)
+    err = max_abs_err(got, L._append_plain(dst, src, start))
+    s = min(start, dst.shape[0] - m)
+    lib = torch.slice_scatter(dst, src, 0, s, s + m)
+    if err or not torch.equal(lib, got):
+        raise AssertionError("B7c differs from its plain version or torch.slice_scatter")
+    ms = cuda_ms(lambda: kernels.live_append(dst, src, start))
+    pms = cuda_ms(lambda: L._append_plain(dst, src, start))
+    lms = cuda_ms(lambda: torch.slice_scatter(dst, src, 0, s, s + m))
+    # dst read outside the window, src read, out written
+    b = bound(dst.numel() * 8, 0)
+    log(f"[B7c] {m} rows into {dst.shape[0]}: {ms:.4f} ms, plain {pms:.4f} ms, slice_scatter "
+        f"{lms:.4f} ms, bound {b[0]:.5f} ms")
+    row("live_append", "tempo_tpu/ops/livestage.py:290", err, ms, pms, b, lms)
+
+    # B7d -- one refresh's dirty slots (2,048) into the (slot_b, 4) id codes
+    g = torch.Generator().manual_seed(41)
+    idx = torch.randperm(n, generator=g)[:2048].to(torch.int32).to(dev)
+    k = idx.shape[0]
+    vals = d["id_codes"][idx.long()].flip(1).contiguous()
+    dst = d["id_codes"]
+    got = kernels.live_patch(dst, idx, vals)
+    err = max_abs_err(got, L._patch_plain(dst, idx, vals))
+    idx64 = idx.long()
+    if err or not torch.equal(torch.index_put(dst, (idx64,), vals), got):
+        raise AssertionError("B7d differs from its plain version or torch.index_put")
+    ms = cuda_ms(lambda: kernels.live_patch(dst, idx, vals))
+    pms = cuda_ms(lambda: L._patch_plain(dst, idx, vals))
+    lms = cuda_ms(lambda: torch.index_put(dst, (idx64,), vals))
+    # dst read outside the patched rows (idx has no repeats here), idx
+    # and vals read, out written
+    b = bound((dst.numel() - vals.numel()) * 4 + idx.numel() * 4 + vals.numel() * 4
+              + dst.numel() * 4, 0)
+    log(f"[B7d] {k} rows of {tuple(dst.shape)}: {ms:.4f} ms, plain {pms:.4f} ms, index_put "
+        f"{lms:.4f} ms, bound {b[0]:.6f} ms")
+    row("live_patch", "tempo_tpu/ops/livestage.py:298", err, ms, pms, b, lms)
 
 
 def main() -> int:
@@ -1156,7 +1572,7 @@ def main() -> int:
             f"calls, fused groups (ids, blocks past the bloom gate, K3 Q) "
             f"{[(g['ids'], g['blocks'], g['q']) for g in multi_groups]}; then 16 threads, "
             f"fused groups {[(g['ids'], g['blocks'], g['q']) for g in group_log[len(multi_groups):]]}"
-            f"; wrapper calls {find_counts}; routing {routing}; stats {fstats}")
+            f"; wrapper calls {nonzero(find_counts)}; routing {routing}; stats {fstats}")
         if ("find_batch", "fallback", "fused_error") in routing or not wide \
                 or find_counts["find"] < len(wide) or fstats["max_occupancy"] < 2:
             raise AssertionError(f"batched find: routing {routing}, K3 calls with Q > 1 "
@@ -1200,16 +1616,30 @@ def main() -> int:
 
         # ---- 11. the cut at full width; 12. compaction, last
         t0 = time.perf_counter()
-        cut_counts = phase_11(db, open_block(backend, TENANT, metas[0].block_id), dev, tmp)
+        blk0 = open_block(backend, TENANT, metas[0].block_id)
+        cut_counts, pairs = phase_11(db, blk0, dev, tmp)
+        # phase 12's retention deletes block 0: phase 13 takes what it
+        # needs of it now
+        ingest_queries = batch_queries(blk0, 2)
+        span_s = (metas[0].start_time_unix_nano // 10**9, -(-metas[0].end_time_unix_nano // 10**9))
         log(f"[cut] phase 11 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         union_counts = phase_12(db, os.path.join(tmp, "store"), tmp, dev, present, absent,
                                 seq_found)
         log(f"[compact] phase 12 took {time.perf_counter() - t0:.1f} s")
+
+        # ---- 13. the ingest plane and the live head, then its kernels
+        t0 = time.perf_counter()
+        p13 = phase_13(db, dev, pairs, ingest_queries, span_s, tmp)
+        del pairs
+        log(f"[ingest] phase 13 took {time.perf_counter() - t0:.1f} s")
+        phase_13_table(p13["snap"], table)
         for name in ("remap", "bloom_bits", "rowgroup"):
             launches[name] = cut_counts[name]
         for name in ("bloom_union", "bloom_test"):
             launches[name] = union_counts[name]
+        for name in ("live_filter", "live_find", "live_append", "live_patch"):
+            launches[name] = p13["counts"][name]
         for row in table:
             row["launches"] = launches[row["name"]]
         if len(table) != len(kernels.LAUNCHES) or any(r["launches"] <= 0 for r in table):

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of tempo_tpu, slice by slice: find-by-ID, TraceQL
 search (single and batched) and TraceQL metrics over complete blocks,
-and the storage write path (the block cut, compaction and retention),
-with every device program on those paths written by hand in CUDA C++
-for Hopper (csrc/, bound in kernels.py).
+the storage write path (the block cut, compaction and retention), and
+the ingest plane with the live head (the WAL, the ingester, live search
+and find over staged columns), with every device program on those paths
+written by hand in CUDA C++ for Hopper (csrc/, bound in kernels.py).
 
 Imports torch, never jax, and nothing of the tempo_tpu package; blocks
-on disk are the same vtpu2 format both packages read and write."""
+and WAL files on disk are the same formats both packages read and
+write."""

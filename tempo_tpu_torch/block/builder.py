@@ -22,6 +22,7 @@ import numpy as np
 
 from ..backend.base import RawBackend
 from ..ops import blockcut
+from ..ops.device import resolve_device
 from ..wire.model import Trace
 from ..wire.otlp_json import _value_from_json, _value_to_json
 from . import schema as S
@@ -119,10 +120,10 @@ class BlockBuilder:
         estimated_traces: int = 0,
         compaction_level: int = 0,
         replication_factor: int = 1,
-        device="cpu",
+        device=None,
     ):
         self.meta = BlockMeta.new(tenant, block_id)
-        self.device = device
+        self.device = resolve_device(device)
         self.meta.compaction_level = compaction_level
         self.meta.replication_factor = replication_factor
         self.row_group_spans = row_group_spans
@@ -571,10 +572,11 @@ def build_block_from_traces(
     row_group_spans: int = S.DEFAULT_ROW_GROUP_SPANS,
     compaction_level: int = 0,
     codec: str = "zstd",
-    device="cpu",
+    device=None,
 ) -> BlockMeta:
     """Cut one block from (trace id, trace) pairs on `device` and write it.
-    The block layer defaults to the host; TempoDB passes its own device."""
+    The device defaults to the first card (an error without one); the CPU
+    runs only when named. TempoDB passes its own device."""
     b = BlockBuilder(tenant, block_id, row_group_spans, compaction_level=compaction_level,
                      device=device)
     for tid, t in sorted(traces, key=lambda p: p[0]):

@@ -53,6 +53,7 @@ from ..block.colio import CODEC_CONST, CODEC_RAW, CODEC_ZSTD, is_broadcast
 from ..block.dictionary import Dictionary, apply_remap, dict_union
 from ..block.meta import BlockMeta
 from ..block.reader import BackendBlock
+from ..ops.device import resolve_device
 from ..wire.combine import combine_traces
 from .compactor import (
     CompactionJob,
@@ -514,15 +515,17 @@ class ColumnarPlan:
     # copy through verbatim, or None for an ordinary rewrite output
     passthrough: list[int | None]
     # where the bloom union and collision rebuilds run
-    device: object = "cpu"
+    device: object = None
 
 
 def plan_columnar(backend: RawBackend, job: CompactionJob, cfg: CompactorConfig,
-                  device="cpu") -> ColumnarPlan:
+                  device=None) -> ColumnarPlan:
     """Fetch + merge planning: decode sources, compute the global merge
     order (collisions combined), merge dictionaries, cut the run table
     into per-output chunk lists. Raises UnsupportedColumnar when the
-    inputs can't merge columnar-ly."""
+    inputs can't merge columnar-ly. The device defaults to the first
+    card (an error without one)."""
+    device = resolve_device(device)
     tenant = job.tenant
     from ..block.versioned import open_block_versioned
 
@@ -742,8 +745,9 @@ def iter_outputs(plan: ColumnarPlan, cfg: CompactorConfig):
 
 
 def compact_columnar(backend: RawBackend, job: CompactionJob, cfg: CompactorConfig,
-                     device="cpu") -> CompactionResult:
-    """Plan, then assemble and write each output block in turn."""
+                     device=None) -> CompactionResult:
+    """Plan, then assemble and write each output block in turn. The
+    device defaults to the first card (an error without one)."""
     plan = plan_columnar(backend, job, cfg, device)
     result = CompactionResult()
     for fin in iter_outputs(plan, cfg):

@@ -657,6 +657,36 @@ def _fold_span(local: dict, agg, sp, res, ctx, b: int, nb: int,
         state[fname][b] = max(state[fname][b], v)
 
 
+def metrics_live_traces(traces, q: MetricsQuery, req: MetricsRequest,
+                        resp: MetricsResponse) -> None:
+    """Fold DECODED live traces (the ingester's merged live head) into
+    resp with the exact host evaluator -- the leg that makes unflushed
+    spans visible to TraceQL metrics. Buckets use absolute span-start ms
+    on the request's step grid. The block engines floor through the
+    block base (base_ms + rel_ms, the columnar ms encoding), so a span
+    within 1 ms of a step edge inside a block whose base_ns has a
+    sub-ms remainder can land one bucket differently after flush --
+    bounded at 1 ms and invisible at realistic steps."""
+    from ..traceql.hosteval import _matched_spans, _TraceCtx
+
+    filt, count_fn, fname, vscale = _fold_params(q)
+    agg = q.agg
+    nb = req.n_buckets
+    local: dict[tuple, dict[str, np.ndarray]] = {}
+    n_spans = 0
+    for tr in traces:
+        ctx = _TraceCtx(tr)
+        for sp, res in _matched_spans(filt, ctx):
+            n_spans += 1
+            b = (sp.start_unix_nano // 1_000_000 - req.start_ms) // req.step_ms
+            if not 0 <= b < nb:
+                continue
+            _fold_span(local, agg, sp, res, ctx, int(b), nb, count_fn, fname, vscale)
+    for key, state in local.items():
+        resp.add_partial(key, state, 0)
+    resp.inspected_spans += n_spans
+
+
 def _metrics_block_exact(blk: BackendBlock, q: MetricsQuery, req: MetricsRequest,
                          resp: MetricsResponse, planned, b_off: int, nb: int) -> None:
     """Exact engine: the conservative host span mask narrows the

@@ -35,6 +35,10 @@ never hidden behind a plain version or another route.
 | rowgroup    | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:149-158 (B9c)        |
 | bloom_union | csrc/bloom.cu      | tempo_tpu/ops/bloom_ops.py:20 _union_kernel    |
 | bloom_test  | csrc/bloom.cu      | tempo_tpu/ops/bloom_ops.py:48 _test_kernel     |
+| live_filter | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:147 run (B7a)       |
+| live_find   | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:243 run (B7b)       |
+| live_append | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:290 (B7c)           |
+| live_patch  | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:298 (B7d)           |
 
 The write path's kernels: launches on their path, what bounds them, and
 the one PyTorch call that computes the same function (the yardstick
@@ -47,6 +51,16 @@ chip_smoke.py times; the port calls none):
 | rowgroup    | one per cut with spans                   | 8 B a span + 12 B a group           | torch.segment_reduce (max of [-start, start, dur]) |
 | bloom_union | one per compaction job whose union fits  | K + 1 words per output word         | none: no bitwise-OR reduction over a dimension     |
 | bloom_test  | none (no caller, as in the JAX package)  | K words and K index triples a query | none: a gather, a shift and an all                 |
+
+The live head's kernels (ops/livestage.py, the ingester's staged
+live/cut/flushing traces):
+
+| kernel      | launches on its path                      | bound (bytes moved)                 | one PyTorch call                                   |
+|-------------|-------------------------------------------|-------------------------------------|----------------------------------------------------|
+| live_filter | one per live search on the device route   | 16 B a slot, 8 B a row per 32 codes | none: a membership test per code over owner rows   |
+| live_find   | one per live find, TEMPO_LIVE_FIND_DEVICE | 20 B a slot                         | none: an all over 4 lanes, then a first-true index |
+| live_append | two per row kind per delta refresh        | the column read and written once    | torch.slice_scatter                                |
+| live_patch  | six per delta refresh with dirty slots    | the column read and written once    | torch.index_put (out of place)                     |
 """
 
 from __future__ import annotations
@@ -63,7 +77,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "tempo_tpu_torch")
 SOURCES = ("filter", "select", "find", "stage", "multiquery", "timeseries", "blockcut",
-           "bloom")
+           "bloom", "livestage")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -71,12 +85,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # lock: the batchers launch from several threads)
 LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
             "multiquery": 0, "mq_select": 0, "timeseries": 0, "remap": 0, "bloom_bits": 0,
-            "rowgroup": 0, "bloom_union": 0, "bloom_test": 0}
+            "rowgroup": 0, "bloom_union": 0, "bloom_test": 0, "live_filter": 0,
+            "live_find": 0, "live_append": 0, "live_patch": 0}
 # source -> its kernels, in the library's launch-counter slot order
 _KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find",),
               "stage": ("res_to_span",), "multiquery": ("multiquery", "mq_select"),
               "timeseries": ("timeseries",), "blockcut": ("remap", "bloom_bits", "rowgroup"),
-              "bloom": ("bloom_union", "bloom_test")}
+              "bloom": ("bloom_union", "bloom_test"),
+              "livestage": ("live_filter", "live_find", "live_append", "live_patch")}
 
 
 class KernelError(RuntimeError):
@@ -102,6 +118,11 @@ _SIGNATURES = {
     "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _P, _I, _P]),
     "tt_bloom_union": ("bloom", [_P, _I, _L, _P, _P]),
     "tt_bloom_test": ("bloom", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
+    "tt_live_filter": ("livestage", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "tt_live_find": ("livestage", [_P, _P, _I, _I, _P, _P, _P]),
+    "tt_live_append": ("livestage", [_P, _I, _P, _I, _I, _P, _P]),
+    "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
 }
 
 # one lock over build and load: the first use may come from several
@@ -570,4 +591,101 @@ def bloom_test(words: torch.Tensor, word_idx: torch.Tensor, bit_idx: torch.Tenso
         _call("tt_bloom_test", words.data_ptr(), words.shape[0], words.shape[1],
               word_idx.data_ptr(), bit_idx.data_ptr(), q, k, out.data_ptr(), _stream())
     _count("bloom_test")
+    return out
+
+
+# ------------------------------------------------------------------ B7a
+def live_filter(slots: tuple, kv: tuple, names: tuple, q: torch.Tensor, n_tags: int,
+                t0: int | None, t1: int | None, dmin: int | None, n_slots: int) -> torch.Tensor:
+    """B7a: the live head's slot mask. slots = (start_s, end_s, dur_ms,
+    alive), each (slot_b,) int32; kv and names = (owner, code) row
+    columns; q = n_tags tag codes then the name codes (int32); t0, t1,
+    dmin are the clipped thresholds, None where the filter is off.
+    Returns (slot_b,) bool. Bound: bytes (16 B a slot, 8 B a row for
+    every 32 codes)."""
+    dev = _cuda_device(q)
+    slot_b = slots[0].shape[0]
+    for name, t in zip(("start_s", "end_s", "dur_ms", "alive"), slots):
+        _check(t, name, torch.int32, dev, (slot_b,))
+    rows = []
+    for kind, (owner, code) in (("kv", kv), ("name", names)):
+        _check(owner, f"{kind}_owner", torch.int32, dev)
+        _check(code, f"{kind}_code", torch.int32, dev, tuple(owner.shape))
+        if owner.dim() != 1:
+            raise KernelError(f"live_filter: 1-D {kind} rows expected")
+        rows.append(owner.shape[0])
+    _check(q, "q", torch.int32, dev)
+    if q.dim() != 1 or not 0 <= n_tags <= q.shape[0] or slot_b == 0:
+        raise KernelError(f"live_filter: {q.shape[0]} codes with {n_tags} tags over {slot_b} slots")
+    mask = torch.empty(slot_b, dtype=torch.bool, device=dev)
+    hit = torch.empty(slot_b, dtype=torch.int32, device=dev)
+    flags = [(0, 0) if v is None else (1, int(v)) for v in (t0, t1, dmin)]
+    with torch.cuda.device(dev):
+        _call("tt_live_filter", *(t.data_ptr() for t in slots), slot_b, kv[0].data_ptr(),
+              kv[1].data_ptr(), rows[0], names[0].data_ptr(), names[1].data_ptr(), rows[1],
+              q.data_ptr(), int(n_tags), q.shape[0] - int(n_tags), *flags[0], *flags[1],
+              *flags[2], int(n_slots), hit.data_ptr(), mask.data_ptr(), _stream())
+    _count("live_filter")
+    return mask
+
+
+# ------------------------------------------------------------------ B7b
+def live_find(id_codes: torch.Tensor, alive: torch.Tensor, q: torch.Tensor,
+              n_slots: int) -> torch.Tensor:
+    """B7b: (1,) int32, the first slot < n_slots that is alive and whose
+    4 id codes equal q's, else -1. Bound: bytes (20 B a slot)."""
+    dev = _cuda_device(id_codes)
+    slot_b = id_codes.shape[0]
+    _check(id_codes, "id_codes", torch.int32, dev, (slot_b, 4))
+    _check(alive, "alive", torch.int32, dev, (slot_b,))
+    _check(q, "q", torch.int32, dev, (4,))
+    if id_codes.data_ptr() % 16:
+        raise KernelError("live_find: id_codes must be 16-byte aligned")
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_live_find", id_codes.data_ptr(), alive.data_ptr(), slot_b, int(n_slots),
+              q.data_ptr(), out.data_ptr(), _stream())
+    _count("live_find")
+    return out
+
+
+# ------------------------------------------------------------------ B7c
+def live_append(dst: torch.Tensor, src: torch.Tensor, start: int) -> torch.Tensor:
+    """B7c: a new column equal to dst with src written at start; a
+    negative start counts from the end, and the start is clamped to
+    [0, len(dst) - len(src)] (dynamic_update_slice). Bound: bytes (dst
+    read, src read, the column written)."""
+    dev = _cuda_device(dst)
+    n, m = dst.shape[0], src.shape[0]
+    _check(dst, "dst", torch.int32, dev, (n,))
+    _check(src, "src", torch.int32, dev, (m,))
+    if m > n or n == 0:
+        raise KernelError(f"live_append: {m} rows into a column of {n}")
+    out = torch.empty_like(dst)
+    with torch.cuda.device(dev):
+        _call("tt_live_append", dst.data_ptr(), n, src.data_ptr(), m, int(start),
+              out.data_ptr(), _stream())
+    _count("live_append")
+    return out
+
+
+# ------------------------------------------------------------------ B7d
+def live_patch(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """B7d: a new column equal to dst ((n,) or (n, 4) int32) with rows
+    idx set to vals; a negative index counts from the end, one still
+    outside [0, n) is dropped. Bound: bytes (the column read and written,
+    the index and values read)."""
+    dev = _cuda_device(dst)
+    if dst.dim() not in (1, 2):
+        raise KernelError("live_patch: (n,) or (n, w) column expected")
+    n, width = dst.shape[0], (dst.shape[1] if dst.dim() == 2 else 1)
+    m = idx.shape[0]
+    _check(dst, "dst", torch.int32, dev)
+    _check(idx, "idx", torch.int32, dev, (m,))
+    _check(vals, "vals", torch.int32, dev, (m,) + tuple(dst.shape[1:]))
+    out = torch.empty_like(dst)
+    with torch.cuda.device(dev):
+        _call("tt_live_patch", dst.data_ptr(), n, width, idx.data_ptr(), vals.data_ptr(), m,
+              out.data_ptr(), _stream())
+    _count("live_patch")
     return out

@@ -74,3 +74,19 @@ def select_topk_device_multi(masks, keys, counts, k: int):
     out = _select(torch.cat(list(masks)), torch.cat(list(keys)), torch.cat(list(counts)), k)
     gids, cnts, valid = out[:k], out[k : 2 * k], out[2 * k : 3 * k] > 0
     return gids[valid], cnts[valid], int(out[3 * k])
+
+
+def select_topk_host(mask: np.ndarray, key: np.ndarray, counts: np.ndarray, k: int):
+    """Numpy twin of select_topk_device (the live head's host engine):
+    argpartition + sort, the same descending-key order."""
+    n = mask.shape[0]
+    n_match = int(np.count_nonzero(mask))
+    k = int(min(k, n))
+    keyed = np.where(mask, key.astype(np.int64), np.int64(-(2**62)))
+    if k < n:
+        part = np.argpartition(-keyed, k - 1)[:k] if k > 0 else np.empty(0, np.int64)
+    else:
+        part = np.arange(n)
+    part = part[np.argsort(-keyed[part], kind="stable")]
+    sids = part[mask[part]]
+    return sids.astype(np.int64), counts[sids], n_match

@@ -62,7 +62,8 @@ def _assert_blocks_equal(a, b, same_id: bool = True, ids=None):
 @pytest.mark.parametrize("codec", ["zstd", "gzip", "lzma", "raw"])
 def test_port_written_block_reads_in_reference(codec):
     be = MemBackend()
-    meta = build_block_from_traces(be, TENANT, TRACES, row_group_spans=256, codec=codec)
+    meta = build_block_from_traces(be, TENANT, TRACES, row_group_spans=256, codec=codec,
+                                  device="cpu")
     rbe = RMemBackend()
     _copy(be, rbe)
     _assert_blocks_equal(open_block(be, TENANT, meta.block_id), r_open(rbe, TENANT, meta.block_id))
@@ -79,7 +80,7 @@ def test_reference_written_block_reads_in_port():
 def test_builders_produce_equal_blocks():
     rbe, be = RMemBackend(), MemBackend()
     rm = r_build(rbe, TENANT, TRACES, row_group_spans=256)
-    pm = build_block_from_traces(be, TENANT, TRACES, row_group_spans=256)
+    pm = build_block_from_traces(be, TENANT, TRACES, row_group_spans=256, device="cpu")
     rblk, pblk = r_open(rbe, TENANT, rm.block_id), open_block(be, TENANT, pm.block_id)
     _assert_blocks_equal(rblk, pblk, same_id=False)
     for i in range(rm.bloom_shards):
@@ -176,7 +177,7 @@ QUERIES = [
 @pytest.fixture(scope="module")
 def dicts():
     be = MemBackend()
-    meta = build_block_from_traces(be, TENANT, TRACES, row_group_spans=256)
+    meta = build_block_from_traces(be, TENANT, TRACES, row_group_spans=256, device="cpu")
     blk = open_block(be, TENANT, meta.block_id)
     rbe = RMemBackend()
     _copy(be, rbe)
@@ -216,7 +217,8 @@ def test_parse_and_host_eval_match_reference():
     for q in QUERIES:
         assert repr(parser.parse(q)) == repr(r_parser.parse(q))
     be = MemBackend()
-    meta = build_block_from_traces(be, TENANT, TRACES[:40], row_group_spans=256)
+    meta = build_block_from_traces(be, TENANT, TRACES[:40], row_group_spans=256,
+                                  device="cpu")
     traces = open_block(be, TENANT, meta.block_id).materialize_traces(list(range(40)))
     rbe = RMemBackend()
     _copy(be, rbe)

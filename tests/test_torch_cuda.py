@@ -61,9 +61,12 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def block():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
     backend = MemBackend()
     traces = make_traces(120, seed=5, n_spans=10)
-    meta = build_block_from_traces(backend, "t", traces, row_group_spans=256)
+    meta = build_block_from_traces(backend, "t", traces, row_group_spans=256,
+                                   device=torch.device("cuda", 0))
     return open_block(backend, "t", meta.block_id), traces, backend
 
 

@@ -1,0 +1,200 @@
+"""Kernel-vs-plain tests of the live head's CUDA kernels (B7a-B7d) on
+the card, and an ingester Instance on the card against one on the CPU
+over the same pushes.
+
+Marked `cuda`; the fixture below skips them where no card exists. Run
+on a machine with one H100:
+
+    python -m pytest -m cuda tests/test_torch_*.py
+
+Every output is an integer or a bool, so every comparison is exact."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from tempo_tpu_torch.backend import MemBackend
+from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
+from tempo_tpu_torch.db.metrics_exec import align_params
+from tempo_tpu_torch.db.wal import WAL
+from tempo_tpu_torch.ops.device import PAD_I32
+from tempo_tpu_torch.services.ingester import Ingester
+from tempo_tpu_torch.services.overrides import Overrides
+from tempo_tpu_torch.util.testdata import make_trace, make_trace_id
+from tempo_tpu_torch.wire.segment import segment_for_write
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _cols(rng, slot_b, kv_b, name_b, n_codes=40):
+    cols = [rng.integers(0, 1000, slot_b), rng.integers(0, 1000, slot_b),
+            rng.integers(0, 5000, slot_b), rng.random(slot_b) < 0.8]
+    slots = tuple(torch.from_numpy(c.astype(np.int32)) for c in cols)
+    rows = []
+    for nb in (kv_b, name_b):
+        n = nb * 3 // 4
+        owner = np.zeros(nb, np.int32)
+        code = np.full(nb, PAD_I32, np.int32)
+        owner[:n] = rng.integers(0, slot_b + 3, n)
+        code[:n] = rng.integers(0, n_codes, n)
+        owner[n - n_codes:n], code[n - n_codes:n] = 42, np.arange(n_codes)
+        rows.append((torch.from_numpy(owner), torch.from_numpy(code)))
+    return slots, rows[0], rows[1]
+
+
+@pytest.mark.parametrize("tags,names,t0,t1,dmin,n_slots", [
+    ([], [], None, None, None, 700),
+    ([3], [], None, None, None, 1024),
+    ([3, 7], [1, 2], 100, 900, 50, 700),
+    (list(range(20)), list(range(13)), None, None, None, 1024),  # 33 codes: two chunks
+    (list(range(35)), list(range(35)), 1, 999, 1, 1024),  # 70 codes: three chunks
+    ([0], [5], 2**31 - 1, -(2**31) + 1, 2**31 - 1, 0),
+])
+def test_live_filter_kernel(cuda, tags, names, t0, t1, dmin, n_slots):
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    rng = np.random.default_rng(len(tags) * 31 + len(names))
+    for slot_b, kv_b, name_b in ((1024, 4096, 2048), (1 << 14, 1 << 21, 1 << 19)):
+        slots, kv, nm = _cols(rng, slot_b, kv_b, name_b)
+        q = torch.tensor(tags + names, dtype=torch.int32)
+        want = L._live_filter_plain(slots, kv, nm, q, len(tags), t0, t1, dmin, n_slots)
+        kernels.reset_counts()
+        got = L.live_filter(tuple(t.to(cuda) for t in slots), tuple(t.to(cuda) for t in kv),
+                            tuple(t.to(cuda) for t in nm), q.to(cuda), len(tags), t0, t1, dmin,
+                            n_slots)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["live_filter"] == 1
+        assert torch.equal(got.cpu(), want)
+        if len(tags) == 2 and n_slots:
+            assert bool(want.any())
+
+
+@pytest.mark.parametrize("slot_b", [1024, 1 << 14])
+def test_live_find_kernel(cuda, slot_b):
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    rng = np.random.default_rng(slot_b)
+    ids = rng.integers(-(2**31), 2**31 - 1, (slot_b, 4)).astype(np.int32)
+    ids[10] = ids[500] = ids[900] = ids[3]
+    alive = (rng.random(slot_b) < 0.7).astype(np.int32)
+    alive[3] = 0
+    ids_t, alive_t = torch.from_numpy(ids), torch.from_numpy(alive)
+    kernels.reset_counts()
+    for n_slots in (0, 5, 11, 700, slot_b):
+        for row in (3, 10, 600, slot_b - 1):
+            for q in (ids[row], ids[row] + 1):
+                qt = torch.from_numpy(q.astype(np.int32))
+                got = L.live_find(ids_t.to(cuda), alive_t.to(cuda), qt.to(cuda), n_slots)
+                assert torch.equal(got.cpu(), L._live_find_plain(ids_t, alive_t, qt, n_slots))
+    assert kernels.LAUNCHES["live_find"] == 5 * 4 * 2
+
+
+@pytest.mark.parametrize("n", [1024, 1 << 21])
+def test_live_append_kernel(cuda, n):
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    rng = np.random.default_rng(n)
+    dst = torch.from_numpy(rng.integers(-99, 99, n).astype(np.int32))
+    kernels.reset_counts()
+    for start, m in ((0, 64), (100, 64), (n - 10, 64), (-4, 64), (-(2**31), 64),
+                     (2**31 - 1, 64), (5, 1024), (0, 0)):
+        src = torch.from_numpy(rng.integers(1000, 2000, m).astype(np.int32))
+        dst_c = dst.to(cuda)
+        got = L.append_rows(dst_c, src.to(cuda), start)
+        assert torch.equal(got.cpu(), L._append_plain(dst, src, start))
+        assert torch.equal(dst_c.cpu(), dst)  # out of place
+    assert kernels.LAUNCHES["live_append"] == 8
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_live_patch_kernel(cuda, width):
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    rng = np.random.default_rng(width)
+    for n in (1024, 1 << 14):
+        shape = (n,) if width == 1 else (n, 4)
+        dst = torch.from_numpy(rng.integers(-99, 99, shape).astype(np.int32))
+        kernels.reset_counts()
+        for idx in ([1, 5, 9], [4, 7, 4, 4], [-1, -n, 3], [n, -n - 1, 2**31 - 1, -(2**31), 8],
+                    [], list(rng.permutation(n)[:300])):
+            first = {}
+            rows = [first.setdefault(int(i) % n, rng.integers(1000, 2000, shape[1:]))
+                    for i in idx]
+            vals = torch.from_numpy(np.asarray(rows, np.int32).reshape((len(idx),) + shape[1:]))
+            it = torch.tensor(idx, dtype=torch.int32)
+            dst_c = dst.to(cuda)
+            got = L.patch_slots(dst_c, it.to(cuda), vals.to(cuda))
+            assert torch.equal(got.cpu(), L._patch_plain(dst, it, vals))
+            assert torch.equal(dst_c.cpu(), dst)  # out of place
+        assert kernels.LAUNCHES["live_patch"] == 6
+
+
+def _dump(resp):
+    return [(t.trace_id, t.start_time_unix_nano, t.root_service_name,
+             t.root_trace_name, t.duration_ms) for t in resp.traces]
+
+
+def test_instance_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """The same pushes, cuts, late segments and a flush into an Instance
+    on the card and one on the CPU: searches, finds and live metrics are
+    equal, and the card's went through B7a-B7d."""
+    from tempo_tpu_torch import kernels
+
+    ings = []
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        db = TempoDB(TempoDBConfig(), backend=MemBackend(), device=dev)
+        ings.append(Ingester(WAL(str(tmp_path / name)), db, Overrides(), device=dev))
+    insts = [ing.instance("t") for ing in ings]
+    rng = random.Random(5)
+    tids = []
+    kernels.reset_counts()
+    for step in range(200):
+        if step % 50 == 49:
+            for inst in insts:
+                inst.cut_complete_traces(force=True)
+            if step == 99:
+                for inst in insts:
+                    inst.cut_block_if_ready(force=True)
+        tid = rng.choice(tids) if tids and rng.random() < 0.2 else make_trace_id(rng)
+        tids.append(tid)
+        tr = make_trace(rng, trace_id=tid, n_spans=rng.randrange(1, 6),
+                        base_time_ns=1_700_000_000_000_000_000 + rng.randrange(0, 300) * 10**9)
+        lo, hi = tr.time_range_nanos()
+        batch = [(tid, lo // 10**9, hi // 10**9 + 1, segment_for_write(tr, lo // 10**9,
+                                                                       hi // 10**9 + 1))]
+        for inst in insts:
+            inst.push_segments(batch)
+        if step % 20 == 19:
+            reqs = [SearchRequest(limit=20), SearchRequest(tags={"service.name": "db"}, limit=50),
+                    SearchRequest(min_duration_ms=900, limit=10),
+                    SearchRequest(query='{ span.http.status_code = 500 }', limit=20)]
+            for req in reqs:
+                a, b = (_dump(inst.search_live(req)) for inst in insts)
+                assert a == b == _dump(insts[1].search_live_index(req))
+    monkeypatch.setenv("TEMPO_LIVE_FIND_DEVICE", "1")
+    for tid in tids[::7] + [b"\x02" * 16]:
+        a, b = (inst.find_trace_by_id(tid) for inst in insts)
+        assert (a is None) == (b is None) and (a is None or a.span_count() == b.span_count())
+    mq = '{ true } | rate() by (resource.service.name)'
+    a, b = (inst.metrics_query_range(align_params(mq, 1_700_000_000, 1_700_000_400, 60))
+            for inst in insts)
+    assert set(a.series) == set(b.series) and a.series
+    for k in a.series:
+        assert np.array_equal(a.series[k]["count"], b.series[k]["count"])
+    counts = dict(kernels.LAUNCHES)
+    for name in ("live_filter", "live_find", "live_append", "live_patch", "select"):
+        assert counts[name] > 0, counts
+    assert counts["remap"] > 0  # the flush cut on the card
