@@ -74,6 +74,21 @@ Phases, in order (any failure raises; no CPU fallback):
                card vs CPU; the flush (B9a-B9c) after a copy of the WAL,
                and a replay of that copy into a new Ingester; then B7a-B7d
                against their plain versions on the staged 16,384-slot head
+  14. generator the metrics-generator behind the distributor's streaming
+               tap: block 0's traces 16,384-32,767 (524,288 spans) pushed
+               in 64 windows of 256 (the first 8 as OTLP bytes through
+               push_raw, 1,024 traces in two segments in consecutive
+               windows) through a Distributor over a Ring (rf 1, a
+               heartbeating Lifecycler) of one Ingester on the card, with a
+               card MetricsGenerator behind generator_window_tap; the tap
+               flushed after each push and the window's cached columns
+               folded by a CPU generator: equal registries (counts and
+               buckets exact, f32 sums at rtol 1e-5), zero extra decodes,
+               no tap error or drop; the card's legacy planes over the same
+               traces equal the streaming state by series key and edge
+               pair; one metrics_text() scrape and link_rtt_ms logged; then
+               B8a and B8b against their plain versions at the last
+               window's shape
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -139,6 +154,9 @@ METRICS_QUERIES = [
     '{ kind = server } | max_over_time(duration) by (resource.service.name)',
 ]
 METRICS_STEP_S = 60  # about 60 buckets over the corpus's hour
+# f32 latency sums: atomics on the card add in another order than the CPU
+# generator's fold, and the legacy plane folds all spans at once
+GEN_RTOL = 1e-5
 
 
 def log(*a) -> None:
@@ -1014,6 +1032,255 @@ def phase_13_table(snap, table) -> None:
     row("live_patch", "tempo_tpu/ops/livestage.py:298", err, ms, pms, b, lms)
 
 
+GEN_TENANT = "smoke-gen"
+
+
+def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLIT) -> dict:
+    """The metrics-generator behind the distributor's streaming tap:
+    block 0's traces n_traces..2*n_traces-1 (phase 11's materialized
+    pairs) pushed in windows of `window` traces -- the first 8 as OTLP
+    bytes through push_raw, the rest as model batches through push, n_split
+    traces in two segments in consecutive windows -- through a Distributor
+    over a Ring of one Ingester on the card, with a card MetricsGenerator
+    behind generator_window_tap. After every push the tap is flushed and
+    the same window's cached SpanColumns are folded by a CPU generator;
+    then the card's legacy planes fold the same traces whole. Returns the
+    path's wrapper calls and the last window's B8a / B8b arguments."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.db.wal import WAL
+    from tempo_tpu_torch.ingest.columnar import ColumnarIngest
+    from tempo_tpu_torch.ops import reduce as R
+    from tempo_tpu_torch.ring.ring import InMemoryKV, Lifecycler, Ring
+    from tempo_tpu_torch.services import generator as G
+    from tempo_tpu_torch.services.app import generator_window_tap
+    from tempo_tpu_torch.services.distributor import Distributor
+    from tempo_tpu_torch.services.ingester import Ingester
+    from tempo_tpu_torch.services.overrides import Overrides
+    from tempo_tpu_torch.util.linkcost import link_rtt_ms
+    from tempo_tpu_torch.wire.model import Trace
+    from tempo_tpu_torch.wire.otlp_pb import encode_trace
+
+    # ---- a. windows of whole traces and halves
+    t0 = time.perf_counter()
+    traces = pairs[n_traces:2 * n_traces]
+    n_win = n_traces // window
+    rng = np.random.default_rng(43)
+    split = set(rng.choice(n_traces - window, n_split, replace=False).tolist())
+    windows = [[] for _ in range(n_win)]
+    for i, (_, t) in enumerate(traces):
+        if i in split:
+            a, b = split_trace(t)
+            windows[i // window].append(a)
+            windows[i // window + 1].append(b)
+        else:
+            windows[i // window].append(t)
+    n_spans = sum(t.span_count() for _, t in traces)
+
+    # ---- b. topology: Ring(rf 1) of one card Ingester, Distributor, the tap
+    ing = Ingester(WAL(os.path.join(tmp, "gen-wal")), db, Overrides(), device=dev)
+    kv = InMemoryKV()
+    lc = Lifecycler(kv, "ingester", "ingester-0")
+    gen = G.MetricsGenerator(Overrides(), device=dev)
+    cpu_gen = G.MetricsGenerator(Overrides(), device="cpu")
+    tap = generator_window_tap(ing, gen)
+    tapped = []  # each tap call's segment list, for the CPU twin
+
+    def recording_tap(tenant, segs, push_ts):
+        tapped.append(segs)
+        tap(tenant, segs, push_ts)
+
+    dist = Distributor(Ring(kv, "ingester", replication_factor=1),
+                       {lc.desc.addr: ing}.__getitem__, Overrides(),
+                       generator_window=recording_tap)
+    col = ing.instance(GEN_TENANT).columnar
+    last = {}
+    orig = {name: getattr(R, name) for name in ("span_reduce", "edge_reduce")}
+
+    def keep(name):
+        def call(*a):
+            if a[0].device.type == "cuda":  # the card's folds, not the CPU twin's
+                last[name] = a
+            return orig[name](*a)
+        return call
+
+    times = CallTimes()
+    times.patch(ColumnarIngest, "features_for", "tap decodes (features_for)")
+    times.patch(kernels, "span_reduce", "B8a (synchronized)", sync=True)
+    times.patch(kernels, "edge_reduce", "B8b (synchronized)", sync=True)
+    for name in orig:
+        setattr(R, name, keep(name))
+    push_s, flush_s = [], []
+    kernels.reset_counts()
+    lc.start()
+    try:
+        # ---- c. 64 pushes, each tapped, flushed, and twinned on the CPU
+        for w, batch in enumerate(windows):
+            rs = [r for t in batch for r in t.resource_spans]
+            payload = encode_trace(Trace(resource_spans=rs)) if w < 8 else None
+            t1 = time.perf_counter()
+            got = dist.push_raw(GEN_TENANT, payload) if w < 8 else dist.push(GEN_TENANT, rs)
+            push_s.append(time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            if not dist.flush_generator_tap(timeout_s=300.0):
+                raise AssertionError(f"window {w + 1}: the tap did not drain")
+            flush_s.append(time.perf_counter() - t1)
+            if got != sum(t.span_count() for t in batch) or len(tapped) != 1:
+                raise AssertionError(f"window {w + 1}: {got} spans pushed, {len(tapped)} taps")
+            cpu_gen.push_window(GEN_TENANT, [col.cached(seg).spans for seg in tapped.pop()],
+                                col.dict)
+            if w == n_win // 2 - 1:  # the live-trace limit (10,000) as in phase 13
+                ing.instance(GEN_TENANT).cut_complete_traces(force=True)
+    finally:
+        lc.leave()
+        dist.stop()
+        times.restore()
+        for name, fn in orig.items():
+            setattr(R, name, fn)
+    stream_counts = dict(kernels.LAUNCHES)
+    wall = time.perf_counter() - t0
+    st = col.stats()
+    ds = dist.stats
+    log(f"[generator] {n_traces} traces ({n_spans} spans, {n_split} in two segments) in "
+        f"{n_win} windows of {window} (8 by push_raw) in {wall:.1f} s: push_raw p50 "
+        f"{pct(push_s[:8], 50) * 1e3:.1f} ms, push p50 {pct(push_s[8:], 50) * 1e3:.1f} ms p99 "
+        f"{pct(push_s[8:], 99) * 1e3:.1f} ms (slowest: window {int(np.argmax(push_s)) + 1}, "
+        f"{max(push_s) * 1e3:.1f} ms), tap flush p50 "
+        f"{pct(flush_s, 50) * 1e3:.1f} ms p99 {pct(flush_s, 99) * 1e3:.1f} ms; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.s.items())
+        + f"; generator stats {gen.stats}; columnar {st}; distributor {ds}; "
+        f"wrapper calls {nonzero(stream_counts)}")
+    if st["decodes"] - st["cached"] != 0 or st["decodes"] != n_traces + n_split:
+        raise AssertionError(f"tap decodes: {st}")
+    if ds.gen_tap_errors or ds.gen_tap_dropped or ds.traces_pushed != n_traces + n_split:
+        raise AssertionError(f"distributor: {ds}")
+    if dev.type == "cuda" and (stream_counts["span_reduce"] != n_win
+                               or not 0 < stream_counts["edge_reduce"] <= n_win):
+        raise AssertionError(f"streaming folds: wrapper calls {nonzero(stream_counts)}")
+
+    # ---- d. the card's registry against the CPU generator's: same windows,
+    # same dictionary, so the same sids and edge ids
+    def planes(g):
+        procs = g._procs(GEN_TENANT)
+        return procs["span-metrics"], procs["service-graphs"]
+
+    (sm, sg), (csm, csg) = planes(gen), planes(cpu_gen)
+    if [vars(k) for k in sm.key_list] != [vars(k) for k in csm.key_list] \
+            or sg.edge_list != csg.edge_list:
+        raise AssertionError("card and CPU generators hold different series or edges")
+    sum_err = 0.0
+    for a, b, exact, sums in ((sm, csm, ("calls", "lat_count", "lat_buckets"), ("lat_sum",)),
+                              (sg, csg, ("counts", "failed_counts", "client_buckets",
+                                         "server_buckets"), ("client_sum", "server_sum"))):
+        for name in exact:
+            if not np.array_equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"card vs CPU generator: {name} differs")
+        for name in sums:
+            x, y = getattr(a, name), getattr(b, name)
+            if not np.allclose(x, y, rtol=GEN_RTOL, atol=0):
+                raise AssertionError(f"card vs CPU generator: {name} beyond rtol {GEN_RTOL}")
+            sum_err = max(sum_err, float(np.abs(x - y).max()))
+    n_series, n_edges = len(sm.key_list), len(sg.edge_list)
+    if n_series == 0 or n_edges == 0 or int(sm.calls.sum()) != n_spans:
+        raise AssertionError(f"{n_series} series, {n_edges} edges, {int(sm.calls.sum())} calls")
+    log(f"[generator] card registry equals the CPU generator's: {n_series} series, {n_edges} "
+        f"edges ({int(sg.counts.sum())} completed, {len(sg.pending)} pending, {sg.expired} "
+        f"expired), counts and buckets exact, sums within rtol {GEN_RTOL} (max abs err "
+        f"{sum_err:.3g} s)")
+
+    # ---- e. the legacy planes on the card: the same traces, whole, one collect
+    t1 = time.perf_counter()
+    lsm, lsg = G.SpanMetricsProcessor(device=dev), G.ServiceGraphsProcessor(device=dev)
+    whole = [t for _, t in traces]
+    lsm.push(GEN_TENANT, whole)
+    lsg.push(GEN_TENANT, whole)
+    n_edge_rows = len(lsg._eid)
+    lsm.collect()
+    lsg.collect()
+    legacy_s = time.perf_counter() - t1
+    counts = dict(kernels.LAUNCHES)
+    if dev.type == "cuda" and counts["span_reduce"] != stream_counts["span_reduce"] + 3:
+        raise AssertionError(f"legacy collect: wrapper calls {nonzero(counts)}")
+
+    def by_key(p):
+        return {(k.service, k.span_name, k.kind, k.status): i for i, k in enumerate(p.key_list)}
+
+    ks, kl = by_key(sm), by_key(lsm)
+    es, el = {e: i for i, e in enumerate(sg.edge_list)}, {e: i for i, e in enumerate(lsg.edge_list)}
+    if set(ks) != set(kl) or set(es) != set(el):
+        raise AssertionError("streaming and legacy planes hold different series or edges")
+    keys, edges = sorted(ks), sorted(es)
+    si, li = [ks[k] for k in keys], [kl[k] for k in keys]
+    sei, lei = [es[e] for e in edges], [el[e] for e in edges]
+    for a, b, ia, ib, exact, sums in (
+            (sm, lsm, si, li, ("calls", "lat_count", "lat_buckets"), ("lat_sum",)),
+            (sg, lsg, sei, lei, ("counts", "failed_counts", "client_buckets", "server_buckets"),
+             ("client_sum", "server_sum"))):
+        for name in exact:
+            if not np.array_equal(getattr(a, name)[ia], getattr(b, name)[ib]):
+                raise AssertionError(f"streaming vs legacy: {name} differs")
+        for name in sums:
+            if not np.allclose(getattr(a, name)[ia], getattr(b, name)[ib], rtol=GEN_RTOL, atol=0):
+                raise AssertionError(f"streaming vs legacy: {name} beyond rtol {GEN_RTOL}")
+    log(f"[generator] legacy planes on the card ({n_spans} spans, {n_edge_rows} completed "
+        f"edges, 3 B8a launches) in {legacy_s:.1f} s equal the streaming state by series key "
+        f"and edge pair")
+
+    # ---- f. a scrape, and the link's round trip
+    t1 = time.perf_counter()
+    lines = gen.metrics_text()
+    scrape_s = time.perf_counter() - t1
+    rtt = link_rtt_ms(dev)
+    log(f"[generator] metrics_text: {len(lines)} lines in {scrape_s:.2f} s; link_rtt_ms({dev}) "
+        f"= {rtt:.4f} ms; wrapper calls {nonzero(counts)}")
+    return {"counts": counts, "last": last}
+
+
+def phase_14_table(last, table) -> None:
+    """B8a and B8b against their plain versions at the shape of phase 14's
+    last window; times by CUDA events, the byte bound."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import reduce as R
+
+    def row(name, replaces, err, ms, pms, b):
+        table.append({"name": name, "route": "cuda", "source": "tempo_tpu_torch/csrc/reduce.cu",
+                      "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+                      "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+
+    def compare(got, want, sums):
+        err = 0.0
+        for k, (g, w) in enumerate(zip(got, want)):
+            if k in sums:
+                if not torch.allclose(g, w, rtol=GEN_RTOL, atol=0):
+                    raise AssertionError(f"output {k} beyond rtol {GEN_RTOL}")
+                err = max(err, float((g - w).abs().max().item()))
+            elif max_abs_err(g, w):
+                raise AssertionError(f"output {k} (counts or histogram) differs")
+        return err
+
+    # B8a -- the last window's spans into the registry's series table
+    sid, dur, n_valid, edges, sb = last["span_reduce"]
+    nb = edges.shape[0] + 1
+    err = compare(kernels.span_reduce(sid, dur, n_valid, edges, sb),
+                  R._reduce_plain(sid, dur, n_valid, edges, sb), (1,))
+    ms = cuda_ms(lambda: kernels.span_reduce(sid, dur, n_valid, edges, sb))
+    pms = cuda_ms(lambda: R._reduce_plain(sid, dur, n_valid, edges, sb))
+    b = bound(n_valid * 8 + 4 * sb * (nb + 2), n_valid * (nb - 1))
+    log(f"[B8a] {n_valid} spans of {sid.shape[0]} into {sb} series x {nb} buckets: {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
+    row("span_reduce", "tempo_tpu/ops/reduce.py:23", err, ms, pms, b)
+
+    # B8b -- the last window's completed edges
+    eid, cdur, sdur, failed, n_valid, edges, eb = last["edge_reduce"]
+    err = compare(kernels.edge_reduce(eid, cdur, sdur, failed, n_valid, edges, eb),
+                  R._edge_reduce_plain(eid, cdur, sdur, failed, n_valid, edges, eb), (2, 3))
+    ms = cuda_ms(lambda: kernels.edge_reduce(eid, cdur, sdur, failed, n_valid, edges, eb))
+    pms = cuda_ms(lambda: R._edge_reduce_plain(eid, cdur, sdur, failed, n_valid, edges, eb))
+    b = bound(n_valid * 16 + 4 * eb * (2 * nb + 4), 2 * n_valid * (nb - 1))
+    log(f"[B8b] {n_valid} edges of {eid.shape[0]} into {eb} edge ids: {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
+    row("edge_reduce", "tempo_tpu/ops/reduce.py:63", err, ms, pms, b)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -1631,15 +1898,23 @@ def main() -> int:
         # ---- 13. the ingest plane and the live head, then its kernels
         t0 = time.perf_counter()
         p13 = phase_13(db, dev, pairs, ingest_queries, span_s, tmp)
-        del pairs
         log(f"[ingest] phase 13 took {time.perf_counter() - t0:.1f} s")
         phase_13_table(p13["snap"], table)
+
+        # ---- 14. the metrics-generator behind the distributor's tap
+        t0 = time.perf_counter()
+        p14 = phase_14(db, dev, pairs, tmp)
+        del pairs
+        log(f"[generator] phase 14 took {time.perf_counter() - t0:.1f} s")
+        phase_14_table(p14["last"], table)
         for name in ("remap", "bloom_bits", "rowgroup"):
             launches[name] = cut_counts[name]
         for name in ("bloom_union", "bloom_test"):
             launches[name] = union_counts[name]
         for name in ("live_filter", "live_find", "live_append", "live_patch"):
             launches[name] = p13["counts"][name]
+        for name in ("span_reduce", "edge_reduce"):
+            launches[name] = p14["counts"][name]
         for row in table:
             row["launches"] = launches[row["name"]]
         if len(table) != len(kernels.LAUNCHES) or any(r["launches"] <= 0 for r in table):

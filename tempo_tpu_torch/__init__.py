@@ -2,7 +2,8 @@
 search (single and batched) and TraceQL metrics over complete blocks,
 the storage write path (the block cut, compaction and retention), and
 the ingest plane with the live head (the WAL, the ingester, live search
-and find over staged columns), with every device program on those paths
+and find over staged columns), and the metrics-generator behind the
+distributor (span-metrics and service-graph folds), with every device program on those paths
 written by hand in CUDA C++ for Hopper (csrc/, bound in kernels.py).
 
 Imports torch, never jax, and nothing of the tempo_tpu package; blocks

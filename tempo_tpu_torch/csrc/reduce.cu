@@ -1,0 +1,114 @@
+// B8a/B8b: the metrics-generator's segmented reduces.
+//
+// Replaces the two jitted programs of tempo_tpu/ops/reduce.py:
+//   B8a :23 _reduce_kernel       per series: call count, f32 latency sum,
+//                                histogram over searchsorted(edges, dur)
+//   B8b :63 _edge_reduce_kernel  per service-graph edge: count, failed
+//                                count, client and server f32 sums,
+//                                client and server histograms
+// Semantics kept from the JAX programs: a row counts only when
+// i < n_valid; an id outside [0, n_ids) is dropped from every output
+// (segment_sum's FILL_OR_DROP); the bucket is searchsorted(..., 'left')
+// in f32, written as the count of edges e with !(v <= e), so a value
+// equal to an edge falls in that edge's bucket (Prometheus `le`) and NaN
+// in the last one, as numpy sorts it.
+//
+// Bound: bytes. A fold reads 8 B a row (B8b: 16 B) and writes its output
+// table once; for a live registry (2^18 series x 17 words) the table,
+// not the window, is most of the bytes. Design: the outputs are zeroed
+// with cudaMemsetAsync, then one thread a row finds its bucket against
+// the edges in shared memory and atomicAdds into the count, the f32 sum
+// and the (id, bucket) cell. The f32 atomics add in an order that
+// changes from run to run: counts and histograms are exact, sums equal
+// the plain version's within f32 rounding (exactly on dyadic durations).
+#include "common.cuh"
+
+#define RD_MAX_EDGES 256  // kernels.py REDUCE_MAX_EDGES
+
+__device__ __forceinline__ int rd_bucket(float v, const float* e, int ne) {
+    int b = 0;
+    for (int j = 0; j < ne; ++j) b += !(v <= e[j]);
+    return b;
+}
+
+__global__ void span_reduce_kernel(const int32_t* __restrict__ sid, const float* __restrict__ dur,
+                                   int n_valid, const float* __restrict__ edges, int ne, int n_ids,
+                                   int32_t* __restrict__ calls, float* __restrict__ lsum,
+                                   int32_t* __restrict__ hist) {
+    __shared__ float e[RD_MAX_EDGES];
+    for (int j = threadIdx.x; j < ne; j += blockDim.x) e[j] = edges[j];
+    __syncthreads();
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n_valid) return;
+    int s = sid[i];
+    if (s < 0 || s >= n_ids) return;
+    float v = dur[i];
+    atomicAdd(&calls[s], 1);
+    atomicAdd(&lsum[s], v);
+    atomicAdd(&hist[(long long)s * (ne + 1) + rd_bucket(v, e, ne)], 1);
+}
+
+__global__ void edge_reduce_kernel(const int32_t* __restrict__ eid, const float* __restrict__ cdur,
+                                   const float* __restrict__ sdur,
+                                   const int32_t* __restrict__ failed, int n_valid,
+                                   const float* __restrict__ edges, int ne, int n_ids,
+                                   int32_t* __restrict__ counts, int32_t* __restrict__ fcounts,
+                                   float* __restrict__ csum, float* __restrict__ ssum,
+                                   int32_t* __restrict__ chist, int32_t* __restrict__ shist) {
+    __shared__ float e[RD_MAX_EDGES];
+    for (int j = threadIdx.x; j < ne; j += blockDim.x) e[j] = edges[j];
+    __syncthreads();
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n_valid) return;
+    int s = eid[i];
+    if (s < 0 || s >= n_ids) return;
+    float c = cdur[i], v = sdur[i];
+    long long row = (long long)s * (ne + 1);
+    atomicAdd(&counts[s], 1);
+    int f = failed[i];
+    if (f) atomicAdd(&fcounts[s], f);
+    atomicAdd(&csum[s], c);
+    atomicAdd(&ssum[s], v);
+    atomicAdd(&chist[row + rd_bucket(c, e, ne)], 1);
+    atomicAdd(&shist[row + rd_bucket(v, e, ne)], 1);
+}
+
+static int rd_zero(void* p, long long words, cudaStream_t st) {
+    return (int)cudaMemsetAsync(p, 0, (size_t)words * 4, st);
+}
+
+// sid, dur: (n,) with n >= n_valid; edges: (ne,) f32, ne <= RD_MAX_EDGES;
+// calls, lsum: (n_ids,); hist: (n_ids, ne + 1)
+TT_EXPORT int tt_span_reduce(const int32_t* sid, const float* dur, int n_valid,
+                             const float* edges, int ne, int n_ids, int32_t* calls, float* lsum,
+                             int32_t* hist, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    int err;
+    if ((err = rd_zero(calls, n_ids, st)) || (err = rd_zero(lsum, n_ids, st)) ||
+        (err = rd_zero(hist, (long long)n_ids * (ne + 1), st)))
+        return err;
+    span_reduce_kernel<<<tt_blocks(n_valid, 256), 256, 0, st>>>(sid, dur, n_valid, edges, ne,
+                                                                 n_ids, calls, lsum, hist);
+    TT_LAUNCHED_SLOT(0);
+    return (int)cudaGetLastError();
+}
+
+// eid, cdur, sdur, failed: (n,) with n >= n_valid; counts, fcounts, csum,
+// ssum: (n_ids,); chist, shist: (n_ids, ne + 1)
+TT_EXPORT int tt_edge_reduce(const int32_t* eid, const float* cdur, const float* sdur,
+                             const int32_t* failed, int n_valid, const float* edges, int ne,
+                             int n_ids, int32_t* counts, int32_t* fcounts, float* csum,
+                             float* ssum, int32_t* chist, int32_t* shist, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    long long cells = (long long)n_ids * (ne + 1);
+    int err;
+    if ((err = rd_zero(counts, n_ids, st)) || (err = rd_zero(fcounts, n_ids, st)) ||
+        (err = rd_zero(csum, n_ids, st)) || (err = rd_zero(ssum, n_ids, st)) ||
+        (err = rd_zero(chist, cells, st)) || (err = rd_zero(shist, cells, st)))
+        return err;
+    edge_reduce_kernel<<<tt_blocks(n_valid, 256), 256, 0, st>>>(
+        eid, cdur, sdur, failed, n_valid, edges, ne, n_ids, counts, fcounts, csum, ssum, chist,
+        shist);
+    TT_LAUNCHED_SLOT(1);
+    return (int)cudaGetLastError();
+}

@@ -247,6 +247,11 @@ class ColumnarIngest:
             self._install_locked(key, seg, feat)
         return feat
 
+    def decode_window(self, batch: list[tuple[bytes, int, int, bytes]]) -> list[SegFeatures]:
+        """Eager decode of one push window's segments
+        ([(tid, start_s, end_s, seg)]), returned in order."""
+        return [self.features_for(seg) for _, _, _, seg in batch]
+
     def cached(self, seg: bytes) -> SegFeatures | None:
         """Cache-only lookup (never decodes): the WAL feature flush uses
         this so checkpointing never ADDS decode work to the write path."""
@@ -281,3 +286,11 @@ class ColumnarIngest:
             for k in list(self._feats)[: self.MAX_ENTRIES // 2]:
                 del self._feats[k]
         self._feats[key] = (seg, feat)
+
+    def stats(self) -> dict:
+        """Cache entries, decodes performed, features seeded by replay and
+        the dictionary's size: `decodes - cached == 0` proves that no
+        consumer decoded a segment twice (while no entry was evicted)."""
+        with self._lock:
+            return {"cached": len(self._feats), "decodes": self.decodes,
+                    "seeded": self.seeded, "dict_size": len(self.dict)}

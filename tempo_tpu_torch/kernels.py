@@ -39,6 +39,8 @@ never hidden behind a plain version or another route.
 | live_find   | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:243 run (B7b)       |
 | live_append | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:290 (B7c)           |
 | live_patch  | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:298 (B7d)           |
+| span_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:23 _reduce_kernel (B8a) |
+| edge_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:63 _edge_reduce_kernel (B8b) |
 
 The write path's kernels: launches on their path, what bounds them, and
 the one PyTorch call that computes the same function (the yardstick
@@ -61,6 +63,14 @@ live/cut/flushing traces):
 | live_find   | one per live find, TEMPO_LIVE_FIND_DEVICE | 20 B a slot                         | none: an all over 4 lanes, then a first-true index |
 | live_append | two per row kind per delta refresh        | the column read and written once    | torch.slice_scatter                                |
 | live_patch  | six per delta refresh with dirty slots    | the column read and written once    | torch.index_put (out of place)                     |
+
+The metrics-generator's kernels (ops/reduce.py, fed by the distributor's
+streaming tap):
+
+| kernel      | launches on its path                        | bound (bytes moved)                   | one PyTorch call                               |
+|-------------|---------------------------------------------|---------------------------------------|------------------------------------------------|
+| span_reduce | one per tap window; one per legacy collect  | 8 B a row + 4 B x S x (nb + 2) written | none: searchsorted, two bincounts, index_add_  |
+| edge_reduce | one per tap window that completed an edge   | 16 B a row + 4 B x E x (2 nb + 4)     | none: the same per side, and a failed bincount |
 """
 
 from __future__ import annotations
@@ -77,7 +87,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "tempo_tpu_torch")
 SOURCES = ("filter", "select", "find", "stage", "multiquery", "timeseries", "blockcut",
-           "bloom", "livestage")
+           "bloom", "livestage", "reduce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -86,13 +96,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
             "multiquery": 0, "mq_select": 0, "timeseries": 0, "remap": 0, "bloom_bits": 0,
             "rowgroup": 0, "bloom_union": 0, "bloom_test": 0, "live_filter": 0,
-            "live_find": 0, "live_append": 0, "live_patch": 0}
+            "live_find": 0, "live_append": 0, "live_patch": 0, "span_reduce": 0,
+            "edge_reduce": 0}
 # source -> its kernels, in the library's launch-counter slot order
 _KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find",),
               "stage": ("res_to_span",), "multiquery": ("multiquery", "mq_select"),
               "timeseries": ("timeseries",), "blockcut": ("remap", "bloom_bits", "rowgroup"),
               "bloom": ("bloom_union", "bloom_test"),
-              "livestage": ("live_filter", "live_find", "live_append", "live_patch")}
+              "livestage": ("live_filter", "live_find", "live_append", "live_patch"),
+              "reduce": ("span_reduce", "edge_reduce")}
 
 
 class KernelError(RuntimeError):
@@ -123,6 +135,8 @@ _SIGNATURES = {
     "tt_live_find": ("livestage", [_P, _P, _I, _I, _P, _P, _P]),
     "tt_live_append": ("livestage", [_P, _I, _P, _I, _I, _P, _P]),
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
+    "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P]),
+    "tt_edge_reduce": ("reduce", [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
 }
 
 # one lock over build and load: the first use may come from several
@@ -689,3 +703,66 @@ def live_patch(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torc
               out.data_ptr(), _stream())
     _count("live_patch")
     return out
+
+
+# ------------------------------------------------------------------ B8a/B8b
+REDUCE_MAX_EDGES = 256  # csrc/reduce.cu RD_MAX_EDGES
+
+
+def _reduce_args(name: str, ids: torch.Tensor, rows: dict, n_valid: int, edges: torch.Tensor,
+                 n_ids: int) -> torch.device:
+    dev = _cuda_device(ids)
+    n = ids.shape[0]
+    _check(ids, "ids", torch.int32, dev, (n,))
+    for col, (t, dtype) in rows.items():
+        _check(t, col, dtype, dev, (n,))
+    _check(edges, "edges", torch.float32, dev)
+    if edges.dim() != 1 or edges.shape[0] > REDUCE_MAX_EDGES:
+        raise KernelError(f"{name}: 1-D edges of at most {REDUCE_MAX_EDGES} expected")
+    if not 0 <= n_valid <= n or n_ids < 1 or n_ids * (edges.shape[0] + 1) >= 2**31:
+        raise KernelError(f"{name}: {n_valid} valid rows of {n} into {n_ids} ids")
+    return dev
+
+
+def span_reduce(sid: torch.Tensor, dur: torch.Tensor, n_valid: int, edges: torch.Tensor,
+                n_ids: int):
+    """B8a: rows i < n_valid with 0 <= sid[i] < n_ids -> calls (n_ids,)
+    int32, lat_sum (n_ids,) f32, hist (n_ids, len(edges) + 1) int32, the
+    bucket being searchsorted(edges, dur, 'left'). Bound: bytes (8 B a
+    row, the table written once)."""
+    dev = _reduce_args("span_reduce", sid, {"dur": (dur, torch.float32)}, n_valid, edges, n_ids)
+    nb = edges.shape[0] + 1
+    calls = torch.empty(n_ids, dtype=torch.int32, device=dev)
+    lsum = torch.empty(n_ids, dtype=torch.float32, device=dev)
+    hist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_span_reduce", sid.data_ptr(), dur.data_ptr(), int(n_valid), edges.data_ptr(),
+              nb - 1, int(n_ids), calls.data_ptr(), lsum.data_ptr(), hist.data_ptr(), _stream())
+    _count("span_reduce")
+    return calls, lsum, hist
+
+
+def edge_reduce(eid: torch.Tensor, cdur: torch.Tensor, sdur: torch.Tensor, failed: torch.Tensor,
+                n_valid: int, edges: torch.Tensor, n_ids: int):
+    """B8b: the six per-edge folds of one window in one pass -> counts,
+    failed_counts (n_ids,) int32, client_sum, server_sum (n_ids,) f32,
+    client_hist, server_hist (n_ids, len(edges) + 1) int32. Bound: bytes
+    (16 B a row, the tables written once)."""
+    dev = _reduce_args("edge_reduce", eid, {"cdur": (cdur, torch.float32),
+                                            "sdur": (sdur, torch.float32),
+                                            "failed": (failed, torch.int32)},
+                       n_valid, edges, n_ids)
+    nb = edges.shape[0] + 1
+    counts = torch.empty(n_ids, dtype=torch.int32, device=dev)
+    fcounts = torch.empty(n_ids, dtype=torch.int32, device=dev)
+    csum = torch.empty(n_ids, dtype=torch.float32, device=dev)
+    ssum = torch.empty(n_ids, dtype=torch.float32, device=dev)
+    chist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
+    shist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_edge_reduce", eid.data_ptr(), cdur.data_ptr(), sdur.data_ptr(),
+              failed.data_ptr(), int(n_valid), edges.data_ptr(), nb - 1, int(n_ids),
+              counts.data_ptr(), fcounts.data_ptr(), csum.data_ptr(), ssum.data_ptr(),
+              chist.data_ptr(), shist.data_ptr(), _stream())
+    _count("edge_reduce")
+    return counts, fcounts, csum, ssum, chist, shist

@@ -1,7 +1,9 @@
-"""Hashing primitives for the bloom filters: FNV-1a picks the shard and
-seeds a splitmix64-style double hash for the bit positions -- the same
-functions as the JAX package (tempo_tpu/util/hashing.py), so either
-package tests the other's bloom objects.
+"""Hashing primitives for the bloom filters and the ring: FNV-1a picks
+the shard and seeds a splitmix64-style double hash for the bit
+positions, and FNV-1a over tenant + trace id is a trace's ring token --
+the same functions as the JAX package (tempo_tpu/util/hashing.py), so
+either package tests the other's bloom objects and places a trace on the
+same ingester.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ def fnv1a_64(data: bytes) -> int:
         h ^= b
         h = (h * _FNV64_PRIME) & _MASK64
     return h
+
+
+def ring_token(tenant: str, trace_id: bytes) -> int:
+    """32-bit placement token for a (tenant, trace id) pair: one hash
+    over tenant-then-id decides the owning ring segment (the shape of the
+    reference's TokenFor, pkg/util/hash.go:7-16)."""
+    return fnv1a_32(tenant.encode("utf-8") + trace_id)
 
 
 def splitmix64(x: int) -> int:
