@@ -89,6 +89,22 @@ Phases, in order (any failure raises; no CPU fallback):
                pair; one metrics_text() scrape and link_rtt_ms logged; then
                B8a and B8b against their plain versions at the last
                window's shape
+  15. mesh     the mesh programs over torch.distributed (parallel/), on a
+               hard-linked copy of the corpus as phases 5-10 saw it: run 1
+               on an NCCL mesh of one rank calls the host entries directly
+               (TempoDB takes no mesh route at one rank, as the reference):
+               sharded_find_rows and sharded_find of phase 5's 64 ids over
+               the 10 blocks, sharded_bloom_union of their blooms,
+               mesh_eval_multiquery of phase 4b's 16 programs on block 0
+               and the stacked fold (try_metrics_mesh) of the 4 metrics
+               queries, each equal to the single-card route; run 2 in the
+               same process after run 1's group is destroyed: a gloo 2x2
+               mesh of this process and three spawned followers, all on the
+               card, under a TempoDB whose 64 + 12 finds, 16-query burst on
+               block 0 and 4 metrics queries take the mesh routes (routing
+               counted by reason) and equal phases 5, 8 and 10; then M1-M4
+               against their plain versions at the shapes the runs gave
+               them
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -1281,6 +1297,344 @@ def phase_14_table(last, table) -> None:
     row("edge_reduce", "tempo_tpu/ops/reduce.py:63", err, ms, pms, b)
 
 
+MESH_WORLD, MESH_DP, MESH_SP = 4, 2, 2  # run 2: gloo ranks that share the card
+MESH_TIMEOUT_S = 300.0
+
+
+class Capture:
+    """The last arguments of patched callables, by name: the shapes the
+    mesh path gave each kernel, for the kernel-vs-plain rows."""
+
+    def __init__(self):
+        self.args: dict[str, tuple] = {}
+        self.calls: dict[str, int] = {}
+        self._undo = []
+
+    def patch(self, owner, attr: str, keep: bool = True) -> None:
+        fn = getattr(owner, attr)
+
+        def spy(*a, **k):
+            self.calls[attr] = self.calls.get(attr, 0) + 1
+            if keep:
+                self.args[attr] = (a, k)
+            return fn(*a, **k)
+
+        setattr(owner, attr, spy)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+
+def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metrics_want,
+             lo_s, hi_s) -> dict:
+    """The mesh: run 1 on a one-rank NCCL mesh calls the five
+    host entries at full size against the single-card routes; run 2 on a
+    gloo 2x2 mesh of four processes on the card drives a TempoDB whose
+    finds, burst and metrics take the mesh routes, against phases 5-10.
+    Returns the wrapper calls of both runs and the captured kernel
+    inputs."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.backend import LocalBackend
+    from tempo_tpu_torch.block import schema as S
+    from tempo_tpu_torch.block.bloom import ShardedBloom
+    from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
+    from tempo_tpu_torch.db import batchexec as BX
+    from tempo_tpu_torch.db import metrics_exec as ME
+    from tempo_tpu_torch.db import tempodb as TDB
+    from tempo_tpu_torch.db.metrics_mesh import try_metrics_mesh
+    from tempo_tpu_torch.ops import bloom_ops as BO
+    from tempo_tpu_torch.ops import filter as F
+    from tempo_tpu_torch.ops import find as FD
+    from tempo_tpu_torch.ops import multiquery as MQ
+    from tempo_tpu_torch.ops import stage as ST
+    from tempo_tpu_torch.parallel import find as PF
+    from tempo_tpu_torch.parallel import launch, mesh_eval_multiquery, sharded_bloom_union
+    from tempo_tpu_torch.parallel import multiquery as PMQ
+    from tempo_tpu_torch.parallel import timeseries as PTS
+    from tempo_tpu_torch.traceql.plan import plan_search_request
+
+    cap = Capture()
+    cap.patch(PF, "find_elect")
+    cap.patch(PMQ, "mq_partial")
+    cap.patch(PMQ, "mq_combine")
+    cap.patch(PTS, "timeseries_stacked")
+    q_codes = np.asarray([S.trace_id_to_codes(t.rjust(16, b"\x00")) for t in ids64], np.int32)
+    n_present = sum(seq_found.get(t) is not None for t in ids64)
+    kernels.reset_counts()
+    try:
+        # ---- run 1: one rank, the host entries called directly
+        t_run = time.perf_counter()
+        db = TempoDB(TempoDBConfig(), backend=LocalBackend(store), device=dev)
+        db.poll_now()
+        blocks = [db.open_block(m) for m in db.metas(TENANT)]
+        t0 = time.perf_counter()
+        mesh = launch.init_controller(1, f"file://{tmp}/pg-run1", "nccl", dev,
+                                      timeout_s=MESH_TIMEOUT_S)
+        up1_s = time.perf_counter() - t0  # the communicators are built here
+        try:
+            if db.mesh is not mesh or db._batch_mesh() is not None:
+                raise AssertionError("run 1: TempoDB did not take the one-rank mesh")
+            codes = [b.trace_index["trace.id_codes"] for b in blocks]
+            t0 = time.perf_counter()
+            rows = PF.sharded_find_rows(mesh, codes, q_codes)
+            rows_s = time.perf_counter() - t0
+            want_rows = FD.lookup_ids_blocks_cached(blocks, q_codes, dev)
+            if not np.array_equal(rows, want_rows) or int((rows >= 0).any(axis=0).sum()) != \
+                    n_present:
+                raise AssertionError("run 1: sharded_find_rows differs from K3 on one card")
+            elect = PF.sharded_find(mesh, codes, q_codes)
+            for qi in range(len(ids64)):
+                hit = np.nonzero(want_rows[:, qi] >= 0)[0]
+                want = (hit.max(), want_rows[hit.max(), qi]) if hit.size else (-1, -1)
+                if tuple(elect[qi]) != tuple(int(x) for x in want):
+                    raise AssertionError(f"run 1: sharded_find of {ids64[qi].hex()}: "
+                                         f"{tuple(elect[qi])} != {want}")
+            blooms = []
+            for blk in blocks:
+                b = ShardedBloom(blk.meta.bloom_shards, blk.meta.bloom_shard_bits)
+                b.words = np.stack([blk.bloom_shard(i) for i in range(blk.meta.bloom_shards)])
+                blooms.append(b)
+            union = sharded_bloom_union(mesh, blooms)
+            if not np.array_equal(union.words, BO.union_blooms(blooms, dev).words):
+                raise AssertionError("run 1: sharded_bloom_union differs from B10a on one card")
+            blk0 = blocks[0]
+            bplans = [plan_search_request(blk0.dictionary, {}, query=q) for q in batch_q]
+            lowered = [MQ.lower_plan(p) for p in bplans]
+            staged = ST.stage_block(blk0, F.required_columns(bplans[0].conds)
+                                    + ["trace.start_ms"], device=dev)
+            progs = MQ.pack_queries(lowered, len(lowered))
+            tm, cnt = mesh_eval_multiquery(mesh, lowered, staged, progs)
+            tm1, c1 = MQ.eval_multiquery(lowered, staged, progs)
+            if not (np.array_equal(tm, tm1.cpu().numpy()) and np.array_equal(cnt, c1.cpu().numpy())
+                    and tm.any(axis=1).all()):
+                raise AssertionError("run 1: mesh_eval_multiquery differs from B5a on one card")
+            del staged, tm1, c1
+            for mq_text, want in zip(METRICS_QUERIES, metrics_want):
+                mreq = ME.align_params(mq_text, lo_s, hi_s, METRICS_STEP_S)
+                resp = ME.MetricsResponse(fn=want.fn, start_ms=mreq.start_ms,
+                                          step_ms=mreq.step_ms, n_buckets=mreq.n_buckets,
+                                          label_names=want.label_names)
+                t0 = time.perf_counter()
+                ok = try_metrics_mesh(mesh, blocks, ME.parse_metrics_query(mq_text), mreq, resp)
+                if not ok or not same_series(resp, want):
+                    raise AssertionError(f"run 1: the stacked fold of {mq_text} (taken: {ok}) "
+                                         "differs from phase 10")
+                log(f"[mesh run 1] {mq_text}: stacked fold of {len(blocks)} blocks equals "
+                    f"phase 10, {time.perf_counter() - t0:.2f} s")
+            secs1, calls1 = mesh.collective_seconds(), dict(mesh.calls)
+        finally:
+            launch.shutdown(mesh, [])
+        del db, blocks, codes, blooms
+        log(f"[mesh run 1] nccl world 1 on {dev}: up in {up1_s:.2f} s; find rows "
+            f"({len(ids64)} ids x {len(want_rows)} blocks) {rows_s:.3f} s, elect, union, "
+            f"multiquery and 4 stacked folds equal the single-card routes; collectives (s) "
+            f"{ {k: round(v, 6) for k, v in secs1.items()} }, calls {calls1}; "
+            f"{time.perf_counter() - t_run:.1f} s")
+
+        # ---- run 2: gloo 2x2, four processes on the card, TempoDB routes
+        t_run = time.perf_counter()
+        free0 = torch.cuda.mem_get_info(dev)[0]
+        init = f"file://{tmp}/pg-run2"
+        procs = launch.spawn_followers(MESH_WORLD, init, "gloo", dev, dp=MESH_DP, sp=MESH_SP,
+                                       timeout_s=MESH_TIMEOUT_S)
+        mesh = launch.init_controller(MESH_WORLD, init, "gloo", dev, dp=MESH_DP, sp=MESH_SP,
+                                      timeout_s=MESH_TIMEOUT_S)
+        codes = None
+        try:
+            up_s = time.perf_counter() - t_run
+            db = TempoDB(TempoDBConfig(device_promote_touches=1), backend=LocalBackend(store),
+                         device=dev)
+            db.poll_now()
+            metas = db.metas(TENANT)
+            if db.mesh is not mesh or db._batch_mesh() is not mesh:
+                raise AssertionError("run 2: TempoDB did not take the 2x2 mesh")
+            r0 = BX.routing_counts()
+            # the single-card K3 lookup under both names the find routes call
+            # it by (tempodb imports it at load, the batcher at each group)
+            cap.patch(FD, "lookup_ids_blocks_cached", keep=False)
+            cap.patch(TDB, "lookup_ids_blocks_cached", keep=False)
+            cap.patch(PF, "sharded_find_rows", keep=False)
+            t0 = time.perf_counter()
+            cands = [[m for m in metas if m.may_contain_id(t.rjust(16, b"\x00").hex())]
+                     for t in ids64]
+            got = db.find_in_blocks_multi([(TENANT, t, c) for t, c in zip(ids64, cands)])
+            lone = ids64[:8] + ids64[-4:]
+            for t in lone:  # lone finds: the batcher's one-item groups
+                got.append(db.find_trace_by_id(TENANT, t))
+            find_s = time.perf_counter() - t0
+            for t, g in zip(ids64 + lone, got):
+                w = seq_found.get(t)
+                if (g is None) != (w is None) or (w is not None and
+                                                  dataclasses.asdict(g) != dataclasses.asdict(w)):
+                    raise AssertionError(f"run 2: find {t.hex()} differs from phase 5")
+            meta0 = next(m for m in metas if m.block_id == block0_id)
+            reqs16 = [SearchRequest(query=q, limit=20) for q in batch_q]
+            t0 = time.perf_counter()
+            burst = db.search_blocks_multi([(TENANT, [meta0], r) for r in reqs16])
+            burst_s = time.perf_counter() - t0
+            if not all(same_response(g, w) for g, w in zip(burst, want16)):
+                raise AssertionError("run 2: the 16-query burst differs from phase 8")
+            t0 = time.perf_counter()
+            for mq_text, want in zip(METRICS_QUERIES, metrics_want):
+                r = db.metrics_query_range(TENANT, ME.align_params(mq_text, lo_s, hi_s,
+                                                                   METRICS_STEP_S))
+                if not same_series(r, want):
+                    raise AssertionError(f"run 2: {mq_text} differs from phase 10")
+            metrics_s = time.perf_counter() - t0
+            routes = {k: v - r0.get(k, 0) for k, v in BX.routing_counts().items()
+                      if v != r0.get(k, 0)}
+            free1 = torch.cuda.mem_get_info(dev)[0]
+            smi_mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                                      "--format=csv,noheader"], capture_output=True, text=True,
+                                     check=True).stdout.strip()
+            secs2, calls2 = mesh.collective_seconds(), dict(mesh.calls)
+        finally:
+            cap.restore()
+            codes = launch.shutdown(mesh, procs, join_timeout_s=60)
+        n_sharded = cap.calls.get("sharded_find_rows", 0)
+        log(f"[mesh run 2] gloo {MESH_DP}x{MESH_SP} on {dev}: up in {up_s:.1f} s; "
+            f"{len(got)} finds {find_s:.2f} s in {n_sharded} sharded finds "
+            f"({cap.calls.get('lookup_ids_blocks_cached', 0)} single-card K3 lookups); burst "
+            f"{burst_s:.2f} s; 4 metrics queries {metrics_s:.2f} s; routing {routes}; "
+            f"collectives (s) { {k: round(v, 6) for k, v in secs2.items()} }, calls {calls2}; "
+            f"card memory free {free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB of this process's "
+            f"view, nvidia-smi used/total {smi_mem}; followers exit {codes}; "
+            f"{time.perf_counter() - t_run:.1f} s")
+        if codes != [0] * (MESH_WORLD - 1):
+            raise AssertionError(f"run 2: followers exited {codes}")
+        # the batcher cuts each candidate set's ids into groups of at most
+        # its cap, as the reference's does: a group of one takes
+        # _device_find (tempo_tpu/db/batchexec.py:419-420) and records no
+        # route. A group or lone find that some block's bloom passes makes
+        # one sharded find; one that passes none looks nothing up.
+        def gated(pairs):
+            return any(db.open_block(m).bloom_test(t) for t, c in pairs for m in c)
+
+        per_key = {}
+        for t, c in zip(ids64, cands):
+            if c:
+                per_key.setdefault(tuple(m.block_id for m in c), []).append((t, c))
+        cap_n, grouped, want_sharded = db.batchers.find.max_batch, 0, 0
+        for pairs in per_key.values():
+            for i in range(0, len(pairs), cap_n):
+                chunk = pairs[i:i + cap_n]
+                if gated(chunk):
+                    want_sharded += 1
+                    grouped += len(chunk) if len(chunk) > 1 else 0
+        want_sharded += sum(gated([(t, c)]) for t, c in zip(lone, cands[:8] + cands[-4:]))
+        want_routes = {("find_batch", "mesh", "coalesced"): grouped,
+                       ("search_batch", "mesh", "mesh_batched"): len(reqs16),
+                       ("metrics_mesh", "device", "stacked"): len(METRICS_QUERIES) * len(metas)}
+        bad = {k: (routes.get(k, 0), v) for k, v in want_routes.items() if routes.get(k, 0) != v}
+        off = [k for k in routes if k not in want_routes]
+        if bad or off or cap.calls.get("lookup_ids_blocks_cached", 0) or \
+                n_sharded != want_sharded:
+            raise AssertionError(f"run 2: routes {routes}, {n_sharded} sharded finds; expected "
+                                 f"{want_routes}, {want_sharded} sharded finds")
+    finally:
+        cap.restore()
+    return {"counts": dict(kernels.LAUNCHES), "args": cap.args}
+
+
+def phase_15_table(args: dict, table) -> None:
+    """M1-M4 against their plain versions at the shapes the mesh path gave
+    them (M1 from run 1, M2-M4 from run 2's rank 0); times by CUDA
+    events, the bound of each, no one-call yardstick (none computes
+    these functions)."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import find as FD
+    from tempo_tpu_torch.ops import multiquery as MQ
+    from tempo_tpu_torch.ops import timeseries as TS
+
+    def row(name, source, replaces, err, ms, pms, b):
+        table.append({"name": name, "route": "cuda", "source": f"tempo_tpu_torch/csrc/{source}",
+                      "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+                      "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+
+    # M1 -- run 1's election over the 10 (12 padded) blocks' K3 rows
+    (rows, base, *_), _ = args["find_elect"]
+    best = kernels.find_elect(rows, base)
+    err = max_abs_err(best, FD._find_elect_plain(rows, base))
+    err = max(err, max_abs_err(kernels.find_elect(rows, base, best),
+                               FD._find_elect_plain(rows, base, best)))
+    if err:
+        raise AssertionError("M1 differs from its plain version")
+    bl, q = rows.shape
+    ms = cuda_ms(lambda: kernels.find_elect(rows, base))
+    pms = cuda_ms(lambda: FD._find_elect_plain(rows, base))
+    b = bound(bl * q * 4 + q * 4, bl * q)
+    log(f"[M1] Bl={bl} Q={q}: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.6f} ms")
+    row("find_elect", "find.cu", "tempo_tpu/parallel/find.py:70", err, ms, pms, b)
+
+    # M2, M3 -- run 2's last window on rank 0's row slice
+    (prow, dims, span_mat, row0, span_off, n_spans), _ = args["mq_partial"]
+    tables = MQ.program_tables(prow, dims)
+    got = kernels.mq_partial(prow, dims, span_mat, row0, span_off, n_spans)
+    err = max_abs_err(got, MQ._mq_partial_plain(span_mat, span_off, tables, row0, n_spans))
+    if err:
+        raise AssertionError("M2 differs from its plain version")
+    q_b, sl = prow.shape[0], span_mat.shape[1]
+    n_conds = int((tables["cond_op"] >= 0).sum(dim=1).max().item())
+    ms = cuda_ms(lambda: kernels.mq_partial(prow, dims, span_mat, row0, span_off, n_spans))
+    pms = cuda_ms(lambda: MQ._mq_partial_plain(span_mat, span_off, tables, row0, n_spans),
+                  reps=3, warm=1)
+    b = bound(span_mat.numel() * 4 + span_off.numel() * 4 + got.numel() * 4,
+              q_b * sl * max(1, n_conds))
+    log(f"[M2] Q={q_b} slice {sl} rows at {row0}, {span_mat.shape[0]} columns: {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+    row("mq_partial", "multiquery.cu", "tempo_tpu/parallel/multiquery.py:130", err, ms, pms, b)
+    (crow, cdims, counts, trace_mat, n_traces), _ = args["mq_combine"]
+    ctables = MQ.program_tables(crow, cdims)
+    got = kernels.mq_combine(crow, cdims, counts, trace_mat, n_traces)
+    err = max_abs_err(got, MQ._mq_combine_plain(counts, trace_mat, ctables, n_traces))
+    if err:
+        raise AssertionError("M3 differs from its plain version")
+    nt_b = counts.shape[2]
+    ms = cuda_ms(lambda: kernels.mq_combine(crow, cdims, counts, trace_mat, n_traces))
+    pms = cuda_ms(lambda: MQ._mq_combine_plain(counts, trace_mat, ctables, n_traces))
+    b = bound(counts.numel() * 4 + trace_mat.numel() * 4 + q_b * nt_b * 5, q_b * nt_b)
+    log(f"[M3] Q={q_b} x {nt_b} traces: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+    row("mq_combine", "multiquery.cu", "tempo_tpu/parallel/multiquery.py:130", err, ms, pms, b)
+
+    # M4 -- run 2's last stacked fold on rank 0's blocks
+    (query, cols, operands, gid, val, vpres, t0s, nspans, step, nb, ng), _ = \
+        args["timeseries_stacked"]
+    got = TS.timeseries_stacked(query, cols, operands, gid, val, vpres, t0s, nspans, step, nb, ng)
+    want = TS._timeseries_stacked_plain(query[0], query[1], cols, operands, gid, val, vpres,
+                                        t0s.tolist(), nspans.tolist(), step, nb, ng)
+    err = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if k == 2:
+            if not torch.allclose(g, w, rtol=1e-5, atol=0):
+                raise AssertionError("M4's f32 sums beyond rtol 1e-5")
+            err = float((g - w).abs().max().item())
+        elif max_abs_err(g, w):
+            raise AssertionError(f"M4 output {k} differs from its plain version")
+    if len(got) == 5:
+        mn, mx = kernels.timeseries_stacked_finish(got[3].clone(), got[4].clone())
+        if not (torch.equal(mn.view(torch.int32), TS.ts_decode(want[3]).view(torch.int32))
+                and torch.equal(mx.view(torch.int32), TS.ts_decode(want[4]).view(torch.int32))):
+            raise AssertionError("M4's finish differs from the plain decode")
+    prog, bufs, descs = TS.stacked_program(query, cols, operands)
+    ms = cuda_ms(lambda: kernels.timeseries_stacked(prog, bufs, descs, cols, gid, val, vpres, t0s,
+                                                    nspans, step, nb, ng))
+    pms = cuda_ms(lambda: TS._timeseries_stacked_plain(query[0], query[1], cols, operands, gid,
+                                                       val, vpres, t0s.tolist(), nspans.tolist(),
+                                                       step, nb, ng), reps=3, warm=1)
+    spans = int(nspans.sum().item())
+    named = {c.col if c.target != "res" else f"span@{c.col}" for c in query[1]}
+    per_span = 8 + 4 * len([n for n in named if not n.startswith("trace.")]) \
+        + (4 if any(n.startswith("trace.") for n in named) else 0) + (5 if val is not None else 0)
+    b = bound(spans * per_span + ng * nb * 4 * len(got), spans * 4)
+    log(f"[M4] {gid.shape[0]} blocks, {spans} spans into {ng} x {nb}: {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
+    row("timeseries_stacked", "timeseries.cu", "tempo_tpu/parallel/timeseries.py:131", err, ms,
+        pms, b)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -1848,7 +2202,7 @@ def main() -> int:
         # ---- 10. metrics over the 10 blocks, card vs TempoDB(device="cpu")
         lo_s = min(m.start_time_unix_nano for m in metas) // 10**9
         hi_s = -(-max(m.end_time_unix_nano for m in metas) // 10**9)
-        ts_total = 0
+        ts_total, metrics_card = 0, []
         for mq_text in METRICS_QUERIES:
             mreq = ME.align_params(mq_text, lo_s, hi_s, METRICS_STEP_S)
             kernels.reset_counts()
@@ -1864,6 +2218,7 @@ def main() -> int:
                 raise AssertionError(f"metrics {mq_text}: {n_ts} B6 launches, series "
                                      f"{len(r.series)} vs CPU {len(c.series)}")
             ts_total += n_ts
+            metrics_card.append(r)
             log(f"[metrics] {mq_text}: {len(r.series)} series x {mreq.n_buckets} buckets, "
                 f"{n_ts} B6 calls ({n_grid} __global__), card {card_s:.2f} s, CPU check {cpu_s:.2f} s")
         launches["timeseries"] = ts_total
@@ -1880,6 +2235,11 @@ def main() -> int:
         log(f"[metrics profile] {METRICS_QUERIES[0]}: {wall:.2f} s under the profiler; own time "
             + "; ".join(f"{os.path.basename(f)}:{ln} {fn} {tt:.2f} s" for (f, ln, fn), (_, _, tt, _, _)
                         in own))
+
+        # phase 15 runs on the corpus as phases 5-10 saw it: a hard-linked
+        # copy of the store (phase 12 compacts and expires the original)
+        mesh_store = os.path.join(tmp, "store-mesh")
+        shutil.copytree(os.path.join(tmp, "store"), mesh_store, copy_function=os.link)
 
         # ---- 11. the cut at full width; 12. compaction, last
         t0 = time.perf_counter()
@@ -1915,6 +2275,16 @@ def main() -> int:
             launches[name] = p13["counts"][name]
         for name in ("span_reduce", "edge_reduce"):
             launches[name] = p14["counts"][name]
+
+        # ---- 15. the mesh: NCCL at one rank, then gloo 2x2 on the card
+        t0 = time.perf_counter()
+        p15 = phase_15(mesh_store, dev, tmp, ids64, seq_found, batch_q, meta0.block_id, want16,
+                       metrics_card, lo_s, hi_s)
+        log(f"[mesh] phase 15 took {time.perf_counter() - t0:.1f} s")
+        phase_15_table(p15["args"], table)
+        del p15["args"]
+        for name in ("find_elect", "mq_partial", "mq_combine", "timeseries_stacked"):
+            launches[name] = p15["counts"][name]
         for row in table:
             row["launches"] = launches[row["name"]]
         if len(table) != len(kernels.LAUNCHES) or any(r["launches"] <= 0 for r in table):

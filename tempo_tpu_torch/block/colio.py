@@ -12,9 +12,10 @@ the footer with two small range reads and then range-reads only the
 (column, row-group) chunks a query touches.
 
 Each chunk records its own codec, and the reader dispatches per chunk:
-raw, const (one stored row tiled to the chunk length), gzip, lzma and
-zstd. zstd goes through the `zstandard` wheel where it imports, else
-through the zlib shim (util/zstdshim.py), which refuses a real zstd
+raw, const (one stored row tiled to the chunk length), gzip, lzma,
+snappy, lz4 (block/blockcodecs.py, pure Python) and zstd. zstd goes
+through the `zstandard` wheel where it imports, else through the zlib
+shim (util/zstdshim.py), which refuses a real zstd
 frame loudly instead of returning garbage.
 """
 
@@ -90,10 +91,36 @@ def _zstd_d(data: bytes, raw_len: int) -> bytes:
     return d.decompress(data, max_output_size=raw_len)
 
 
+def _snappy_c(data: bytes, level: int) -> bytes:
+    from .blockcodecs import snappy_compress
+
+    return snappy_compress(data)  # snappy has no levels
+
+
+def _snappy_d(data: bytes, raw_len: int) -> bytes:
+    from .blockcodecs import snappy_decompress
+
+    return snappy_decompress(data, raw_len)
+
+
+def _lz4_c(data: bytes, level: int) -> bytes:
+    from .blockcodecs import lz4_compress
+
+    return lz4_compress(data)  # lz4 block format has no levels
+
+
+def _lz4_d(data: bytes, raw_len: int) -> bytes:
+    from .blockcodecs import lz4_decompress
+
+    return lz4_decompress(data, raw_len)
+
+
 _CODECS: dict[str, tuple] = {  # name -> (compress(data, level), decompress(data, raw_len))
     CODEC_ZSTD: (_zstd_c, _zstd_d),
     "gzip": (_gzip_c, _gzip_d),
     "lzma": (_lzma_c, _lzma_d),
+    "snappy": (_snappy_c, _snappy_d),
+    "lz4": (_lz4_c, _lz4_d),
 }
 
 
@@ -346,6 +373,12 @@ class ColumnPack:
 
     def has(self, name: str) -> bool:
         return name in self._cols
+
+    def n_rows_of(self, name: str) -> int:
+        """Row count of a column from footer metadata alone -- no chunk
+        IO (pre-read budget estimates)."""
+        meta = self._cols.get(name)
+        return int(meta["shape"][0]) if meta else 0
 
     def _evict_locked(self, keep: str | None = None) -> None:
         """Drop decoded chunks first, then whole columns LRU -- never the

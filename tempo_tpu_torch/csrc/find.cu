@@ -50,3 +50,41 @@ TT_EXPORT int tt_find(const int32_t* ids, int B, int T, const int32_t* queries, 
     TT_LAUNCHED();
     return (int)cudaGetLastError();
 }
+
+// M1: the election of the sharded find (parallel/find.py), run on K3's
+// local (Bl, Q) rows of this rank's blocks, whose global ids are
+// base .. base + Bl - 1. Replaces the per-shard arithmetic of
+// tempo_tpu/parallel/find.py:47-68 (`make_sharded_find`'s `local`):
+//   winner == NULL (stage 1): per query the highest global block with a
+//     hit, or -1; the caller's all_reduce MAX elects the mesh's winner;
+//   winner != NULL (stage 2): per query the row of the block equal to
+//     winner[q] (-1 where this rank does not hold it); a second
+//     all_reduce MAX hands every rank the winner's row.
+// The two stages keep block and row apart: block * T + row overflows
+// int32 (find.py:55). One thread per query walks the Bl rows.
+//
+// Bound: bytes -- the (Bl, Q) rows read once, Q words written; at the
+// find path's shapes the launch itself dominates. Launch slot 1.
+__global__ void find_elect_kernel(const int32_t* __restrict__ rows, int Bl, int Q, int base,
+                                  const int32_t* __restrict__ winner, int32_t* __restrict__ out) {
+    int q = blockIdx.x * blockDim.x + threadIdx.x;
+    if (q >= Q) return;
+    int best = -1;
+    const int w = winner ? winner[q] : 0;
+    for (int b = 0; b < Bl; ++b) {
+        const int r = rows[(long long)b * Q + q];
+        if (r < 0) continue;
+        if (!winner) best = base + b;  // b rises: the last hit is the highest
+        else if (base + b == w && r > best) best = r;
+    }
+    out[q] = best;
+}
+
+TT_EXPORT int tt_find_elect(const int32_t* rows, int Bl, int Q, int base, const int32_t* winner,
+                            int32_t* out, void* stream) {
+    if (Bl < 0 || Q < 1 || base < 0) return (int)cudaErrorInvalidValue;
+    find_elect_kernel<<<tt_blocks(Q, 128), 128, 0, (cudaStream_t)stream>>>(rows, Bl, Q, base,
+                                                                          winner, out);
+    TT_LAUNCHED_SLOT(1);
+    return (int)cudaGetLastError();
+}

@@ -77,18 +77,40 @@ __global__ void ts_init_kernel(int32_t* __restrict__ vmin, int32_t* __restrict__
     vmax[i] = ts_enc(__int_as_float((int)0xFF800000));  // -inf
 }
 
+// Both folds: B6 over one block (descs == NULL: desc, t0 and n_spans as
+// given) and M4 over Bl stacked blocks (blockIdx.y = block b, its
+// descriptor table descs[b], origin t0s[b], span count nspans[b], and
+// its row b * S of tsid, start_ms, gid, val and vpres), all into one
+// (G, n_buckets) grid.
 template <bool SMEM>
 __global__ void ts_fold_kernel(const int32_t* __restrict__ prog, int len,
                                const long long* __restrict__ desc,
+                               const long long* __restrict__ descs, long long S,
                                const uint8_t* __restrict__ resmask, int n_res_b,
                                const int32_t* __restrict__ res_idx, const int32_t* __restrict__ tsid,
                                int n_traces_b, const int32_t* __restrict__ start_ms,
                                const int32_t* __restrict__ gid, const float* __restrict__ val,
-                               const uint8_t* __restrict__ vpres, int t0, int step, int n_spans,
-                               int n_buckets, int G, int has_val, int32_t* __restrict__ counts,
-                               int32_t* __restrict__ vcnt, float* __restrict__ vsum,
-                               int32_t* __restrict__ vmin, int32_t* __restrict__ vmax) {
+                               const uint8_t* __restrict__ vpres, int t0, int n_spans,
+                               const int32_t* __restrict__ t0s, const int32_t* __restrict__ nspans,
+                               int step, int n_buckets, int G, int has_val,
+                               int32_t* __restrict__ counts, int32_t* __restrict__ vcnt,
+                               float* __restrict__ vsum, int32_t* __restrict__ vmin,
+                               int32_t* __restrict__ vmax) {
     extern __shared__ int32_t smem[];
+    if (descs) {
+        const int b = blockIdx.y;
+        const long long o = (long long)b * S;
+        desc = (const long long*)descs[b];
+        tsid += o;
+        start_ms += o;
+        gid += o;
+        if (has_val) {
+            val += o;
+            vpres += o;
+        }
+        t0 = t0s[b];
+        n_spans = nspans[b];
+    }
     const int cells = G * n_buckets;
     int32_t *c_acc = counts, *vc_acc = vcnt, *mn_acc = vmin, *mx_acc = vmax;
     float* vs_acc = vsum;
@@ -184,18 +206,87 @@ TT_EXPORT int tt_timeseries(const long long* desc, const int32_t* prog, int len,
         if (e != cudaSuccess) return (int)e;
         int blocks = span_blocks < 264 ? span_blocks : 264;  // 2 a SM: each flushes its cells
         ts_fold_kernel<true><<<blocks, 256, smem, st>>>(
-            prog, len, desc, resmask, n_res_b, res_idx, tsid, n_traces_b, start_ms, gid, val,
-            vpres, t0, step, n_spans, n_buckets, G, has_val, counts, vcnt, vsum, vmin, vmax);
+            prog, len, desc, nullptr, 0, resmask, n_res_b, res_idx, tsid, n_traces_b, start_ms,
+            gid, val, vpres, t0, n_spans, nullptr, nullptr, step, n_buckets, G, has_val, counts,
+            vcnt, vsum, vmin, vmax);
     } else {
         int blocks = span_blocks < 132 * 16 ? span_blocks : 132 * 16;
         ts_fold_kernel<false><<<blocks, 256, 0, st>>>(
-            prog, len, desc, resmask, n_res_b, res_idx, tsid, n_traces_b, start_ms, gid, val,
-            vpres, t0, step, n_spans, n_buckets, G, has_val, counts, vcnt, vsum, vmin, vmax);
+            prog, len, desc, nullptr, 0, resmask, n_res_b, res_idx, tsid, n_traces_b, start_ms,
+            gid, val, vpres, t0, n_spans, nullptr, nullptr, step, n_buckets, G, has_val, counts,
+            vcnt, vsum, vmin, vmax);
     }
     TT_LAUNCHED();
     if (has_val) {
         ts_finish_kernel<<<tt_blocks(cells, 256), 256, 0, st>>>(vmin, vmax, (int)cells);
         TT_LAUNCHED();
     }
+    return (int)cudaGetLastError();
+}
+
+// M4: B6 over this rank's Bl stacked blocks in ONE launch (the block on
+// gridDim.y), into one (G, n_buckets) grid (parallel/timeseries.py).
+// Replaces the per-shard fold of tempo_tpu/parallel/timeseries.py:45-131
+// (`make_sharded_timeseries`' `local`) before its psum / pmin / pmax.
+// Each block brings its own descriptor table (descs[b]: its dictionary
+// codes the query its own way, and its columns sit at its own row), its
+// own origin t0s[b] and span count nspans[b]; group ids are global.
+// min and max stay in B6's ordered-int32 encoding (vmin / vmax as int32)
+// so the caller's all_reduce MIN / MAX keep B6's NaN, -0 and inf rules;
+// tt_ts_stacked_finish decodes them after the collective.
+//
+// Bound: bytes -- per span the columns the program names plus start_ms,
+// gid, val and vpres (13 B), the grid written once. Launch slot 1.
+TT_EXPORT int tt_timeseries_stacked(const long long* descs, int Bl, const int32_t* prog, int len,
+                                    long long S, const int32_t* tsid, int n_traces_b,
+                                    const int32_t* start_ms, const int32_t* gid, const float* val,
+                                    const uint8_t* vpres, const int32_t* t0s,
+                                    const int32_t* nspans, int step,
+                                    int n_buckets, int G, int has_val, int32_t* counts,
+                                    int32_t* vcnt, float* vsum, int32_t* vmin, int32_t* vmax,
+                                    void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    long long cells = (long long)G * n_buckets;
+    if (Bl < 1 || Bl > 65535 || step < 1 || n_buckets < 1 || G < 1 || cells > (1 << 24) ||
+        S < 0 || S > INT32_MAXV ||
+        (has_val && (!val || !vpres || !vcnt || !vsum || !vmin || !vmax)))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int32_t) * cells, st);
+    if (e == cudaSuccess && has_val) e = cudaMemsetAsync(vcnt, 0, sizeof(int32_t) * cells, st);
+    if (e == cudaSuccess && has_val) e = cudaMemsetAsync(vsum, 0, sizeof(float) * cells, st);
+    if (e != cudaSuccess) return (int)e;
+    if (has_val) {
+        ts_init_kernel<<<tt_blocks(cells, 256), 256, 0, st>>>(vmin, vmax, (int)cells);
+        TT_LAUNCHED_SLOT(1);
+    }
+    size_t smem = (size_t)cells * sizeof(int32_t) * (has_val ? 5 : 1);
+    int span_blocks = tt_blocks(S, 256);  // a block's spans fit its row of S
+    if (smem <= TS_SMEM_MAX) {
+        e = cudaFuncSetAttribute(ts_fold_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)TS_SMEM_MAX);
+        if (e != cudaSuccess) return (int)e;
+        int per = (264 + Bl - 1) / Bl;  // about 2 blocks a SM in all, each flushes its cells
+        dim3 grid(span_blocks < per ? span_blocks : per, Bl);
+        ts_fold_kernel<true><<<grid, 256, smem, st>>>(
+            prog, len, nullptr, descs, S, nullptr, 0, nullptr, tsid, n_traces_b, start_ms, gid,
+            val, vpres, 0, 0, t0s, nspans, step, n_buckets, G, has_val, counts, vcnt, vsum, vmin,
+            vmax);
+    } else {
+        int per = (132 * 16 + Bl - 1) / Bl;
+        dim3 grid(span_blocks < per ? span_blocks : per, Bl);
+        ts_fold_kernel<false><<<grid, 256, 0, st>>>(
+            prog, len, nullptr, descs, S, nullptr, 0, nullptr, tsid, n_traces_b, start_ms, gid,
+            val, vpres, 0, 0, t0s, nspans, step, n_buckets, G, has_val, counts, vcnt, vsum, vmin,
+            vmax);
+    }
+    TT_LAUNCHED_SLOT(1);
+    return (int)cudaGetLastError();
+}
+
+// M4's decode after the collective: vmin / vmax (n,) in place to f32 bits
+TT_EXPORT int tt_ts_stacked_finish(int32_t* vmin, int32_t* vmax, int n, void* stream) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    ts_finish_kernel<<<tt_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(vmin, vmax, n);
+    TT_LAUNCHED_SLOT(1);
     return (int)cudaGetLastError();
 }

@@ -21,12 +21,16 @@ analog of continuous batching in inference serving:
     to the single-query path unchanged.
 
 Two executors share the machinery: `search` fuses TraceQL/tag search
-jobs; `find` fuses trace-by-ID lookups through K3 with Q > 1.
+jobs; `find` fuses trace-by-ID lookups through K3 with Q > 1. On a mesh
+of more than one rank a search group runs as one mesh program
+(parallel/multiquery) and a find group as the sharded find
+(parallel/find.sharded_find_rows), where the reference routes them.
 
 A fused group that fails falls back to running its members one by one,
-as in the reference -- except for a kernels.KernelError, which reaches
-every member: a kernel that does not build or launch is never hidden
-behind the sequential route. Each executor keeps a small stats dict
+as in the reference -- except for a kernels.KernelError or a
+parallel.mesh.MeshError, which reaches every member: a kernel that does
+not build or launch, or a mesh rank that failed, is never hidden behind
+the sequential route. Each executor keeps a small stats dict
 (queries, groups, max_occupancy); routing decisions are counted by
 (site, engine, reason) in ROUTING.
 """
@@ -39,6 +43,7 @@ from collections import Counter
 from dataclasses import dataclass, field, replace
 
 import numpy as np
+import torch
 
 from ..kernels import KernelError
 
@@ -242,23 +247,32 @@ def _seq_or_exc(it: _SearchItem):
         return e
 
 
-def _run_search_group(key, items: list) -> list:
-    """Execute one coalesced search group: stage once, ONE B5a launch,
-    ONE B5b launch, per-query verify + materialize. A fused-path failure
-    other than a KernelError degrades to per-item single-query execution;
-    a KernelError reaches every member."""
+def _run_search_group(key, items: list, mesh_fn=None) -> list:
+    """Execute one coalesced search group: stage once, ONE B5a launch
+    (or one mesh program), ONE B5b launch, per-query verify +
+    materialize. A fused-path failure other than a KernelError or a
+    MeshError degrades to per-item single-query execution; those two
+    reach every member."""
+    from ..parallel.mesh import MeshError
+
     if len(items) == 1:
         return [_seq_or_exc(items[0])]
     try:
-        return _run_search_group_fused(items)
-    except KernelError:
+        return _run_search_group_fused(items, mesh_fn)
+    except (KernelError, MeshError):
         raise
     except Exception:
         record_routing("search_batch", "fallback", "fused_error", n=len(items))
         return [_seq_or_exc(it) for it in items]
 
 
-def _run_search_group_fused(items: list) -> list:
+def _mesh_batch_enabled() -> bool:
+    """TEMPO_MESH_BATCH=0 pins window leaders to the single-device fused
+    launch even on a multi-rank mesh (as the reference reads it)."""
+    return os.environ.get("TEMPO_MESH_BATCH", "1") not in ("0", "false")
+
+
+def _run_search_group_fused(items: list, mesh_fn=None) -> list:
     from ..ops.multiquery import (
         _p2,
         eval_multiquery,
@@ -281,10 +295,26 @@ def _run_search_group_fused(items: list) -> list:
         return [_seq_or_exc(it) for it in items]
     lowered = [it.lowered for it in items]
     progs = pack_queries(lowered, q_b)
-    tm, counts = eval_multiquery(lowered, staged, progs)
+    # more than one rank: the window leader lowers the whole group to ONE
+    # Q-programs x sharded-rows mesh program (parallel/multiquery);
+    # shape-ineligible buckets and TEMPO_MESH_BATCH=0 keep the
+    # single-device fused launch
+    mesh = mesh_fn() if mesh_fn is not None else None
+    engine = "device"
+    if mesh is not None and _mesh_batch_enabled():
+        from ..parallel.multiquery import mesh_batch_eligible, mesh_eval_multiquery
+
+        if mesh_batch_eligible(mesh, staged):
+            tm_h, counts_h = mesh_eval_multiquery(mesh, lowered, staged, progs)
+            dev = staged.cols["trace.start_ms"].device
+            tm, counts = torch.from_numpy(tm_h).to(dev), torch.from_numpy(counts_h).to(dev)
+            engine = "mesh"
+    if engine == "device":
+        tm, counts = eval_multiquery(lowered, staged, progs)
     key_dev = staged.cols["trace.start_ms"]
     nt = blk.meta.total_traces
-    record_routing("search_batch", "device", "coalesced", n=len(items))
+    record_routing("search_batch", engine, "mesh_batched" if engine == "mesh" else "coalesced",
+                   n=len(items))
 
     responses: list = []
     if nt == 0:
@@ -450,13 +480,16 @@ def _find_seq_or_exc(it: _FindItem):
 def _run_find_group(key, items: list) -> list:
     """One coalesced trace-by-ID group: bloom-gate per (block, id) on
     host, then ONE K3 bisection over every surviving block for ALL Q
-    ids, per-id hit rows materialized and combined. A fused-path failure
-    other than a KernelError degrades to per-item sequential lookups."""
+    ids (the sharded find on a mesh), per-id hit rows materialized and
+    combined. A fused-path failure other than a KernelError or a
+    MeshError degrades to per-item sequential lookups."""
+    from ..parallel.mesh import MeshError
+
     if len(items) == 1:
         return [_find_seq_or_exc(items[0])]
     try:
         return _run_find_group_fused(items)
-    except KernelError:
+    except (KernelError, MeshError):
         raise
     except Exception:
         record_routing("find_batch", "fallback", "fused_error", n=len(items))
@@ -478,8 +511,15 @@ def _run_find_group_fused(items: list) -> list:
         return [None] * len(items)
     ids = [it.trace_id.rjust(16, b"\x00") for it in items]
     query = np.asarray([S.trace_id_to_codes(i) for i in ids], dtype=np.int32)
-    sids = lookup_ids_blocks_cached(keep, query, db.device)  # (B, Q)
-    record_routing("find_batch", "device", "coalesced", n=len(items))
+    if db.mesh.size > 1:
+        from ..parallel.find import sharded_find_rows
+
+        sids = sharded_find_rows(db.mesh, [b.trace_index["trace.id_codes"] for b in keep],
+                                 query)  # (B, Q)
+        record_routing("find_batch", "mesh", "coalesced", n=len(items))
+    else:
+        sids = lookup_ids_blocks_cached(keep, query, db.device)  # (B, Q)
+        record_routing("find_batch", "device", "coalesced", n=len(items))
     per_block: dict[int, list[tuple[int, int]]] = {}
     for bi in range(sids.shape[0]):
         for qi in range(sids.shape[1]):
@@ -511,12 +551,20 @@ def batched_find(batcher: BatchExecutor, db, metas: list, trace_id: bytes):
 
 class QueryBatchers:
     """The per-TempoDB pair of batching executors (search + find) under
-    one resolved config, both running their groups on `device`."""
+    one resolved config, both running their groups on `device`.
+    `mesh_fn` (lazy: the mesh is looked up at the first group) lets
+    window leaders lower a whole search group onto the mesh when it has
+    more than one rank."""
 
-    def __init__(self, enabled=None, window_ms=None, max_batch=None, device=None):
+    def __init__(self, enabled=None, window_ms=None, max_batch=None, device=None,
+                 mesh_fn=None):
         on, window_s, max_b = resolve_batch_config(enabled, window_ms, max_batch)
         self.enabled = on
-        self.search = BatchExecutor("search", _run_search_group, window_s=window_s,
+
+        def search_runner(key, items):
+            return _run_search_group(key, items, mesh_fn)
+
+        self.search = BatchExecutor("search", search_runner, window_s=window_s,
                                     max_batch=max_b, enabled=on, device=device)
         self.find = BatchExecutor("find", _run_find_group, window_s=window_s,
                                   max_batch=max_b, enabled=on, device=device)

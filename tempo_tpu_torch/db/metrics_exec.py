@@ -1,5 +1,5 @@
 """TraceQL metrics execution: `{...} | rate() by(...)` over the blocklist
-(port of tempo_tpu/db/metrics_exec.py, single device, serial driver).
+(port of tempo_tpu/db/metrics_exec.py, serial driver).
 
   * per block, the spanset filter plans to the SAME condition tree the
     search path uses (traceql/plan.plan_metrics_filter, span level -- no
@@ -19,8 +19,9 @@
     evaluator (traceql/hosteval) -- the conservative-filter/exact-verify
     split of search.
 
-The mesh fold, the pooled driver, the cold-read prefetch and the live
-head of the JAX package are not part of the port yet.
+On a mesh of more than one rank the stacked fold of db/metrics_mesh
+takes every clean block set. The pooled driver and the cold-read
+prefetch of the JAX package are not part of the port yet.
 
 Time axis: step-aligned buckets over [start_ms, end_ms); a span lands in
 bucket (span_abs_ms - start_ms) // step_ms by its START time, where
@@ -749,16 +750,26 @@ def parse_metrics_query(query: str) -> MetricsQuery:
 
 
 def metrics_query_range_blocks(blocks: list[BackendBlock], req: MetricsRequest,
-                               device=None) -> MetricsResponse:
+                               device=None, mesh=None) -> MetricsResponse:
     """Run one metrics range query over a block set: per-block folds,
-    one block after another, partial series merged by label strings."""
+    one block after another, partial series merged by label strings.
+    With a mesh of more than one rank, clean same-structure plans run as
+    ONE stacked fold over the mesh with an all_reduce combine
+    (db/metrics_mesh, parallel/timeseries); everything else stays
+    per-block."""
     q = parse_metrics_query(req.query)
     resp = MetricsResponse(
         fn=q.agg.fn, start_ms=req.start_ms, step_ms=req.step_ms,
         n_buckets=req.n_buckets,
         label_names=tuple(expr_label(e, i) for i, e in enumerate(q.agg.by)),
     )
-    for blk in blocks:
-        if blk.meta.overlaps_time(req.start_ms // 1000, -(-req.end_ms // 1000)):
-            metrics_block(blk, q, req, resp, device=device)
+    in_range = [b for b in blocks
+                if b.meta.overlaps_time(req.start_ms // 1000, -(-req.end_ms // 1000))]
+    if mesh is not None and mesh.size > 1 and len(in_range) > 1:
+        from .metrics_mesh import try_metrics_mesh
+
+        if try_metrics_mesh(mesh, in_range, q, req, resp):
+            return resp
+    for blk in in_range:
+        metrics_block(blk, q, req, resp, device=device)
     return resp

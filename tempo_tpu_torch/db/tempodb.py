@@ -12,9 +12,12 @@ block's device index; search runs the fused multi-block device search
 single-block search jobs and finds coalesce through the batching
 executors (db/batchexec.py: B5a + B5b per search group, K3 with Q > 1
 per find group), and TraceQL metrics range queries fold per block on
-B6 (db/metrics_exec.py). The WAL, the pipelined compaction sweep, the
-mesh, the chaos wrap and the cost ledger of the JAX package are not
-part of this port yet.
+B6 (db/metrics_exec.py). On a mesh of more than one rank
+(parallel/launch) finds run the sharded find, batched search windows
+the mesh multi-query program and metrics the stacked mesh fold, where
+the reference routes them. The WAL, the pipelined compaction sweep, the
+sharded multi-block search, the chaos wrap and the cost ledger of the
+JAX package are not part of this port yet.
 
 The device is the first card unless the caller names another one
 (`device="cpu"` runs every kernel's plain PyTorch version).
@@ -93,9 +96,29 @@ class TempoDB:
         self._lock = threading.Lock()
         # concurrent search / find jobs that share a coalesce key merge
         # into one fused kernel launch
+        self._mesh = None
         self.batchers = QueryBatchers(
             enabled=cfg.batch_enabled, window_ms=cfg.batch_window_ms,
-            max_batch=cfg.batch_max, device=self.device)
+            max_batch=cfg.batch_max, device=self.device, mesh_fn=self._batch_mesh)
+
+    def _batch_mesh(self):
+        """Mesh handed to the batching executors' window leaders
+        (db/batchexec -> parallel/multiquery): the mesh when it has more
+        than one rank, else None -- the single-device fused launch is
+        already the route there."""
+        mesh = self.mesh
+        return mesh if mesh.size > 1 else None
+
+    @property
+    def mesh(self):
+        """The mesh for the sharded find, batch and metrics paths: the
+        process group's (parallel/launch) when one is up, else a 1x1
+        mesh on this database's device, which takes no mesh route."""
+        if self._mesh is None:
+            from ..parallel import make_mesh
+
+            self._mesh = make_mesh(device=self.device)
+        return self._mesh
 
     # ------------------------------------------------------------ blocks
     def open_block(self, meta: BlockMeta) -> BackendBlock:
@@ -201,7 +224,13 @@ class TempoDB:
         query = np.asarray(
             [S.trace_id_to_codes(trace_id.rjust(16, b"\x00"))], dtype=np.int32
         )
-        sids = lookup_ids_blocks_cached(blocks, query, self.device)
+        if self.mesh.size > 1:
+            from ..parallel.find import sharded_find_rows
+
+            sids = sharded_find_rows(self.mesh, [b.trace_index["trace.id_codes"] for b in blocks],
+                                     query)
+        else:
+            sids = lookup_ids_blocks_cached(blocks, query, self.device)
         return [blk.materialize_traces([int(sid)])[0]
                 for blk, sid in zip(blocks, sids[:, 0]) if sid >= 0]
 
@@ -217,7 +246,10 @@ class TempoDB:
         per-block filters + ONE cross-block top-k sync, and per-block
         search when the fused footprint exceeds the device budget.
         _skip_batcher: the caller already probed batch eligibility for
-        this query and got a fallback -- don't plan and count it twice."""
+        this query and got a fallback -- don't plan and count it twice.
+        On a mesh a multi-block unit keeps this single-device route until
+        the sharded search is ported (the reference's
+        search_blocks_device); the answers are the same."""
         limit = req.limit or self.cfg.search_default_limit
         if not metas:
             return SearchResponse()
@@ -298,11 +330,13 @@ class TempoDB:
     def metrics_query_range(self, tenant: str, req: MetricsRequest) -> MetricsResponse:
         """TraceQL metrics range query over the blocklist
         (db/metrics_exec): per-block filter -> bucketize -> fold on B6,
-        partial series merged by label."""
+        partial series merged by label; the stacked mesh fold takes over
+        on a mesh of more than one rank."""
         start_s, end_s = req.start_ms // 1000, -(-req.end_ms // 1000)
         metas = [m for m in self.metas(tenant) if m.overlaps_time(start_s, end_s)]
         blocks = [self.open_block(m) for m in metas]
-        return metrics_query_range_blocks(blocks, req, device=self.device)
+        mesh = self.mesh if self.mesh.size > 1 else None
+        return metrics_query_range_blocks(blocks, req, device=self.device, mesh=mesh)
 
     # --------------------------------------------------------- compaction
     def _apply_compaction_result(self, tenant: str, res: comp.CompactionResult,

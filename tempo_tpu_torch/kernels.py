@@ -41,6 +41,10 @@ never hidden behind a plain version or another route.
 | live_patch  | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:298 (B7d)           |
 | span_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:23 _reduce_kernel (B8a) |
 | edge_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:63 _edge_reduce_kernel (B8b) |
+| find_elect  | csrc/find.cu       | tempo_tpu/parallel/find.py:47-68 local (M1)    |
+| mq_partial  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:57-100 (M2)   |
+| mq_combine  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:102-125 (M3)  |
+| timeseries_stacked | csrc/timeseries.cu | tempo_tpu/parallel/timeseries.py:45-131 local (M4) |
 
 The write path's kernels: launches on their path, what bounds them, and
 the one PyTorch call that computes the same function (the yardstick
@@ -71,6 +75,16 @@ streaming tap):
 |-------------|---------------------------------------------|---------------------------------------|------------------------------------------------|
 | span_reduce | one per tap window; one per legacy collect  | 8 B a row + 4 B x S x (nb + 2) written | none: searchsorted, two bincounts, index_add_  |
 | edge_reduce | one per tap window that completed an edge   | 16 B a row + 4 B x E x (2 nb + 4)     | none: the same per side, and a failed bincount |
+
+The mesh programs' kernels (parallel/, one body on every rank of a
+mesh; a collective between the halves):
+
+| kernel      | launches on its path                           | bound (bytes moved)                   | one PyTorch call                               |
+|-------------|------------------------------------------------|---------------------------------------|------------------------------------------------|
+| find_elect  | two per sharded_find on every rank             | 4 B x Bl x Q read, 4 B x Q written    | none: a where, then an amax                    |
+| mq_partial  | one per mesh-batched window on every rank      | 4 B a span a column, (NG+1) x 4 B out | none: a cumsum and two gathers per group       |
+| mq_combine  | one per mesh-batched window on every rank      | (NG+1) x 4 B in, 5 B out a trace      | none: a compare, a gather and an all per query |
+| timeseries_stacked | fold, then finish for value folds, per stacked fold on every rank | 13 B a span + the columns | none: index_add_ and two scatter_reduce_ |
 """
 
 from __future__ import annotations
@@ -97,11 +111,13 @@ LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
             "multiquery": 0, "mq_select": 0, "timeseries": 0, "remap": 0, "bloom_bits": 0,
             "rowgroup": 0, "bloom_union": 0, "bloom_test": 0, "live_filter": 0,
             "live_find": 0, "live_append": 0, "live_patch": 0, "span_reduce": 0,
-            "edge_reduce": 0}
+            "edge_reduce": 0, "find_elect": 0, "mq_partial": 0, "mq_combine": 0,
+            "timeseries_stacked": 0}
 # source -> its kernels, in the library's launch-counter slot order
-_KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find",),
-              "stage": ("res_to_span",), "multiquery": ("multiquery", "mq_select"),
-              "timeseries": ("timeseries",), "blockcut": ("remap", "bloom_bits", "rowgroup"),
+_KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find", "find_elect"),
+              "stage": ("res_to_span",),
+              "multiquery": ("multiquery", "mq_select", "mq_partial", "mq_combine"),
+              "timeseries": ("timeseries", "timeseries_stacked"), "blockcut": ("remap", "bloom_bits", "rowgroup"),
               "bloom": ("bloom_union", "bloom_test"),
               "livestage": ("live_filter", "live_find", "live_append", "live_patch"),
               "reduce": ("span_reduce", "edge_reduce")}
@@ -137,6 +153,12 @@ _SIGNATURES = {
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
     "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P]),
     "tt_edge_reduce": ("reduce", [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+    "tt_find_elect": ("find", [_P, _I, _I, _I, _P, _P, _P]),
+    "tt_mq_partial": ("multiquery", [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P]),
+    "tt_mq_combine": ("multiquery", [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "tt_timeseries_stacked": ("timeseries", [_P, _I, _P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P,
+                                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "tt_ts_stacked_finish": ("timeseries", [_P, _P, _I, _P]),
 }
 
 # one lock over build and load: the first use may come from several
@@ -766,3 +788,143 @@ def edge_reduce(eid: torch.Tensor, cdur: torch.Tensor, sdur: torch.Tensor, faile
               chist.data_ptr(), shist.data_ptr(), _stream())
     _count("edge_reduce")
     return counts, fcounts, csum, ssum, chist, shist
+
+
+# ------------------------------------------------------------------ M1
+def find_elect(rows: torch.Tensor, base: int, winner: torch.Tensor | None = None) -> torch.Tensor:
+    """M1 on K3's local (Bl, Q) rows of the blocks base .. base + Bl - 1:
+    stage 1 (winner None) the highest global block with a hit per query,
+    stage 2 the row of the block equal to winner[q]; -1 where none.
+    Bound: bytes (the rows read once)."""
+    dev = _cuda_device(rows)
+    if rows.dim() != 2 or rows.shape[1] == 0:
+        raise KernelError("find_elect: (Bl, Q) rows with Q > 0 expected")
+    bl, q = rows.shape
+    _check(rows, "rows", torch.int32, dev)
+    if winner is not None:
+        _check(winner, "winner", torch.int32, dev, (q,))
+    out = torch.empty(q, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_find_elect", rows.data_ptr(), bl, q, int(base), _ptr(winner), out.data_ptr(),
+              _stream())
+    _count("find_elect")
+    return out
+
+
+# ------------------------------------------------------------------ M2/M3
+def mq_partial(progs: torch.Tensor, dims: tuple, span_mat: torch.Tensor, row0: int,
+               span_off: torch.Tensor, n_spans: int) -> torch.Tensor:
+    """M2: B5a's span-level half of q_b packed programs over the row slice
+    span_mat (n_sc, Sl) starting at global row row0 -> partial counts
+    (q_b, NG + 1, n_traces_b) int32. Bound: bytes (the slice's columns
+    once per query)."""
+    dev = _cuda_device(progs)
+    q_b = progs.shape[0]
+    _check(progs, "progs", torch.int32, dev, (q_b, MQ_W))
+    _check(span_mat, "span_mat", torch.int32, dev)
+    _check(span_off, "span_off", torch.int32, dev)
+    if span_mat.dim() != 2 or span_off.dim() != 1 or span_off.shape[0] < 2:
+        raise KernelError("mq_partial: span_mat (n_sc, Sl) and span_off (NT + 1,) expected")
+    if len(dims) != 6 or any(not 1 <= d <= m for d, m in zip(dims, MQ_MAX)):
+        raise KernelError(f"mq_partial: program dims {dims} outside {MQ_MAX}")
+    P, NC, NG = (int(d) for d in dims[:3])
+    n_sc, sl = span_mat.shape
+    nt_b = span_off.shape[0] - 1
+    out = torch.empty((q_b, NG + 1, nt_b), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_mq_partial", progs.data_ptr(), q_b, P, NC, NG, span_mat.data_ptr(), n_sc, sl,
+              int(row0), span_off.data_ptr(), int(n_spans), nt_b, out.data_ptr(), _stream())
+    _count("mq_partial")
+    return out
+
+
+def mq_combine(progs: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat: torch.Tensor,
+               n_traces: int):
+    """M3: the trace-level half over the summed (q_b, NG + 1, n_traces_b)
+    counts and trace_mat (n_tc, n_traces_b) -> (tm bool, counts int32),
+    each (q_b, n_traces_b). Bound: bytes (the counts and the trace
+    columns read once)."""
+    dev = _cuda_device(progs)
+    q_b = progs.shape[0]
+    _check(progs, "progs", torch.int32, dev, (q_b, MQ_W))
+    if len(dims) != 6 or any(not 1 <= d <= m for d, m in zip(dims, MQ_MAX)):
+        raise KernelError(f"mq_combine: program dims {dims} outside {MQ_MAX}")
+    NG, PT, NA, TC = (int(d) for d in dims[2:])
+    if counts.dim() != 3 or trace_mat.dim() != 2:
+        raise KernelError("mq_combine: counts (q_b, NG + 1, NT) and trace_mat (n_tc, NT) expected")
+    nt_b = counts.shape[2]
+    _check(counts, "counts", torch.int32, dev, (q_b, NG + 1, nt_b))
+    _check(trace_mat, "trace_mat", torch.int32, dev, (trace_mat.shape[0], nt_b))
+    tm = torch.empty((q_b, nt_b), dtype=torch.bool, device=dev)
+    cnt = torch.empty((q_b, nt_b), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_mq_combine", progs.data_ptr(), q_b, NG, PT, NA, TC, counts.data_ptr(),
+              trace_mat.data_ptr(), trace_mat.shape[0], int(n_traces), nt_b, tm.data_ptr(),
+              cnt.data_ptr(), _stream())
+    _count("mq_combine")
+    return tm, cnt
+
+
+# ------------------------------------------------------------------ M4
+def timeseries_stacked(prog, bufs: list, descs: torch.Tensor, cols: dict, gid: torch.Tensor,
+                       val: torch.Tensor | None, vpres: torch.Tensor | None, t0s: torch.Tensor,
+                       nspans: torch.Tensor, step: int, n_buckets: int, n_groups: int):
+    """M4: the span program of `prog` (ops/timeseries._SpanProgram) over Bl
+    stacked blocks, block b's descriptor buffer bufs[b] pointing at row b
+    of the (Bl, S) columns in cols and descs (Bl,) int64 on the card
+    holding each buffer's descriptor address -> one (n_groups, n_buckets)
+    grid:
+    (counts,) or (counts, vcnt, vsum, vmin, vmax) with vmin / vmax in
+    B6's ordered-int32 encoding (timeseries_stacked_finish decodes them).
+    Bound: bytes (13 B a span plus the named columns)."""
+    dev = _cuda_device(gid)
+    if gid.dim() != 2:
+        raise KernelError("timeseries_stacked: (Bl, S) gid expected")
+    bl, S = gid.shape
+    _check(gid, "gid", torch.int32, dev)
+    start_ms, tsid = cols["span.start_ms"], cols["span.trace_sid"]
+    _check(start_ms, "span.start_ms", torch.int32, dev, (bl, S))
+    _check(tsid, "span.trace_sid", torch.int32, dev, (bl, S))
+    has_val = val is not None
+    if has_val:
+        _check(val, "val", torch.float32, dev, (bl, S))
+        _check(vpres, "vpres", torch.bool, dev, (bl, S))
+    _check(t0s, "t0s", torch.int32, dev, (bl,))
+    _check(nspans, "nspans", torch.int32, dev, (bl,))
+    if len(bufs) != bl or prog.rconds or len(prog.steps) != 1:
+        raise KernelError("timeseries_stacked: one span program buffer a block, no rattr conds")
+    if step < 1 or n_buckets < 1 or n_groups < 1:
+        raise KernelError(f"timeseries_stacked: step {step}, {n_groups} x {n_buckets} cells")
+    for b in bufs:
+        _check(b, "program buffer", torch.uint8, dev)
+    _check(descs, "descs", torch.int64, dev, (bl,))
+    n_traces_b = next((t.shape[1] for n, t in cols.items() if n.startswith("trace.")), 1)
+    (_, off, ln, _), = prog.steps
+    shape = (n_groups, n_buckets)
+    outs = [torch.empty(shape, dtype=torch.int32, device=dev)]
+    if has_val:
+        outs += [torch.empty(shape, dtype=torch.int32, device=dev),
+                 torch.empty(shape, dtype=torch.float32, device=dev),
+                 torch.empty(shape, dtype=torch.int32, device=dev),
+                 torch.empty(shape, dtype=torch.int32, device=dev)]
+    with torch.cuda.device(dev):
+        _call("tt_timeseries_stacked", descs.data_ptr(), bl, bufs[0].data_ptr() + off, ln, S,
+              tsid.data_ptr(), int(n_traces_b), start_ms.data_ptr(), gid.data_ptr(), _ptr(val),
+              _ptr(vpres), t0s.data_ptr(), nspans.data_ptr(), int(step),
+              int(n_buckets), int(n_groups), int(has_val), outs[0].data_ptr(),
+              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream())
+    _count("timeseries_stacked")
+    return tuple(outs)
+
+
+def timeseries_stacked_finish(vmin: torch.Tensor, vmax: torch.Tensor):
+    """M4's decode, run after the collective: the ordered-int32 vmin and
+    vmax back to f32, in place; returns their f32 views. Counted with
+    the fold (one more launch of timeseries_stacked)."""
+    dev = _cuda_device(vmin)
+    _check(vmin, "vmin", torch.int32, dev)
+    _check(vmax, "vmax", torch.int32, dev, tuple(vmin.shape))
+    with torch.cuda.device(dev):
+        _call("tt_ts_stacked_finish", vmin.data_ptr(), vmax.data_ptr(), vmin.numel(), _stream())
+    _count("timeseries_stacked")
+    return vmin.view(torch.float32), vmax.view(torch.float32)

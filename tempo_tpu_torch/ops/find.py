@@ -5,6 +5,9 @@ order-preserving int32 lanes (block/schema.trace_id_to_codes). All
 queries step through the log2(T) bisection together. CUDA tensors run
 kernel K3 (csrc/find.cu), one thread per (block, query); CPU tensors run
 `_bisect_plain`, the reference's lockstep bisection written in torch.
+The sharded find's election (M1, `find_elect`, in the same source) picks
+each query's highest hit block, then that block's row, on one rank's
+blocks; parallel/find.py puts an all_reduce MAX after each stage.
 """
 
 from __future__ import annotations
@@ -93,3 +96,26 @@ def lookup_ids_blocks_cached(blocks: list, query_codes: np.ndarray, device) -> n
     out = bisect_rows(ids, queries, n_valid, int(T).bit_length())
     return out.cpu().numpy()[:, :q]
 
+
+
+def _find_elect_plain(rows: torch.Tensor, base: int,
+                      winner: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of M1: the per-shard arithmetic of the reference's
+    sharded find (tempo_tpu/parallel/find.py:58-66). rows (Bl, Q) are
+    K3's hits of the global blocks base .. base + Bl - 1. Stage 1
+    (winner None): per query the highest block with a hit, else -1.
+    Stage 2: per query the row of the block equal to winner, else -1."""
+    gblock = base + torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)[:, None]
+    blk = torch.where(rows >= 0, gblock, -1)
+    if winner is None:
+        return blk.amax(dim=0).to(torch.int32)
+    return torch.where(blk == winner[None, :], rows, -1).amax(dim=0).to(torch.int32)
+
+
+def find_elect(rows: torch.Tensor, base: int, winner: torch.Tensor | None = None) -> torch.Tensor:
+    """M1 on CUDA tensors, its plain version on CPU tensors."""
+    if rows.device.type == "cpu":
+        return _find_elect_plain(rows, base, winner)
+    from .. import kernels
+
+    return kernels.find_elect(rows, base, winner)

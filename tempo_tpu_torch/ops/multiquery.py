@@ -23,6 +23,9 @@ kernel B5a (csrc/multiquery.cu) on CUDA tensors, `_multiquery_plain`
 per-query (trace_mask, matched-span counts), bit-identical to running
 ops/filter.eval_block per query. `select_multiquery` then runs ONE
 batched top-k over all Q mask rows: kernel B5b, or `_mq_select_plain`.
+On a mesh (parallel/multiquery.py) B5a splits at an all_reduce SUM:
+`mq_partial` (M2) counts each rank's row slice per trace, and
+`mq_combine` (M3) runs the trace-level half on the summed counts.
 
 Eligibility is conservative: conditions over dedicated int32 columns
 (span/trace intrinsics, well-known res/span attrs via the span@
@@ -534,3 +537,108 @@ def select_multiquery(tm, key, counts, k: int):
         row = out[q]
         res.append((row[:k], row[k:2 * k], row[2 * k:3 * k] > 0, int(row[3 * k])))
     return res
+
+
+# ------------------------------------------- the mesh split (M2 and M3)
+
+_TABLE_DIM = {"cond_col": 0, "cond_op": 0, "cond_v0": 0, "cond_v1": 0, "cond_guard": 0,
+              "clause_off": 1, "group_off": 2, "tcond_col": 3, "tcond_op": 3, "tcond_v0": 3,
+              "tcond_v1": 3, "atom_kind": 4, "atom_idx": 4, "tclause_off": 5}
+
+
+def program_tables(rows: torch.Tensor, dims: tuple) -> dict[str, torch.Tensor]:
+    """The kernel's (q_b, MQ_W) program rows back to the packed tables at
+    the bucket dims (P, NC, NG, PT, NA, TC): the plain versions' operands
+    on a rank that received the rows."""
+    out = {}
+    for name, o in _LAYOUT.items():
+        if name in ("n_groups", "n_tclauses"):
+            out[name] = rows[:, o]
+            continue
+        j = _TABLE_DIM[name]
+        n = int(dims[j]) + (1 if name.endswith("_off") else 0)
+        t = rows[:, o:o + n]
+        out[name] = t.bool() if name == "cond_guard" else t
+    return out
+
+
+def _mq_partial_plain(span_mat: torch.Tensor, span_off: torch.Tensor, progs: dict,
+                      row0: int, n_spans: int) -> torch.Tensor:
+    """Plain version of M2: the reference's per-shard `fold_rows` and
+    `seg_partial` (tempo_tpu/parallel/multiquery.py:57-100) on the row
+    slice span_mat (n_sc, Sl) at global row row0 -> (q_b, NG + 1, NT_b)
+    partial counts: per group, then the union of live groups."""
+    dev = span_off.device
+    sl = span_mat.shape[1]
+    valid_span = (torch.arange(sl, device=dev) + int(row0)) < int(n_spans)
+    off = span_off.long()
+    lo = torch.clamp(off[:-1] - int(row0), 0, sl)
+    hi = torch.clamp(off[1:] - int(row0), 0, sl)
+    out = []
+    for q in range(progs["cond_op"].shape[0]):
+        p = {k: v[q] for k, v in progs.items()}
+        x = _take(span_mat, p["cond_col"], span_mat.shape[0])
+        m = _cmp_code(p["cond_op"][:, None], x, p["cond_v0"][:, None], p["cond_v1"][:, None])
+        m = m & (~p["cond_guard"].bool()[:, None] | (x != int(PAD_I32))) & valid_span[None, :]
+        cs = _zcumsum(m, 0)
+        co = p["clause_off"].long()
+        clause_ok = (_take(cs, co[1:], cs.shape[0]) - _take(cs, co[:-1], cs.shape[0])) > 0
+        cs2 = _zcumsum(clause_ok, 0)
+        go = p["group_off"].long()
+        n_cl = (go[1:] - go[:-1])[:, None]
+        grp_ok = ((_take(cs2, go[1:], cs2.shape[0]) - _take(cs2, go[:-1], cs2.shape[0])) == n_cl) \
+            & valid_span[None, :]
+        live = (torch.arange(grp_ok.shape[0], device=dev) < p["n_groups"])[:, None]
+        union = torch.any(grp_ok & live, dim=0) if int(p["n_groups"]) > 0 else valid_span
+        masks = torch.cat([grp_ok, union[None]])
+        cs3 = _zcumsum(masks, 1)
+        out.append((cs3[:, hi] - cs3[:, lo]).to(torch.int32))
+    return torch.stack(out)
+
+
+def _mq_combine_plain(counts: torch.Tensor, trace_mat: torch.Tensor, progs: dict,
+                      n_traces: int):
+    """Plain version of M3: the reference's `combine`
+    (tempo_tpu/parallel/multiquery.py:102-125) on the summed counts
+    (q_b, NG + 1, NT_b) -> (tm bool, counts int32), each (q_b, NT_b)."""
+    dev = counts.device
+    nt_b = counts.shape[2]
+    valid_trace = torch.arange(nt_b, device=dev) < int(n_traces)
+    tms, cnts = [], []
+    for q in range(counts.shape[0]):
+        p = {k: v[q] for k, v in progs.items()}
+        gmask = counts[q, :-1] > 0
+        tx = _take(trace_mat, p["tcond_col"], trace_mat.shape[0])
+        tcm = _cmp_code(p["tcond_op"][:, None], tx, p["tcond_v0"][:, None], p["tcond_v1"][:, None])
+        kind = p["atom_kind"]
+        aval = torch.where((kind == 0)[:, None], _take(gmask, p["atom_idx"], gmask.shape[0]),
+                           _take(tcm, p["atom_idx"], tcm.shape[0])) & (kind >= 0)[:, None]
+        cs4 = _zcumsum(aval, 0)
+        to = p["tclause_off"].long()
+        tcl_ok = ((_take(cs4, to[1:], cs4.shape[0]) - _take(cs4, to[:-1], cs4.shape[0])) > 0) | (
+            torch.arange(to.shape[0] - 1, device=dev) >= p["n_tclauses"])[:, None]
+        tm = torch.all(tcl_ok, dim=0) & valid_trace
+        tms.append(tm)
+        cnts.append(torch.where(tm, counts[q, -1], 0).to(torch.int32))
+    return torch.stack(tms), torch.stack(cnts)
+
+
+def mq_partial(rows: torch.Tensor, dims: tuple, span_mat: torch.Tensor, row0: int,
+               span_off: torch.Tensor, n_spans: int) -> torch.Tensor:
+    """M2 on CUDA tensors, its plain version on CPU tensors: rows are the
+    kernel's (q_b, MQ_W) program rows at bucket dims `dims`."""
+    if rows.device.type == "cpu":
+        return _mq_partial_plain(span_mat, span_off, program_tables(rows, dims), row0, n_spans)
+    from .. import kernels
+
+    return kernels.mq_partial(rows, dims, span_mat, row0, span_off, n_spans)
+
+
+def mq_combine(rows: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat: torch.Tensor,
+               n_traces: int):
+    """M3 on CUDA tensors, its plain version on CPU tensors."""
+    if rows.device.type == "cpu":
+        return _mq_combine_plain(counts, trace_mat, program_tables(rows, dims), n_traces)
+    from .. import kernels
+
+    return kernels.mq_combine(rows, dims, counts, trace_mat, n_traces)

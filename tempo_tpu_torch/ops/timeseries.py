@@ -20,6 +20,11 @@ Value folds take a per-span f32 value + presence mask derived host-side
 from the exact host columns, so the only device-side loss is the f32
 cast -- integer counts are exact on every engine.
 
+On a mesh (parallel/timeseries.py) `timeseries_stacked` (kernel M4 in
+the same source) folds one rank's stacked blocks into one grid with min
+and max kept in B6's ordered-int32 encoding through the all_reduce MIN /
+MAX; `timeseries_stacked_finish` decodes them after it.
+
 `eval_timeseries_host` mirrors the semantics in numpy over raw columns
 (int64 bucket math, f64 accumulation): the route for a step or origin
 past int32 milliseconds.
@@ -32,7 +37,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .device import bucket, pad_rows
+from .device import PAD_I32, bucket, pad_rows
 from .filter import C_TCOND, T_TRACE, Cond, Operands, _cmp, _cond_mask, _FilterProgram
 from .hostfilter import eval_span_mask_host
 
@@ -60,12 +65,13 @@ def _span_program(tree, conds: tuple[Cond, ...]) -> _SpanProgram:
     return _SpanProgram(tree, conds)
 
 
-def _timeseries_plain(tree, conds, cols, ops_i, ops_f, tables, gid, val, vpres,
-                      t0_ms: int, step_ms: int, n_spans: int, n_buckets: int,
-                      n_groups: int, n_spans_b: int, n_res_b: int, n_traces_b: int):
-    """Plain version of B6: the reference's `run`
-    (tempo_tpu/ops/timeseries.py:53-106) in torch, returning the
-    (n_groups, n_buckets) slice of its accumulators."""
+def _ts_segments(tree, conds, cols, ops_i, ops_f, tables, gid, t0_ms: int, step_ms: int,
+                 n_spans: int, n_buckets: int, n_groups: int, n_spans_b: int, n_res_b: int,
+                 n_traces_b: int):
+    """The span mask and time bucket of the reference's `run`
+    (tempo_tpu/ops/timeseries.py:53-90) in torch: (ok, seg) with seg the
+    (group, bucket) cell of each kept span and n_groups * n_buckets for
+    the rest."""
     dev = gid.device
     valid = torch.arange(n_spans_b, device=dev) < n_spans
 
@@ -98,6 +104,19 @@ def _timeseries_plain(tree, conds, cols, ops_i, ops_f, tables, gid, val, vpres,
     nseg = n_groups * n_buckets
     seg = torch.where(ok, gid.to(torch.int64) * n_buckets + torch.clamp(b, 0, n_buckets - 1),
                       nseg)
+    return ok, seg
+
+
+def _timeseries_plain(tree, conds, cols, ops_i, ops_f, tables, gid, val, vpres,
+                      t0_ms: int, step_ms: int, n_spans: int, n_buckets: int,
+                      n_groups: int, n_spans_b: int, n_res_b: int, n_traces_b: int):
+    """Plain version of B6: the reference's `run`
+    (tempo_tpu/ops/timeseries.py:53-106) in torch, returning the
+    (n_groups, n_buckets) slice of its accumulators."""
+    dev = gid.device
+    ok, seg = _ts_segments(tree, conds, cols, ops_i, ops_f, tables, gid, t0_ms, step_ms,
+                           n_spans, n_buckets, n_groups, n_spans_b, n_res_b, n_traces_b)
+    nseg = n_groups * n_buckets
     counts = torch.zeros(nseg + 1, dtype=torch.int32, device=dev).index_add_(
         0, seg, ok.to(torch.int32))[:-1].reshape(n_groups, n_buckets)
     if val is None:
@@ -206,3 +225,107 @@ def eval_timeseries_host(query, cols: dict[str, np.ndarray],
     np.maximum.at(vmax, kp, vv)
     return (counts, vcnt, vsum,
             vmin.reshape(-1, nb)[:n_groups], vmax.reshape(-1, nb)[:n_groups])
+
+
+# ------------------------------------------------ the mesh fold (M4)
+
+_INF_BITS, _NINF_BITS = 0x7F800000, -0x800000  # +inf and -inf as int32 bit patterns
+
+
+def _ts_enc(v: torch.Tensor) -> torch.Tensor:
+    """B6's order-preserving int32 encoding of f32 values (-0.0 below
+    +0.0; csrc/timeseries.cu ts_enc)."""
+    i = v.view(torch.int32)
+    return torch.where(i >= 0, i, i ^ 0x7FFFFFFF)
+
+
+def ts_decode(e: torch.Tensor) -> torch.Tensor:
+    """The encoding back to f32 (ts_finish_kernel's arithmetic)."""
+    return torch.where(e >= 0, e, e ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def _timeseries_stacked_plain(tree, conds, cols: dict, operands: list, gid, val, vpres,
+                              t0s, nspans, step_ms: int, n_buckets: int, n_groups: int):
+    """Plain version of M4: B6's fold over Bl stacked blocks (block b with
+    its own operands, origin t0s[b] and span count nspans[b]) into one
+    (n_groups, n_buckets) grid; min and max stay in the ordered-int32
+    encoding, a NaN winning both (ts_enc_min / ts_enc_max)."""
+    bl, S = gid.shape
+    dev = gid.device
+    nseg = n_groups * n_buckets
+    n_res_b = next((t.shape[1] for n, t in cols.items() if n.startswith("res.")), 1)
+    n_traces_b = next((t.shape[1] for n, t in cols.items() if n.startswith("trace.")), 1)
+    has_val = val is not None
+    counts = torch.zeros(nseg + 1, dtype=torch.int32, device=dev)
+    if has_val:
+        vcnt = torch.zeros(nseg + 1, dtype=torch.int32, device=dev)
+        vsum = torch.zeros(nseg + 1, dtype=torch.float32, device=dev)
+        vmin = torch.full((nseg + 1,), _INF_BITS, dtype=torch.int32, device=dev)
+        vmax = torch.full((nseg + 1,), _NINF_BITS ^ 0x7FFFFFFF, dtype=torch.int32, device=dev)
+    for b in range(bl):
+        ops = operands[b]
+        ops_i = torch.from_numpy(np.ascontiguousarray(ops.ints, np.int32)).to(dev)
+        ops_f = torch.from_numpy(np.ascontiguousarray(ops.floats, np.float32)).to(dev)
+        tables = {i: torch.from_numpy(t).to(dev) for i, t in _table_list(ops).items()}
+        cols_b = {n: t[b] for n, t in cols.items()}
+        ok, seg = _ts_segments(tree, conds, cols_b, ops_i, ops_f, tables, gid[b], int(t0s[b]),
+                               step_ms, int(nspans[b]), n_buckets, n_groups, S, n_res_b,
+                               n_traces_b)
+        counts.index_add_(0, seg, ok.to(torch.int32))
+        if not has_val:
+            continue
+        pres = ok & vpres[b]
+        segv = torch.where(pres, seg, nseg)
+        v = val[b]
+        vcnt.index_add_(0, segv, pres.to(torch.int32))
+        vsum.index_add_(0, segv, torch.where(pres, v, torch.zeros((), device=dev)))
+        nan = torch.isnan(v)
+        enc = _ts_enc(v)
+        vmin.scatter_reduce_(0, segv, torch.where(pres, torch.where(nan, int(PAD_I32), enc),
+                                                  _INF_BITS), "amin")
+        vmax.scatter_reduce_(0, segv, torch.where(pres, torch.where(nan, 2**31 - 1, enc),
+                                                  _NINF_BITS ^ 0x7FFFFFFF), "amax")
+    shape = (n_groups, n_buckets)
+    if not has_val:
+        return (counts[:-1].reshape(shape),)
+    return tuple(t[:-1].reshape(shape) for t in (counts, vcnt, vsum, vmin, vmax))
+
+
+def timeseries_stacked(query, cols: dict, operands: list, gid, val, vpres, t0s, nspans,
+                       step_ms: int, n_buckets: int, n_groups: int) -> tuple:
+    """M4 on CUDA tensors, its plain version on CPU tensors: the fold of Bl
+    stacked blocks (cols (Bl, ·) per axis, span@ columns materialized,
+    one Operands a block; gid / val / vpres (Bl, S); t0s, nspans (Bl,)
+    int32) into (counts,) or (counts, vcnt, vsum, vmin, vmax), min and
+    max still encoded for the collective (`timeseries_stacked_finish`)."""
+    tree, conds = query
+    if gid.device.type == "cpu":
+        return _timeseries_stacked_plain(tree, conds, cols, operands, gid, val, vpres,
+                                         t0s.tolist(), nspans.tolist(), step_ms, n_buckets,
+                                         n_groups)
+    from .. import kernels
+
+    prog, bufs, descs = stacked_program(query, cols, operands)
+    return kernels.timeseries_stacked(prog, bufs, descs, cols, gid, val, vpres, t0s, nspans,
+                                      step_ms, n_buckets, n_groups)
+
+
+def stacked_program(query, cols: dict, operands: list):
+    """M4's operands on the card: the span program, one descriptor buffer
+    a block (its operands, its row of every column) and the (Bl,) table
+    of their descriptor addresses."""
+    tree, conds = query
+    prog = _span_program(tree, tuple(conds))
+    bufs = [prog.buffer({n: t[b] for n, t in cols.items()}, ops, _table_list(ops))
+            for b, ops in enumerate(operands)]
+    descs = torch.tensor([b.data_ptr() + prog.desc_off for b in bufs], dtype=torch.int64)
+    return prog, bufs, descs.to(bufs[0].device)
+
+
+def timeseries_stacked_finish(vmin, vmax):
+    """M4's decode after the collective: the encoded min and max as f32."""
+    if vmin.device.type == "cpu":
+        return ts_decode(vmin), ts_decode(vmax)
+    from .. import kernels
+
+    return kernels.timeseries_stacked_finish(vmin, vmax)

@@ -1,0 +1,290 @@
+"""The mesh programs' CUDA kernels on the card (M1 find_elect, M2
+mq_partial, M3 mq_combine, M4 timeseries_stacked) against their plain
+versions, the five host entries on an NCCL mesh of one rank against the
+single-card routes, and a gloo 2x2 mesh whose four ranks share the card,
+under a TempoDB on the card against one on the CPU.
+
+Marked `cuda`; the fixture below skips them where no card exists. Run
+on a machine with one H100:
+
+    python -m pytest -m cuda tests/test_torch_*.py
+
+Every output is an int or a bool and compared exactly -- except the f32
+sums of M4, whose atomics add in a run-dependent order: rtol 1e-5."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tempo_tpu_torch import kernels
+from tempo_tpu_torch.backend import MemBackend
+from tempo_tpu_torch.block import schema as S
+from tempo_tpu_torch.block.bloom import ShardedBloom
+from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
+from tempo_tpu_torch.db import batchexec as BX
+from tempo_tpu_torch.db import metrics_exec as ME
+from tempo_tpu_torch.db.metrics_mesh import try_metrics_mesh
+from tempo_tpu_torch.db.search import _plan_for_block
+from tempo_tpu_torch.ops import bloom_ops as BO
+from tempo_tpu_torch.ops import filter as F
+from tempo_tpu_torch.ops import find as FD
+from tempo_tpu_torch.ops import multiquery as MQ
+from tempo_tpu_torch.ops import stage as ST
+from tempo_tpu_torch.ops import timeseries as TS
+from tempo_tpu_torch.parallel import (
+    launch,
+    mesh_eval_multiquery,
+    sharded_bloom_union,
+    sharded_find,
+    sharded_find_rows,
+)
+from tempo_tpu_torch.util.testdata import make_traces
+
+pytestmark = pytest.mark.cuda
+
+TENANT = "t"
+METRICS = ['{ true } | rate() by(resource.service.name)',
+           '{ kind = server } | max_over_time(duration) by(name)',
+           '{ span.http.status_code >= 500 || traceDuration > 1ms } | count_over_time() by(kind)',
+           '{ resource.service.name = "db" } | avg_over_time(duration)']
+BURST = [f'{{ duration > {i}ms && kind != server }}' for i in range(16)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _store(n_blocks: int = 3):
+    backend = MemBackend()
+    db = TempoDB(TempoDBConfig(batch_window_ms=200.0, device_promote_touches=1),
+                 backend=backend, device="cpu")
+    traces = [make_traces(90, seed=60 + i, n_spans=8) for i in range(n_blocks)]
+    for batch in traces:
+        db.write_block(TENANT, batch)
+    return backend, traces
+
+
+def _db(backend, device):
+    db = TempoDB(TempoDBConfig(batch_window_ms=200.0, device_promote_touches=1),
+                 backend=backend, device=device)
+    db.poll_now()
+    return db
+
+
+def test_find_elect_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(1)
+    for bl, q, base in ((1, 1, 0), (3, 64, 9), (12, 1024, 0)):
+        rows = np.where(rng.random((bl, q)) < 0.3, rng.integers(0, 1 << 20, (bl, q)), -1)
+        rows = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+        kernels.reset_counts()
+        best = kernels.find_elect(rows, base)
+        assert torch.equal(best, FD._find_elect_plain(rows, base))
+        row = kernels.find_elect(rows, base, best)
+        assert torch.equal(row, FD._find_elect_plain(rows, base, best))
+        assert kernels.LAUNCHES["find_elect"] == 2
+
+
+def test_mq_partial_combine_match_plain_and_b5a(cuda):
+    """M2 over 1, 2 and 4 row slices, summed, then M3: equal to their
+    plain versions and to B5a on the whole block, bit for bit."""
+    backend, _ = _store(1)
+    db = _db(backend, cuda)
+    blk = db.open_block(db.metas(TENANT)[0])
+    plans = [_plan_for_block(blk, SearchRequest(query=q)) for q in BURST[:5]]
+    lqs = [MQ.lower_plan(p) for p in plans]
+    shape = lqs[0].shape
+    staged = ST.stage_block(blk, F.required_columns(plans[0].conds) + ["trace.start_ms"],
+                            device=cuda)
+    progs = MQ.pack_queries(lqs, 8)
+    rows = torch.from_numpy(MQ._program_rows(progs)).to(cuda)
+    dims = (shape.n_conds_b, shape.n_clauses_b, shape.n_groups_b, shape.n_tconds_b,
+            shape.n_atoms_b, shape.n_tclauses_b)
+    span_mat = torch.stack([staged.cols[n] for n in shape.span_cols])
+    trace_mat = torch.zeros((1, staged.n_traces_b), dtype=torch.int32, device=cuda)
+    span_off = staged.cols["trace.span_off"]
+    tm1, c1 = MQ.eval_multiquery(lqs, staged, progs)
+    tables = MQ.program_tables(rows, dims)
+    for w in (1, 2, 4):
+        sl = staged.n_spans_b // w
+        parts = []
+        for r in range(w):
+            sm = span_mat[:, r * sl:(r + 1) * sl].contiguous()
+            got = kernels.mq_partial(rows, dims, sm, r * sl, span_off, staged.n_spans)
+            want = MQ._mq_partial_plain(sm, span_off, tables, r * sl, staged.n_spans)
+            assert torch.equal(got, want), (w, r)
+            parts.append(got)
+        total = torch.stack(parts).sum(dim=0, dtype=torch.int32)
+        tm, cnt = kernels.mq_combine(rows, dims, total, trace_mat, staged.n_traces)
+        ptm, pcnt = MQ._mq_combine_plain(total, trace_mat, tables, staged.n_traces)
+        assert torch.equal(tm, ptm) and torch.equal(cnt, pcnt), w
+        assert torch.equal(tm, tm1) and torch.equal(cnt, c1), w
+    assert tm1.any()
+
+
+def _stacked(rng, B=4, S=4096, R=1024, NT=1024):
+    n_spans = np.asarray([S - 100, S, 300, 0][:B], np.int32)
+    cols = {
+        "span.start_ms": rng.integers(-5_000, 70_000, (B, S)).astype(np.int32),
+        "span.trace_sid": np.sort(rng.integers(0, 200, (B, S)), axis=1).astype(np.int32),
+        "span.dur_us": rng.integers(0, 40, (B, S)).astype(np.int32),
+        "span.res_idx": rng.integers(-1, 50, (B, S)).astype(np.int32),
+        "res.service_id": rng.integers(-1, 6, (B, R)).astype(np.int32),
+        "trace.dur_ms": rng.integers(0, 100, (B, NT)).astype(np.int32),
+    }
+    val = rng.integers(-8, 9, (B, S)).astype(np.float32) * np.float32(0.25)
+    hit = rng.random((B, S)) < 0.03
+    val[hit] = np.asarray([np.nan, -0.0, 0.0, np.inf, -np.inf], np.float32)[
+        rng.integers(0, 5, hit.sum())]
+    return cols, n_spans, val
+
+
+@pytest.mark.parametrize("has_val", [False, True])
+def test_timeseries_stacked_matches_plain(cuda, has_val):
+    """M4 over 4 stacked blocks (span, res and trace conditions, one
+    operand set a block) against its plain version: counts, value counts
+    and the encoded min / max exact (NaN, +-0, +-inf among the values),
+    f32 sums at rtol 1e-5; then the finish against the plain decode."""
+    rng = np.random.default_rng(2 + has_val)
+    cols_np, n_spans, val = _stacked(rng)
+    B, S = cols_np["span.start_ms"].shape
+    specs = [("span", "span.dur_us", "gt", False), ("res", "res.service_id", "eq", False),
+             ("trace", "trace.dur_ms", "ge", False), ("span", "span.dur_us", "ge", True)]
+    conds = tuple(F.Cond(t, c, op, is_float=f) for t, c, op, f in specs)
+    tree = ("and", ("or", ("cond", 0), ("cond", 1)), ("or", ("cond", 2), ("cond", 3)))
+    operands = [F.Operands.build([(0, 20 + b, 0, 0.0, 0.0), (0, b % 3, 0, 0.0, 0.0),
+                                  (0, 60 - 5 * b, 0, 0.0, 0.0), (0, 0, 0, 30.5 - b, 0.0)])
+                for b in range(B)]
+    cols = {k: torch.from_numpy(v).to(cuda) for k, v in cols_np.items()}
+    cols["span@res.service_id"] = torch.stack([
+        ST.res_to_span(cols["res.service_id"][b], cols["span.res_idx"][b]) for b in range(B)])
+    gid = torch.from_numpy(rng.integers(-1, 5, (B, S)).astype(np.int32)).to(cuda)
+    v = torch.from_numpy(val).to(cuda) if has_val else None
+    pres = torch.from_numpy(rng.random((B, S)) < 0.8).to(cuda) if has_val else None
+    t0 = torch.tensor([-3_000, 0, 12_345, 7], dtype=torch.int32, device=cuda)
+    ns = torch.from_numpy(n_spans).to(cuda)
+    kernels.reset_counts()
+    got = TS.timeseries_stacked((tree, conds), cols, operands, gid, v, pres, t0, ns, 10_000, 7, 5)
+    assert kernels.LAUNCHES["timeseries_stacked"] == 1
+    want = TS._timeseries_stacked_plain(tree, conds, cols, operands, gid, v, pres,
+                                        t0.tolist(), n_spans.tolist(), 10_000, 7, 5)
+    assert len(got) == len(want) == (5 if has_val else 1) and int(got[0].sum()) > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 2:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5)
+        else:
+            assert torch.equal(g, w), i
+    if has_val:
+        a, b = got[3].clone(), got[4].clone()
+        mn, mx = kernels.timeseries_stacked_finish(a, b)
+        np.testing.assert_array_equal(mn.cpu().numpy(), TS.ts_decode(want[3].cpu()).numpy())
+        np.testing.assert_array_equal(mx.cpu().numpy(), TS.ts_decode(want[4].cpu()).numpy())
+        assert torch.isnan(mn).any()
+
+
+def test_host_entries_on_nccl_world_1(cuda, tmp_path):
+    """The five host entries on an NCCL mesh of one rank equal the
+    single-card routes (the collectives run, over one rank)."""
+    backend, traces = _store(3)
+    db = _db(backend, cuda)
+    blocks = [db.open_block(m) for m in db.metas(TENANT)]
+    mesh = launch.init_controller(1, f"file://{tmp_path}/pg", "nccl", cuda, timeout_s=60)
+    try:
+        assert mesh.backend == "nccl" and db.mesh is mesh and db._batch_mesh() is None
+        ids = [tid for batch in traces for tid, _ in batch[::9]] + [b"\x05" * 16]
+        q = np.asarray([S.trace_id_to_codes(t) for t in ids], np.int32)
+        codes = [b.trace_index["trace.id_codes"] for b in blocks]
+        want_rows = FD.lookup_ids_blocks_cached(blocks, q, cuda)
+        np.testing.assert_array_equal(sharded_find_rows(mesh, codes, q), want_rows)
+        elect = sharded_find(mesh, codes, q)
+        hit = (want_rows >= 0).any(axis=0)
+        assert (elect[~hit] == -1).all() and hit.sum() == len(ids) - 1
+        for qi in np.nonzero(hit)[0]:
+            b = np.nonzero(want_rows[:, qi] >= 0)[0].max()
+            assert tuple(elect[qi]) == (b, want_rows[b, qi])
+        blooms = []
+        for blk in blocks:
+            bl = ShardedBloom(blk.meta.bloom_shards, blk.meta.bloom_shard_bits)
+            bl.words = np.stack([blk.bloom_shard(i) for i in range(blk.meta.bloom_shards)])
+            blooms.append(bl)
+        np.testing.assert_array_equal(sharded_bloom_union(mesh, blooms).words,
+                                      BO.union_blooms(blooms, cuda).words)
+        blk = blocks[0]
+        plans = [_plan_for_block(blk, SearchRequest(query=x)) for x in BURST]
+        lqs = [MQ.lower_plan(p) for p in plans]
+        staged = ST.stage_block(blk, F.required_columns(plans[0].conds) + ["trace.start_ms"],
+                                device=cuda)
+        progs = MQ.pack_queries(lqs, 16)
+        tm, cnt = mesh_eval_multiquery(mesh, lqs, staged, progs)
+        tm1, c1 = MQ.eval_multiquery(lqs, staged, progs)
+        np.testing.assert_array_equal(tm, tm1.cpu().numpy())
+        np.testing.assert_array_equal(cnt, c1.cpu().numpy())
+        lo = min(m.start_time_unix_nano for m in db.metas(TENANT)) // 10**9
+        hi = -(-max(m.end_time_unix_nano for m in db.metas(TENANT)) // 10**9)
+        for query in METRICS:
+            req = ME.align_params(query, lo, hi + 1, 0.5)
+            want = ME.metrics_query_range_blocks(blocks, req, device=cuda)
+            resp = ME.MetricsResponse(fn=want.fn, start_ms=req.start_ms, step_ms=req.step_ms,
+                                      n_buckets=req.n_buckets, label_names=want.label_names)
+            assert try_metrics_mesh(mesh, blocks, ME.parse_metrics_query(query), req, resp), query
+            _same_series(resp, want)
+        secs = mesh.collective_seconds()
+        assert secs.get("all_reduce", 0) > 0 and mesh.calls["gather"] >= 1
+    finally:
+        launch.shutdown(mesh, [])
+
+
+def _same_series(got, want):
+    assert got.series and set(got.series) == set(want.series)
+    for k, st in want.series.items():
+        for f, arr in st.items():
+            if f == "vsum":
+                np.testing.assert_allclose(got.series[k][f], arr, rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(got.series[k][f], arr)
+    assert got.inspected_spans == want.inspected_spans
+
+
+def test_gloo_2x2_on_one_card(cuda, tmp_path):
+    """Four ranks on cuda:0 over gloo: the card TempoDB's finds, a
+    16-query burst and metrics take the mesh routes and equal a CPU
+    TempoDB's answers."""
+    backend, traces = _store(3)
+    init = f"file://{tmp_path}/pg"
+    procs = launch.spawn_followers(4, init, "gloo", cuda, dp=2, sp=2, timeout_s=120)
+    mesh = launch.init_controller(4, init, "gloo", cuda, dp=2, sp=2, timeout_s=120)
+    try:
+        db = _db(backend, cuda)
+        assert db.mesh is mesh
+        r0 = BX.routing_counts()
+        meta = db.metas(TENANT)[0]
+        ids = [tid for batch in traces for tid, _ in batch[:8]] + [b"\x09" * 16] * 2
+        got = db.find_in_blocks_multi([(TENANT, t, db.metas(TENANT)) for t in ids])
+        items = [(TENANT, [meta], SearchRequest(query=x, limit=20)) for x in BURST]
+        burst = db.search_blocks_multi(items)
+        lo = min(m.start_time_unix_nano for m in db.metas(TENANT)) // 10**9
+        hi = -(-max(m.end_time_unix_nano for m in db.metas(TENANT)) // 10**9)
+        series = [db.metrics_query_range(TENANT, ME.align_params(x, lo, hi + 1, 0.5))
+                  for x in METRICS]
+        routes = {k: v - r0.get(k, 0) for k, v in BX.routing_counts().items()
+                  if v != r0.get(k, 0)}
+    finally:
+        codes = launch.shutdown(mesh, procs, join_timeout_s=60)
+    assert codes == [0, 0, 0]
+    # the CPU answers, without a mesh (the group is gone)
+    cpu = _db(backend, "cpu")
+    want = cpu.find_in_blocks_multi([(TENANT, t, cpu.metas(TENANT)) for t in ids])
+    assert [None if t is None else dataclasses.asdict(t) for t in got] == \
+        [None if t is None else dataclasses.asdict(t) for t in want]
+    wburst = cpu.search_blocks_multi(items)
+    assert [[dataclasses.asdict(t) for t in r.traces] for r in burst] == \
+        [[dataclasses.asdict(t) for t in r.traces] for r in wburst]
+    for x, s in zip(METRICS, series):
+        _same_series(s, cpu.metrics_query_range(TENANT, ME.align_params(x, lo, hi + 1, 0.5)))
+    assert routes.get(("find_batch", "mesh", "coalesced"), 0) == len(ids)
+    assert routes.get(("search_batch", "mesh", "mesh_batched"), 0) == len(BURST)
+    assert routes.get(("metrics_mesh", "device", "stacked"), 0) > 0, routes
