@@ -96,15 +96,21 @@ Phases, in order (any failure raises; no CPU fallback):
                sharded_find_rows and sharded_find of phase 5's 64 ids over
                the 10 blocks, sharded_bloom_union of their blooms,
                mesh_eval_multiquery of phase 4b's 16 programs on block 0
-               and the stacked fold (try_metrics_mesh) of the 4 metrics
-               queries, each equal to the single-card route; run 2 in the
+               and the stacked fold (try_metrics_mesh) of
+               `rate() by (resource.service.name)`, each equal to the
+               single-card route; sharded_search of the 8 K1 forms with
+               per-block operands, equal to K1 block by block;
+               search_blocks_device of the 10 searches against phase 6;
+               distributed_query_step of the 64 ids, the span query and
+               the 10 blooms against the three host entries; run 2 in the
                same process after run 1's group is destroyed: a gloo 2x2
                mesh of this process and three spawned followers, all on the
                card, under a TempoDB whose 64 + 12 finds, 16-query burst on
-               block 0 and 4 metrics queries take the mesh routes (routing
-               counted by reason) and equal phases 5, 8 and 10; then M1-M4
-               against their plain versions at the shapes the runs gave
-               them
+               block 0, 10 searches (`>>` and `~` refused by the budget,
+               as reckoned) and 4 metrics queries take the mesh routes
+               (routing counted by reason) and equal phases 5, 8 and 10 and
+               run 1's answers, then the step at 2x2; then M1-M8 against
+               their plain versions at the shapes the runs gave them
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -1299,6 +1305,14 @@ def phase_14_table(last, table) -> None:
 
 MESH_WORLD, MESH_DP, MESH_SP = 4, 2, 2  # run 2: gloo ranks that share the card
 MESH_TIMEOUT_S = 300.0
+# K1_QUERIES labels whose stacked group runs 2 refuse before any IO
+# (db/search._stacked_words_est; reckoned before the run): at sp = 2,
+# `>>` and `~` hold 4 span columns x S_b (1,048,576) + the offsets +
+# one gathered lhs mask (S_b x 2) + the gathered parent table and the
+# doubling temporaries (4 x S_b x 2): 14.7 M words a block, x 10 blocks
+# x 4 B = 588 MB > 512 MiB. Every other query fits (`span.attr`: 8.4 M
+# words, 337 MB), and at sp = 1 all ten do (`>>` and `~` 9.5 M, 379 MB).
+MESH_SEARCH_FALLBACK = ("descendant", "sibling")
 
 
 class Capture:
@@ -1328,30 +1342,145 @@ class Capture:
         self._undo = []
 
 
+class Counts:
+    """Launch counts path by path: take() reads the counts since the last
+    take (or reset) and sets them to 0 for the next path."""
+
+    def __init__(self):
+        from tempo_tpu_torch import kernels
+
+        self.kernels = kernels
+        self.total: dict[str, int] = dict.fromkeys(kernels.LAUNCHES, 0)
+        kernels.reset_counts()
+
+    def take(self, what: str, need: tuple = ()) -> dict:
+        c = dict(self.kernels.LAUNCHES)
+        self.kernels.reset_counts()
+        for k, v in c.items():
+            self.total[k] += v
+        missing = [k for k in need if c[k] <= 0]
+        if missing:
+            raise AssertionError(f"{what}: kernels not launched {missing}; counts {nonzero(c)}")
+        return c
+
+
+def stack_query(blocks, q: str, mesh):
+    """A query's unpruned blocks, its one plan structure, and the group
+    stacked for the mesh (db/search.stack_group), as search_blocks_device
+    stacks it."""
+    from tempo_tpu_torch.db import SearchRequest
+    from tempo_tpu_torch.db import search as SM
+
+    req = SearchRequest(query=q, limit=20)
+    items = [(b, p) for b, p in ((b, SM._plan_for_block(b, req)) for b in blocks) if not p.prune]
+    keys = {(p.tree, p.conds) for _, p in items}
+    if len(keys) != 1:
+        raise AssertionError(f"{q}: {len(keys)} plan structures over the blocks")
+    tree, conds = keys.pop()
+    stacked = SM.stack_group(items, tree, conds, mesh)
+    if stacked is None:
+        raise AssertionError(f"{q}: the stacked group was refused")
+    return items, tree, conds, stacked
+
+
+def blooms_of(blocks) -> list:
+    from tempo_tpu_torch.block.bloom import ShardedBloom
+
+    out = []
+    for blk in blocks:
+        b = ShardedBloom(blk.meta.bloom_shards, blk.meta.bloom_shard_bits)
+        b.words = np.stack([blk.bloom_shard(i) for i in range(blk.meta.bloom_shards)])
+        out.append(b)
+    return out
+
+
+def pad_stacked(host: dict, n_spans, Bp: int):
+    """Stacked columns padded with empty blocks to Bp rows (offsets repeat
+    their last value: empty segments; other columns PAD or 0)."""
+    from tempo_tpu_torch.ops.device import PAD_I32
+
+    out = {}
+    for n, a in host.items():
+        pad = np.zeros((Bp - a.shape[0],) + a.shape[1:], a.dtype)
+        if n.endswith(".off") or n == "trace.span_off":
+            pad[:] = 0
+        elif a.dtype == np.int32:
+            pad[:] = PAD_I32
+        out[n] = np.concatenate([a, pad])
+    return out, np.concatenate([n_spans, np.zeros(Bp - len(n_spans), np.int32)])
+
+
+def run_step(mesh, blocks, q_codes, q: str, world: int, host_find, host_union):
+    """distributed_query_step once: every block's ids, the 64 ids, one
+    span query with the same operands in every block, every block's
+    bloom; held against the three host entries called apart. The launch
+    counts are set to 0 just before the step, so the caller reads the
+    step's own launches, not those of the answer it is held against."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.parallel import distributed_query_step, sharded_search
+    from tempo_tpu_torch.parallel import find as PF
+
+    items, tree, conds, (host, n_spans, operands, nt) = stack_query(blocks, q, mesh)
+    if len(items) != len(blocks) or any(
+            not (np.array_equal(o.ints, operands[0].ints)
+                 and np.array_equal(o.floats, operands[0].floats)) for o in operands[:len(items)]):
+        raise AssertionError(f"step: {q} needs one operand set for every block")
+    want_tm, want_sc = sharded_search(mesh, tree, conds, operands, host, n_spans, nt=nt)
+    ids, n_valid, T = PF.stack_block_ids([b.trace_index["trace.id_codes"] for b in blocks], world)
+    B = ids.shape[0]
+    host, n_spans = pad_stacked(host, n_spans, B)
+    blooms = np.zeros((B,) + blooms_of(blocks[:1])[0].words.shape, np.uint32)
+    for i, b in enumerate(blooms_of(blocks)):
+        blooms[i] = b.words
+    names = tuple(sorted(host))
+    S = host["span.trace_sid"].shape[1]
+    R = next((host[n].shape[1] for n in names if n.startswith("res.")), 1)
+    fn = distributed_query_step(mesh, tree, conds, names, B, T, q_codes.shape[0], S, R, nt, B,
+                                blooms.shape[1], blooms.shape[2])
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    hits, tm, sc, union = fn(ids, n_valid, q_codes, operands[0].ints, operands[0].floats, n_spans,
+                             tuple(host[n] for n in names), blooms)
+    step_s = time.perf_counter() - t0
+    nb = len(want_tm)
+    if not (np.array_equal(hits, host_find) and np.array_equal(tm[:nb], want_tm)
+            and np.array_equal(sc[:nb], want_sc) and not tm[nb:].any()
+            and np.array_equal(union, host_union) and want_tm.any()):
+        raise AssertionError("step: differs from sharded_find, sharded_search and "
+                             "sharded_bloom_union called apart")
+    return step_s, int(tm.sum())
+
+
 def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metrics_want,
-             lo_s, hi_s) -> dict:
-    """The mesh: run 1 on a one-rank NCCL mesh calls the five
-    host entries at full size against the single-card routes; run 2 on a
-    gloo 2x2 mesh of four processes on the card drives a TempoDB whose
-    finds, burst and metrics take the mesh routes, against phases 5-10.
-    Returns the wrapper calls of both runs and the captured kernel
-    inputs."""
+             lo_s, hi_s, search_want) -> dict:
+    """The mesh: run 1 on a one-rank NCCL mesh calls the host entries at
+    full size against the single-card routes; run 2 on a gloo 2x2 mesh
+    of four processes on the card drives a TempoDB whose finds, burst,
+    searches and metrics take the mesh routes, against phases 5-10; the
+    composed step in both. Returns the wrapper calls of both runs, the
+    captured kernel inputs and the shards of run 1's searches."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.backend import LocalBackend
     from tempo_tpu_torch.block import schema as S
-    from tempo_tpu_torch.block.bloom import ShardedBloom
     from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
     from tempo_tpu_torch.db import batchexec as BX
     from tempo_tpu_torch.db import metrics_exec as ME
+    from tempo_tpu_torch.db import search as SM
     from tempo_tpu_torch.db import tempodb as TDB
     from tempo_tpu_torch.db.metrics_mesh import try_metrics_mesh
     from tempo_tpu_torch.ops import bloom_ops as BO
     from tempo_tpu_torch.ops import filter as F
     from tempo_tpu_torch.ops import find as FD
+    from tempo_tpu_torch.ops import meshsearch as MS
     from tempo_tpu_torch.ops import multiquery as MQ
     from tempo_tpu_torch.ops import stage as ST
     from tempo_tpu_torch.parallel import find as PF
-    from tempo_tpu_torch.parallel import launch, mesh_eval_multiquery, sharded_bloom_union
+    from tempo_tpu_torch.parallel import (
+        launch,
+        mesh_eval_multiquery,
+        sharded_bloom_union,
+        sharded_search,
+    )
     from tempo_tpu_torch.parallel import multiquery as PMQ
     from tempo_tpu_torch.parallel import timeseries as PTS
     from tempo_tpu_torch.traceql.plan import plan_search_request
@@ -1361,9 +1490,18 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
     cap.patch(PMQ, "mq_partial")
     cap.patch(PMQ, "mq_combine")
     cap.patch(PTS, "timeseries_stacked")
+    shards_seen: list = []  # the ShardSearch of each sharded search, for the kernel rows
+    partial0 = MS.ShardSearch.partial
+
+    def partial_spy(self):
+        shards_seen.append(self)
+        return partial0(self)
+
+    MS.ShardSearch.partial = partial_spy
     q_codes = np.asarray([S.trace_id_to_codes(t.rjust(16, b"\x00")) for t in ids64], np.int32)
     n_present = sum(seq_found.get(t) is not None for t in ids64)
-    kernels.reset_counts()
+    counts = Counts()
+    shards, times = {}, {}
     try:
         # ---- run 1: one rank, the host entries called directly
         t_run = time.perf_counter()
@@ -1392,11 +1530,7 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                 if tuple(elect[qi]) != tuple(int(x) for x in want):
                     raise AssertionError(f"run 1: sharded_find of {ids64[qi].hex()}: "
                                          f"{tuple(elect[qi])} != {want}")
-            blooms = []
-            for blk in blocks:
-                b = ShardedBloom(blk.meta.bloom_shards, blk.meta.bloom_shard_bits)
-                b.words = np.stack([blk.bloom_shard(i) for i in range(blk.meta.bloom_shards)])
-                blooms.append(b)
+            blooms = blooms_of(blocks)
             union = sharded_bloom_union(mesh, blooms)
             if not np.array_equal(union.words, BO.union_blooms(blooms, dev).words):
                 raise AssertionError("run 1: sharded_bloom_union differs from B10a on one card")
@@ -1412,7 +1546,9 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                     and tm.any(axis=1).all()):
                 raise AssertionError("run 1: mesh_eval_multiquery differs from B5a on one card")
             del staged, tm1, c1
-            for mq_text, want in zip(METRICS_QUERIES, metrics_want):
+            # one stacked fold (run 2 takes all four): the cut that keeps the
+            # smoke inside its limit
+            for mq_text, want in zip(METRICS_QUERIES[:1], metrics_want[:1]):
                 mreq = ME.align_params(mq_text, lo_s, hi_s, METRICS_STEP_S)
                 resp = ME.MetricsResponse(fn=want.fn, start_ms=mreq.start_ms,
                                           step_ms=mreq.step_ms, n_buckets=mreq.n_buckets,
@@ -1424,13 +1560,88 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                                          "differs from phase 10")
                 log(f"[mesh run 1] {mq_text}: stacked fold of {len(blocks)} blocks equals "
                     f"phase 10, {time.perf_counter() - t0:.2f} s")
+            counts.take("run 1: find, union, multiquery, fold",
+                        ("find", "find_elect", "bloom_union", "mq_partial", "mq_combine",
+                         "timeseries_stacked"))
+
+            # the sharded search of the 8 K1 forms, per-block operands,
+            # against K1 block by block (the K1 runs are not on the path)
+            groups, want_k1 = {}, {}
+            for label, q in K1_QUERIES:
+                items, tree, conds, stacked = stack_query(blocks, q, mesh)
+                groups[label] = (tree, conds, stacked)
+                k1 = []
+                for blk, p in items:
+                    st = ST.stage_block(blk, F.required_columns(p.conds) + list(p.extra_cols),
+                                        cache=False, device=dev)
+                    k1.append([t.cpu().numpy() for t in F.eval_block(
+                        (p.tree, p.conds), st.cols, F.Operands.build(p.rows, p.tables or None),
+                        st.n_spans, st.n_traces, st.n_spans_b, st.n_res_b, st.n_traces_b,
+                        span_out=False)])
+                    del st
+                want_k1[label] = k1
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            for label, q in K1_QUERIES:
+                tree, conds, (host, n_spans, operands, nt) = groups[label]
+                t1 = time.perf_counter()
+                tm, sc = sharded_search(mesh, tree, conds, operands, host, n_spans, nt=nt)
+                times[label] = time.perf_counter() - t1
+                if label in ("span", "sattr", "child"):
+                    shards[label] = shards_seen[-1]
+                shards_seen.clear()
+                for bi, (tm1, c1) in enumerate(want_k1[label]):
+                    if not (np.array_equal(tm[bi], tm1) and np.array_equal(sc[bi], c1)):
+                        raise AssertionError(f"run 1: sharded search {label} block {bi} differs "
+                                             "from K1")
+                times[label] = (round(times[label], 3), int(tm.sum()))
+            search1_s = time.perf_counter() - t0
+            del groups, want_k1
+            c_search = counts.take("run 1: 8 sharded searches",
+                                   ("filter", "attr_partial", "mask_pack", "mask_unpack",
+                                    "search_partial", "search_finish"))
+            log(f"[mesh run 1] 8 sharded searches ({len(blocks)} blocks, per-block operands) "
+                f"equal K1 block by block, {search1_s:.2f} s "
+                f"(s, traces: {times}); wrapper calls "
+                f"{nonzero(c_search)}")
+
+            # the stacked route for the 10 searches, against phase 6
+            t0 = time.perf_counter()
+            stacked1 = []
+            for q, want in zip(SEARCH_QUERIES, search_want):
+                got = SM.search_blocks_device(blocks, SearchRequest(query=q, limit=20), mesh)
+                shards_seen.clear()
+                if got is None or not same_response(got, want):
+                    raise AssertionError(f"run 1: search_blocks_device {q} differs from phase 6")
+                stacked1.append(got)
+            stacked1_s = time.perf_counter() - t0
+            c_stacked = counts.take("run 1: search_blocks_device",
+                                    ("filter", "search_partial", "search_finish"))
+            log(f"[mesh run 1] search_blocks_device of the 10 searches: {stacked1_s:.2f} s, "
+                f"equal to phase 6; wrapper calls {nonzero(c_stacked)}")
+            # the per-block route's answers for the queries run 2 refuses
+            budget, SM._DEVICE_SEARCH_MAX_BYTES = SM._DEVICE_SEARCH_MAX_BYTES, 0
+            try:
+                per_block = {label: db.search_blocks(TENANT, db.metas(TENANT),
+                                                     SearchRequest(query=q, limit=20))
+                             for label, q in K1_QUERIES if label in MESH_SEARCH_FALLBACK}
+            finally:
+                SM._DEVICE_SEARCH_MAX_BYTES = budget
+            step1_s, step1_hits = run_step(mesh, blocks, q_codes, K1_QUERIES[0][1], 1, elect,
+                                           union.words)
+            shards_seen.clear()
+            c_step = counts.take("run 1: the step", ("find", "find_elect", "bloom_union", "filter",
+                                                     "search_partial", "search_finish"))
+            log(f"[mesh run 1] distributed_query_step ({len(ids64)} ids, {K1_QUERIES[0][1]}, "
+                f"{len(blocks)} blooms): {step1_s:.2f} s, {step1_hits} traces, equal to the three "
+                f"host entries; wrapper calls {nonzero(c_step)}")
             secs1, calls1 = mesh.collective_seconds(), dict(mesh.calls)
         finally:
             launch.shutdown(mesh, [])
         del db, blocks, codes, blooms
         log(f"[mesh run 1] nccl world 1 on {dev}: up in {up1_s:.2f} s; find rows "
             f"({len(ids64)} ids x {len(want_rows)} blocks) {rows_s:.3f} s, elect, union, "
-            f"multiquery and 4 stacked folds equal the single-card routes; collectives (s) "
+            f"multiquery and a stacked fold equal the single-card routes; collectives (s) "
             f"{ {k: round(v, 6) for k, v in secs1.items()} }, calls {calls1}; "
             f"{time.perf_counter() - t_run:.1f} s")
 
@@ -1484,8 +1695,50 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                 if not same_series(r, want):
                     raise AssertionError(f"run 2: {mq_text} differs from phase 10")
             metrics_s = time.perf_counter() - t0
+            counts.take("run 2: finds, burst, metrics",
+                        ("find", "mq_partial", "mq_combine", "timeseries_stacked"))
+
+            # the 10 searches through TempoDB.search_blocks: the stacked
+            # route, or the per-block route where the budget refuses
+            routed: list = []
+            device0 = TDB.search_blocks_device
+
+            def device_spy(*a, **k):
+                out = device0(*a, **k)
+                routed.append(out is not None)
+                shards_seen.clear()
+                return out
+
+            TDB.search_blocks_device = device_spy
+            try:
+                t0 = time.perf_counter()
+                for (label, _), q, want1 in zip(K1_QUERIES + [("", "")] * 2, SEARCH_QUERIES,
+                                                stacked1):
+                    r = db.search(TENANT, SearchRequest(query=q, limit=20))
+                    want = per_block.get(label, want1)
+                    if not same_response(r, want):
+                        raise AssertionError(f"run 2: search {q} differs from run 1's answer on "
+                                             "its route")
+                search2_s = time.perf_counter() - t0
+            finally:
+                TDB.search_blocks_device = device0
+            want_routed = [label not in MESH_SEARCH_FALLBACK
+                           for label, _ in K1_QUERIES + [("", "")] * 2]
+            c_search2 = counts.take("run 2: 10 searches through TempoDB",
+                                    ("filter", "attr_partial", "mask_pack", "mask_unpack",
+                                     "search_partial", "search_finish"))
             routes = {k: v - r0.get(k, 0) for k, v in BX.routing_counts().items()
                       if v != r0.get(k, 0)}
+            blocks = [db.open_block(m) for m in metas]
+            host_find = PF.sharded_find(mesh, [b.trace_index["trace.id_codes"] for b in blocks],
+                                        q_codes)
+            host_union = sharded_bloom_union(mesh, blooms_of(blocks)).words
+            step2_s, step2_hits = run_step(mesh, blocks, q_codes, K1_QUERIES[0][1], MESH_WORLD,
+                                           host_find, host_union)
+            shards_seen.clear()
+            c_step2 = counts.take("run 2: the step", ("find", "find_elect", "bloom_union",
+                                                      "filter", "search_partial",
+                                                      "search_finish"))
             free1 = torch.cuda.mem_get_info(dev)[0]
             smi_mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total",
                                       "--format=csv,noheader"], capture_output=True, text=True,
@@ -1495,6 +1748,10 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             cap.restore()
             codes = launch.shutdown(mesh, procs, join_timeout_s=60)
         n_sharded = cap.calls.get("sharded_find_rows", 0)
+        log(f"[mesh run 2] 10 searches through TempoDB: {search2_s:.2f} s, stacked route "
+            f"{routed} (predicted {want_routed}), answers equal run 1's route; wrapper calls "
+            f"{nonzero(c_search2)}; step {step2_s:.2f} s, {step2_hits} traces, equal to the "
+            f"three host entries, wrapper calls {nonzero(c_step2)}")
         log(f"[mesh run 2] gloo {MESH_DP}x{MESH_SP} on {dev}: up in {up_s:.1f} s; "
             f"{len(got)} finds {find_s:.2f} s in {n_sharded} sharded finds "
             f"({cap.calls.get('lookup_ids_blocks_cached', 0)} single-card K3 lookups); burst "
@@ -1527,23 +1784,27 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
         want_sharded += sum(gated([(t, c)]) for t, c in zip(lone, cands[:8] + cands[-4:]))
         want_routes = {("find_batch", "mesh", "coalesced"): grouped,
                        ("search_batch", "mesh", "mesh_batched"): len(reqs16),
-                       ("metrics_mesh", "device", "stacked"): len(METRICS_QUERIES) * len(metas)}
+                       ("metrics_mesh", "device", "stacked"): len(METRICS_QUERIES) * len(metas),
+                       ("search_mesh", "fallback", "pre_io_budget"):
+                           len(MESH_SEARCH_FALLBACK) * len(metas)}
         bad = {k: (routes.get(k, 0), v) for k, v in want_routes.items() if routes.get(k, 0) != v}
         off = [k for k in routes if k not in want_routes]
         if bad or off or cap.calls.get("lookup_ids_blocks_cached", 0) or \
-                n_sharded != want_sharded:
-            raise AssertionError(f"run 2: routes {routes}, {n_sharded} sharded finds; expected "
-                                 f"{want_routes}, {want_sharded} sharded finds")
+                n_sharded != want_sharded or routed != want_routed:
+            raise AssertionError(f"run 2: routes {routes}, {n_sharded} sharded finds, stacked "
+                                 f"searches {routed}; expected {want_routes}, {want_sharded} "
+                                 f"sharded finds, {want_routed}")
     finally:
         cap.restore()
-    return {"counts": dict(kernels.LAUNCHES), "args": cap.args}
+        MS.ShardSearch.partial = partial0
+    return {"counts": counts.total, "args": cap.args, "shards": shards}
 
 
-def phase_15_table(args: dict, table) -> None:
-    """M1-M4 against their plain versions at the shapes the mesh path gave
-    them (M1 from run 1, M2-M4 from run 2's rank 0); times by CUDA
-    events, the bound of each, no one-call yardstick (none computes
-    these functions)."""
+def phase_15_table(p15: dict, table) -> None:
+    """M1-M8 against their plain versions at the shapes the mesh path gave
+    them (M1 from run 1, M2-M4 from run 2's rank 0, M5-M8 from run 1's
+    sharded searches); times by CUDA events, the bound of each, no
+    one-call yardstick (none computes these functions)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import find as FD
     from tempo_tpu_torch.ops import multiquery as MQ
@@ -1553,6 +1814,8 @@ def phase_15_table(args: dict, table) -> None:
         table.append({"name": name, "route": "cuda", "source": f"tempo_tpu_torch/csrc/{source}",
                       "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
                       "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+
+    args = p15["args"]
 
     # M1 -- run 1's election over the 10 (12 padded) blocks' K3 rows
     (rows, base, *_), _ = args["find_elect"]
@@ -1633,6 +1896,110 @@ def phase_15_table(args: dict, table) -> None:
         f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
     row("timeseries_stacked", "timeseries.cu", "tempo_tpu/parallel/timeseries.py:131", err, ms,
         pms, b)
+    phase_15_search_table(p15["shards"], row)
+
+
+def phase_15_search_table(shards: dict, row) -> None:
+    """M5-M8 against their plain versions on the shards of run 1's
+    sharded searches (10 blocks at full width, one rank): M5 on the
+    `span.attr` query, M6 on the `>` query's lhs slot, M7 and M8 on the
+    span query. No one PyTorch call computes any of them."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import filter as F
+    from tempo_tpu_torch.ops import meshsearch as MS
+
+    def check(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} differs from its plain version")
+        return 0
+
+    # M5 -- the span attr leaf's counts, then its mask
+    sh = shards["sattr"]
+    i, slot = next(iter(sh.prog.leaf_slots.items()))
+    c = sh.conds[i]
+    n_seg, al = sh.cols["sattr.off"].shape[1] - 1, sh.cols["sattr.key_id"].shape[1]
+    cnt = kernels.attr_partial(sh.descs, i, n_seg, al, 0)
+    err = check(cnt, MS._attr_partial_plain(c, sh.cols, sh.ops_i, sh.ops_f, i, sh.tables.get(i),
+                                            0), "M5")
+    kernels.attr_mask(cnt, None, sh.n_spans_t, 0, sh.slots, slot)
+    check(sh.slot(slot) != 0, MS._attr_mask_plain(cnt, None, sh.n_spans_t, 0, sh.sl), "M5's mask")
+    ms = cuda_ms(lambda: kernels.attr_partial(sh.descs, i, n_seg, al, 0))
+    pms = cuda_ms(lambda: MS._attr_partial_plain(c, sh.cols, sh.ops_i, sh.ops_f, i,
+                                                 sh.tables.get(i), 0), reps=3, warm=1)
+    # the bytes this leaf needs: every real row's key, the vtype and value
+    # of the rows whose key matches (the only rows M5 reads them for), the
+    # offsets and the counts
+    last = sh.cols["sattr.off"][:, -1:]
+    rows_real = int(last.sum().item())
+    real = torch.arange(al, device=last.device)[None] < last
+    n_key = int(((sh.cols["sattr.key_id"] == sh.ops_i[:, i, 0:1]) & real).sum().item())
+    per_key = 0 if c.col == "any" else \
+        4 + sh.cols[f"sattr.{F._ATTR_VALUE_COL[c.col]}"].element_size()
+    bl = sh.slots.shape[0]
+    b = bound(rows_real * 4 + n_key * per_key + bl * (n_seg + 1) * 4 + bl * n_seg * 4,
+              rows_real + n_key * 2)
+    log(f"[M5] {bl} blocks, {rows_real} attr rows ({n_key} of the leaf's key) into {n_seg} "
+        f"owners: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+    row("attr_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+
+    # M6 -- the `>` node's lhs mask, as the struct step packs it
+    sh = shards["child"]
+    lslot = next(st[2] for st in sh.prog.steps if st[0] == "struct")
+    m = sh.slot(lslot)
+    pk = kernels.mask_pack(m)
+    err = check(pk, MS._mask_pack_plain(m), "M6 pack")
+    err = check(kernels.mask_unpack(pk), MS._mask_unpack_plain(pk), "M6 unpack")
+    check(kernels.mask_unpack(pk), m != 0, "M6's round trip")
+    nrow = m.shape[0] * m.shape[1]
+    b = bound(nrow + nrow // 8, nrow)
+    for name, fn, plain in (("mask_pack", lambda: kernels.mask_pack(m),
+                             lambda: MS._mask_pack_plain(m)),
+                            ("mask_unpack", lambda: kernels.mask_unpack(pk),
+                             lambda: MS._mask_unpack_plain(pk))):
+        ms, pms = cuda_ms(fn), cuda_ms(plain)
+        log(f"[M6 {name}] {tuple(m.shape)}: {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b[0]:.5f} ms")
+        row(name, "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+
+    # M7, M8 -- the span query's partial counts, then its trace program
+    sh = shards["span"]
+    span_off = sh.cols["trace.span_off"]
+    n_tr = len(sh.prog.tslots)
+
+    def m7():
+        return kernels.search_partial(sh.prog, sh.bufs[0], sh.slots, span_off, None, sh.n_spans_t,
+                                      0, sh.nt)
+
+    def m7_plain():
+        return MS._search_partial_plain(sh.slots, sh.prog.tslots, span_off, None, sh.n_spans_t, 0,
+                                        sh.nt)
+
+    counts = m7()
+    err = check(counts, m7_plain(), "M7")
+    ms, pms = cuda_ms(m7), cuda_ms(m7_plain, reps=3, warm=1)
+    spans = int(sh.n_spans_t.sum().item())
+    b = bound(spans * max(n_tr, 1) + span_off.numel() * 4 + counts.numel() * 4,
+              spans * max(n_tr, 1))
+    log(f"[M7] {bl} blocks, {spans} spans, {n_tr} tracify slots: {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {b[0]:.5f} ms")
+    row("search_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    code = sh.prog.code(sh.prog.trace_off)
+
+    def m8():
+        return kernels.search_finish(sh.prog, sh.bufs[0], sh.descs, counts)
+
+    def m8_plain():
+        return MS._search_finish_plain(code, sh.conds, sh.cols, sh.ops_i, sh.ops_f, sh.tables,
+                                       counts)
+
+    got, want = m8(), m8_plain()
+    err = check(got[0], want[0], "M8's trace mask") + check(got[1], want[1], "M8's counts")
+    if not got[0].any():
+        raise AssertionError("M8: the span query matched nothing; the check is vacuous")
+    ms, pms = cuda_ms(m8), cuda_ms(m8_plain)
+    b = bound(counts.numel() * 4 + got[0].numel() * 5, counts.numel())
+    log(f"[M8] {bl} x {sh.nt} traces: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+    row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
 
 
 def main() -> int:
@@ -2279,11 +2646,13 @@ def main() -> int:
         # ---- 15. the mesh: NCCL at one rank, then gloo 2x2 on the card
         t0 = time.perf_counter()
         p15 = phase_15(mesh_store, dev, tmp, ids64, seq_found, batch_q, meta0.block_id, want16,
-                       metrics_card, lo_s, hi_s)
+                       metrics_card, lo_s, hi_s, responses)
         log(f"[mesh] phase 15 took {time.perf_counter() - t0:.1f} s")
-        phase_15_table(p15["args"], table)
-        del p15["args"]
-        for name in ("find_elect", "mq_partial", "mq_combine", "timeseries_stacked"):
+        phase_15_table(p15, table)
+        del p15["args"], p15["shards"]
+        for name in ("find_elect", "mq_partial", "mq_combine", "timeseries_stacked",
+                     "attr_partial", "mask_pack", "mask_unpack", "search_partial",
+                     "search_finish"):
             launches[name] = p15["counts"][name]
         for row in table:
             row["launches"] = launches[row["name"]]

@@ -43,6 +43,7 @@ AX_EVENT = "ev"
 AX_EVATTR = "evattr"
 AX_LINK = "ln"
 AX_LNATTR = "lnattr"
+AX_RATTR = "rattr"  # not a row-group axis: resource attr tables are read whole
 
 WELL_KNOWN_SPAN_ATTRS = {
     # attr key -> dedicated span column (vparquet's dedicated-column idea)

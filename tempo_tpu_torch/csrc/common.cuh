@@ -19,7 +19,7 @@
 // one wrapper call may make several (a filter program run, a bitonic
 // select). Each launch site is followed by TT_LAUNCHED() (slot 0) or
 // TT_LAUNCHED_SLOT(i); kernels.grid_launches() reads the counts.
-#define TT_SLOTS 4
+#define TT_SLOTS 8
 static std::atomic<unsigned long long> tt_grid_launches_[TT_SLOTS];
 #define TT_LAUNCHED_SLOT(i) tt_grid_launches_[i].fetch_add(1, std::memory_order_relaxed)
 #define TT_LAUNCHED() TT_LAUNCHED_SLOT(0)

@@ -19,6 +19,13 @@
 //   struct      `>` one parent gather; `>>` pointer doubling, one launch
 //               per pass; `~` per-parent counts by atomicAdd, then a
 //               gather (orphan rule of filter.py:339-346 kept as is)
+//
+// On a mesh shard (tempo_tpu_torch/parallel/search.py) the span pass and
+// the struct kernels run once a block on the shard's rows: generic-attr
+// and resource leaves arrive as mask slots (meshsearch.cu, M5), and the
+// struct kernels read the lhs mask (and, for `>>` and `~`, the parent
+// table) gathered over the sp axis, writing the shard's rows from row0.
+// The trace pass is meshsearch.cu's M7 and M8, split at a collective.
 //   trace pass  one thread per trace over [span_off[t], span_off[t+1]):
 //               the trace program (a tracify leaf asks whether any span
 //               of the trace is set in its slot), then the union count
@@ -62,13 +69,15 @@ __global__ void span_pass_kernel(const int32_t* __restrict__ prog, int len,
     out[s] = st & 1;
 }
 
+// rm, pidx and out hold the n_out rows from global row row0; lm all nb
+// (one block: row0 0 and n_out nb; a shard: lm gathered over the mesh)
 __global__ void struct_child_kernel(const uint8_t* __restrict__ lm, const uint8_t* __restrict__ rm,
                                     const int32_t* __restrict__ pidx, uint8_t* __restrict__ out,
-                                    int nb, int n_spans) {
+                                    int nb, int n_spans, int row0, int n_out) {
     int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= nb) return;
+    if (s >= n_out) return;
     int p = pidx[s];
-    bool has_p = p >= 0 && s < n_spans;
+    bool has_p = p >= 0 && row0 + s < n_spans;
     out[s] = rm[s] && has_p && lm[tt_clamp(p, 0, nb - 1)];
 }
 
@@ -98,10 +107,10 @@ __global__ void desc_step_kernel(const uint8_t* __restrict__ acc, const int32_t*
 }
 
 __global__ void desc_final_kernel(const uint8_t* __restrict__ rm, const uint8_t* __restrict__ acc,
-                                  uint8_t* __restrict__ out, int nb) {
+                                  uint8_t* __restrict__ out, int row0, int n_out) {
     int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= nb) return;
-    out[s] = rm[s] && acc[s];
+    if (s >= n_out) return;
+    out[s] = rm[s] && acc[row0 + s];
 }
 
 __global__ void sib_count_kernel(const uint8_t* __restrict__ lm, const int32_t* __restrict__ pidx,
@@ -118,13 +127,14 @@ __global__ void sib_count_kernel(const uint8_t* __restrict__ lm, const int32_t* 
 __global__ void sib_final_kernel(const uint8_t* __restrict__ lm, const uint8_t* __restrict__ rm,
                                  const int32_t* __restrict__ pidx, const int32_t* __restrict__ cnt,
                                  const int32_t* __restrict__ orphan_flag, uint8_t* __restrict__ out,
-                                 int nb, int n_spans) {
+                                 int nb, int n_spans, int row0, int n_out) {
     int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= nb) return;
-    int p = pidx[s];
-    bool valid = s < n_spans;
+    if (s >= n_out) return;
+    int g = row0 + s;
+    int p = pidx[g];
+    bool valid = g < n_spans;
     bool has_p = p >= 0 && valid;
-    bool l = lm[s] != 0, r = rm[s] != 0;
+    bool l = lm[g] != 0, r = rm[s] != 0;
     int sibs = cnt[tt_clamp(p, 0, nb - 1)] - (int)(l && has_p);
     bool orphan = p == -2 && valid;
     out[s] = (r && has_p && sibs > 0) || (r && orphan && *orphan_flag);
@@ -221,14 +231,19 @@ TT_EXPORT int tt_filter_span_pass(const int32_t* prog, int len, const long long*
 }
 
 // op: 0 '>', 1 '>>', 2 '~'. scratch: 2*nb int32 + 2*nb uint8 (for '>>'),
-// nb+1 int32 (for '~'; the last word is the orphan flag)
+// nb+1 int32 (for '~'; the last word is the orphan flag). lm is over all
+// nb rows, and so is pidx for '>>' and '~'; rm and out (and pidx for
+// '>') hold n_out rows from global row row0 -- a mesh shard's rows
+// against the masks and parent table gathered over its sp axis
+// (tempo_tpu/parallel/search.py:203-256). One block: row0 0, n_out nb.
 TT_EXPORT int tt_filter_struct(int op, const uint8_t* lm, const uint8_t* rm, uint8_t* out,
                                const int32_t* pidx, int nb, int n_spans, int n_passes,
-                               int32_t* scratch_i32, uint8_t* scratch_u8, void* stream) {
+                               int32_t* scratch_i32, uint8_t* scratch_u8, int row0, int n_out,
+                               void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    int g = tt_blocks(nb, 256);
+    int g = tt_blocks(nb, 256), go = tt_blocks(n_out, 256);
     if (op == 0) {
-        struct_child_kernel<<<g, 256, 0, st>>>(lm, rm, pidx, out, nb, n_spans);
+        struct_child_kernel<<<go, 256, 0, st>>>(lm, rm, pidx, out, nb, n_spans, row0, n_out);
         TT_LAUNCHED();
     } else if (op == 1) {
         uint8_t* acc[2] = {scratch_u8, scratch_u8 + nb};
@@ -240,15 +255,15 @@ TT_EXPORT int tt_filter_struct(int op, const uint8_t* lm, const uint8_t* rm, uin
                                                 ptr[(i + 1) & 1], nb);
             TT_LAUNCHED();
         }
-        desc_final_kernel<<<g, 256, 0, st>>>(rm, acc[n_passes & 1], out, nb);
+        desc_final_kernel<<<go, 256, 0, st>>>(rm, acc[n_passes & 1], out, row0, n_out);
         TT_LAUNCHED();
     } else {
         cudaError_t e = cudaMemsetAsync(scratch_i32, 0, (size_t)(nb + 1) * sizeof(int32_t), st);
         if (e != cudaSuccess) return (int)e;
         sib_count_kernel<<<g, 256, 0, st>>>(lm, pidx, scratch_i32, scratch_i32 + nb, nb, n_spans);
         TT_LAUNCHED();
-        sib_final_kernel<<<g, 256, 0, st>>>(lm, rm, pidx, scratch_i32, scratch_i32 + nb, out, nb,
-                                            n_spans);
+        sib_final_kernel<<<go, 256, 0, st>>>(lm, rm, pidx, scratch_i32, scratch_i32 + nb, out, nb,
+                                             n_spans, row0, n_out);
         TT_LAUNCHED();
     }
     return (int)cudaGetLastError();

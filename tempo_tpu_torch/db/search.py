@@ -11,9 +11,12 @@ only those are exactly re-verified on the host (device encodings are
 conservative).
 
 Every live block goes to the card: the host engine and its
-temperature routing, streaming and the mesh path of the JAX package are
-not part of this port yet. Concurrent single-block jobs coalesce in
+temperature routing and streaming of the JAX package are not part of
+this port yet. Concurrent single-block jobs coalesce in
 db/batchexec.py, which calls back into this module for its fallbacks.
+On a mesh of more than one rank, a multi-block search stacks its blocks
+into one sharded program (search_blocks_device, parallel/search.py) and
+selects each block's top k on the host.
 """
 
 from __future__ import annotations
@@ -25,13 +28,15 @@ import numpy as np
 from ..block import schema as S
 from ..block.reader import BackendBlock
 from ..ops.filter import T_RATTR, T_RES, T_TRACE, Operands, eval_block, required_columns
-from ..ops.select import k_bucket, select_topk_device, select_topk_device_multi
+from ..ops.device import PAD_I32, bucket
+from ..ops.select import k_bucket, select_topk_device, select_topk_device_multi, select_topk_host
 from ..ops.stage import stage_block
 from ..traceql.plan import plan_search_request
 
 DEFAULT_LIMIT = 20
-# staged span-axis bytes of one fused multi-block search before it falls
-# back to per-block search (as in the JAX package)
+# staged span-axis bytes of one fused multi-block search, and stacked
+# column bytes of one mesh search group, before each falls back to
+# per-block search (one budget for both, as in the JAX package)
 _DEVICE_SEARCH_MAX_BYTES = 512 << 20
 # staged span-axis bytes past which the reference streams row-group
 # chunks; the port has no streaming yet (ROADMAP A4), and the batching
@@ -96,6 +101,15 @@ def _plan_for_block(blk: BackendBlock, req: SearchRequest, allow_struct: bool = 
         # struct nodes need the block to carry the parent-row column
         allow_struct=allow_struct and blk.pack.has("span.parent_idx"),
     )
+
+
+def _start_key_host(blk: BackendBlock) -> np.ndarray:
+    """trace.start_ms column (the top-k selection key), cached on the
+    immutable block."""
+    key = getattr(blk, "_start_key_host", None)
+    if key is None:
+        key = blk._start_key_host = blk.pack.read("trace.start_ms")
+    return key
 
 
 def _verify_candidates(blk: BackendBlock, req: SearchRequest, sids, needs_verify: bool):
@@ -341,3 +355,218 @@ def search_blocks_fused(
             break
     resp.inspected_bytes = sum(blk.pack.bytes_read - io0[id(blk)] for blk, _ in live)
     return resp
+
+
+# ---- stacked multi-block device search (parallel/search.py)
+
+def _count_struct_nodes(tree) -> int:
+    """Struct ('>' / '>>' / '~') nodes in a condition tree. Each one
+    costs its own span-axis lhs-mask all_gather on the mesh, so the
+    pre-IO budget estimate scales with the count.
+    ('struct', op, lhs, rhs): t[1] is the op STRING, never recursed."""
+    if not isinstance(tree, tuple):
+        return 0
+    n = 1 if tree[0] == "struct" else 0
+    children = tree[2:] if tree[0] == "struct" else tree[1:]
+    return n + sum(_count_struct_nodes(ch) for ch in children if isinstance(ch, tuple))
+
+
+def _has_deep_struct(tree) -> bool:
+    """True when any '>>' or '~' node is present: those relations walk
+    the gathered parent table, one gather per launch on top of the
+    per-node masks ('>' runs off the local parent column)."""
+    if not isinstance(tree, tuple):
+        return False
+    if tree[0] == "struct" and tree[1] in (">>", "~"):
+        return True
+    children = tree[2:] if tree[0] == "struct" else tree[1:]
+    return any(_has_deep_struct(ch) for ch in children if isinstance(ch, tuple))
+
+
+def _stacked_words_est(items, needed: list[str], tree, sp: int,
+                       S_b: int, NT_b: int, attr_b: dict[str, int]) -> int:
+    """Per-block stacked-column words the mesh program will hold on the
+    device, estimated before any column IO, so that an over-budget group
+    falls back without paying the cold reads (the reference's estimate,
+    tempo_tpu/db/search.py:1003-1049): per-axis products, plus each
+    struct node's lhs mask gathered onto every rank, plus one gathered
+    parent table (and the pointer-doubling temporaries) for a tree with
+    any '>>' or '~' node."""
+    from ..parallel.search import struct_pack_enabled
+
+    span_cols = [n for n in needed if n.startswith("span.")]
+    est = S_b * max(1, len(span_cols))
+    est += NT_b * sum(1 for n in needed if n.startswith("trace."))
+    res_cols = [n for n in needed if n.startswith("res.")]
+    if res_cols:
+        r_rows = max((blk.pack.n_rows_of(n) for blk, _ in items for n in res_cols), default=1)
+        est += bucket(max(r_rows, 1)) * len(res_cols)
+    for pre, a_b in attr_b.items():
+        n_val_cols = sum(1 for n in needed
+                         if n.startswith(f"{pre}.") and not n.endswith((".span", ".res")))
+        est += a_b * n_val_cols + (S_b + 1 if pre == "sattr" else 0)  # values + off
+    if struct_pack_enabled():
+        est += S_b * sp * _count_struct_nodes(tree)
+        if _has_deep_struct(tree):
+            est += 4 * S_b * sp
+    else:  # TEMPO_STRUCT_PACK=0: every node gathers lm / pid / valid + temps
+        est += 6 * S_b * sp * _count_struct_nodes(tree)
+    return est
+
+
+def search_blocks_device(blocks: list[BackendBlock], req: SearchRequest, mesh,
+                         default_limit: int = DEFAULT_LIMIT) -> SearchResponse | None:
+    """Search many blocks as ONE stacked mesh program: blocks shard over
+    dp, span rows and generic-attr rows over sp, operands resolved
+    through each block's dictionary (parallel/search.sharded_search).
+    Each block's candidates are selected on the host (select_topk_host)
+    and verified as on the single-card route. Returns None only when the
+    stacked columns (with the struct gathers) exceed the device budget:
+    the caller falls back to per-block search. Columns are read block by
+    block."""
+    resp = SearchResponse()
+    in_range = [b for b in blocks if b.meta.overlaps_time(req.start, req.end)]
+    live = [(blk, p) for blk, p in ((b, _plan_for_block(b, req)) for b in in_range)
+            if not p.prune]
+    if not live:
+        return resp
+    # identical plan structure -> one mesh program per group
+    groups: dict[tuple, list] = {}
+    for blk, p in live:
+        groups.setdefault((p.tree, p.conds), []).append((blk, p))
+    results: list[SearchResult] = []
+    for (tree, conds), items in groups.items():
+        got = _search_group_device(items, tree, conds, req, mesh, resp)
+        if got is None:
+            return None
+        results.extend(got)
+    results.sort(key=lambda r: -r.start_time_unix_nano)
+    # a trace cut into several blocks hits in each: dedupe by trace id,
+    # as SearchResponse.merge does on the per-block route
+    seen: set[str] = set()
+    deduped = []
+    for r in results:
+        if r.trace_id not in seen:
+            seen.add(r.trace_id)
+            deduped.append(r)
+    resp.traces = deduped[: req.limit or default_limit]
+    return resp
+
+
+def _search_group_device(items, tree, conds, req: SearchRequest, mesh, resp: SearchResponse):
+    from ..parallel.search import sharded_search
+
+    io0 = [blk.pack.bytes_read for blk, _ in items]
+    stacked = stack_group(items, tree, conds, mesh)
+    if stacked is None:
+        return None
+    host, n_spans, operands, NT_b = stacked
+    tm, sc = sharded_search(mesh, tree, conds, operands, host, n_spans, nt=NT_b)
+
+    limit = req.limit or DEFAULT_LIMIT
+    results: list[SearchResult] = []
+    for bi, (blk, p) in enumerate(items):
+        nt = blk.meta.total_traces
+        mask, cnt = tm[bi][:nt], sc[bi][:nt]
+        key = _start_key_host(blk)[:nt]
+
+        def selector(k, mask=mask, cnt=cnt, key=key):
+            return select_topk_host(mask, key, cnt, k)
+
+        results.extend(_collect_topk(blk, req, p.needs_verify, selector, limit))
+        resp.inspected_spans += int(n_spans[bi])
+        resp.inspected_bytes += blk.pack.bytes_read - io0[bi]
+    return results
+
+
+def stack_group(items, tree, conds, mesh):
+    """A plan group's (block, plan) items stacked for the mesh program:
+    (columns by name, n_spans (Bp,), per-block Operands, NT_b), Bp the
+    blocks padded to a multiple of dp. None when the estimate before any
+    column IO exceeds the device budget (counted in the routing) or a
+    column cannot be stacked."""
+    from .batchexec import record_routing
+
+    dp, sp = mesh.dp, mesh.sp
+    # the stacked program reads raw columns: no span@ materialization;
+    # extra_cols carries span.parent_idx for struct nodes
+    needed = [n for n in required_columns(conds) + list(items[0][1].extra_cols)
+              if not n.startswith("span@")]
+    B = len(items)
+    Bp = ((B + dp - 1) // dp) * dp
+    s_max = max(blk.pack.axes[S.AX_SPAN].n_rows for blk, _ in items)
+    S_b = sp * bucket(max(1, -(-max(s_max, 1) // sp)))
+    NT_b = bucket(max(max(blk.meta.total_traces for blk, _ in items), 1))
+    # attr rows ride sp like span rows, bucketed from the widest block's
+    # axis metadata (no IO); resource attrs have no row-group axis, so
+    # they take the smallest bucket, as in the reference
+    attr_b: dict[str, int] = {}
+    for pre, ax in (("sattr", S.AX_SATTR), ("rattr", S.AX_RATTR)):
+        if f"{pre}.key_id" in needed:
+            a_max = max(blk.pack.axes[ax].n_rows if ax in blk.pack.axes else 0
+                        for blk, _ in items)
+            attr_b[pre] = sp * bucket(max(1, -(-max(a_max, 1) // sp)))
+    est = _stacked_words_est(items, needed, tree, sp, S_b, NT_b, attr_b)
+    if Bp * est * 4 > _DEVICE_SEARCH_MAX_BYTES:
+        record_routing("search_mesh", "fallback", "pre_io_budget", n=len(items))
+        return None
+
+    per_block = [{n: blk.pack.read(n) for n in needed} for blk, _ in items]
+    n_res_per = [max((a.shape[0] for n, a in cols.items() if n.startswith("res.")), default=1)
+                 for cols in per_block]
+    R_b = bucket(max(max(n_res_per), 1))
+    host: dict[str, np.ndarray] = {}
+    for n in needed:
+        pre = n.split(".", 1)[0]
+        if n == "trace.span_off":
+            # padded trace rows are empty segments: repeat the last offset
+            out = np.zeros((Bp, NT_b + 1), dtype=np.int32)
+            for bi, cols in enumerate(per_block):
+                a = cols[n]
+                out[bi, : a.shape[0]] = a
+                out[bi, a.shape[0]:] = a[-1] if a.size else 0
+            host[n] = out
+            continue
+        if n in ("sattr.span", "rattr.res"):
+            # owner rows (grouped by owner) -> per-owner offsets over the
+            # global rows, whole on every rank of a dp row
+            n_seg_b = S_b if n == "sattr.span" else R_b
+            out = np.zeros((Bp, n_seg_b + 1), dtype=np.int32)
+            for bi, cols in enumerate(per_block):
+                owners = cols[n]
+                n_seg = (items[bi][0].pack.axes[S.AX_SPAN].n_rows if n == "sattr.span"
+                         else n_res_per[bi])
+                cnt = (np.bincount(np.clip(owners, 0, max(n_seg, 1) - 1),
+                                   minlength=max(n_seg, 1))
+                       if owners.size else np.zeros(max(n_seg, 1), dtype=np.int64))
+                off = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int32)
+                out[bi, : off.shape[0]] = off
+                out[bi, off.shape[0]:] = off[-1]
+            host[f"{pre}.off"] = out
+            continue
+        if n.startswith("span."):
+            shape = (Bp, S_b)
+        elif pre in attr_b:
+            shape = (Bp, attr_b[pre])
+        elif n.startswith("res."):
+            shape = (Bp, R_b)
+        elif n.startswith("trace."):
+            shape = (Bp, NT_b)
+        else:
+            return None
+        first = per_block[0][n]
+        if first.dtype not in (np.int32, np.float32):
+            return None
+        out = np.full(shape, PAD_I32 if first.dtype == np.int32 else np.float32(0),
+                      dtype=first.dtype)
+        for bi, cols in enumerate(per_block):
+            a = cols[n]
+            out[bi, : a.shape[0]] = a
+        host[n] = out
+
+    n_spans = np.zeros((Bp,), dtype=np.int32)
+    for bi, (blk, _) in enumerate(items):
+        n_spans[bi] = blk.pack.axes[S.AX_SPAN].n_rows
+    operands = [Operands.build(p.rows, p.tables or None) for _, p in items]
+    operands += [Operands.build([(0, 0, 0, 0.0, 0.0)] * len(conds))] * (Bp - B)
+    return host, n_spans, operands, NT_b

@@ -14,10 +14,10 @@ executors (db/batchexec.py: B5a + B5b per search group, K3 with Q > 1
 per find group), and TraceQL metrics range queries fold per block on
 B6 (db/metrics_exec.py). On a mesh of more than one rank
 (parallel/launch) finds run the sharded find, batched search windows
-the mesh multi-query program and metrics the stacked mesh fold, where
-the reference routes them. The WAL, the pipelined compaction sweep, the
-sharded multi-block search, the chaos wrap and the cost ledger of the
-JAX package are not part of this port yet.
+the mesh multi-query program, multi-block searches the stacked sharded
+search and metrics the stacked mesh fold, where the reference routes
+them. The WAL, the pipelined compaction sweep, the chaos wrap and the
+cost ledger of the JAX package are not part of this port yet.
 
 The device is the first card unless the caller names another one
 (`device="cpu"` runs every kernel's plain PyTorch version).
@@ -52,7 +52,13 @@ from .batchexec import (
 )
 from .blocklist import Blocklist, Poller
 from .metrics_exec import MetricsRequest, MetricsResponse, metrics_query_range_blocks
-from .search import SearchRequest, SearchResponse, search_block, search_blocks_fused
+from .search import (
+    SearchRequest,
+    SearchResponse,
+    search_block,
+    search_blocks_device,
+    search_blocks_fused,
+)
 
 
 @dataclass
@@ -242,14 +248,14 @@ class TempoDB:
     def search_blocks(self, tenant: str, metas: list[BlockMeta], req: SearchRequest,
                       _skip_batcher: bool = False) -> SearchResponse:
         """Search a set of blocks as one unit. A single-block unit goes
-        through the search batcher when eligible; otherwise fused
-        per-block filters + ONE cross-block top-k sync, and per-block
-        search when the fused footprint exceeds the device budget.
-        _skip_batcher: the caller already probed batch eligibility for
-        this query and got a fallback -- don't plan and count it twice.
-        On a mesh a multi-block unit keeps this single-device route until
-        the sharded search is ported (the reference's
-        search_blocks_device); the answers are the same."""
+        through the search batcher when eligible. Otherwise, on a mesh of
+        more than one rank, a multi-block unit runs as one stacked
+        sharded program (db/search.search_blocks_device); on one card,
+        fused per-block filters + ONE cross-block top-k sync. Either
+        falls back to per-block search when its footprint exceeds the
+        device budget. _skip_batcher: the caller already probed batch
+        eligibility for this query and got a fallback -- don't plan and
+        count it twice."""
         limit = req.limit or self.cfg.search_default_limit
         if not metas:
             return SearchResponse()
@@ -261,8 +267,12 @@ class TempoDB:
             if got is not None:
                 return got
         blocks = [self.open_block(m) for m in metas]
-        got = search_blocks_fused(blocks, req, default_limit=self.cfg.search_default_limit,
-                                  device=self.device)
+        if self.mesh.size > 1 and len(metas) > 1:
+            got = search_blocks_device(blocks, req, self.mesh,
+                                       default_limit=self.cfg.search_default_limit)
+        else:
+            got = search_blocks_fused(blocks, req, default_limit=self.cfg.search_default_limit,
+                                      device=self.device)
         if got is not None:
             return got
         resp = SearchResponse()

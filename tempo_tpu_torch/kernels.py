@@ -45,6 +45,11 @@ never hidden behind a plain version or another route.
 | mq_partial  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:57-100 (M2)   |
 | mq_combine  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:102-125 (M3)  |
 | timeseries_stacked | csrc/timeseries.cu | tempo_tpu/parallel/timeseries.py:45-131 local (M4) |
+| attr_partial | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:122-170 (M5)      |
+| mask_pack   | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:175-189 (M6)      |
+| mask_unpack | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:175-189 (M6)      |
+| search_partial | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:272-290 (M7)   |
+| search_finish | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:292-322 (M8)    |
 
 The write path's kernels: launches on their path, what bounds them, and
 the one PyTorch call that computes the same function (the yardstick
@@ -85,6 +90,16 @@ mesh; a collective between the halves):
 | mq_partial  | one per mesh-batched window on every rank      | 4 B a span a column, (NG+1) x 4 B out | none: a cumsum and two gathers per group       |
 | mq_combine  | one per mesh-batched window on every rank      | (NG+1) x 4 B in, 5 B out a trace      | none: a compare, a gather and an all per query |
 | timeseries_stacked | fold, then finish for value folds, per stacked fold on every rank | 13 B a span + the columns | none: index_add_ and two scatter_reduce_ |
+| attr_partial | count, then mask, per attr or res leaf of a sharded search on every rank | 4 B an attr row, 8 B a row of the leaf's key, the offsets; 5 B a span row for the mask | none: a compare, a cumsum and two gathers per leaf |
+| mask_pack   | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a sum over a reshaped view   |
+| mask_unpack | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a mask over a broadcast view |
+| search_partial | one per sharded search on every rank          | 1 B a span row a tracify slot + the offsets | none: a cumsum and two gathers per slot, or index_add_ |
+| search_finish | one per sharded search on every rank           | the counts and trace columns read, 5 B a trace out | none: the trace program's compares and folds |
+
+K1 on a mesh shard (parallel/search.py) runs its span and struct passes
+through filter_span_shard and filter_struct_shard: each call runs one
+step of the program on every block of the shard and counts one filter
+launch.
 """
 
 from __future__ import annotations
@@ -101,7 +116,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build", "tempo_tpu_torch")
 SOURCES = ("filter", "select", "find", "stage", "multiquery", "timeseries", "blockcut",
-           "bloom", "livestage", "reduce")
+           "bloom", "livestage", "reduce", "meshsearch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -112,7 +127,8 @@ LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
             "rowgroup": 0, "bloom_union": 0, "bloom_test": 0, "live_filter": 0,
             "live_find": 0, "live_append": 0, "live_patch": 0, "span_reduce": 0,
             "edge_reduce": 0, "find_elect": 0, "mq_partial": 0, "mq_combine": 0,
-            "timeseries_stacked": 0}
+            "timeseries_stacked": 0, "attr_partial": 0, "mask_pack": 0, "mask_unpack": 0,
+            "search_partial": 0, "search_finish": 0}
 # source -> its kernels, in the library's launch-counter slot order
 _KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find", "find_elect"),
               "stage": ("res_to_span",),
@@ -120,7 +136,9 @@ _KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find", "fi
               "timeseries": ("timeseries", "timeseries_stacked"), "blockcut": ("remap", "bloom_bits", "rowgroup"),
               "bloom": ("bloom_union", "bloom_test"),
               "livestage": ("live_filter", "live_find", "live_append", "live_patch"),
-              "reduce": ("span_reduce", "edge_reduce")}
+              "reduce": ("span_reduce", "edge_reduce"),
+              "meshsearch": ("attr_partial", "mask_pack", "mask_unpack", "search_partial",
+                             "search_finish")}
 
 
 class KernelError(RuntimeError):
@@ -133,7 +151,7 @@ _SIGNATURES = {
     "tt_select": ("select", [_P, _P, _P, _I, _I, _P, _I, _P, _P]),
     "tt_filter_res_pass": ("filter", [_P, _P, _I, _I, _P, _P]),
     "tt_filter_span_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P]),
-    "tt_filter_struct": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "tt_filter_struct": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
     "tt_filter_trace_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P]),
     "tt_filter_span_epilogue": ("filter", [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
     "tt_multiquery": ("multiquery", [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
@@ -159,6 +177,12 @@ _SIGNATURES = {
     "tt_timeseries_stacked": ("timeseries", [_P, _I, _P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P,
                                              _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "tt_ts_stacked_finish": ("timeseries", [_P, _P, _I, _P]),
+    "tt_attr_partial": ("meshsearch", [_P, _I, _I, _I, _I, _I, _P, _P]),
+    "tt_attr_mask": ("meshsearch", [_P, _I, _P, _P, _I, _I, _I, _P, _L, _P]),
+    "tt_mask_pack": ("meshsearch", [_P, _L, _I, _I, _P, _P]),
+    "tt_mask_unpack": ("meshsearch", [_P, _I, _I, _P, _P]),
+    "tt_search_partial": ("meshsearch", [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    "tt_search_finish": ("meshsearch", [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
 }
 
 # one lock over build and load: the first use may come from several
@@ -418,7 +442,7 @@ def filter_run(prog, buf: torch.Tensor, cols: dict, n_spans: int, n_traces: int,
                       slots.data_ptr() + rslot * slot_stride,
                       slots.data_ptr() + out_slot * slot_stride,
                       cols["span.parent_idx"].data_ptr(), n_spans_b, n_spans, n_passes,
-                      _ptr(scratch_i), _ptr(scratch_u), st)
+                      _ptr(scratch_i), _ptr(scratch_u), 0, n_spans_b, st)
         _call("tt_filter_trace_pass", base + prog.trace_off, prog.trace_len, desc,
               slots.data_ptr(), base + prog.tslots_off, len(prog.tslots), n_spans_b, n_spans,
               cols["trace.span_off"].data_ptr(), n_traces, n_traces_b, trace_mask.data_ptr(),
@@ -928,3 +952,191 @@ def timeseries_stacked_finish(vmin: torch.Tensor, vmax: torch.Tensor):
         _call("tt_ts_stacked_finish", vmin.data_ptr(), vmax.data_ptr(), vmin.numel(), _stream())
     _count("timeseries_stacked")
     return vmin.view(torch.float32), vmax.view(torch.float32)
+
+
+# ------------------------------------------------------------------ K1 on a shard
+def filter_span_shard(prog, bufs: list, step: tuple, slots: torch.Tensor, n_local: list) -> None:
+    """K1's span pass for one span step ("span", off, len, out_slot) of a
+    sharded program (ops/filter._FilterProgram, sharded=True) on every
+    block of a mesh shard: slots (Bl, n_slots, Sl) uint8, block b's
+    descriptors and code in bufs[b], its valid rows n_local[b]. Writes
+    the step's slot in place. Bound: bytes (each column the step names
+    read once, the slot written)."""
+    dev = _cuda_device(slots)
+    _check(slots, "slots", torch.uint8, dev)
+    if slots.dim() != 3 or len(bufs) != slots.shape[0] or len(n_local) != slots.shape[0]:
+        raise KernelError("filter_span_shard: slots (Bl, n_slots, Sl), a buffer and a count a block")
+    _, off, ln, out_slot = step
+    sl = slots.shape[2]
+    with torch.cuda.device(dev):
+        for b, buf in enumerate(bufs):
+            _check(buf, "program buffer", torch.uint8, dev)
+            base, sb = buf.data_ptr(), slots[b].data_ptr()
+            _call("tt_filter_span_pass", base + off, ln, base + prog.desc_off, sb, sb + out_slot * sl,
+                  sl, int(n_local[b]), None, 1, None, _stream())
+    _count("filter")
+
+
+def filter_struct_shard(op: str, lm_g: torch.Tensor, slots: torch.Tensor, rslot: int,
+                        out_slot: int, pidx: torch.Tensor, n_spans: list, row0: int) -> None:
+    """K1's struct kernels for one struct node on every block of a mesh
+    shard: lm_g (Bl, S) the lhs mask gathered over sp (bool or uint8),
+    the rhs and output slots of slots (Bl, n_slots, Sl), pidx the shard's
+    parent rows (Bl, Sl) for '>' or the gathered table (Bl, S) for '>>'
+    and '~'; n_spans the blocks' span counts, row0 the shard's first row.
+    Writes the output slot in place. Bound: bytes (the mask and parent
+    table read once a pass)."""
+    dev = _cuda_device(slots)
+    _check(slots, "slots", torch.uint8, dev)
+    if lm_g.dtype not in (torch.bool, torch.uint8):
+        raise KernelError(f"filter_struct_shard: lhs mask dtype {lm_g.dtype}")
+    _check(lm_g, "lm_g", lm_g.dtype, dev)
+    bl, _, sl = slots.shape
+    S = lm_g.shape[1]
+    _check(pidx, "pidx", torch.int32, dev, (bl, sl if op == ">" else S))
+    if lm_g.shape[0] != bl or len(n_spans) != bl or not 0 <= row0 <= S - sl:
+        raise KernelError(f"filter_struct_shard: {bl} blocks of {sl} rows at {row0} in {S}")
+    scratch_i = scratch_u = None
+    if op == ">>":
+        scratch_i = torch.empty(2 * S, dtype=torch.int32, device=dev)
+        scratch_u = torch.empty(2 * S, dtype=torch.uint8, device=dev)
+    elif op == "~":
+        scratch_i = torch.empty(S + 1, dtype=torch.int32, device=dev)
+    n_passes = max(1, (S - 1).bit_length())
+    with torch.cuda.device(dev):
+        for b in range(bl):
+            _call("tt_filter_struct", {">": 0, ">>": 1, "~": 2}[op], lm_g[b].data_ptr(),
+                  slots[b, rslot].data_ptr(), slots[b, out_slot].data_ptr(), pidx[b].data_ptr(), S,
+                  int(n_spans[b]), n_passes, _ptr(scratch_i), _ptr(scratch_u), int(row0), sl,
+                  _stream())
+    _count("filter")
+
+
+# ------------------------------------------------------------------ M5-M8
+def attr_partial(descs: torch.Tensor, cond: int, n_seg: int, al: int, arow0: int) -> torch.Tensor:
+    """M5: per (block, owner) the shard's matching attr rows of leaf
+    `cond`, through each block's descriptor table (descs (Bl,) int64
+    addresses): the owner's global offsets minus arow0 clipped to
+    [0, al) -> (Bl, n_seg) int32 partial counts; a resource leaf gives
+    its compare per resource. Bound: bytes (4 B an attr row's key, the
+    vtype and value of the rows whose key matches, the offsets once)."""
+    dev = _cuda_device(descs)
+    _check(descs, "descs", torch.int64, dev)
+    bl = descs.shape[0]
+    if descs.dim() != 1 or n_seg < 1 or al < 0:
+        raise KernelError(f"attr_partial: {bl} blocks, {n_seg} owners, {al} rows")
+    out = torch.empty((bl, n_seg), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_attr_partial", descs.data_ptr(), int(cond), bl, int(n_seg), int(al), int(arow0),
+              out.data_ptr(), _stream())
+    _count("attr_partial")
+    return out
+
+
+def attr_mask(cnt: torch.Tensor, res_idx: torch.Tensor | None, n_spans: torch.Tensor, row0: int,
+              slots: torch.Tensor, slot: int) -> None:
+    """M5's second half, after the collective: the summed counts cnt
+    (Bl, Sl) of a span attr leaf (res_idx None), or (Bl, n_own) of a
+    resource leaf gathered through the clamped res_idx (Bl, Sl), > 0 on
+    valid rows -> slot `slot` of slots (Bl, n_slots, Sl), in place.
+    Counted as an attr_partial launch. Bound: bytes (9 B a span row)."""
+    dev = _cuda_device(slots)
+    _check(slots, "slots", torch.uint8, dev)
+    bl, n_slots, sl = slots.shape
+    _check(cnt, "cnt", torch.int32, dev)
+    _check(n_spans, "n_spans", torch.int32, dev, (bl,))
+    if res_idx is None:
+        _check(cnt, "cnt", torch.int32, dev, (bl, sl))
+    else:
+        _check(res_idx, "res_idx", torch.int32, dev, (bl, sl))
+    if cnt.dim() != 2 or cnt.shape[0] != bl or cnt.shape[1] < 1 or not 0 <= slot < n_slots:
+        raise KernelError(f"attr_mask: counts {tuple(cnt.shape)} into slot {slot} of {n_slots}")
+    with torch.cuda.device(dev):
+        _call("tt_attr_mask", cnt.data_ptr(), cnt.shape[1], _ptr(res_idx), n_spans.data_ptr(), bl,
+              sl, int(row0), slots[:, slot].data_ptr(), n_slots * sl, _stream())
+    _count("attr_partial")
+
+
+def mask_pack(m: torch.Tensor) -> torch.Tensor:
+    """M6: (Bl, Sl) 0/1 bytes (rows may be strided, Sl % 8 == 0) -> (Bl,
+    Sl / 8) uint8, bit 7 of byte j the row 8j (np.packbits). Bound:
+    bytes (9 B a row)."""
+    dev = _cuda_device(m)
+    if m.dtype not in (torch.bool, torch.uint8) or m.dim() != 2 or m.stride(1) != 1:
+        raise KernelError("mask_pack: (Bl, Sl) bool or uint8 rows of unit stride expected")
+    bl, sl = m.shape
+    if sl % 8:
+        raise KernelError(f"mask_pack: {sl} rows do not pack 8 to a byte")
+    out = torch.empty((bl, sl // 8), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_mask_pack", m.data_ptr(), m.stride(0), bl, sl // 8, out.data_ptr(), _stream())
+    _count("mask_pack")
+    return out
+
+
+def mask_unpack(pk: torch.Tensor) -> torch.Tensor:
+    """M6: (Bl, n) uint8 -> (Bl, 8n) bool (np.unpackbits). Bound: bytes
+    (9 B a row)."""
+    dev = _cuda_device(pk)
+    _check(pk, "pk", torch.uint8, dev)
+    if pk.dim() != 2:
+        raise KernelError("mask_unpack: (Bl, n) bytes expected")
+    bl, n = pk.shape
+    out = torch.empty((bl, 8 * n), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_mask_unpack", pk.data_ptr(), bl, n, out.data_ptr(), _stream())
+    _count("mask_unpack")
+    return out
+
+
+def search_partial(prog, buf: torch.Tensor, slots: torch.Tensor, span_off: torch.Tensor | None,
+                   tsid: torch.Tensor | None, n_spans: torch.Tensor, row0: int,
+                   nt: int) -> torch.Tensor:
+    """M7: per (block, trace) the shard's matched rows of each tracify
+    slot of `prog` and of their union -> (Bl, n_tr + 1, nt) int32
+    partial counts; through span_off (Bl, nt + 1) clipped to the shard,
+    or by atomicAdd at the clamped tsid (Bl, Sl). The slot list is read
+    from buf. Bound: bytes (a byte a row a slot, the offsets or tsid)."""
+    dev = _cuda_device(slots)
+    _check(slots, "slots", torch.uint8, dev)
+    _check(buf, "program buffer", torch.uint8, dev)
+    bl, n_slots, sl = slots.shape
+    _check(n_spans, "n_spans", torch.int32, dev, (bl,))
+    if span_off is not None:
+        _check(span_off, "span_off", torch.int32, dev, (bl, nt + 1))
+    elif tsid is not None:
+        _check(tsid, "tsid", torch.int32, dev, (bl, sl))
+    else:
+        raise KernelError("search_partial: span_off or tsid expected")
+    n_tr = len(prog.tslots)
+    out = torch.empty((bl, n_tr + 1, nt), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_search_partial", slots.data_ptr(), n_slots, buf.data_ptr() + prog.tslots_off, n_tr,
+              _ptr(span_off), _ptr(tsid) if span_off is None else None, n_spans.data_ptr(), bl, sl,
+              int(row0), int(nt), out.data_ptr(), _stream())
+    _count("search_partial")
+    return out
+
+
+def search_finish(prog, buf: torch.Tensor, descs: torch.Tensor, counts: torch.Tensor):
+    """M8: the trace program of `prog` (its code read from buf) over the
+    summed (Bl, n_tr + 1, nt) counts, trace conditions through each
+    block's descriptor table (descs (Bl,) int64) -> (trace_mask bool,
+    where(trace_mask, union count, 0) int32), each (Bl, nt). Bound:
+    bytes (the counts and trace columns read, 5 B a trace written)."""
+    dev = _cuda_device(counts)
+    _check(buf, "program buffer", torch.uint8, dev)
+    _check(descs, "descs", torch.int64, dev)
+    bl = descs.shape[0]
+    n_tr = len(prog.tslots)
+    if counts.dim() != 3:
+        raise KernelError("search_finish: counts (Bl, n_tr + 1, nt) expected")
+    nt = counts.shape[2]
+    _check(counts, "counts", torch.int32, dev, (bl, n_tr + 1, nt))
+    tm = torch.empty((bl, nt), dtype=torch.bool, device=dev)
+    cnt = torch.empty((bl, nt), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _call("tt_search_finish", buf.data_ptr() + prog.trace_off, prog.trace_len, descs.data_ptr(),
+              counts.data_ptr(), n_tr, bl, nt, tm.data_ptr(), cnt.data_ptr(), _stream())
+    _count("search_finish")
+    return tm, cnt

@@ -369,6 +369,86 @@ def _run_plain(tree, conds, cols, ops_i, ops_f, tables, n_spans, n_traces,
     return span_mask, trace_mask, seg_counts(span_mask)
 
 
+# ------------------------------------------- plain version on a mesh shard
+
+
+def _cmp_b(op: str, x, ops_i, ops_f, i: int, is_float: bool, table):
+    """The sharded search's per-block compare (the reference's `_cmp_b`,
+    tempo_tpu/parallel/search.py:61-92): x (Bl, N), block b against its
+    own operands ops_i[b, i], ops_f[b, i] and table row table[b]."""
+    if op in ("intable", "notintable"):
+        idx = torch.clamp(x, 0, table.shape[1] - 1).long()
+        hit = torch.gather(table, 1, idx) > 0
+        if op == "notintable":
+            hit = ~hit
+        return hit & (x >= 0)
+    return _cmp(op, x, ops_i[:, i, 1:2], ops_i[:, i, 2:3], ops_f[:, i, 0:1], ops_f[:, i, 1:2],
+                is_float, None)
+
+
+def _shard_valid(n_spans, row0: int, n: int):
+    """(Bl, n): global row row0 + s of each block below its span count."""
+    rows = torch.arange(n, dtype=torch.int32, device=n_spans.device) + row0
+    return rows[None, :] < n_spans[:, None]
+
+
+def _span_step_plain(code, conds, cols, ops_i, ops_f, tables, slots, n_spans, row0: int):
+    """K1's span pass on a shard, plain: the postfix program `code` over
+    the shard's (Bl, Sl) rows, leaves reading their own block's
+    operands; C_MASK reads slots (Bl, n_slots, Sl). Returns (Bl, Sl)."""
+    valid = _shard_valid(n_spans, row0, slots.shape[2])
+    st: list = []
+    for op, arg in zip(code[0::2].tolist(), code[1::2].tolist()):
+        if op in (C_AND, C_OR):
+            b, a = st.pop(), st.pop()
+            st.append((a & b) if op == C_AND else (a | b))
+        elif op == C_COND:
+            c = conds[arg]
+            st.append(_cmp_b(c.op, cols[c.col], ops_i, ops_f, arg, c.is_float, tables.get(arg))
+                      & valid)
+        elif op == C_MASK:
+            st.append(slots[:, arg] != 0)
+        else:
+            st.append(valid if op == C_TRUE else torch.zeros_like(valid))
+    return st[-1]
+
+
+def _struct_step_plain(op: str, lm_g, rm, pidx, n_spans, row0: int):
+    """K1's struct passes on a shard, plain (the reference's mesh
+    `ev_struct`, tempo_tpu/parallel/search.py:203-256): lm_g (Bl, S) the
+    lhs mask gathered over sp, rm (Bl, Sl) the shard's rhs rows from
+    row0, pidx the shard's parent rows (Bl, Sl) for '>' or the gathered
+    table (Bl, S) for '>>' and '~'. Returns the shard's (Bl, Sl) rows."""
+    S, sl = lm_g.shape[1], rm.shape[1]
+    lm_g = lm_g.bool()
+    valid = _shard_valid(n_spans, row0, sl)
+    if op == ">":
+        hit = torch.gather(lm_g, 1, torch.clamp(pidx, 0, S - 1).long())
+        return rm & (pidx >= 0) & valid & hit
+    has_p = (pidx >= 0) & _shard_valid(n_spans, 0, S)
+    safe = torch.clamp(pidx, 0, S - 1).long()
+    if op == ">>":
+        acc = has_p & torch.gather(lm_g, 1, safe)
+        ptr = torch.where(has_p, safe, -1)
+        for _ in range(max(1, (S - 1).bit_length())):
+            psafe = torch.clamp(ptr, 0, S - 1)
+            alive = ptr >= 0
+            acc = acc | (alive & torch.gather(acc, 1, psafe))
+            nxt = torch.gather(ptr, 1, psafe)
+            ptr = torch.where(alive, torch.where(nxt >= 0, nxt, -1), -1)
+        out = acc
+    else:  # '~', with the orphan rule of the single-block pass
+        lhs_child = (lm_g & has_p).to(torch.int32)
+        owner = torch.where(has_p & lm_g, safe, S)
+        cnt = torch.zeros((lm_g.shape[0], S + 1), dtype=torch.int32, device=lm_g.device)
+        cnt = cnt.scatter_add_(1, owner, lhs_child)[:, :S]
+        sibs = torch.gather(cnt, 1, safe) - lhs_child
+        orphan = (pidx == -2) & _shard_valid(n_spans, 0, S)
+        any_lhs_orphan = (lm_g & orphan).any(dim=1, keepdim=True)
+        out = (has_p & (sibs > 0)) | (orphan & any_lhs_orphan)
+    return rm & out[:, row0 : row0 + sl] & valid
+
+
 # ------------------------------------------------------ compiled program
 
 _OP_CODE = {op: i for i, op in enumerate(OPS)}  # csrc/filter.cu enum Op
@@ -389,10 +469,18 @@ class _FilterProgram:
     """Host-compiled form of one trace-level tree: postfix span programs
     writing span-mask slots, struct steps between slots, a postfix trace
     program, and the buffer layout (descriptors, programs, slot lists)
-    that one upload per call fills in."""
+    that one upload per call fills in.
 
-    def __init__(self, tree, conds: tuple[Cond, ...]):
+    sharded=True compiles for one shard of the mesh search
+    (ops/meshsearch.py): every generic-attr and resource leaf becomes a
+    mask slot (leaf_slots) that M5 fills after its collective, read by
+    the span pass as a C_MASK leaf, and a tree of None counts every
+    valid span as one tracify slot (the reference's seg_reduce(valid))."""
+
+    def __init__(self, tree, conds: tuple[Cond, ...], sharded: bool = False):
         self.conds = conds
+        self.sharded = sharded
+        self.leaf_slots: dict[int, int] = {}  # sharded: attr / res leaf -> its slot
         self.steps: list[tuple] = []  # ("span", code list, out) | ("struct", op, l, r, out)
         self.struct_steps: list[tuple] = []
         self.tslots: list[int] = []
@@ -401,10 +489,10 @@ class _FilterProgram:
         self.trace_conds: set[int] = set()
         self.n_slots = 0
         trace_code: list[int] = []
-        if tree is None:
+        if tree is None and not sharded:
             trace_code = [C_TRUE, 0]
         else:
-            self._trace(tree, trace_code)
+            self._trace(("tracify", ("true",)) if tree is None else tree, trace_code)
         self._check_depth(trace_code)
         # buffer layout: descriptors | span programs | trace program |
         # tracify slots | rattr conds | (tables, per call)
@@ -453,6 +541,11 @@ class _FilterProgram:
             c = self.conds[t[1]]
             if c.target not in (T_SPAN, T_RES, T_SATTR, T_RATTR):
                 raise ValueError(f"bad target {c.target}")
+            if self.sharded and c.target != T_SPAN:
+                if t[1] not in self.leaf_slots:
+                    self.leaf_slots[t[1]] = self._new_slot()
+                code += [C_MASK, self.leaf_slots[t[1]]]
+                return
             if c.target == T_RATTR and t[1] not in self.rconds:
                 self.rconds.append(t[1])
             self.span_conds.add(t[1])
@@ -501,6 +594,11 @@ class _FilterProgram:
         else:
             raise ValueError(f"bad trace node {t[0]}")
 
+    def code(self, off: int) -> np.ndarray:
+        """The postfix program at buffer offset `off` (a span step's or
+        trace_off): the plain versions walk it as the kernels do."""
+        return dict(self._codes)[off]
+
     def buffer(self, cols: dict, operands: Operands, tables: dict) -> torch.Tensor:
         """The per-call program buffer on the card: descriptors with this
         call's column pointers and operand values, the cached programs,
@@ -526,7 +624,7 @@ class _FilterProgram:
                 raise ValueError(f"filter: column {name} must be contiguous int32/f32 on {dev}")
             return t
 
-        for i in sorted(self.span_conds | self.trace_conds):
+        for i in sorted(self.span_conds | self.trace_conds | set(self.leaf_slots)):
             c = self.conds[i]
             d = desc[i]
             d[D_OP], d[D_KIND] = _OP_CODE[c.op], _KIND[c.target]
@@ -537,11 +635,13 @@ class _FilterProgram:
                 d[D_VTCOL] = col(f"{p}.vtype").data_ptr()
                 d[D_OFF] = col(f"{p}.off").data_ptr()
                 vcol = col(f"{p}.{_ATTR_VALUE_COL[c.col]}") if c.col != "any" else None
-                if c.target == T_RATTR:
+                if i in self.rconds:
                     d[D_RSLOT] = self.rconds.index(i)
             else:
-                vcol = col(f"span@{c.col}" if c.target == T_RES else c.col)
-                if c.target == T_RES and vcol.dtype != torch.int32:
+                # a shard compares a resource leaf per resource (M5)
+                res_span = c.target == T_RES and not self.sharded
+                vcol = col(f"span@{c.col}" if res_span else c.col)
+                if res_span and vcol.dtype != torch.int32:
                     raise TypeError(f"filter: res column {c.col} must be int32")
             colfloat = vcol is not None and vcol.dtype == torch.float32
             d[D_COL] = vcol.data_ptr() if vcol is not None else 0
@@ -569,8 +669,8 @@ class _FilterProgram:
 
 
 @lru_cache(maxsize=256)
-def _program(tree, conds: tuple[Cond, ...]) -> _FilterProgram:
-    return _FilterProgram(tree, conds)
+def _program(tree, conds: tuple[Cond, ...], sharded: bool = False) -> _FilterProgram:
+    return _FilterProgram(tree, conds, sharded)
 
 
 def eval_block(

@@ -7,16 +7,20 @@ The reference's axes map onto the ranks:
   dp  -- blocks across ranks (the reference's per-block job fan-out)
   sp  -- rows *within* a block across ranks (page sharding)
 
-Collectives (all_reduce / all_gather / gather) replace the reference's
-result-merging combiners on the host, as its pmax / psum / all_gather
-do. The sharded search and the distributed query step of the reference
-are not ported yet.
+Collectives (all_reduce / all_gather / reduce_scatter / gather) replace
+the reference's result-merging combiners on the host, as its pmax /
+psum / psum_scatter / all_gather do. Every program of the reference's
+parallel package has its port here: the sharded find (both forms), the
+sharded bloom union, mesh-batched search, the sharded metrics fold, the
+sharded search (search.py) and the composed query step (step.py).
 """
 
 from .bloom import sharded_bloom_union
 from .find import sharded_find, sharded_find_rows, stack_block_ids
 from .mesh import DISPATCH_LOCK, Mesh, MeshError, make_mesh
 from .multiquery import mesh_batch_eligible, mesh_eval_multiquery
+from .search import sharded_search
+from .step import distributed_query_step
 from .timeseries import sharded_timeseries
 
 __all__ = [
@@ -31,4 +35,6 @@ __all__ = [
     "mesh_batch_eligible",
     "mesh_eval_multiquery",
     "sharded_timeseries",
+    "sharded_search",
+    "distributed_query_step",
 ]

@@ -6,7 +6,7 @@ port keeps that single-controller model over a process group:
 
   * rank 0 is the controller. It owns the TempoDB, the batchers and the
     host entries (parallel/find.py, bloom.py, multiquery.py,
-    timeseries.py), with the reference's signatures;
+    timeseries.py, search.py, step.py), with the reference's signatures;
   * every other rank is a follower running `follow(mesh)`: for each
     program it waits for the controller's signal in the store, receives
     a small header by broadcast_object_list (the program's name, its
@@ -102,6 +102,35 @@ def resolve_shape(n: int, dp: int | None = None, sp: int | None = None) -> tuple
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """Transport form: bools travel as uint8."""
     return t.to(torch.uint8) if t.dtype == torch.bool else t
+
+
+class _Waiter:
+    """A work whose completion can be polled, for one that never reports
+    it: gloo's reduce_scatter work stays is_completed() False and its
+    wait() ignores a timeout (torch 2.13). A daemon thread blocks in
+    wait() and records its end or its error; Mesh._wait polls this
+    object like any other work, watching the store between polls."""
+
+    def __init__(self, work):
+        self._work, self._err = work, None
+        self._done = threading.Event()
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def _run(self) -> None:
+        try:
+            self._work.wait()
+        except BaseException as e:  # re-raised on the polling thread
+            self._err = e
+        finally:
+            self._done.set()
+
+    def is_completed(self) -> bool:
+        return self._done.is_set()
+
+    def wait(self) -> None:
+        self._done.wait()
+        if self._err is not None:
+            raise self._err
 
 
 class Mesh:
@@ -276,17 +305,49 @@ class Mesh:
                                                           async_op=True))
         return self._back(c, t.dtype)
 
-    def all_gather(self, t: torch.Tensor, axis: str | None = None) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: str | None = None,
+                   dim: int | None = None) -> torch.Tensor:
         """(n, *t.shape): every rank's t over the world or one axis, in
-        rank order."""
+        rank order; with `dim`, the parts concatenated along that dim
+        instead (the reference's all_gather(..., tiled=True))."""
         n = self._axis_size(axis)
         if not self.grouped:
-            return t[None]
+            return t[None] if dim is None else t
         c = self._comm(t).reshape((-1,) + tuple(t.shape[1:]))  # at least 1-D
         out = torch.empty((n * c.shape[0],) + tuple(c.shape[1:]), dtype=c.dtype, device=c.device)
         self._timed("all_gather", lambda: dist.all_gather_into_tensor(
             out, c, group=self._group(axis), async_op=True))
-        return self._back(out.view((n,) + tuple(t.shape)), t.dtype)
+        out = out.view((n,) + tuple(t.shape))
+        if dim is not None:
+            shape = list(t.shape)
+            shape[dim] *= n
+            out = out.movedim(0, dim).reshape(shape)
+        return self._back(out, t.dtype)
+
+    def reduce_scatter(self, t: torch.Tensor, op: str, axis: str = "sp",
+                       dim: int = 1) -> torch.Tensor:
+        """Reduce t over one mesh axis and keep this rank's slice along
+        `dim`: the rank at index k of the axis gets the reduced slice
+        [k * m, (k + 1) * m), m = t.shape[dim] / n (the reference's
+        psum_scatter(..., tiled=True)). The collective scatters along its
+        first dim, so `dim` moves there and back. On gloo its work is
+        polled through a _Waiter."""
+        if not self.grouped:
+            return t
+        n = self._axis_size(axis)
+        if t.shape[dim] % n:
+            raise MeshError(f"reduce_scatter: dim {dim} ({t.shape[dim]}) does not split over {n}")
+        rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}[op]
+        c = self._comm(t.movedim(dim, 0).contiguous())
+        out = torch.empty((c.shape[0] // n,) + tuple(c.shape[1:]), dtype=c.dtype, device=c.device)
+
+        def launch():
+            work = dist.reduce_scatter_tensor(out, c, rop, group=self._group(axis),
+                                              async_op=True)
+            return work if self.backend == "nccl" else _Waiter(work)
+
+        self._timed("reduce_scatter", launch)
+        return self._back(out.movedim(0, dim).contiguous(), t.dtype)
 
     def gather0(self, t: torch.Tensor) -> torch.Tensor | None:
         """Every rank's t, stacked in rank order on the controller (None
@@ -299,9 +360,20 @@ class Mesh:
         return self._back(torch.stack(outs), t.dtype) if self.rank == 0 else None
 
     # ----------------------------------------------------------- dispatch
+    def _parts(self, kind: str, t: torch.Tensor) -> list[torch.Tensor]:
+        """The per-rank parts of a scattered operand, in rank order."""
+        if kind in ("shard0", "shard1"):
+            return list(t.chunk(self.size, 0 if kind == "shard0" else 1))
+        rows = t.chunk(self.dp, 0)
+        if kind == "dp":
+            return [rows[r // self.sp] for r in range(self.size)]
+        return [rows[r // self.sp].chunk(self.sp, 1)[r % self.sp] for r in range(self.size)]
+
     def _recv_operands(self, specs: list, arrays: dict | None) -> dict[str, torch.Tensor]:
         """Each operand's local part on this rank's device: 'bcast' whole,
-        'shard0' / 'shard1' this rank's equal slice along axis 0 / 1."""
+        'shard0' / 'shard1' this rank's equal slice along axis 0 / 1 of the
+        flattened ranks, 'dp' its dp row's slice along axis 0, 'dpsp' its
+        (dp, sp) tile of axes 0 and 1."""
         ops = {}
         for name, kind, shape, dtype in specs:
             dt = getattr(torch, dtype)
@@ -320,11 +392,9 @@ class Mesh:
                                                                             device=dev)
                 self._timed("broadcast", lambda: dist.broadcast(buf, src=0, async_op=True))
             else:
-                axis = 0 if kind == "shard0" else 1
-                local = list(shape)
-                local[axis] //= self.size
+                local = self._parts(kind, torch.empty(shape, device="meta"))[self.rank].shape
                 buf = torch.empty(local, dtype=wdt, device=dev)
-                parts = ([c.contiguous() for c in src.chunk(self.size, axis)]
+                parts = ([c.contiguous() for c in self._parts(kind, src)]
                          if src is not None else None)
                 self._timed("scatter", lambda: dist.scatter(buf, parts, src=0, async_op=True))
             ops[name] = self._back(buf, dt)
@@ -340,23 +410,30 @@ class Mesh:
             raise
 
     def run(self, name: str, static: dict, bcast: dict | None = None, shard0: dict | None = None,
-            shard1: dict | None = None):
+            shard1: dict | None = None, dp: dict | None = None, dpsp: dict | None = None):
         """Controller: run program `name` on every rank with its operands
         (numpy arrays or tensors): `bcast` whole on every rank, `shard0` /
-        `shard1` split in equal slices along axis 0 / 1 in rank order.
-        Returns the body's result on this rank. Call under DISPATCH_LOCK."""
+        `shard1` split in equal slices along axis 0 / 1 in rank order,
+        `dp` split along axis 0 over the dp rows (the sp ranks of a row
+        get the same slice), `dpsp` split along axis 0 over dp and axis 1
+        over sp. The controller scatters a part to every rank, so an
+        operand of kind `dp` crosses the wire sp times. Returns the body's
+        result on this rank. Call under DISPATCH_LOCK."""
         if self.rank != 0:
             raise MeshError("only rank 0 dispatches mesh programs")
         if self.broken:
             raise MeshError(f"mesh is broken: {self.broken.splitlines()[0]}")
+        splits = {"bcast": (), "shard0": ((0, self.size),), "shard1": ((1, self.size),),
+                  "dp": ((0, self.dp),), "dpsp": ((0, self.dp), (1, self.sp))}
         arrays, specs = {}, []
-        for kind, group in (("bcast", bcast), ("shard0", shard0), ("shard1", shard1)):
+        for kind, group in (("bcast", bcast), ("shard0", shard0), ("shard1", shard1), ("dp", dp),
+                            ("dpsp", dpsp)):
             for k, a in (group or {}).items():
                 t = torch.as_tensor(a)
-                axis = {"bcast": None, "shard0": 0, "shard1": 1}[kind]
-                if axis is not None and t.shape[axis] % self.size:
-                    raise MeshError(f"{name}: {k} axis {axis} ({t.shape[axis]}) does not split "
-                                    f"over {self.size} ranks")
+                for axis, n in splits[kind]:
+                    if t.shape[axis] % n:
+                        raise MeshError(f"{name}: {k} axis {axis} ({t.shape[axis]}) does not "
+                                        f"split over {n}")
                 arrays[k] = t
                 specs.append((k, kind, tuple(t.shape), str(t.dtype).split(".")[-1]))
         header = (name, static, specs)
@@ -456,21 +533,25 @@ def make_mesh(dp: int | None = None, sp: int | None = None, device=None) -> Mesh
 def _probe(mesh: Mesh, static: dict, ops: dict):
     """The mesh's self-check: every rank reports (rank, dp index, sp index,
     pid, whether jax is loaded) to the controller; the rank named by
-    static["fail_rank"] raises first (the fault path's test)."""
+    static["fail_rank"] raises first (the fault path's test). With
+    static["reduce_scatter"] the ranks first join a reduce_scatter over
+    sp, the one collective whose gloo work is polled through a _Waiter."""
     import sys
 
     if static.get("fail_rank") == mesh.rank:
         raise RuntimeError(f"probe fault on rank {mesh.rank}")
     x = ops["x"]
+    if static.get("reduce_scatter"):
+        mesh.reduce_scatter(x.reshape(1, -1).repeat(1, mesh.sp), "sum")
     row = torch.tensor([mesh.rank, *mesh.coords, os.getpid(), int("jax" in sys.modules),
                         int(x.sum().item())], dtype=torch.int64)
     rows = mesh.gather0(row.to(mesh.device) if mesh.backend == "nccl" else row)
     return None if rows is None else rows.cpu().numpy()
 
 
-def probe(mesh: Mesh, fail_rank: int | None = None) -> np.ndarray:
+def probe(mesh: Mesh, fail_rank: int | None = None, reduce_scatter: bool = False) -> np.ndarray:
     """(size, 6) int64 rows [rank, dp, sp, pid, jax loaded, sum of the
     rank's shard of arange(2 * size)], from every rank."""
     with DISPATCH_LOCK:
-        return mesh.run("probe", {"fail_rank": fail_rank},
+        return mesh.run("probe", {"fail_rank": fail_rank, "reduce_scatter": reduce_scatter},
                         shard0={"x": np.arange(2 * mesh.size, dtype=np.int64)})

@@ -84,6 +84,40 @@ def test_nccl_end_event_follows_the_stream_wait(monkeypatch):
     assert mesh.calls["all_reduce"] == 1
 
 
+def test_waiter_polls_a_work_that_never_reports_completion(monkeypatch):
+    """gloo's reduce_scatter work stays is_completed() False and blocks in
+    wait(): through a _Waiter the wait loop still watches the store, so a
+    fault recorded by another rank surfaces at once, and a finished
+    work's error reaches the caller."""
+    import threading
+
+    release = threading.Event()
+
+    class Work:
+        def __init__(self, err=None):
+            self.err = err
+
+        def is_completed(self):
+            return False
+
+        def wait(self):
+            release.wait()
+            if self.err:
+                raise self.err
+
+    mesh = M.make_mesh(device="cpu")
+    monkeypatch.setattr(mesh, "failed_ranks", lambda: {1: "boom"})
+    t0 = time.monotonic()
+    with pytest.raises(M.MeshError, match="rank 1 failed: boom"):
+        mesh._wait(M._Waiter(Work()), "reduce_scatter")
+    assert time.monotonic() - t0 < 1.0
+    monkeypatch.setattr(mesh, "failed_ranks", lambda: {})
+    release.set()
+    mesh._wait(M._Waiter(Work()), "reduce_scatter")
+    with pytest.raises(M.MeshError, match="reduce_scatter failed on rank 0: lost"):
+        mesh._wait(M._Waiter(Work(RuntimeError("lost"))), "reduce_scatter")
+
+
 def _start(shape, tmp_path):
     dp, sp = shape
     init = f"file://{tmp_path}/pg"
@@ -141,3 +175,21 @@ def test_follower_fault_surfaces_as_mesh_error(shape, tmp_path):
         codes = launch.shutdown(mesh, procs, join_timeout_s=TIMEOUT_S)
     assert codes[bad - 1] not in (0, None)
     assert time.monotonic() - t0 < TIMEOUT_S + 10
+
+
+def test_follower_fault_before_reduce_scatter_surfaces_as_mesh_error(tmp_path):
+    """A follower of the controller's sp row fails before it joins a
+    reduce_scatter: the controller, waiting in it, raises MeshError well
+    inside the group's timeout."""
+    mesh, procs = _start((1, 2), tmp_path)
+    try:
+        rows = M.probe(mesh, reduce_scatter=True)
+        assert rows[:, 0].tolist() == [0, 1] and mesh.calls["reduce_scatter"] == 1
+        t0 = time.monotonic()
+        with pytest.raises(M.MeshError, match="rank 1 failed.*probe fault"):
+            M.probe(mesh, fail_rank=1, reduce_scatter=True)
+        assert time.monotonic() - t0 < TIMEOUT_S / 4
+        assert mesh.broken
+    finally:
+        codes = launch.shutdown(mesh, procs, join_timeout_s=TIMEOUT_S)
+    assert codes[0] not in (0, None)
