@@ -793,17 +793,20 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
                     f"{feats[0]} features checkpointed")
     finally:
         times.restore()
-    push_counts = dict(kernels.LAUNCHES)
+    push_counts, push_grids = dict(kernels.LAUNCHES), kernels.grid_launches()
     if not any(u is not None and not u["full"] for u in refreshes):
         raise AssertionError(f"no delta refresh among {refreshes}")
     if dev.type == "cuda" and (push_counts["live_append"] < 1 or push_counts["live_patch"] < 1):
         raise AssertionError(f"no delta refresh launched B7c and B7d: {push_counts}")
+    if dev.type == "cuda" and push_grids["live_patch"] != push_counts["live_patch"]:
+        raise AssertionError(f"B7d: {push_grids['live_patch']} __global__ launches in "
+                             f"{push_counts['live_patch']} calls (one a call expected)")
     log(f"[ingest] push wall a window (WAL append included): p50 {pct(push_s, 50) * 1e3:.2f} ms, "
         f"p99 {pct(push_s, 99) * 1e3:.2f} ms; refreshes: encode {st.stats['encode_s']:.2f} s, "
         f"upload {st.stats['upload_s']:.3f} s of which B7c {times.s.get('B7c', 0):.4f} s and "
         f"B7d {times.s.get('B7d', 0):.4f} s (synchronized); {st.stats}; "
         f"features decoded {inst.columnar.decodes} ({inst.columnar.decode_s:.1f} s); "
-        f"wrapper calls {nonzero(push_counts)}")
+        f"wrapper calls {nonzero(push_counts)}, __global__ launches {nonzero(push_grids)}")
 
     # ---- c. searches: card engine == CPU ingester == the card's index walk
     r0 = live[123][1]
@@ -1052,6 +1055,55 @@ def phase_13_table(snap, table) -> None:
     log(f"[B7d] {k} rows of {tuple(dst.shape)}: {ms:.4f} ms, plain {pms:.4f} ms, index_put "
         f"{lms:.4f} ms, bound {b[0]:.6f} ms")
     row("live_patch", "tempo_tpu/ops/livestage.py:298", err, ms, pms, b, lms)
+    # where B7d's time goes: the kernel's device time (the profiler's, and
+    # CUDA events around 200 bare ctypes calls, which leave out the
+    # wrapper's checks, allocation and count) against the wrapper's
+    kernels.reset_counts()
+    kernels.live_patch(dst, idx, vals)
+    if kernels.grid_launches()["live_patch"] != 1:
+        raise AssertionError("B7d: not one __global__ launch a call")
+    out = torch.empty_like(dst)
+    fn = kernels._fns["tt_live_patch"]
+    args = (dst.data_ptr(), dst.shape[0], dst.shape[1], idx.data_ptr(), vals.data_ptr(), k,
+            out.data_ptr(), kernels._stream(dev))
+    bare_ms = cuda_ms(lambda: fn(*args), reps=200)
+
+    def guard():
+        with kernels._on(dev):
+            pass
+
+    def host_us(f, reps=2000) -> float:
+        f()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    # the wrapper's host path by part (host clock, 2,000 calls each)
+    host = {"wrapper": host_us(lambda: kernels.live_patch(dst, idx, vals)),
+            "bare ctypes call": host_us(lambda: fn(*args)),
+            "empty_like": host_us(lambda: torch.empty_like(dst)),
+            "three checks": host_us(lambda: (
+                kernels._check(dst, "dst", torch.int32, dev),
+                kernels._check(idx, "idx", torch.int32, dev, (k,)),
+                kernels._check(vals, "vals", torch.int32, dev, tuple(vals.shape)))),
+            "stream lookup": host_us(lambda: kernels._stream(dev)),
+            "device guard": host_us(guard)}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            kernels.live_patch(dst, idx, vals)
+        torch.cuda.synchronize()
+    dev_us = [e.self_device_time_total / e.count for e in prof.key_averages()
+              if e.key.startswith("live_patch_kernel")]
+    after_ms = cuda_ms(lambda: kernels.live_patch(dst, idx, vals))
+    log(f"[B7d split] kernel device time {dev_us[0] / 1e3 if dev_us else 'not measured'} ms "
+        f"(profiler), 200 bare ctypes calls {bare_ms:.4f} ms a call (CUDA events), the wrapper "
+        f"{ms:.4f} ms a call (cuda_ms; {after_ms:.4f} ms after the profiler); host µs a call: "
+        + ", ".join(f"{name} {us:.2f}" for name, us in host.items()))
 
 
 GEN_TENANT = "smoke-gen"
@@ -2002,6 +2054,28 @@ def phase_15_search_table(shards: dict, row) -> None:
     row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
 
 
+def k2_split(mask, key, counts, k_search: int) -> None:
+    """K2's two passes' device time apart (the profiler, 20 calls each),
+    at the search shape and a live search's 16,384 rows, k = k_search
+    and K_SMALL. Run after every other timing: a CUDA-event time taken
+    just after the profiler reads high."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tempo_tpu_torch import kernels
+
+    for n, k in ((mask.shape[0], k_search), (mask.shape[0], kernels.K_SMALL), (16384, k_search),
+                 (16384, kernels.K_SMALL)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kernels.select_topk(mask[:n], key[:n], counts[:n], k)
+            torch.cuda.synchronize()
+        split = {e.key.split("(")[0]: e.self_device_time_total / e.count
+                 for e in prof.key_averages() if e.key.startswith("select_")}
+        log(f"[K2 split] N={n} k={k}: device µs a call (profiler) "
+            + (", ".join(f"{name} {us:.2f}" for name, us in sorted(split.items()))
+               or "not measured"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
@@ -2167,18 +2241,63 @@ def main() -> int:
         mask10, key10, cnt10 = torch.cat([tm] * N_BLOCKS), torch.cat([key] * N_BLOCKS), \
             torch.cat([counts] * N_BLOCKS)
         n10, k10 = mask10.shape[0], SE.k_bucket(40)
+        if not kernels.select_plan(n10, k10).tiled:
+            raise AssertionError(f"K2 at the search shape N={n10} k={k10}: not the two-pass route")
+        kernels.reset_counts()
         got = kernels.select_topk(mask10, key10, cnt10, k10)
+        grids = kernels.grid_launches()["select"]
         err = max_abs_err(got, SE._select_plain(mask10, key10, cnt10, k10))
-        if err:
-            raise AssertionError("K2 differs from its plain version at the search shape")
+        if err or grids != 2:
+            raise AssertionError(f"K2 at the search shape: max_abs_err {err}, {grids} __global__ "
+                                 f"launches (2 expected)")
         comp = (torch.where(mask10, key10, int(PAD_I32)).to(torch.int64) * (1 << 32)
                 + ((1 << 32) - 1 - torch.arange(n10, device=dev)))
+        # the yardsticks order the same composites: a full stable sort, and
+        # torch.topk (distinct composites, so its order is the same)
+        if not torch.equal(torch.topk(comp, k10).indices.to(torch.int32), got[:k10]):
+            raise AssertionError("K2 differs from torch.topk at the search shape")
         ms = cuda_ms(lambda: kernels.select_topk(mask10, key10, cnt10, k10))
         pms = cuda_ms(lambda: SE._select_plain(mask10, key10, cnt10, k10))
-        lms = cuda_ms(lambda: torch.sort(comp, descending=True, stable=True))
-        b_ms, b_by = bound(n10 * 9 + (3 * k10 + 1) * 4, n10)
-        log(f"[K2] N={n10} k={k10}: {ms:.4f} ms, plain {pms:.4f} ms, torch.sort {lms:.4f} ms, "
-            f"bound {b_ms:.4f} ms")
+        sort_ms = cuda_ms(lambda: torch.sort(comp, descending=True, stable=True))
+        topk_ms = cuda_ms(lambda: torch.topk(comp, k10))
+        lms = min(sort_ms, topk_ms)
+        # the bytes the function needs: the mask, the key of each masked
+        # row (counted on the card), counts at the k winners, the output
+        hits10 = int(mask10.sum().item())
+        b_ms, b_by = bound(n10 + 4 * hits10 + 4 * k10 + (3 * k10 + 1) * 4, n10)
+        log(f"[K2] N={n10} k={k10}: {ms:.4f} ms ({grids} __global__ launches), plain {pms:.4f} ms, "
+            f"torch.sort {sort_ms:.4f} ms, torch.topk {topk_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({hits10} masked rows)")
+        # both routes on the search path's sizes (a live search's 16,384
+        # rows, a block's 32,768, ten blocks), each held against the plain
+        # version: the sweep that sets K_SMALL, and the first k past it
+        for n_s in (16384, ntb, n10):
+            m, ky, c = mask10[:n_s], key10[:n_s], cnt10[:n_s]
+            for k in sorted({64, 256, 1024, 2048, 4096, kernels.K_SMALL + 1}):
+                want = SE._select_plain(m, ky, c, k)
+                times = []
+                for plan in (kernels._tiled_plan(n_s, k), kernels._sort_plan(n_s, k)):
+                    if max_abs_err(kernels._select_run(m, ky, c, k, plan), want):
+                        raise AssertionError(f"K2 differs from its plain version at N={n_s} "
+                                             f"k={k}, tiled={plan.tiled}")
+                    times.append(cuda_ms(lambda: kernels._select_run(m, ky, c, k, plan)))
+                t = kernels._tiled_plan(n_s, k)
+                log(f"[K2 sweep] N={n_s} k={k}: two-pass {times[0]:.4f} ms (tile {t.tile}, "
+                    f"{t.tiles * t.k_pad} candidates), full sort {times[1]:.4f} ms, torch.topk "
+                    f"{cuda_ms(lambda: torch.topk(comp[:n_s], k)):.4f} ms; select_plan takes the "
+                    f"{'two-pass' if kernels.select_plan(n_s, k).tiled else 'full sort'} "
+                    f"(K_SMALL {kernels.K_SMALL})")
+        # the tile size against the one-CTA merge at the search shape
+        for k in (1024, 2048):
+            kp, sizes = 1 << (k - 1).bit_length(), []
+            for tile in (4096, 8192, 16384):
+                tiles = -(-n10 // tile)
+                plan = kernels.SelectPlan(True, kp, tile, tiles, kernels.SELECT_BUF, 0,
+                                          tiles * kp + (tiles + 1) // 2)
+                if tile >= 2 * kp:
+                    t_ms = cuda_ms(lambda: kernels._select_run(mask10, key10, cnt10, k, plan))
+                    sizes.append(f"tile {tile} ({tiles * kp} candidates) {t_ms:.4f} ms")
+            log(f"[K2 tiles] N={n10} k={k}: " + ", ".join(sizes))
         table.append({"name": "select", "route": "cuda", "source": "tempo_tpu_torch/csrc/select.cu",
                       "replaces": "tempo_tpu/ops/select.py:84", "launches": 0, "max_abs_err": err,
                       "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
@@ -2380,7 +2499,7 @@ def main() -> int:
 
         # ---- 4c. the write path's kernels (B9a/B9b/B9c, B10a/B10b)
         phase_4c(blks, metas, absent, dev, table)
-        del staged, cols, sib_cols, blks, ids, mask10, key10, cnt10, comp
+        del staged, cols, sib_cols, blks, ids, comp  # K2's inputs stay for k2_split
         torch.cuda.synchronize()
 
         # ---- 5./6. the main path: counts from 0, read right after
@@ -2649,6 +2768,7 @@ def main() -> int:
                        metrics_card, lo_s, hi_s, responses)
         log(f"[mesh] phase 15 took {time.perf_counter() - t0:.1f} s")
         phase_15_table(p15, table)
+        k2_split(mask10, key10, cnt10, k10)
         del p15["args"], p15["shards"]
         for name in ("find_elect", "mq_partial", "mq_combine", "timeseries_stacked",
                      "attr_partial", "mask_pack", "mask_unpack", "search_partial",

@@ -1,6 +1,8 @@
 // The masked top-k by an int32 key, ties to the lower index, over one
-// or many rows: the device code of K2 (select.cu, one row) and B5b
-// (multiquery.cu, Q rows on gridDim.y), so both keep one tie rule.
+// or many rows, by a full sort: the device code of B5b (multiquery.cu, Q
+// rows on gridDim.y) and of K2's route for k > K_SMALL (select.cu, one
+// row; its two-pass route builds the same composites), so all keep one
+// tie rule.
 //
 // Each row element becomes one 64-bit composite key
 //     (u32(key ^ 0x80000000) << 32) | (0xFFFFFFFF - idx)

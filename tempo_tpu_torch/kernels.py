@@ -11,10 +11,12 @@ C entry returns a nonzero cudaError_t, and adds one to LAUNCHES[name].
 LAUNCHES counts wrapper calls: one filter_run is one run of a whole
 filter program, which launches a res pass, a span pass per slot, its
 struct kernels (`>>` alone is init + n_passes doubling + final) and a
-trace pass; one select_topk launches a key pass, its bitonic passes and
-an emit. grid_launches() reads the __global__ launches each library
-counts itself, per kernel. There is no CPU path here: the ops modules send CPU tensors to their
-plain PyTorch versions and only CUDA tensors to these wrappers.
+trace pass; one select_topk launches a tile pass and a merge pass for
+k <= K_SMALL, else a key pass, its bitonic passes and an emit; one
+live_patch launches one kernel. grid_launches() reads the __global__
+launches each library counts itself, per kernel. There is no CPU path
+here: the ops modules send CPU tensors to their plain PyTorch versions
+and only CUDA tensors to these wrappers.
 
 Every failure to build, load, accept arguments or launch raises
 KernelError. Callers that isolate per-item failures (the batching
@@ -104,11 +106,13 @@ launch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -149,6 +153,7 @@ _SIGNATURES = {
     "tt_res_to_span": ("stage", [_P, _I, _P, _P, _I, _P]),
     "tt_find": ("find", [_P, _I, _I, _P, _I, _P, _I, _P, _P]),
     "tt_select": ("select", [_P, _P, _P, _I, _I, _P, _I, _P, _P]),
+    "tt_select_tiled": ("select", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "tt_filter_res_pass": ("filter", [_P, _P, _I, _I, _P, _P]),
     "tt_filter_span_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P]),
     "tt_filter_struct": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
@@ -291,13 +296,25 @@ def _load() -> dict:
 
 
 def _call(name: str, *args) -> None:
-    err = _load()[name](*args)
+    # _fns is bound once, whole, under _lock: once set it is read without it
+    err = (_fns or _load())[name](*args)
     if err != 0:
         raise KernelError(f"{name}: CUDA error {err}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _on(dev: torch.device):
+    """The device guard for a launch on dev, entered only where dev is
+    not already the current device."""
+    return _SAME_DEVICE if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
+
+
+def _stream(dev: torch.device) -> int:
+    # the raw cudaStream_t of dev's current stream, without building a
+    # torch.cuda.Stream object (9 us a call on the card's host)
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device,
@@ -332,9 +349,9 @@ def res_to_span(res: torch.Tensor, res_idx: torch.Tensor) -> torch.Tensor:
     if res.dim() != 1 or res_idx.dim() != 1 or res.shape[0] == 0:
         raise KernelError("res_to_span: 1-D res (non-empty) and res_idx expected")
     out = torch.empty_like(res_idx)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_res_to_span", res.data_ptr(), res.shape[0], res_idx.data_ptr(),
-              out.data_ptr(), res_idx.shape[0], _stream())
+              out.data_ptr(), res_idx.shape[0], _stream(dev))
     _count("res_to_span")
     return out
 
@@ -358,22 +375,66 @@ def find_rows(ids: torch.Tensor, queries: torch.Tensor, n_valid: torch.Tensor,
     if ids.data_ptr() % 16 or queries.data_ptr() % 16:
         raise KernelError("find_rows: ids and queries must be 16-byte aligned")
     out = torch.empty((B, Q), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_find", ids.data_ptr(), B, T, queries.data_ptr(), Q, n_valid.data_ptr(),
-              int(n_steps), out.data_ptr(), _stream())
+              int(n_steps), out.data_ptr(), _stream(dev))
     _count("find")
     return out
 
 
 # ------------------------------------------------------------------ K2
-_SELECT_TILE = 2048  # csrc/select.cu TILE
+_SORT_TILE = 2048  # csrc/select.cuh TILE: the full sort's shortest padded length
+SELECT_TILE = 4096  # rows of a tile-pass CTA at least (csrc/select.cu)
+SELECT_BUF = 16384  # composites the merge pass holds in shared memory; the largest tile
+SELECT_CANDS = 65536  # candidates at which the tile doubles: the merge pass is one CTA
+K_SMALL = 2048  # the largest k on the two-pass route: chip_smoke.py's sweep (csrc/select.cu)
+
+
+class SelectPlan(NamedTuple):
+    """K2's route and scratch sizes for (n, k). `tiled`: the two-pass
+    route (tt_select_tiled); else the full sort (tt_select)."""
+
+    tiled: bool
+    k_pad: int  # the power of two at or above k
+    tile: int  # rows a tile-pass CTA takes (a power of two, >= 2 k_pad, <= SELECT_BUF)
+    tiles: int  # tile-pass CTAs: ceil(n / tile); tiles * k_pad candidates
+    buf: int  # composites the merge pass holds: SELECT_BUF, >= 2 k_pad
+    n_pad: int  # the full sort's padded length
+    scratch: int  # int64 words of scratch the route takes
+
+
+def _tiled_plan(n: int, k: int) -> SelectPlan:
+    k_pad = 1 << (k - 1).bit_length()
+    tile = max(SELECT_TILE, 2 * k_pad)
+    while tile < SELECT_BUF and -(-n // tile) * k_pad >= SELECT_CANDS:
+        tile *= 2
+    tiles = -(-n // tile)
+    return SelectPlan(True, k_pad, tile, tiles, SELECT_BUF, 0,
+                      tiles * k_pad + (tiles + 1) // 2)
+
+
+def _sort_plan(n: int, k: int) -> SelectPlan:
+    n_pad = max(_SORT_TILE, 1 << (n - 1).bit_length())
+    return SelectPlan(False, 1 << (k - 1).bit_length(), 0, 0, 0, n_pad, n_pad)
+
+
+def select_plan(n: int, k: int) -> SelectPlan:
+    """The two-pass route for k <= K_SMALL where its candidates are
+    fewer than the rows; the full sort otherwise."""
+    plan = _tiled_plan(n, k)
+    return plan if k <= K_SMALL and plan.tiles * plan.k_pad < n else _sort_plan(n, k)
 
 
 def select_topk(mask: torch.Tensor, key: torch.Tensor, counts: torch.Tensor,
                 k: int) -> torch.Tensor:
     """K2: packed [idx(k) | count(k) | valid(k) | n_match] int32 of the
     masked top-k by key, ties to the lower index (lax.top_k order).
-    Bound: bytes; the bitonic sort re-reads 8 B a row per pass."""
+    Bound: bytes (the mask, the key of each masked row, counts at the k
+    winners, the output); the route is select_plan's."""
+    return _select_run(mask, key, counts, k, None)
+
+
+def _select_run(mask, key, counts, k: int, plan: SelectPlan | None) -> torch.Tensor:
     dev = _cuda_device(mask)
     n = mask.shape[0]
     _check(mask, "mask", torch.bool, dev, (n,))
@@ -381,12 +442,18 @@ def select_topk(mask: torch.Tensor, key: torch.Tensor, counts: torch.Tensor,
     _check(counts, "counts", torch.int32, dev, (n,))
     if not 0 < k <= n:
         raise KernelError(f"select_topk: need 0 < k <= n, got k={k} n={n}")
-    n_pad = max(_SELECT_TILE, 1 << (n - 1).bit_length())
-    comp = torch.empty(n_pad, dtype=torch.int64, device=dev)
+    plan = plan or select_plan(n, k)
+    scratch = torch.empty(plan.scratch, dtype=torch.int64, device=dev)
     out = torch.empty(3 * k + 1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _call("tt_select", mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n, int(k),
-              comp.data_ptr(), n_pad, out.data_ptr(), _stream())
+    with _on(dev):
+        if plan.tiled:
+            cand = scratch.data_ptr()
+            _call("tt_select_tiled", mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n,
+                  int(k), plan.k_pad.bit_length() - 1, plan.tile, plan.tiles, plan.buf, cand,
+                  cand + 8 * plan.tiles * plan.k_pad, out.data_ptr(), _stream(dev))
+        else:
+            _call("tt_select", mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n, int(k),
+                  scratch.data_ptr(), plan.n_pad, out.data_ptr(), _stream(dev))
     _count("select")
     return out
 
@@ -402,7 +469,7 @@ def filter_run(prog, buf: torch.Tensor, cols: dict, n_spans: int, n_traces: int,
     _check(buf, "program buffer", torch.uint8, dev)
     base = buf.data_ptr()
     desc = base + prog.desc_off
-    st = _stream()
+    st = _stream(dev)
     need = ["trace.span_off"] + (["span.trace_sid"] if span_out else [])
     if prog.struct_steps:
         need.append("span.parent_idx")
@@ -418,7 +485,7 @@ def filter_run(prog, buf: torch.Tensor, cols: dict, n_spans: int, n_traces: int,
     trace_mask = torch.empty(n_traces_b, dtype=torch.bool, device=dev)
     counts = torch.empty(n_traces_b, dtype=torch.int32, device=dev)
     slot_stride = n_spans_b
-    with torch.cuda.device(dev):
+    with _on(dev):
         if prog.rconds:
             _call("tt_filter_res_pass", desc, base + prog.rconds_off, len(prog.rconds),
                   n_res_b, resmask.data_ptr(), st)
@@ -480,10 +547,10 @@ def multiquery(progs: torch.Tensor, dims: tuple, col_ptrs: torch.Tensor, n_sc: i
     tm = torch.empty((q_b, n_traces_b), dtype=torch.bool, device=dev)
     counts = torch.empty((q_b, n_traces_b), dtype=torch.int32, device=dev)
     base = col_ptrs.data_ptr()
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_multiquery", progs.data_ptr(), q_b, *(int(d) for d in dims), base, n_sc,
               base + 8 * n_sc, n_tc, span_off.data_ptr(), int(n_spans), int(n_traces),
-              n_traces_b, tm.data_ptr(), counts.data_ptr(), _stream())
+              n_traces_b, tm.data_ptr(), counts.data_ptr(), _stream(dev))
     _count("multiquery")
     return tm, counts
 
@@ -503,12 +570,12 @@ def mq_select(tm: torch.Tensor, key: torch.Tensor, counts: torch.Tensor, k: int)
     _check(counts, "counts", torch.int32, dev, (q, n))
     if not 0 < k <= n:
         raise KernelError(f"mq_select: need 0 < k <= n, got k={k} n={n}")
-    n_pad = max(_SELECT_TILE, 1 << (n - 1).bit_length())
+    n_pad = max(_SORT_TILE, 1 << (n - 1).bit_length())
     comp = torch.empty((q, n_pad), dtype=torch.int64, device=dev)
     out = torch.empty((q, 3 * k + 1), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_mq_select", tm.data_ptr(), key.data_ptr(), counts.data_ptr(), n, q, int(k),
-              comp.data_ptr(), n_pad, out.data_ptr(), _stream())
+              comp.data_ptr(), n_pad, out.data_ptr(), _stream(dev))
     _count("mq_select")
     return out
 
@@ -549,13 +616,13 @@ def timeseries(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid:
                  torch.empty(shape, dtype=torch.int32, device=dev)]
     resmask = (torch.empty((len(prog.rconds), n_res_b), dtype=torch.uint8, device=dev)
                if prog.rconds else None)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_timeseries", base + prog.desc_off, base + off, ln, base + prog.rconds_off,
               len(prog.rconds), _ptr(resmask), n_res_b, _ptr(cols.get("span.res_idx")),
               cols["span.trace_sid"].data_ptr(), n_traces_b, start_ms.data_ptr(), gid.data_ptr(),
               _ptr(val), _ptr(vpres), int(t0), int(step), int(n_spans), int(n_buckets),
               int(n_groups), int(has_val), counts.data_ptr(),
-              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream())
+              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream(dev))
     _count("timeseries")
     if not has_val:
         return (counts,)
@@ -573,9 +640,9 @@ def remap_codes(col: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
     if col.dim() != 1 or remap.dim() != 1 or remap.shape[0] == 0:
         raise KernelError("remap_codes: 1-D col and a non-empty 1-D remap expected")
     out = torch.empty_like(col)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_remap", col.data_ptr(), col.shape[0], remap.data_ptr(), remap.shape[0],
-              out.data_ptr(), _stream())
+              out.data_ptr(), _stream(dev))
     _count("remap")
     return out
 
@@ -591,9 +658,9 @@ def bloom_bits(words: torch.Tensor, word_idx: torch.Tensor, bits: torch.Tensor) 
     _check(word_idx, "word_idx", torch.int32, dev, (m,))
     _check(bits, "bits", torch.int32, dev, (m,))
     out = torch.empty_like(words)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_bloom_bits", words.data_ptr(), words.numel(), word_idx.data_ptr(),
-              bits.data_ptr(), m, out.data_ptr(), _stream())
+              bits.data_ptr(), m, out.data_ptr(), _stream(dev))
     _count("bloom_bits")
     return out
 
@@ -611,9 +678,9 @@ def rowgroup_minmax(start_ms: torch.Tensor, dur_us: torch.Tensor, group: int) ->
         raise KernelError(f"rowgroup_minmax: {n} rows in groups of {group}")
     n_groups = -(-n // group)
     out = torch.empty((3, n_groups), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_rowgroup", start_ms.data_ptr(), dur_us.data_ptr(), n, int(group),
-              out.data_ptr(), n_groups, _stream())
+              out.data_ptr(), n_groups, _stream(dev))
     _count("rowgroup")
     return out
 
@@ -627,9 +694,9 @@ def bloom_union(stacked: torch.Tensor) -> torch.Tensor:
     if stacked.dim() != 3 or stacked.shape[0] == 0:
         raise KernelError("bloom_union: (K, S, W) with K > 0 expected")
     out = torch.empty(stacked.shape[1:], dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_bloom_union", stacked.data_ptr(), stacked.shape[0], out.numel(),
-              out.data_ptr(), _stream())
+              out.data_ptr(), _stream(dev))
     _count("bloom_union")
     return out
 
@@ -647,9 +714,9 @@ def bloom_test(words: torch.Tensor, word_idx: torch.Tensor, bit_idx: torch.Tenso
     _check(bit_idx, "bit_idx", torch.int32, dev, (q, k))
     _check(word_idx, "word_idx", torch.int32, dev, (q, k, 2))
     out = torch.empty(q, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_bloom_test", words.data_ptr(), words.shape[0], words.shape[1],
-              word_idx.data_ptr(), bit_idx.data_ptr(), q, k, out.data_ptr(), _stream())
+              word_idx.data_ptr(), bit_idx.data_ptr(), q, k, out.data_ptr(), _stream(dev))
     _count("bloom_test")
     return out
 
@@ -680,11 +747,11 @@ def live_filter(slots: tuple, kv: tuple, names: tuple, q: torch.Tensor, n_tags: 
     mask = torch.empty(slot_b, dtype=torch.bool, device=dev)
     hit = torch.empty(slot_b, dtype=torch.int32, device=dev)
     flags = [(0, 0) if v is None else (1, int(v)) for v in (t0, t1, dmin)]
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_live_filter", *(t.data_ptr() for t in slots), slot_b, kv[0].data_ptr(),
               kv[1].data_ptr(), rows[0], names[0].data_ptr(), names[1].data_ptr(), rows[1],
               q.data_ptr(), int(n_tags), q.shape[0] - int(n_tags), *flags[0], *flags[1],
-              *flags[2], int(n_slots), hit.data_ptr(), mask.data_ptr(), _stream())
+              *flags[2], int(n_slots), hit.data_ptr(), mask.data_ptr(), _stream(dev))
     _count("live_filter")
     return mask
 
@@ -702,9 +769,9 @@ def live_find(id_codes: torch.Tensor, alive: torch.Tensor, q: torch.Tensor,
     if id_codes.data_ptr() % 16:
         raise KernelError("live_find: id_codes must be 16-byte aligned")
     out = torch.empty(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_live_find", id_codes.data_ptr(), alive.data_ptr(), slot_b, int(n_slots),
-              q.data_ptr(), out.data_ptr(), _stream())
+              q.data_ptr(), out.data_ptr(), _stream(dev))
     _count("live_find")
     return out
 
@@ -722,9 +789,9 @@ def live_append(dst: torch.Tensor, src: torch.Tensor, start: int) -> torch.Tenso
     if m > n or n == 0:
         raise KernelError(f"live_append: {m} rows into a column of {n}")
     out = torch.empty_like(dst)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_live_append", dst.data_ptr(), n, src.data_ptr(), m, int(start),
-              out.data_ptr(), _stream())
+              out.data_ptr(), _stream(dev))
     _count("live_append")
     return out
 
@@ -744,9 +811,9 @@ def live_patch(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torc
     _check(idx, "idx", torch.int32, dev, (m,))
     _check(vals, "vals", torch.int32, dev, (m,) + tuple(dst.shape[1:]))
     out = torch.empty_like(dst)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_live_patch", dst.data_ptr(), n, width, idx.data_ptr(), vals.data_ptr(), m,
-              out.data_ptr(), _stream())
+              out.data_ptr(), _stream(dev))
     _count("live_patch")
     return out
 
@@ -781,9 +848,9 @@ def span_reduce(sid: torch.Tensor, dur: torch.Tensor, n_valid: int, edges: torch
     calls = torch.empty(n_ids, dtype=torch.int32, device=dev)
     lsum = torch.empty(n_ids, dtype=torch.float32, device=dev)
     hist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_span_reduce", sid.data_ptr(), dur.data_ptr(), int(n_valid), edges.data_ptr(),
-              nb - 1, int(n_ids), calls.data_ptr(), lsum.data_ptr(), hist.data_ptr(), _stream())
+              nb - 1, int(n_ids), calls.data_ptr(), lsum.data_ptr(), hist.data_ptr(), _stream(dev))
     _count("span_reduce")
     return calls, lsum, hist
 
@@ -805,11 +872,11 @@ def edge_reduce(eid: torch.Tensor, cdur: torch.Tensor, sdur: torch.Tensor, faile
     ssum = torch.empty(n_ids, dtype=torch.float32, device=dev)
     chist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
     shist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_edge_reduce", eid.data_ptr(), cdur.data_ptr(), sdur.data_ptr(),
               failed.data_ptr(), int(n_valid), edges.data_ptr(), nb - 1, int(n_ids),
               counts.data_ptr(), fcounts.data_ptr(), csum.data_ptr(), ssum.data_ptr(),
-              chist.data_ptr(), shist.data_ptr(), _stream())
+              chist.data_ptr(), shist.data_ptr(), _stream(dev))
     _count("edge_reduce")
     return counts, fcounts, csum, ssum, chist, shist
 
@@ -828,9 +895,9 @@ def find_elect(rows: torch.Tensor, base: int, winner: torch.Tensor | None = None
     if winner is not None:
         _check(winner, "winner", torch.int32, dev, (q,))
     out = torch.empty(q, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_find_elect", rows.data_ptr(), bl, q, int(base), _ptr(winner), out.data_ptr(),
-              _stream())
+              _stream(dev))
     _count("find_elect")
     return out
 
@@ -855,9 +922,9 @@ def mq_partial(progs: torch.Tensor, dims: tuple, span_mat: torch.Tensor, row0: i
     n_sc, sl = span_mat.shape
     nt_b = span_off.shape[0] - 1
     out = torch.empty((q_b, NG + 1, nt_b), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_mq_partial", progs.data_ptr(), q_b, P, NC, NG, span_mat.data_ptr(), n_sc, sl,
-              int(row0), span_off.data_ptr(), int(n_spans), nt_b, out.data_ptr(), _stream())
+              int(row0), span_off.data_ptr(), int(n_spans), nt_b, out.data_ptr(), _stream(dev))
     _count("mq_partial")
     return out
 
@@ -881,10 +948,10 @@ def mq_combine(progs: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat
     _check(trace_mat, "trace_mat", torch.int32, dev, (trace_mat.shape[0], nt_b))
     tm = torch.empty((q_b, nt_b), dtype=torch.bool, device=dev)
     cnt = torch.empty((q_b, nt_b), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_mq_combine", progs.data_ptr(), q_b, NG, PT, NA, TC, counts.data_ptr(),
               trace_mat.data_ptr(), trace_mat.shape[0], int(n_traces), nt_b, tm.data_ptr(),
-              cnt.data_ptr(), _stream())
+              cnt.data_ptr(), _stream(dev))
     _count("mq_combine")
     return tm, cnt
 
@@ -931,12 +998,12 @@ def timeseries_stacked(prog, bufs: list, descs: torch.Tensor, cols: dict, gid: t
                  torch.empty(shape, dtype=torch.float32, device=dev),
                  torch.empty(shape, dtype=torch.int32, device=dev),
                  torch.empty(shape, dtype=torch.int32, device=dev)]
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_timeseries_stacked", descs.data_ptr(), bl, bufs[0].data_ptr() + off, ln, S,
               tsid.data_ptr(), int(n_traces_b), start_ms.data_ptr(), gid.data_ptr(), _ptr(val),
               _ptr(vpres), t0s.data_ptr(), nspans.data_ptr(), int(step),
               int(n_buckets), int(n_groups), int(has_val), outs[0].data_ptr(),
-              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream())
+              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream(dev))
     _count("timeseries_stacked")
     return tuple(outs)
 
@@ -948,8 +1015,8 @@ def timeseries_stacked_finish(vmin: torch.Tensor, vmax: torch.Tensor):
     dev = _cuda_device(vmin)
     _check(vmin, "vmin", torch.int32, dev)
     _check(vmax, "vmax", torch.int32, dev, tuple(vmin.shape))
-    with torch.cuda.device(dev):
-        _call("tt_ts_stacked_finish", vmin.data_ptr(), vmax.data_ptr(), vmin.numel(), _stream())
+    with _on(dev):
+        _call("tt_ts_stacked_finish", vmin.data_ptr(), vmax.data_ptr(), vmin.numel(), _stream(dev))
     _count("timeseries_stacked")
     return vmin.view(torch.float32), vmax.view(torch.float32)
 
@@ -968,12 +1035,12 @@ def filter_span_shard(prog, bufs: list, step: tuple, slots: torch.Tensor, n_loca
         raise KernelError("filter_span_shard: slots (Bl, n_slots, Sl), a buffer and a count a block")
     _, off, ln, out_slot = step
     sl = slots.shape[2]
-    with torch.cuda.device(dev):
+    with _on(dev):
         for b, buf in enumerate(bufs):
             _check(buf, "program buffer", torch.uint8, dev)
             base, sb = buf.data_ptr(), slots[b].data_ptr()
             _call("tt_filter_span_pass", base + off, ln, base + prog.desc_off, sb, sb + out_slot * sl,
-                  sl, int(n_local[b]), None, 1, None, _stream())
+                  sl, int(n_local[b]), None, 1, None, _stream(dev))
     _count("filter")
 
 
@@ -1003,12 +1070,12 @@ def filter_struct_shard(op: str, lm_g: torch.Tensor, slots: torch.Tensor, rslot:
     elif op == "~":
         scratch_i = torch.empty(S + 1, dtype=torch.int32, device=dev)
     n_passes = max(1, (S - 1).bit_length())
-    with torch.cuda.device(dev):
+    with _on(dev):
         for b in range(bl):
             _call("tt_filter_struct", {">": 0, ">>": 1, "~": 2}[op], lm_g[b].data_ptr(),
                   slots[b, rslot].data_ptr(), slots[b, out_slot].data_ptr(), pidx[b].data_ptr(), S,
                   int(n_spans[b]), n_passes, _ptr(scratch_i), _ptr(scratch_u), int(row0), sl,
-                  _stream())
+                  _stream(dev))
     _count("filter")
 
 
@@ -1026,9 +1093,9 @@ def attr_partial(descs: torch.Tensor, cond: int, n_seg: int, al: int, arow0: int
     if descs.dim() != 1 or n_seg < 1 or al < 0:
         raise KernelError(f"attr_partial: {bl} blocks, {n_seg} owners, {al} rows")
     out = torch.empty((bl, n_seg), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_attr_partial", descs.data_ptr(), int(cond), bl, int(n_seg), int(al), int(arow0),
-              out.data_ptr(), _stream())
+              out.data_ptr(), _stream(dev))
     _count("attr_partial")
     return out
 
@@ -1051,9 +1118,9 @@ def attr_mask(cnt: torch.Tensor, res_idx: torch.Tensor | None, n_spans: torch.Te
         _check(res_idx, "res_idx", torch.int32, dev, (bl, sl))
     if cnt.dim() != 2 or cnt.shape[0] != bl or cnt.shape[1] < 1 or not 0 <= slot < n_slots:
         raise KernelError(f"attr_mask: counts {tuple(cnt.shape)} into slot {slot} of {n_slots}")
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_attr_mask", cnt.data_ptr(), cnt.shape[1], _ptr(res_idx), n_spans.data_ptr(), bl,
-              sl, int(row0), slots[:, slot].data_ptr(), n_slots * sl, _stream())
+              sl, int(row0), slots[:, slot].data_ptr(), n_slots * sl, _stream(dev))
     _count("attr_partial")
 
 
@@ -1068,8 +1135,8 @@ def mask_pack(m: torch.Tensor) -> torch.Tensor:
     if sl % 8:
         raise KernelError(f"mask_pack: {sl} rows do not pack 8 to a byte")
     out = torch.empty((bl, sl // 8), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        _call("tt_mask_pack", m.data_ptr(), m.stride(0), bl, sl // 8, out.data_ptr(), _stream())
+    with _on(dev):
+        _call("tt_mask_pack", m.data_ptr(), m.stride(0), bl, sl // 8, out.data_ptr(), _stream(dev))
     _count("mask_pack")
     return out
 
@@ -1083,8 +1150,8 @@ def mask_unpack(pk: torch.Tensor) -> torch.Tensor:
         raise KernelError("mask_unpack: (Bl, n) bytes expected")
     bl, n = pk.shape
     out = torch.empty((bl, 8 * n), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        _call("tt_mask_unpack", pk.data_ptr(), bl, n, out.data_ptr(), _stream())
+    with _on(dev):
+        _call("tt_mask_unpack", pk.data_ptr(), bl, n, out.data_ptr(), _stream(dev))
     _count("mask_unpack")
     return out
 
@@ -1110,10 +1177,10 @@ def search_partial(prog, buf: torch.Tensor, slots: torch.Tensor, span_off: torch
         raise KernelError("search_partial: span_off or tsid expected")
     n_tr = len(prog.tslots)
     out = torch.empty((bl, n_tr + 1, nt), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_search_partial", slots.data_ptr(), n_slots, buf.data_ptr() + prog.tslots_off, n_tr,
               _ptr(span_off), _ptr(tsid) if span_off is None else None, n_spans.data_ptr(), bl, sl,
-              int(row0), int(nt), out.data_ptr(), _stream())
+              int(row0), int(nt), out.data_ptr(), _stream(dev))
     _count("search_partial")
     return out
 
@@ -1135,8 +1202,8 @@ def search_finish(prog, buf: torch.Tensor, descs: torch.Tensor, counts: torch.Te
     _check(counts, "counts", torch.int32, dev, (bl, n_tr + 1, nt))
     tm = torch.empty((bl, nt), dtype=torch.bool, device=dev)
     cnt = torch.empty((bl, nt), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
         _call("tt_search_finish", buf.data_ptr() + prog.trace_off, prog.trace_len, descs.data_ptr(),
-              counts.data_ptr(), n_tr, bl, nt, tm.data_ptr(), cnt.data_ptr(), _stream())
+              counts.data_ptr(), n_tr, bl, nt, tm.data_ptr(), cnt.data_ptr(), _stream(dev))
     _count("search_finish")
     return tm, cnt

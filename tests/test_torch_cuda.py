@@ -96,15 +96,40 @@ def test_find_kernel(cuda):
 
 
 def test_select_kernel(cuda):
+    """Both routes equal the plain version bit for bit: each case runs
+    the route select_plan picks, then the other route on the same
+    inputs; the small-k route makes 2 __global__ launches a call; a
+    k'-select is the first k' slots of a k-select."""
     from tempo_tpu_torch import kernels
 
-    for n, k in [(1024, 16), (1024, 1024), (5000, 64), (70000, 256), (70000, 70000)]:
+    ks = kernels.K_SMALL
+    for n, k, p_mask in [(1024, 16, 0.3), (1024, 1024, 0.3), (5000, 64, 0.3), (70000, 256, 0.3),
+                         (70000, 70000, 0.3), (4095, 64, 0.3), (4096, 64, 0.3), (4097, 64, 0.3),
+                         (327_680, ks, 0.3), (327_680, ks + 1, 0.3), (12289, 16, 0.0),
+                         (12289, 16, 1.0), (70000, 1, 0.3)]:
         rng = np.random.default_rng(n + k)
-        mask = torch.from_numpy(rng.random(n) < 0.3).to(cuda)
+        mask = torch.from_numpy(rng.random(n) < p_mask).to(cuda)
         key = torch.from_numpy(rng.integers(0, 7, n).astype(np.int32)).to(cuda)  # heavy ties
         counts = torch.from_numpy(rng.integers(0, 50, n).astype(np.int32)).to(cuda)
+        want = SE._select_plain(mask, key, counts, k)
+        plan = kernels.select_plan(n, k)
+        kernels.reset_counts()
         got = kernels.select_topk(mask, key, counts, k)
-        assert torch.equal(got, SE._select_plain(mask, key, counts, k)), (n, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (n, k, plan.tiled)
+        if plan.tiled:
+            assert kernels.grid_launches()["select"] == 2, (n, k)
+        other = (kernels._sort_plan(n, k) if plan.tiled
+                 else kernels._tiled_plan(n, k) if k <= 8192 else None)
+        if other is not None:
+            assert torch.equal(kernels._select_run(mask, key, counts, k, other), want), \
+                (n, k, other.tiled)
+        k2 = max(1, k // 4)
+        part = kernels.select_topk(mask, key, counts, k2)
+        for i in range(3):
+            assert torch.equal(part[i * k2:(i + 1) * k2], got[i * k:i * k + k2]), (n, k, k2)
+        assert part[3 * k2] == got[3 * k] == int(mask.sum())
+    assert kernels.select_plan(327_680, ks).tiled and not kernels.select_plan(327_680, ks + 1).tiled
 
 
 def _kernel_vs_plain(cuda, tree, conds, ops, tables, staged, span_out):

@@ -120,11 +120,15 @@ def test_live_append_kernel(cuda, n):
 
 @pytest.mark.parametrize("width", [1, 4])
 def test_live_patch_kernel(cuda, width):
+    """One __global__ a call (m = 0 too), at column lengths that are not
+    a multiple of a CTA's range, the grid's cap passed (600,001 rows),
+    and on a view one row into its storage (at width 1, data that is not
+    16-byte aligned)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import livestage as L
 
     rng = np.random.default_rng(width)
-    for n in (1024, 1 << 14):
+    for n, offset in ((1024, 0), (1 << 14, 0), (16397, 0), (600_001, 0), (5003, 1)):
         shape = (n,) if width == 1 else (n, 4)
         dst = torch.from_numpy(rng.integers(-99, 99, shape).astype(np.int32))
         kernels.reset_counts()
@@ -135,11 +139,14 @@ def test_live_patch_kernel(cuda, width):
                     for i in idx]
             vals = torch.from_numpy(np.asarray(rows, np.int32).reshape((len(idx),) + shape[1:]))
             it = torch.tensor(idx, dtype=torch.int32)
-            dst_c = dst.to(cuda)
+            # offset 1: dst a view one row into its storage
+            dst_c = torch.cat([dst[:offset], dst]).to(cuda)[offset:]
             got = L.patch_slots(dst_c, it.to(cuda), vals.to(cuda))
-            assert torch.equal(got.cpu(), L._patch_plain(dst, it, vals))
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), L._patch_plain(dst, it, vals)), (n, idx[:5])
             assert torch.equal(dst_c.cpu(), dst)  # out of place
         assert kernels.LAUNCHES["live_patch"] == 6
+        assert kernels.grid_launches()["live_patch"] == 6
 
 
 def _dump(resp):
