@@ -15,7 +15,13 @@ Phases, in order (any failure raises; no CPU fallback):
                bit for bit (every output is an int or a bool), each K1
                query matching at least one trace; the sibling query runs
                on block 0's columns with a random-tree parent_idx (the
-               synth chain has no siblings); times by CUDA events (warm),
+               synth chain has no siblings; 5 % orphans in every tile);
+               K1's 8 forms and the 2 extra search forms by both routes
+               (the trace tiles the plan picks, and the multi-launch
+               kernels forced through the plan argument), then both routes
+               on a 9,600-span chain (tiles of 16,384), a 19,200-span trace
+               (past the tile: multi-launch) and group-range staging;
+               times by CUDA events (warm),
                the byte bound at 3.35 TB/s, and a one-call PyTorch
                yardstick where one exists
   5. find      find_trace_by_id on 48 present + 16 absent ids
@@ -24,7 +30,8 @@ Phases, in order (any failure raises; no CPU fallback):
                backend; then 2 of them on the per-block fallback
                (search_block per block, staged budget 0), card vs CPU
   7. launches  every kernel launched at least once by phases 5-6 (wrapper
-               calls; the __global__ launches behind them are logged)
+               calls; the __global__ launches behind them are logged);
+               K1 at most 120 __global__ for phase 6's 10 searches
   4b. (in phase 4) B5a with 16 same-shape programs (operands taken from
                block 0's own spans, so each matches), B5b at k = 64 over
                their rows, B6 for `rate() by (resource.service.name)` and
@@ -88,7 +95,9 @@ Phases, in order (any failure raises; no CPU fallback):
                traces equal the streaming state by series key and edge
                pair; one metrics_text() scrape and link_rtt_ms logged; then
                B8a and B8b against their plain versions at the last
-               window's shape
+               window's shape, B8b by both routes (its route and count
+               logged), and B8b's sweep of 305-65,536 rows x 4,096 and
+               65,536 ids, both routes against the plain version
   15. mesh     the mesh programs over torch.distributed (parallel/), on a
                hard-linked copy of the corpus as phases 5-10 saw it: run 1
                on an NCCL mesh of one rank calls the host entries directly
@@ -176,6 +185,10 @@ METRICS_QUERIES = [
     '{ kind = server } | max_over_time(duration) by (resource.service.name)',
 ]
 METRICS_STEP_S = 60  # about 60 buckets over the corpus's hour
+# phase 6's K1 __global__ launches at most: 100 program runs (10 searches
+# x 10 blocks) on the trace tiles, one each, plus the res pass of the
+# resource.attr form's 10 (the blocks hold no orphan: no flag pass)
+K1_SEARCH_GRIDS = 120
 # f32 latency sums: atomics on the card add in another order than the CPU
 # generator's fold, and the legacy plane folds all spans at once
 GEN_RTOL = 1e-5
@@ -1168,7 +1181,7 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
                        generator_window=recording_tap)
     col = ing.instance(GEN_TENANT).columnar
     last = {}
-    orig = {name: getattr(R, name) for name in ("span_reduce", "edge_reduce")}
+    orig = {name: getattr(R, name) for name in ("span_reduce", "edge_fold")}
 
     def keep(name):
         def call(*a):
@@ -1180,7 +1193,7 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
     times = CallTimes()
     times.patch(ColumnarIngest, "features_for", "tap decodes (features_for)")
     times.patch(kernels, "span_reduce", "B8a (synchronized)", sync=True)
-    times.patch(kernels, "edge_reduce", "B8b (synchronized)", sync=True)
+    times.patch(kernels, "edge_fold", "B8b (synchronized)", sync=True)
     for name in orig:
         setattr(R, name, keep(name))
     push_s, flush_s = [], []
@@ -1211,6 +1224,7 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
         for name, fn in orig.items():
             setattr(R, name, fn)
     stream_counts = dict(kernels.LAUNCHES)
+    stream_grids = kernels.grid_launches()
     wall = time.perf_counter() - t0
     st = col.stats()
     ds = dist.stats
@@ -1228,8 +1242,10 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
     if ds.gen_tap_errors or ds.gen_tap_dropped or ds.traces_pushed != n_traces + n_split:
         raise AssertionError(f"distributor: {ds}")
     if dev.type == "cuda" and (stream_counts["span_reduce"] != n_win
-                               or not 0 < stream_counts["edge_reduce"] <= n_win):
-        raise AssertionError(f"streaming folds: wrapper calls {nonzero(stream_counts)}")
+                               or not 0 < stream_counts["edge_reduce"] <= n_win
+                               or stream_grids["edge_reduce"] != stream_counts["edge_reduce"]):
+        raise AssertionError(f"streaming folds: wrapper calls {nonzero(stream_counts)}, "
+                             f"__global__ {nonzero(stream_grids)}")
 
     # ---- d. the card's registry against the CPU generator's: same windows,
     # same dictionary, so the same sids and edge ids
@@ -1306,12 +1322,16 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
     rtt = link_rtt_ms(dev)
     log(f"[generator] metrics_text: {len(lines)} lines in {scrape_s:.2f} s; link_rtt_ms({dev}) "
         f"= {rtt:.4f} ms; wrapper calls {nonzero(counts)}")
-    return {"counts": counts, "last": last}
+    return {"counts": counts, "last": last,
+            "b8b": (stream_counts["edge_reduce"], stream_grids["edge_reduce"])}
 
 
-def phase_14_table(last, table) -> None:
+def phase_14_table(last, table, b8b_stream) -> dict:
     """B8a and B8b against their plain versions at the shape of phase 14's
-    last window; times by CUDA events, the byte bound."""
+    last window; times by CUDA events, the byte bound. B8b by both of its
+    routes there, and over a sweep of window and table sizes, each route
+    against the plain version: the sweep that sets EDGE_TILE_READS.
+    Returns B8b's two routes at that shape, for device_split."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import reduce as R
 
@@ -1343,16 +1363,54 @@ def phase_14_table(last, table) -> None:
         f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
     row("span_reduce", "tempo_tpu/ops/reduce.py:23", err, ms, pms, b)
 
-    # B8b -- the last window's completed edges
-    eid, cdur, sdur, failed, n_valid, edges, eb = last["edge_reduce"]
-    err = compare(kernels.edge_reduce(eid, cdur, sdur, failed, n_valid, edges, eb),
-                  R._edge_reduce_plain(eid, cdur, sdur, failed, n_valid, edges, eb), (2, 3))
-    ms = cuda_ms(lambda: kernels.edge_reduce(eid, cdur, sdur, failed, n_valid, edges, eb))
+    # B8b -- the last window's completed edges, by the route edge_plan
+    # picks and by the other one
+    def b8b_routes(eid, cdur, sdur, failed, n_valid, edges, n_ids):
+        plan = kernels.edge_plan(n_valid, n_ids, nb)
+        want = R._edge_reduce_plain(eid, cdur, sdur, failed, n_valid, edges, n_ids)
+        err, ms = 0.0, {}
+        for p in (plan, plan._replace(tiled=not plan.tiled)):
+            kernels.reset_counts()
+            got = kernels.edge_reduce(eid, cdur, sdur, failed, n_valid, edges, n_ids, p)
+            if kernels.grid_launches()["edge_reduce"] != 1:
+                raise AssertionError(f"B8b tiled={p.tiled}: not one __global__ a call")
+            err = max(err, compare(got, want, (2, 3)))
+            ms["tile" if p.tiled else "atomic"] = cuda_ms(
+                lambda: kernels.edge_fold(eid, cdur, sdur, failed, n_valid, edges, n_ids, p))
+        return plan, err, ms, want
+
+    eid, cdur, sdur, failed, n_valid, edges, eb = last["edge_fold"]
+    plan, err, ms2, _ = b8b_routes(eid, cdur, sdur, failed, n_valid, edges, eb)
+    route = "tile" if plan.tiled else "atomic"
+    ms = ms2[route]
     pms = cuda_ms(lambda: R._edge_reduce_plain(eid, cdur, sdur, failed, n_valid, edges, eb))
     b = bound(n_valid * 16 + 4 * eb * (2 * nb + 4), 2 * n_valid * (nb - 1))
-    log(f"[B8b] {n_valid} edges of {eid.shape[0]} into {eb} edge ids: {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
+    log(f"[B8b] {n_valid} edges of {eid.shape[0]} into {eb} edge ids: route {route} "
+        f"({plan.ctas} CTAs of {plan.per} ids), {ms:.4f} ms; the other route "
+        f"{ms2['atomic' if plan.tiled else 'tile']:.4f} ms; plain {pms:.4f} ms, bound "
+        f"{b[0]:.5f} ms, max abs err {err:.3g}; phase 14's stream: {b8b_stream[0]} calls, "
+        f"{b8b_stream[1]} __global__")
     row("edge_reduce", "tempo_tpu/ops/reduce.py:63", err, ms, pms, b)
+    split = {("tile" if p.tiled else "atomic"): (
+        lambda p=p: kernels.edge_fold(eid, cdur, sdur, failed, n_valid, edges, eb, p))
+        for p in (plan, plan._replace(tiled=not plan.tiled))}
+    # the sweep: random windows made on the card, each route against the
+    # plain version
+    gen = torch.Generator(device=eid.device).manual_seed(91)
+    for n_rows in (305, 1024, 8192, 65536):
+        for n_ids in (4096, 65536):
+            n = max(1024, n_rows)
+            e = torch.randint(-2, n_ids + 2, (n,), device=eid.device, generator=gen,
+                              dtype=torch.int32)
+            c = torch.empty(n, device=eid.device).exponential_(20.0, generator=gen)
+            v = torch.empty(n, device=eid.device).exponential_(20.0, generator=gen)
+            f = torch.randint(0, 2, (n,), device=eid.device, generator=gen, dtype=torch.int32)
+            p, err_s, t, _ = b8b_routes(e, c, v, f, n_rows, edges, n_ids)
+            log(f"[B8b sweep] {n_rows} rows into {n_ids} ids: tile {t['tile']:.4f} ms "
+                f"({p.ctas} CTAs of {p.per} ids, {p.ctas * n_rows} id reads), atomic "
+                f"{t['atomic']:.4f} ms; edge_plan takes the {'tile' if p.tiled else 'atomic'} "
+                f"route (EDGE_TILE_READS {kernels.EDGE_TILE_READS}); max abs err {err_s:.3g}")
+    return split
 
 
 MESH_WORLD, MESH_DP, MESH_SP = 4, 2, 2  # run 2: gloo ranks that share the card
@@ -2054,6 +2112,25 @@ def phase_15_search_table(shards: dict, row) -> None:
     row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
 
 
+def device_split(what: str, fns: dict) -> None:
+    """Device time a call of each route (the profiler, 20 calls each):
+    fns maps a route's name to a call. Run after every other timing (see
+    k2_split)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = []
+    for route, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()) / 20
+        parts.append(f"{route} {us:.2f}")
+    log(f"[split] {what}: device µs a call (profiler) " + ", ".join(parts))
+
+
 def k2_split(mask, key, counts, k_search: int) -> None:
     """K2's two passes' device time apart (the profiler, 20 calls each),
     at the search shape and a live search's 16,384 rows, k = k_search
@@ -2133,7 +2210,7 @@ def main() -> int:
         dev = db.device
         blk0 = open_block(backend, TENANT, metas[0].block_id)
         plans = [(label, q, plan_search_request(blk0.dictionary, {}, query=q))
-                 for label, q in K1_QUERIES]
+                 for label, q in K1_QUERIES + list(zip(("range", "or"), SEARCH_QUERIES[8:]))]
         needed = sorted({n for _, _, p in plans for n in F.required_columns(p.conds)}
                         | {n for _, _, p in plans for n in p.extra_cols} | {"trace@gkey_s"})
         staged = ST.stage_block(blk0, needed, cache=False, device=dev)
@@ -2147,41 +2224,72 @@ def main() -> int:
         # orphans (the over-match rule of `~`), through staged_from_numpy
         sib_np = {k: v.cpu().numpy() for k, v in cols.items()}
         sib_np["span.parent_idx"] = random_tree_parents(cols, ns, np.random.default_rng(13))
-        sib_cols = ST.staged_from_numpy(sib_np, ns, nt, staged.n_res, dev).cols
-        del sib_np
+        sib_staged = ST.staged_from_numpy(sib_np, ns, nt, staged.n_res, dev)
+        sib_cols = sib_staged.cols
 
-        # K1 -- per query, span_out=False as on the search path; the
-        # table row sums the eight queries
-        k1 = {"ms": 0.0, "plain_ms": 0.0, "nbytes": 0, "ops": 0}
-        for label, q, p in plans:
-            assert not p.prune, q
-            cols = sib_cols if label == "sibling" else staged.cols
+        def k1_prog(p, cols):
             ops = F.Operands.build(p.rows, p.tables or None)
             tables = {i: pad_rows(np.asarray(t, np.uint8), bucket(max(1, len(t))), 0)
                       for i, t in (p.tables or {}).items()}
             tree = F.normalize_tree(p.tree, p.conds) if p.tree is not None else None
             prog = F._program(tree, tuple(p.conds))
-            buf = prog.buffer(cols, ops, tables)
-            kernels.reset_counts()
-            got = kernels.filter_run(prog, buf, cols, ns, nt, nsb, nrb, ntb, False)[1:]
-            grids = kernels.grid_launches()["filter"]
             ops_i = torch.from_numpy(ops.ints).to(dev)
             ops_f = torch.from_numpy(ops.floats).to(dev)
             ttab = {i: torch.from_numpy(t).to(dev) for i, t in tables.items()}
+            return prog, prog.buffer(cols, ops, tables), (tree, p.conds, cols, ops_i, ops_f, ttab)
 
-            def plain():
-                return F._run_plain(tree, p.conds, cols, ops_i, ops_f, ttab, ns, nt, nsb, nrb,
-                                    ntb, False)
+        def k1_routes(label, p, st, span_out, timed):
+            """K1 on staged block st by the route its plan picks and by the
+            multi-launch route, forced through the plan argument, each
+            equal to the plain version; the plan, each route's outputs,
+            __global__ launches and (timed) CUDA-event ms."""
+            cols, tiles = st.cols, st.tiles
+            sh = (st.n_spans, st.n_traces, st.n_spans_b, st.n_res_b, st.n_traces_b)
+            prog, buf, pa = k1_prog(p, cols)
+            want = F._run_plain(*pa, *sh, span_out)
+            fplan = kernels.filter_plan(prog, tiles, span_out)
+            out = {}
+            if timed:
+                splits[f"K1 {label}"] = {
+                    route: (lambda rp=rp: kernels.filter_run(prog, buf, cols, *sh, span_out, tiles,
+                                                             rp))
+                    for route, rp in (("trace tiles", fplan), ("multi-launch", kernels.MULTI_LAUNCH))}
+            for route, rp in (("tiles", fplan), ("multi", kernels.MULTI_LAUNCH)):
+                if route == "tiles" and not fplan.tiled:
+                    continue
+                kernels.reset_counts()
+                got = kernels.filter_run(prog, buf, cols, *sh, span_out, tiles, rp)
+                grids = kernels.grid_launches()["filter"]
+                got = got if span_out else got[1:]
+                if max_abs_err(got, want) or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"K1 {label} ({route}, span_out={span_out}) differs from "
+                                         f"its plain version")
+                ms = (cuda_ms(lambda: kernels.filter_run(prog, buf, cols, *sh, span_out, tiles, rp))
+                      if timed else None)
+                out[route] = (got, grids, ms)
+            if fplan.tiled and out["tiles"][1] != 1 + bool(prog.rconds) + fplan.flag_pass:
+                raise AssertionError(f"K1 {label}: {out['tiles'][1]} __global__ launches on the "
+                                     f"trace tiles")
+            return prog, fplan, want, out, pa
 
-            want = plain()
-            err = max_abs_err(got, want)
-            if err or not torch.equal(got[0], want[0]):
-                raise AssertionError(f"K1 {label} differs from its plain version")
+        splits = {}  # device-time splits, taken after every other timing
+        # K1 -- per form, span_out=False as on the search path, by both
+        # routes: the trace tiles block 0's staging gives (the sibling form
+        # on the forest: orphans in every tile, so a flag pass first), and
+        # the multi-launch kernels; the table row sums the eight
+        # K1_QUERIES forms on the route the plan takes
+        k1 = {"ms": 0.0, "plain_ms": 0.0, "nbytes": 0, "ops": 0}
+        for label, q, p in plans:
+            assert not p.prune, q
+            st = sib_staged if label == "sibling" else staged
+            prog, fplan, want, out, pa = k1_routes(label, p, st, False, True)
+            if not fplan.tiled:
+                raise AssertionError(f"K1 {label}: the plan did not take the trace tiles")
+            got, grids, ms = out["tiles"]
             matched = int(got[0].sum().item())
             if matched == 0:
                 raise AssertionError(f"K1 {label}: {q} matched no trace; the check is vacuous")
-            ms = cuda_ms(lambda: kernels.filter_run(prog, buf, cols, ns, nt, nsb, nrb, ntb, False))
-            pms = cuda_ms(plain, reps=5, warm=1)
+            pms = cuda_ms(lambda: F._run_plain(*pa, ns, nt, nsb, nrb, ntb, False), reps=5, warm=1)
             # bytes the program must move: each column it reads, real rows
             # once, plus its outputs
             read = {"trace.span_off": (nt + 1) * 4}
@@ -2204,25 +2312,64 @@ def main() -> int:
                 read["span.parent_idx"] = ns * 4
             nbytes = sum(read.values()) + ntb * 5
             b_ms, _ = bound(nbytes, ns * max(1, len(p.conds)))
-            log(f"[K1 {label:10s}] {q}: {matched} traces, {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"bound {b_ms:.4f} ms, {len(prog.steps)} span/struct steps, "
-                f"{grids} __global__ launches")
-            k1["ms"] += ms
-            k1["plain_ms"] += pms
-            k1["nbytes"] += nbytes
-            k1["ops"] += ns * max(1, len(p.conds))
+            _, mgrids, mms = out["multi"]
+            log(f"[K1 {label:10s}] {q}: {matched} traces; trace tiles {ms:.4f} ms ({grids} "
+                f"__global__{', a flag pass' if fplan.flag_pass else ''}), multi-launch "
+                f"{mms:.4f} ms ({mgrids} __global__), plain {pms:.4f} ms, bound {b_ms:.4f} ms, "
+                f"{len(prog.steps)} span/struct steps, {st.tiles.bounds.shape[0] - 1} tiles of "
+                f"{st.tiles.tile} spans")
+            if label in dict(K1_QUERIES):
+                k1["ms"] += ms
+                k1["plain_ms"] += pms
+                k1["nbytes"] += nbytes
+                k1["ops"] += ns * max(1, len(p.conds))
 
-        # K1 with span_out=True, once (the span-mask epilogue)
-        cols = staged.cols
-        label, q, p = plans[0]
-        ops = F.Operands.build(p.rows, p.tables or None)
-        tree = F.normalize_tree(p.tree, p.conds)
-        prog = F._program(tree, tuple(p.conds))
-        got = kernels.filter_run(prog, prog.buffer(cols, ops, {}), cols, ns, nt, nsb, nrb, ntb, True)
-        want = F._run_plain(tree, p.conds, cols, torch.from_numpy(ops.ints).to(dev),
-                            torch.from_numpy(ops.floats).to(dev), {}, ns, nt, nsb, nrb, ntb, True)
-        if max_abs_err(got, want) or not int(got[0].sum().item()):
-            raise AssertionError("K1 span_out=True differs from its plain version or matched nothing")
+        # K1 with span_out=True, once (the span-mask epilogue), both routes
+        _, _, want, _, _ = k1_routes("span, span_out", plans[0][2], staged, True, False)
+        if not int(want[0].sum().item()):
+            raise AssertionError("K1 span_out=True matched nothing")
+
+        # K1 where the tiles end, on block 0's columns: a trace of 9,600
+        # spans (its traces 0-299 merged, a chain 9,600 deep: the tile
+        # grows to 16,384 and `>>` takes 14 passes), one of 19,200 (past
+        # FILTER_TILE_MAX: the multi-launch route), then group-range
+        # staging (span_base 65,536: parents stay block-global, so struct
+        # forms take the multi-launch route); both routes against the
+        # plain version wherever the plan allows each
+        off0 = sib_np["trace.span_off"].astype(np.int64)
+        for n_merge, want_tiled in ((300, True), (600, False)):
+            long_np = {k: v.copy() for k, v in sib_np.items()}
+            lo_end = int(off0[n_merge])
+            long_np["trace.span_off"][1:n_merge] = lo_end
+            long_np["span.trace_sid"][:lo_end] = 0
+            long_np["span.parent_idx"][:lo_end] = np.arange(-1, lo_end - 1)
+            lst = ST.staged_from_numpy(long_np, ns, nt, staged.n_res, dev)
+            for label, q, p in plans:
+                if label not in ("span", "descendant", "sibling"):
+                    continue
+                _, fplan, _, out, _ = k1_routes(label, p, lst, False, False)
+                if fplan.tiled != want_tiled:
+                    raise AssertionError(f"K1 {label}, a {lo_end}-span trace: tiled "
+                                         f"{fplan.tiled}")
+                log(f"[K1 long trace] {lo_end} spans, {label}: route "
+                    f"{'trace tiles' if fplan.tiled else 'multi-launch'} (tile {lst.tiles.tile}, "
+                    f"{fplan.n_passes} `>>` passes), __global__ {({r: o[1] for r, o in out.items()})}, "
+                    f"both equal to the plain version")
+            del long_np, lst
+        del sib_np
+        gst = ST.stage_block(blk0, needed, groups=[1, 2], cache=False, device=dev)
+        if gst.span_base == 0 or gst.tiles.parents_local:
+            raise AssertionError(f"group-range staging: span_base {gst.span_base}, parents local "
+                                 f"{gst.tiles.parents_local}")
+        routes = {}
+        for label, q, p in plans:
+            _, fplan, _, out, _ = k1_routes(label, p, gst, False, False)
+            routes[label] = ("tiles" if fplan.tiled else "multi", {r: o[1] for r, o in out.items()})
+            if fplan.tiled == bool(p.has_struct):
+                raise AssertionError(f"K1 {label} on group-range staging: tiled {fplan.tiled}")
+        log(f"[K1 group range] groups 1-2 ({gst.n_spans} spans from row {gst.span_base}): each "
+            f"form equal to the plain version by its routes: {routes}")
+        del gst
         k1_bound = bound(k1["nbytes"], k1["ops"])
         table.append({"name": "filter", "route": "cuda", "source": "tempo_tpu_torch/csrc/filter.cu",
                       "replaces": "tempo_tpu/ops/filter.py:286", "launches": 0,
@@ -2231,8 +2378,10 @@ def main() -> int:
 
         # K2 -- block 0 at k=32 and k=N, then the search path's shape:
         # ten blocks' trace vectors concatenated, k=64
-        tm, counts = kernels.filter_run(prog, prog.buffer(cols, ops, {}), cols, ns, nt, nsb, nrb,
-                                        ntb, False)[1:]
+        cols = staged.cols
+        prog, buf, _ = k1_prog(plans[0][2], cols)
+        tm, counts = kernels.filter_run(prog, buf, cols, ns, nt, nsb, nrb, ntb, False,
+                                        staged.tiles)[1:]
         key = cols["trace@gkey_s"]
         for k in (32, ntb):
             got = kernels.select_topk(tm, key, counts, k)
@@ -2499,7 +2648,7 @@ def main() -> int:
 
         # ---- 4c. the write path's kernels (B9a/B9b/B9c, B10a/B10b)
         phase_4c(blks, metas, absent, dev, table)
-        del staged, cols, sib_cols, blks, ids, comp  # K2's inputs stay for k2_split
+        del staged, cols, sib_staged, sib_cols, blks, ids, comp  # K2's inputs stay for k2_split
         torch.cuda.synchronize()
 
         # ---- 5./6. the main path: counts from 0, read right after
@@ -2548,6 +2697,12 @@ def main() -> int:
         missing = [k for k in ("filter", "select", "find", "res_to_span") if counts_after[k] <= 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: {missing}")
+        if grids_after["filter"] > K1_SEARCH_GRIDS:
+            raise AssertionError(f"K1: {grids_after['filter']} __global__ launches for "
+                                 f"{counts_after['filter']} program runs of the "
+                                 f"{len(SEARCH_QUERIES)} searches (at most {K1_SEARCH_GRIDS})")
+        log(f"[launches] K1: {counts_after['filter']} program runs, {grids_after['filter']} "
+            f"__global__ (at most {K1_SEARCH_GRIDS}; 500 on the multi-launch route)")
         launches = dict(counts_after)
 
         # ---- 8. batched search on block 0
@@ -2752,7 +2907,7 @@ def main() -> int:
         p14 = phase_14(db, dev, pairs, tmp)
         del pairs
         log(f"[generator] phase 14 took {time.perf_counter() - t0:.1f} s")
-        phase_14_table(p14["last"], table)
+        splits["B8b, phase 14's window"] = phase_14_table(p14["last"], table, p14["b8b"])
         for name in ("remap", "bloom_bits", "rowgroup"):
             launches[name] = cut_counts[name]
         for name in ("bloom_union", "bloom_test"):
@@ -2769,6 +2924,9 @@ def main() -> int:
         log(f"[mesh] phase 15 took {time.perf_counter() - t0:.1f} s")
         phase_15_table(p15, table)
         k2_split(mask10, key10, cnt10, k10)
+        for what, fns in splits.items():
+            device_split(what, fns)
+        del splits
         del p15["args"], p15["shards"]
         for name in ("find_elect", "mq_partial", "mq_combine", "timeseries_stacked",
                      "attr_partial", "mask_pack", "mask_unpack", "search_partial",
@@ -2778,6 +2936,16 @@ def main() -> int:
             row["launches"] = launches[row["name"]]
         if len(table) != len(kernels.LAUNCHES) or any(r["launches"] <= 0 for r in table):
             raise AssertionError(f"kernel table: {[(r['name'], r['launches']) for r in table]}")
+        # the port's order for redesigns after the kernels that lose to one
+        # PyTorch call: launches on the path x (time - bound) of one call,
+        # largest first (K1's row sums its 8 forms, B6's its 2)
+        summed = {"filter": len(K1_QUERIES), "timeseries": 2}
+
+        def gap(r):
+            return r["launches"] * (r["ms"] - r["bound_ms"]) / summed.get(r["name"], 1)
+
+        log("[rank] launches x (ms - bound_ms) a call: " + ", ".join(
+            f"{r['name']} {gap(r):.3f}" for r in sorted(table, key=lambda r: -gap(r))))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -277,7 +277,7 @@ def search_block(blk: BackendBlock, req: SearchRequest, groups_range: list[int] 
     tm, counts = eval_block(
         (planned.tree, planned.conds), staged.cols, operands,
         staged.n_spans, staged.n_traces, staged.n_spans_b, staged.n_res_b, staged.n_traces_b,
-        span_out=False,
+        span_out=False, tiles=staged.tiles,
     )
     key = staged.cols["trace.start_ms"]
 
@@ -329,7 +329,7 @@ def search_blocks_fused(
             (p.tree, p.conds), staged.cols, operands,
             staged.n_spans, staged.n_traces,
             staged.n_spans_b, staged.n_res_b, staged.n_traces_b,
-            span_out=False,
+            span_out=False, tiles=staged.tiles,
         )
         tms.append(tm)
         cnts.append(counts)

@@ -9,11 +9,14 @@ Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch.empty, launches on the current stream, raises if the
 C entry returns a nonzero cudaError_t, and adds one to LAUNCHES[name].
 LAUNCHES counts wrapper calls: one filter_run is one run of a whole
-filter program, which launches a res pass, a span pass per slot, its
-struct kernels (`>>` alone is init + n_passes doubling + final) and a
-trace pass; one select_topk launches a tile pass and a merge pass for
-k <= K_SMALL, else a key pass, its bitonic passes and an emit; one
-live_patch launches one kernel. grid_launches() reads the __global__
+filter program, which on the trace tiles (filter_plan) launches one
+kernel, after a res pass for resource.attr conditions and a flag pass
+for `~` on a block with orphans, and on the multi-launch route a res
+pass, a span pass per slot, its struct kernels (`>>` alone is init +
+n_passes doubling + final) and a trace pass; one select_topk launches a
+tile pass and a merge pass for k <= K_SMALL, else a key pass, its
+bitonic passes and an emit; one live_patch and one edge_reduce launch
+one kernel. grid_launches() reads the __global__
 launches each library counts itself, per kernel. There is no CPU path
 here: the ops modules send CPU tensors to their plain PyTorch versions
 and only CUDA tensors to these wrappers.
@@ -82,6 +85,10 @@ streaming tap):
 |-------------|---------------------------------------------|---------------------------------------|------------------------------------------------|
 | span_reduce | one per tap window; one per legacy collect  | 8 B a row + 4 B x S x (nb + 2) written | none: searchsorted, two bincounts, index_add_  |
 | edge_reduce | one per tap window that completed an edge   | 16 B a row + 4 B x E x (2 nb + 4)     | none: the same per side, and a failed bincount |
+
+edge_reduce writes one packed allocation (edge_views) by one of two
+routes (edge_plan): a tile CTA a range of edge ids in shared memory (one
+launch, no memset), or a memset and the atomic fold.
 
 The mesh programs' kernels (parallel/, one body on every rank of a
 mesh; a collective between the halves):
@@ -159,6 +166,8 @@ _SIGNATURES = {
     "tt_filter_struct": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
     "tt_filter_trace_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P]),
     "tt_filter_span_epilogue": ("filter", [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
+    "tt_filter_tiles": ("filter", [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
+                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]),
     "tt_multiquery": ("multiquery", [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
                                      _I, _I, _I, _P, _P, _P]),
     "tt_mq_select": ("multiquery", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
@@ -175,7 +184,7 @@ _SIGNATURES = {
     "tt_live_append": ("livestage", [_P, _I, _P, _I, _I, _P, _P]),
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
     "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P]),
-    "tt_edge_reduce": ("reduce", [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+    "tt_edge_reduce": ("reduce", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P]),
     "tt_find_elect": ("find", [_P, _I, _I, _I, _P, _P, _P]),
     "tt_mq_partial": ("multiquery", [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P]),
     "tt_mq_combine": ("multiquery", [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
@@ -459,14 +468,76 @@ def _select_run(mask, key, counts, k: int, plan: SelectPlan | None) -> torch.Ten
 
 
 # ------------------------------------------------------------------ K1
+FILTER_TILE = 4096  # spans a trace tile holds at least (csrc/filter.cu: 8 a thread of 512)
+FILTER_TILE_MAX = 16384  # the longest trace the tile route takes (int16 local rows)
+FILTER_SMEM_MAX = 200 * 1024  # shared memory a tile CTA may take (227 KB on the H100)
+_FT_MAX_SIBS = 32  # `~` nodes a flag word holds
+
+
+class FilterPlan(NamedTuple):
+    """K1's route for one program on one staged block. `tiled`: the
+    trace-tile route (tt_filter_tiles); else the multi-launch kernels."""
+
+    tiled: bool
+    flag_pass: bool  # a first launch for the block-wide `~` orphan flags
+    n_passes: int  # `>>` doubling passes: 2^n_passes >= the longest trace
+    smem: int  # bytes of shared memory a tile CTA takes
+
+
+MULTI_LAUNCH = FilterPlan(False, False, 0, 0)
+
+
+def filter_tile_smem(prog, tile: int) -> int:
+    """Shared memory of one tile CTA: a bit slot a program slot and one
+    `>>` accumulator (tile / 32 words each), then for struct steps the
+    int16 local parent row a span and 2 x tile int16 of scratch."""
+    return 4 * (tile // 32) * (max(prog.n_slots, 1) + 1) + (6 * tile if prog.struct_steps else 0)
+
+
+def filter_plan(prog, tiles, span_out: bool) -> FilterPlan:
+    """The trace-tile route where the staged block's tiling (ops/filter.
+    TraceTiles, computed at staging) makes it exact: the traces partition
+    the rows and the longest fits a tile; for struct steps every parent
+    row lies in its span's own trace; for span_out span.trace_sid agrees
+    with the ranges; the tile's shared memory fits; and, where the block
+    holds orphans and the program a `~`, at most 32 `~` nodes, none whose
+    lhs another `~` feeds (its flag would need that `~`'s). Otherwise the
+    multi-launch route. A pure function of the program and staging data."""
+    if tiles is None or tiles.bounds is None or tiles.tile > FILTER_TILE_MAX:
+        return MULTI_LAUNCH
+    if prog.struct_steps and not tiles.parents_local:
+        return MULTI_LAUNCH
+    if span_out and not tiles.tsid_local:
+        return MULTI_LAUNCH
+    flag_pass = prog.n_sib > 0 and tiles.has_orphans
+    if flag_pass and (prog.n_sib > _FT_MAX_SIBS or prog.sib_nested):
+        return MULTI_LAUNCH
+    smem = filter_tile_smem(prog, tiles.tile)
+    if smem > FILTER_SMEM_MAX:
+        return MULTI_LAUNCH
+    return FilterPlan(True, flag_pass, max(1, (max(tiles.max_trace, 1) - 1).bit_length()), smem)
+
+
 def filter_run(prog, buf: torch.Tensor, cols: dict, n_spans: int, n_traces: int,
-               n_spans_b: int, n_res_b: int, n_traces_b: int, span_out: bool):
+               n_spans_b: int, n_res_b: int, n_traces_b: int, span_out: bool,
+               tiles=None, plan: FilterPlan | None = None):
     """K1: run one compiled filter program (ops/filter._FilterProgram)
-    whose descriptor/program/table buffer `buf` is already on the card.
+    whose descriptor/program/table buffer `buf` is already on the card,
+    by the route `plan` names (default filter_plan(prog, tiles,
+    span_out); tiles: the staged block's ops/filter.TraceTiles). A tiled
+    plan other than filter_plan's is refused: only the multi-launch route
+    may be forced.
     Returns (span_mask | None, trace_mask, counts). Bound: bytes -- one
     streaming read of every column the program touches."""
     dev = _cuda_device(buf)
     _check(buf, "program buffer", torch.uint8, dev)
+    if plan is None:
+        plan = filter_plan(prog, tiles, span_out)
+    elif plan.tiled and plan != filter_plan(prog, tiles, span_out):
+        raise KernelError("filter: the trace tiles are not exact for this program on this block")
+    if plan.tiled:
+        return _filter_tiles(prog, buf, cols, n_spans, n_traces, n_spans_b, n_res_b, n_traces_b,
+                             span_out, tiles, plan)
     base = buf.data_ptr()
     desc = base + prog.desc_off
     st = _stream(dev)
@@ -521,6 +592,53 @@ def filter_run(prog, buf: torch.Tensor, cols: dict, n_spans: int, n_traces: int,
                   len(prog.tslots), n_spans_b, n_spans, cols["span.trace_sid"].data_ptr(),
                   trace_mask.data_ptr(), n_traces_b, cols["trace.span_off"].data_ptr(),
                   span_mask.data_ptr(), counts.data_ptr(), st)
+    _count("filter")
+    return span_mask, trace_mask, counts
+
+
+def _filter_tiles(prog, buf, cols, n_spans, n_traces, n_spans_b, n_res_b, n_traces_b, span_out,
+                  tiles, plan: FilterPlan):
+    """K1's trace-tile route: one tile CTA a tile of whole traces (csrc/
+    filter.cu filter_tile_kernel), one __global__ a program (two with the
+    res pass or the flag pass, three with both). One allocation holds
+    every output and the pass's scratch: counts | tile flags |
+    trace_mask | span_mask | res mask."""
+    dev = buf.device
+    if tiles is None or tiles.bounds is None or (tiles.n_spans, tiles.n_traces_b) != (
+            n_spans, n_traces_b):
+        raise KernelError("filter: the trace-tile route needs this staged block's tiles")
+    n_tiles = tiles.bounds.shape[0] - 1
+    _check(tiles.bounds, "tile bounds", torch.int32, dev, (n_tiles + 1,))
+
+    def staged(name):
+        if name not in cols:
+            raise KernelError(f"filter: staged column {name} missing")
+        _check(cols[name], name, torch.int32, dev,
+               (n_traces_b + 1,) if name == "trace.span_off" else (n_spans_b,))
+        return cols[name]
+
+    span_off = staged("trace.span_off")
+    pidx = staged("span.parent_idx") if prog.struct_steps else None
+    res_idx = staged("span.res_idx") if prog.rconds else None
+    n_flags = n_tiles if plan.flag_pass else 0
+    n_rc = len(prog.rconds)
+    o_tm = 4 * (n_traces_b + n_flags)
+    o_sm = o_tm + n_traces_b
+    o_rm = o_sm + (n_spans_b if span_out else 0)
+    raw = torch.empty(o_rm + n_rc * n_res_b, dtype=torch.uint8, device=dev)
+    p = raw.data_ptr()
+    counts = raw[:4 * n_traces_b].view(torch.int32)
+    trace_mask = raw[o_tm:o_sm].view(torch.bool)
+    span_mask = raw[o_sm:o_rm].view(torch.bool) if span_out else None
+    base = buf.data_ptr()
+    with _on(dev):
+        _call("tt_filter_tiles", base, base + prog.steps_off, len(prog.steps), prog.last_sib,
+              max(prog.n_slots, 1), base + prog.desc_off, base + prog.trace_off, prog.trace_len,
+              base + prog.tslots_off, len(prog.tslots), base + prog.rconds_off, n_rc,
+              p + o_rm if n_rc else None, n_res_b, _ptr(res_idx), _ptr(pidx),
+              span_off.data_ptr(), tiles.bounds.data_ptr(), n_tiles, tiles.tile,
+              plan.n_passes, n_spans, n_spans_b, n_traces, p + 4 * n_traces_b if n_flags else None,
+              p + o_tm, p, p + o_sm if span_out else None, plan.smem, _stream(dev))
     _count("filter")
     return span_mask, trace_mask, counts
 
@@ -855,30 +973,74 @@ def span_reduce(sid: torch.Tensor, dur: torch.Tensor, n_valid: int, edges: torch
     return calls, lsum, hist
 
 
-def edge_reduce(eid: torch.Tensor, cdur: torch.Tensor, sdur: torch.Tensor, failed: torch.Tensor,
-                n_valid: int, edges: torch.Tensor, n_ids: int):
-    """B8b: the six per-edge folds of one window in one pass -> counts,
-    failed_counts (n_ids,) int32, client_sum, server_sum (n_ids,) f32,
-    client_hist, server_hist (n_ids, len(edges) + 1) int32. Bound: bytes
-    (16 B a row, the tables written once)."""
+REDUCE_SMEM = 48 * 1024  # shared memory of a B8b tile CTA at most (no opt-in needed)
+REDUCE_CTAS = 132  # SMs of an H100 SXM: the tile route spreads small tables over them
+# CTAs x rows at most on the tile route: chip_smoke.py's sweep (the tile
+# route won at 1,490,944 id reads and lost at 8,388,608)
+EDGE_TILE_READS = 1 << 21
+
+
+class EdgePlan(NamedTuple):
+    """B8b's route for (n_valid, n_ids, nb). `tiled`: edge_tile_kernel, a
+    CTA a range of `per` ids in `smem` bytes of shared memory; else one
+    memset and the atomic fold."""
+
+    tiled: bool
+    per: int
+    ctas: int
+    smem: int
+
+
+def edge_plan(n_valid: int, n_ids: int, nb: int) -> EdgePlan:
+    """The tile route while every CTA re-reading every row's id costs
+    little (CTAs x n_valid <= EDGE_TILE_READS); the atomic route past it."""
+    words = 4 + 2 * nb
+    cap = max(1, (REDUCE_SMEM - 4 * (nb - 1)) // (4 * words))
+    per = max(1, min(cap, -(-n_ids // REDUCE_CTAS)))
+    ctas = -(-n_ids // per)
+    return EdgePlan(ctas * n_valid <= EDGE_TILE_READS, per, ctas, 4 * (per * words + nb - 1))
+
+
+def edge_views(packed: torch.Tensor, n_ids: int, nb: int):
+    """The six outputs of one packed B8b buffer (int32, n_ids x (4 + 2
+    nb) words): counts, failed_counts (n_ids,) int32, client_sum,
+    server_sum (n_ids,) f32, client_hist, server_hist (n_ids, nb) int32."""
+    n, cells = n_ids, n_ids * nb
+    return (packed[:n], packed[n:2 * n], packed[2 * n:3 * n].view(torch.float32),
+            packed[3 * n:4 * n].view(torch.float32),
+            packed[4 * n:4 * n + cells].view(n_ids, nb),
+            packed[4 * n + cells:4 * n + 2 * cells].view(n_ids, nb))
+
+
+def edge_fold(eid: torch.Tensor, cdur: torch.Tensor, sdur: torch.Tensor, failed: torch.Tensor,
+              n_valid: int, edges: torch.Tensor, n_ids: int,
+              plan: EdgePlan | None = None) -> torch.Tensor:
+    """B8b: the six per-edge folds of one window in one pass, into one
+    packed int32 allocation (edge_views' layout), by the route `plan`
+    names (default edge_plan). Bound: bytes (16 B a row, the tables
+    written once)."""
     dev = _reduce_args("edge_reduce", eid, {"cdur": (cdur, torch.float32),
                                             "sdur": (sdur, torch.float32),
                                             "failed": (failed, torch.int32)},
                        n_valid, edges, n_ids)
     nb = edges.shape[0] + 1
-    counts = torch.empty(n_ids, dtype=torch.int32, device=dev)
-    fcounts = torch.empty(n_ids, dtype=torch.int32, device=dev)
-    csum = torch.empty(n_ids, dtype=torch.float32, device=dev)
-    ssum = torch.empty(n_ids, dtype=torch.float32, device=dev)
-    chist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
-    shist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
+    plan = plan or edge_plan(n_valid, n_ids, nb)
+    packed = torch.empty(n_ids * (4 + 2 * nb), dtype=torch.int32, device=dev)
     with _on(dev):
         _call("tt_edge_reduce", eid.data_ptr(), cdur.data_ptr(), sdur.data_ptr(),
               failed.data_ptr(), int(n_valid), edges.data_ptr(), nb - 1, int(n_ids),
-              counts.data_ptr(), fcounts.data_ptr(), csum.data_ptr(), ssum.data_ptr(),
-              chist.data_ptr(), shist.data_ptr(), _stream(dev))
+              int(plan.tiled), plan.per, plan.smem, packed.data_ptr(), _stream(dev))
     _count("edge_reduce")
-    return counts, fcounts, csum, ssum, chist, shist
+    return packed
+
+
+def edge_reduce(eid: torch.Tensor, cdur: torch.Tensor, sdur: torch.Tensor, failed: torch.Tensor,
+                n_valid: int, edges: torch.Tensor, n_ids: int, plan: EdgePlan | None = None):
+    """B8b -> counts, failed_counts (n_ids,) int32, client_sum,
+    server_sum (n_ids,) f32, client_hist, server_hist (n_ids, len(edges)
+    + 1) int32: views of edge_fold's one allocation."""
+    return edge_views(edge_fold(eid, cdur, sdur, failed, n_valid, edges, n_ids, plan), n_ids,
+                      edges.shape[0] + 1)
 
 
 # ------------------------------------------------------------------ M1

@@ -17,7 +17,12 @@ regex-match tables -- travel as data, so `{span.foo = "bar"}` and
 `eval_block` runs the kernel on CUDA tensors and `_run_plain`, the plain
 PyTorch version of the same function, on CPU tensors. The plain version
 is a line-by-line translation of the reference's jitted `run`
-(including its segment_max forms for staging without offsets).
+(including its segment_max forms for staging without offsets). On the
+card K1 has two routes, chosen by kernels.filter_plan from
+`TraceTiles`, which staging computes once per block (`trace_tiles`): a
+tile of whole traces a CTA, one launch a program, where the traces
+partition the rows and every parent row lies in its own trace; the
+multi-launch kernels otherwise.
 
 Device filters are *conservative* (may over-match, never under-match):
 conditions whose encodings can over-match are flagged needs_verify and
@@ -33,6 +38,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import kernels
 from .device import PAD_I32, bucket, pad_rows
 
 # condition targets
@@ -456,6 +462,8 @@ _KIND = {T_SPAN: 0, T_TRACE: 1, T_RES: 2, T_SATTR: 3, T_RATTR: 4}
 # C_TCOND: a trace-target leaf read at the span's trace (B6's span programs)
 C_COND, C_MASK, C_TRUE, C_FALSE, C_AND, C_OR, C_TRACIFY, C_TCOND = range(8)
 DW = 17  # descriptor row width (csrc/filter.cu)
+S_SPAN, S_CHILD, S_DESC, S_SIB = range(4)  # csrc/filter.cu enum StepKind
+SW = 5  # step table row width (csrc/filter.cu)
 (D_OP, D_KIND, D_FLOATCMP, D_COLFLOAT, D_VT, D_COL, D_KEYCOL, D_VTCOL, D_OFF,
  D_TABLE, D_TABLEN, D_V0, D_V1, D_KEY, D_F0, D_F1, D_RSLOT) = range(DW)
 _MAX_STACK = 64  # the kernel's bit stack (csrc/filter.cu)
@@ -495,18 +503,38 @@ class _FilterProgram:
             self._trace(("tracify", ("true",)) if tree is None else tree, trace_code)
         self._check_depth(trace_code)
         # buffer layout: descriptors | span programs | trace program |
-        # tracify slots | rattr conds | (tables, per call)
+        # tracify slots | rattr conds | step table | (tables, per call)
         off = _align(len(conds) * DW * 8)
         self.desc_off = 0
-        codes, steps = [], []
+        codes, steps, rows = [], [], []
+        # the trace-tile route's step table (csrc/filter.cu
+        # filter_tile_kernel), SW int32 a step: (S_SPAN, code offset,
+        # length, out slot, 0) or (S_CHILD / S_DESC / S_SIB, lhs, rhs,
+        # out, the `~` node's flag bit); feeds_sib: a `~` output reaches
+        # the slot, so a `~` whose lhs it is needs another `~`'s flag
+        feeds_sib: dict[int, bool] = {}
+        self.n_sib, self.last_sib, self.sib_nested = 0, -1, False
         for st in self.steps:
             if st[0] == "span":
                 code = np.asarray(st[1], np.int32)
                 steps.append(("span", off, len(st[1]), st[2]))
                 codes.append((off, code))
+                rows.append((S_SPAN, off, len(st[1]), st[2], 0))
+                feeds_sib[st[2]] = any(feeds_sib.get(a, False)
+                                       for c, a in zip(st[1][0::2], st[1][1::2]) if c == C_MASK)
                 off = _align(off + code.nbytes)
             else:
+                _, op, lslot, rslot, out = st
                 steps.append(st)
+                if op == "~":
+                    self.sib_nested |= feeds_sib.get(lslot, False)
+                    self.last_sib = len(rows)
+                    rows.append((S_SIB, lslot, rslot, out, self.n_sib))
+                    self.n_sib += 1
+                else:
+                    rows.append((S_CHILD if op == ">" else S_DESC, lslot, rslot, out, 0))
+                feeds_sib[out] = (op == "~" or feeds_sib.get(lslot, False)
+                                  or feeds_sib.get(rslot, False))
         self.steps = steps
         self.trace_off, self.trace_len = off, len(trace_code)
         codes.append((off, np.asarray(trace_code, np.int32)))
@@ -516,7 +544,10 @@ class _FilterProgram:
         off = _align(off + 4 * len(self.tslots))
         self.rconds_off = off
         codes.append((off, np.asarray(self.rconds, np.int32)))
-        self.tables_off = _align(off + 4 * len(self.rconds))
+        off = _align(off + 4 * len(self.rconds))
+        self.steps_off = off
+        codes.append((off, np.asarray(rows, np.int32).reshape(-1)))
+        self.tables_off = _align(off + 4 * SW * len(rows))
         self._codes = codes
 
     @staticmethod
@@ -668,6 +699,65 @@ class _FilterProgram:
         return buf
 
 
+@dataclass(frozen=True)
+class TraceTiles:
+    """What K1's route plan (kernels.filter_plan) reads of a staged
+    block, computed once when the block is staged (trace_tiles): the
+    trace-tile route runs a program a tile of whole traces at a time, so
+    it needs the traces to partition the span rows, each parent row to
+    lie in its span's own trace, and (for span_out) span.trace_sid to
+    name the trace whose range holds the span."""
+
+    n_spans: int  # the staged block's span and padded trace rows
+    n_traces_b: int
+    tile: int  # spans a tile holds at most: a power of two
+    bounds: torch.Tensor | None  # (n_tiles + 1,) int32 trace boundaries; None: no tiling
+    max_trace: int  # spans of the longest trace
+    parents_local: bool | None  # every parent row negative or in its trace; None: not staged
+    tsid_local: bool  # span.trace_sid is the trace of every valid span
+    has_orphans: bool  # some valid span's parent_idx is -2 (the `~` orphan rule)
+
+
+def trace_tiles(span_off: np.ndarray, parent_idx: np.ndarray | None, trace_sid: np.ndarray | None,
+                n_spans: int, tile: int | None = None) -> TraceTiles | None:
+    """The staged block's tiling from its padded host columns: consecutive
+    whole traces packed greedily into tiles of at most `tile` spans
+    (default: kernels.FILTER_TILE, or the power of two at or above the
+    longest trace up to kernels.FILTER_TILE_MAX; bounds None past it).
+    None where trace.span_off does not partition the rows [0, n_spans)
+    in order (every span must lie in exactly one trace's range)."""
+    off = np.asarray(span_off, np.int64)
+    if off.ndim != 1 or off.size < 2 or off.min() < 0:
+        return None
+    offc = np.minimum(off, n_spans)
+    if offc[0] != 0 or offc[-1] != n_spans or np.any(np.diff(offc) < 0):
+        return None
+    lens = np.diff(offc)
+    n_tr = lens.size
+    max_trace = int(lens.max())
+    trace_of = np.repeat(np.arange(n_tr, dtype=np.int64), lens)
+    tsid_local = trace_sid is not None and bool(np.array_equal(
+        np.clip(np.asarray(trace_sid[:n_spans], np.int64), 0, n_tr - 1), trace_of))
+    parents_local, has_orphans = None, False
+    if parent_idx is not None:
+        p = np.asarray(parent_idx[:n_spans], np.int64)
+        parents_local = bool(np.all((p < 0) | ((p >= offc[trace_of]) & (p < offc[trace_of + 1]))))
+        has_orphans = bool(np.any(p == -2))
+    if tile is None:
+        tile = max(kernels.FILTER_TILE, 1 << (max(max_trace, 1) - 1).bit_length())
+    if tile % 32:
+        raise ValueError(f"trace_tiles: a tile of {tile} spans is not whole words")
+    bounds = None
+    if max_trace <= min(tile, kernels.FILTER_TILE_MAX):
+        b = [0]
+        while b[-1] < n_tr:  # the last trace whose range ends within the tile
+            nxt = int(np.searchsorted(offc, offc[b[-1]] + tile, side="right")) - 1
+            b.append(min(max(nxt, b[-1] + 1), n_tr))
+        bounds = torch.tensor(b, dtype=torch.int32)
+    return TraceTiles(n_spans, n_tr, tile, bounds, max_trace, parents_local, tsid_local,
+                      has_orphans)
+
+
 @lru_cache(maxsize=256)
 def _program(tree, conds: tuple[Cond, ...], sharded: bool = False) -> _FilterProgram:
     return _FilterProgram(tree, conds, sharded)
@@ -678,6 +768,8 @@ def eval_block(
     combinator_or_cols,
     *args,
     span_out: bool = True,
+    tiles: TraceTiles | None = None,
+    plan: "kernels.FilterPlan | None" = None,
 ):
     """Two call forms:
 
@@ -688,8 +780,10 @@ def eval_block(
     cols: staged tensors (ops/stage.py), all on one device. Returns
     (span_mask (n_spans_b,), trace_mask (n_traces_b,), per-trace matched
     span count) as tensors on that device; with span_out=False just
-    (trace_mask, counts). CUDA tensors run kernel K1; CPU tensors run
-    the plain version."""
+    (trace_mask, counts). CUDA tensors run kernel K1 by the route `plan`
+    names (default: kernels.filter_plan over the staged block's `tiles`;
+    no tiles, the multi-launch route); CPU tensors run the plain
+    version."""
     if isinstance(combinator_or_cols, str):
         groups = query
         if combinator_or_cols != "and":
@@ -715,10 +809,9 @@ def eval_block(
                          {i: torch.from_numpy(t) for i, t in tables.items()},
                          int(n_spans), int(n_traces), n_spans_b, n_res_b, n_traces_b, span_out)
         return out
-    from .. import kernels
-
     prog = _program(tree, tuple(conds))
     buf = prog.buffer(cols, operands, tables)
     span_mask, trace_mask, counts = kernels.filter_run(
-        prog, buf, cols, int(n_spans), int(n_traces), n_spans_b, n_res_b, n_traces_b, span_out)
+        prog, buf, cols, int(n_spans), int(n_traces), n_spans_b, n_res_b, n_traces_b, span_out,
+        tiles, plan)
     return (span_mask, trace_mask, counts) if span_out else (trace_mask, counts)

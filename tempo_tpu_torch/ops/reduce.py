@@ -16,6 +16,8 @@ package's numpy branch (float64 sums), kept as test oracles.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -76,12 +78,20 @@ def span_reduce(sid, dur, n_valid: int, edges, n_ids: int):
     return _reduce_plain(sid, dur, n_valid, edges, n_ids)
 
 
-def edge_reduce(eid, cdur, sdur, failed, n_valid: int, edges, n_ids: int):
-    """B8b on eid's device: the kernel for a CUDA tensor, the plain
-    version for a CPU one."""
+def edge_fold(eid, cdur, sdur, failed, n_valid: int, edges, n_ids: int) -> torch.Tensor:
+    """B8b on eid's device into one packed int32 buffer (kernels.
+    edge_views' layout): the kernel for a CUDA tensor, the plain version
+    for a CPU one."""
     if eid.device.type == "cuda":
-        return kernels.edge_reduce(eid, cdur, sdur, failed, n_valid, edges, n_ids)
-    return _edge_reduce_plain(eid, cdur, sdur, failed, n_valid, edges, n_ids)
+        return kernels.edge_fold(eid, cdur, sdur, failed, n_valid, edges, n_ids)
+    out = _edge_reduce_plain(eid, cdur, sdur, failed, n_valid, edges, n_ids)
+    return torch.cat([o.reshape(-1).view(torch.int32) for o in out])
+
+
+def edge_reduce(eid, cdur, sdur, failed, n_valid: int, edges, n_ids: int):
+    """B8b's six outputs on eid's device (edge_fold, viewed)."""
+    return kernels.edge_views(edge_fold(eid, cdur, sdur, failed, n_valid, edges, n_ids), n_ids,
+                              edges.shape[0] + 1)
 
 
 def _pad(arr: np.ndarray, n: int, fill, dtype) -> np.ndarray:
@@ -128,14 +138,26 @@ def edge_metrics_reduce(eid: np.ndarray, cdur: np.ndarray, sdur: np.ndarray,
         return z, z.copy(), zf, zf.copy(), zh, zh.copy()
     dev = resolve_device(device)
     Np, Eb = bucket(n), bucket(n_edges)
-    out = edge_reduce(
-        torch.from_numpy(_pad(eid, Np, Eb, np.int32)).to(dev),
-        torch.from_numpy(_pad(cdur, Np, 0.0, np.float32)).to(dev),
-        torch.from_numpy(_pad(sdur, Np, 0.0, np.float32)).to(dev),
-        torch.from_numpy(_pad(failed.astype(np.int32), Np, 0, np.int32)).to(dev), n,
-        torch.tensor(bucket_edges, dtype=torch.float32, device=dev), Eb)
+    # the four row columns in one upload: eid, cdur, sdur, failed as
+    # int32 words (padded rows carry id Eb, which the fold drops)
+    rows = np.zeros((4, Np), np.int32)
+    rows[0] = Eb
+    rows[0, :n] = eid
+    rows[1, :n] = np.asarray(cdur, np.float32).view(np.int32)
+    rows[2, :n] = np.asarray(sdur, np.float32).view(np.int32)
+    rows[3, :n] = failed
+    t = torch.from_numpy(rows).to(dev)
+    packed = edge_fold(t[0], t[1].view(torch.float32), t[2].view(torch.float32), t[3], n,
+                       _edges_on(dev, tuple(bucket_edges)), Eb)
+    out = kernels.edge_views(packed.cpu(), Eb, nb)  # one download
     types = (np.int64, np.int64, np.float64, np.float64, np.int64, np.int64)
-    return tuple(t[:n_edges].cpu().numpy().astype(ty) for t, ty in zip(out, types))
+    return tuple(o[:n_edges].numpy().astype(ty) for o, ty in zip(out, types))
+
+
+@lru_cache(maxsize=16)
+def _edges_on(dev: torch.device, bucket_edges: tuple) -> torch.Tensor:
+    """The bucket edges as f32 on dev, uploaded once per device and tuple."""
+    return torch.tensor(bucket_edges, dtype=torch.float32, device=dev)
 
 
 def _reduce_host(sid: np.ndarray, dur_s: np.ndarray, n_series: int, bucket_edges: tuple):

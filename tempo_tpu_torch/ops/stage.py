@@ -19,7 +19,7 @@ from __future__ import annotations
 import threading
 import weakref
 from collections import OrderedDict
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ import torch
 from ..block import schema as S
 from ..block.reader import BackendBlock
 from .device import PAD_I32, bucket, pad_rows, resolve_device
+from .filter import TraceTiles, trace_tiles
 
 _CACHE_MAX_ENTRIES = 32  # per block
 _CACHE_MAX_ENTRY_BYTES = 256 << 20
@@ -136,6 +137,9 @@ class StagedBlock:
     n_res_b: int
     span_base: int  # global row of first staged span (group-range staging)
     cols: dict[str, torch.Tensor] = field(default_factory=dict)
+    # K1's route plan inputs (ops/filter.trace_tiles), computed at
+    # staging; None: no tiling, so K1 takes its multi-launch route
+    tiles: TraceTiles | None = None
 
     @property
     def nbytes(self) -> int:
@@ -297,7 +301,27 @@ def assemble_stage(blk: BackendBlock, plan: StagePlan, groups: list[int],
             else:
                 continue  # host-only trace columns are not staged
         padded[name] = arr
+    staged.tiles = _tiles_of(padded, n_spans)
     return staged, padded
+
+
+def _tiles_of(padded: dict, n_spans: int) -> TraceTiles | None:
+    if "trace.span_off" not in padded:
+        return None
+    return trace_tiles(padded["trace.span_off"], padded.get("span.parent_idx"),
+                       padded.get("span.trace_sid"), n_spans)
+
+
+_TILE_BOUNDS = "\0tile bounds"  # rides the one upload, then moves to StagedBlock.tiles
+
+
+def _upload_with_tiles(staged: StagedBlock, arrays: dict, dev: torch.device) -> None:
+    tiles = staged.tiles
+    if tiles is not None and tiles.bounds is not None:
+        arrays = {**arrays, _TILE_BOUNDS: tiles.bounds.numpy()}
+    staged.cols = _upload(arrays, dev)
+    if _TILE_BOUNDS in staged.cols:
+        staged.tiles = replace(tiles, bounds=staged.cols.pop(_TILE_BOUNDS))
 
 
 def _upload(arrays: dict[str, np.ndarray], dev: torch.device) -> dict[str, torch.Tensor]:
@@ -324,7 +348,7 @@ def upload_stage(plan: StagePlan, staged: StagedBlock, padded: dict,
                  device) -> StagedBlock:
     """The host->device phase: one batched transfer + the query-
     independent res->span materialization (K4)."""
-    staged.cols = _upload(padded, resolve_device(device))
+    _upload_with_tiles(staged, padded, resolve_device(device))
     if plan.materialize and "span.res_idx" in staged.cols:
         for name in plan.materialize:
             if name in staged.cols:
@@ -343,5 +367,7 @@ def staged_from_numpy(cols: dict[str, np.ndarray], n_spans: int, n_traces: int,
         n_spans_b=bucket(max(n_spans, 1)), n_traces_b=bucket(max(n_traces, 1)),
         n_res_b=bucket(max(n_res, 1)), span_base=0,
     )
-    staged.cols = _upload({k: np.asarray(v) for k, v in cols.items()}, resolve_device(device))
+    arrays = {k: np.asarray(v) for k, v in cols.items()}
+    staged.tiles = _tiles_of(arrays, n_spans)
+    _upload_with_tiles(staged, arrays, resolve_device(device))
     return staged

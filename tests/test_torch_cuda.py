@@ -1,5 +1,6 @@
 """Kernel-vs-plain tests of the port's CUDA kernels (K1-K4, B5a, B5b, B6)
-on the card.
+on the card; K1 by both of its routes (the trace tiles and the
+multi-launch kernels).
 
 Marked `cuda`; the fixture below skips them where no card exists. Run
 on a machine with one H100:
@@ -132,17 +133,34 @@ def test_select_kernel(cuda):
     assert kernels.select_plan(327_680, ks).tiled and not kernels.select_plan(327_680, ks + 1).tiled
 
 
-def _kernel_vs_plain(cuda, tree, conds, ops, tables, staged, span_out):
+def _kernel_vs_plain(cuda, tree, conds, ops, tables, staged, span_out, tiles=None):
+    """K1 by the route filter_plan picks for the staged block's tiles (or
+    `tiles`), and by the multi-launch route, each equal to the plain
+    version."""
+    from tempo_tpu_torch import kernels
+
     shapes = (staged.n_spans, staged.n_traces, staged.n_spans_b, staged.n_res_b,
               staged.n_traces_b)
-    got = F.eval_block((tree, conds), staged.cols, ops, *shapes, span_out=span_out)
     ntree = F.normalize_tree(tree, conds) if tree is not None else None
     ttab = {i: torch.from_numpy(pad_rows(np.asarray(t, np.uint8), bucket(max(1, len(t))), 0)).to(cuda)
             for i, t in (tables or {}).items()}
     want = F._run_plain(ntree, conds, staged.cols, torch.from_numpy(ops.ints).to(cuda),
                         torch.from_numpy(ops.floats).to(cuda), ttab, *shapes, span_out)
-    assert len(got) == len(want)
-    return all(torch.equal(g.to(w.dtype), w) for g, w in zip(got, want))
+    for plan in (None, kernels.MULTI_LAUNCH):
+        got = F.eval_block((tree, conds), staged.cols, ops, *shapes, span_out=span_out,
+                           tiles=tiles or staged.tiles, plan=plan)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        if not all(torch.equal(g.to(w.dtype), w) for g, w in zip(got, want)):
+            return False
+    return True
+
+
+def _retile(staged, tile, device):
+    c = {k: v.cpu().numpy() for k, v in staged.cols.items()}
+    t = F.trace_tiles(c["trace.span_off"], c.get("span.parent_idx"), c["span.trace_sid"],
+                      staged.n_spans, tile)
+    return dataclasses.replace(t, bounds=None if t.bounds is None else t.bounds.to(device))
 
 
 def test_filter_kernel_on_a_block(cuda, block):
@@ -166,6 +184,103 @@ def test_filter_kernel_edge_cases(cuda):
         for span_out in (False, True):
             assert _kernel_vs_plain(cuda, tree, conds, ops, tables, staged, span_out), \
                 (case, span_out)
+
+
+def test_filter_tile_route_launches(cuda):
+    """Every filter case on tiles of 128 spans (12 tiles, orphans in many):
+    the trace-tile route equals the plain version, and one program run
+    is one wrapper call and 1 __global__, plus the res pass where the
+    program has resource.attr conditions and the flag pass where it has
+    `~` (make_cols holds orphans)."""
+    from tempo_tpu_torch import kernels
+
+    tiled = 0
+    for case, (specs, tree, rows, tables) in sorted(TC.filter_cases().items()):
+        conds = tuple(F.Cond(t, c, op, is_float=f) for t, c, op, f in specs)
+        ops = F.Operands.build(rows, tables)
+        staged = ST.staged_from_numpy(TC.make_cols(seed=len(case)), TC.N_SPANS, TC.N_TRACES,
+                                      TC.N_RES, cuda)
+        tiles = _retile(staged, 128, cuda)
+        ntree = F.normalize_tree(tree, conds) if tree is not None else None
+        prog = F._program(ntree, conds)
+        for span_out in (False, True):
+            plan = kernels.filter_plan(prog, tiles, span_out)
+            assert plan.tiled, case
+            assert plan.flag_pass == (prog.n_sib > 0)
+            kernels.reset_counts()
+            assert _kernel_vs_plain(cuda, tree, conds, ops, tables, staged, span_out, tiles), \
+                (case, span_out)
+            tiled += 1
+            kernels.reset_counts()
+            F.eval_block((tree, conds), staged.cols, ops, TC.N_SPANS, TC.N_TRACES, TC.N_SPANS_B,
+                         TC.N_RES_B, TC.N_TRACES_B, span_out=span_out, tiles=tiles)
+            want = 1 + bool(prog.rconds) + plan.flag_pass
+            assert kernels.LAUNCHES["filter"] == 1, case
+            assert kernels.grid_launches()["filter"] == want, (case, span_out)
+    assert tiled == 2 * len(TC.filter_cases())
+
+
+def test_filter_tile_route_edge_blocks(cuda):
+    """Both routes against the plain version where the tiles end: a
+    700-span chain (a tile of 512 cannot hold it, 1,024 can), a parent
+    row in another trace, one lhs orphan in trace 0 against rhs orphans
+    in the last trace (the block-wide flag), and group-range staging;
+    where the plan refuses the tiles, forcing them raises."""
+    from tempo_tpu_torch import kernels
+
+    kinds = (F.Cond("span", "span.kind", "eq"), F.Cond("span", "span.kind", "ge"))
+    rows = [(0, 1, 0, 0.0, 0.0), (0, 3, 0, 0.0, 0.0)]
+    ops = F.Operands.build(rows)
+    ns = TC.N_SPANS
+
+    def check(cols, op, tiles_of, want_tiled):
+        staged = ST.staged_from_numpy(cols, ns, TC.N_TRACES, TC.N_RES, cuda)
+        tiles = _retile(staged, tiles_of, cuda)
+        tree = ("tracify", ("struct", op, ("cond", 0), ("cond", 1)))
+        prog = F._program(F.normalize_tree(tree, kinds), kinds)
+        assert kernels.filter_plan(prog, tiles, False).tiled == want_tiled, op
+        for span_out in (False, True):
+            assert _kernel_vs_plain(cuda, tree, kinds, ops, None, staged, span_out, tiles), op
+        if not want_tiled:  # the tiles cannot be forced where they are not exact
+            forced = kernels.FilterPlan(True, False, 1, kernels.filter_tile_smem(prog, 1024))
+            with pytest.raises(kernels.KernelError):
+                F.eval_block((tree, kinds), staged.cols, ops, ns, TC.N_TRACES, TC.N_SPANS_B,
+                             TC.N_RES_B, TC.N_TRACES_B, span_out=False, tiles=tiles, plan=forced)
+
+    cols = TC.make_cols(seed=5)
+    off = cols["trace.span_off"]
+    off[1:TC.N_TRACES] = np.maximum(off[1:TC.N_TRACES], 700)
+    cols["span.trace_sid"][:ns] = np.repeat(np.arange(TC.N_TRACES), np.diff(off[:TC.N_TRACES + 1]))
+    pos, lo = np.arange(ns), off[cols["span.trace_sid"][:ns]]
+    cols["span.parent_idx"][:ns] = np.where(pos == lo, -1, pos - 1)
+    for op in (">", ">>", "~"):
+        check(cols, op, 512, False)
+        check(cols, op, 1024, True)
+    cols = TC.make_cols(seed=6)
+    cols["span.parent_idx"][int(cols["trace.span_off"][5]) + 1] = int(cols["trace.span_off"][9])
+    check(cols, ">>", 128, False)
+    cols = TC.make_cols(seed=3)
+    p, kind, off = cols["span.parent_idx"], cols["span.kind"], cols["trace.span_off"]
+    kind[:ns] = 2
+    p[:ns] = np.where(p[:ns] == -2, -1, p[:ns])
+    first, last = int(off[1]) - 1, int(off[TC.N_TRACES - 1])
+    p[first], kind[first] = -2, 1
+    p[last + 1:int(off[TC.N_TRACES])], kind[last + 1:int(off[TC.N_TRACES])] = -2, 3
+    check(cols, "~", 128, True)
+    backend = MemBackend()
+    meta = build_block_from_traces(backend, "t", make_traces(120, seed=5, n_spans=10),
+                                   row_group_spans=256, device=cuda)
+    blk = open_block(backend, "t", meta.block_id)
+    for q in QUERIES:
+        p = plan_search_request(blk.dictionary, {}, query=q)
+        if p.has_struct:
+            continue
+        staged = ST.stage_block(blk, F.required_columns(p.conds) + list(p.extra_cols),
+                                groups=[1, 2], cache=False, device=cuda)
+        assert staged.span_base == 256
+        for span_out in (False, True):
+            assert _kernel_vs_plain(cuda, p.tree, p.conds, F.Operands.build(p.rows, p.tables or None),
+                                    p.tables, staged, span_out), q
 
 
 def test_tempodb_card_matches_cpu(cuda, block, monkeypatch):

@@ -94,6 +94,36 @@ def test_edge_reduce_kernel(cuda, n, n_valid, n_ids, kind):
         _sums_close(got[k], want[k], kind)
 
 
+@pytest.mark.parametrize("kind", ["dyadic", "edges"])
+@pytest.mark.parametrize("n_valid,n_ids", [(305, 4096), (8192, 4096), (305, 65536),
+                                           (65536, 65536)])
+def test_edge_reduce_routes(cuda, n_valid, n_ids, kind):
+    """Both B8b routes (the tile CTAs, the memset and atomic fold) against
+    the plain version at the generator's window and past the plan's
+    crossover; each call is 1 wrapper call and 1 __global__ into one
+    allocation."""
+    rng = np.random.default_rng(n_valid + n_ids)
+    n = max(1024, n_valid)
+    eid = rng.integers(-3, n_ids + 3, n).astype(np.int32)
+    cdur, sdur = _durations(rng, n, kind), _durations(rng, n, kind)
+    failed = rng.integers(0, 3, n).astype(np.int32)
+    t = [torch.from_numpy(a) for a in (eid, cdur, sdur, failed, EDGES)]
+    want = R._edge_reduce_plain(*t[:4], n_valid, t[4], n_ids)
+    d = [x.to(cuda) for x in t]
+    nb = len(EDGES) + 1
+    plan = kernels.edge_plan(n_valid, n_ids, nb)
+    for p in (plan, plan._replace(tiled=not plan.tiled)):
+        kernels.reset_counts()
+        packed = kernels.edge_fold(*d[:4], n_valid, d[4], n_ids, p)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["edge_reduce"] == 1 and kernels.grid_launches()["edge_reduce"] == 1
+        got = kernels.edge_views(packed, n_ids, nb)
+        for k in (0, 1, 4, 5):
+            assert torch.equal(got[k].cpu(), want[k]), (k, p.tiled)
+        for k in (2, 3):
+            _sums_close(got[k], want[k], kind)
+
+
 def test_reduce_wrappers_refuse_bad_arguments(cuda):
     sid = torch.zeros(1024, dtype=torch.int32, device=cuda)
     dur = torch.zeros(1024, dtype=torch.float32, device=cuda)
