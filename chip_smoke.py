@@ -37,7 +37,10 @@ Phases, in order (any failure raises; no CPU fallback):
                their rows, B6 for `rate() by (resource.service.name)` and
                `avg_over_time(duration) by (name)` at a 60 s step, plus a
                dyadic-value fold; each against its plain version (B6's
-               f32 sum at rtol 1e-5, exact on dyadic values)
+               f32 sum at rtol 1e-5, exact on dyadic values), B6's route
+               logged; then B6's sweep over block 0's spans: counts-only
+               and value grids of 3,904, 31,232 and 200,019 cells by
+               every route each fits, against the plain version
   8. batched search on block 0: the 16 queries as one
                search_blocks_multi group (1 B5a + 1 B5b launch, occupancy
                16) and from 16 threads; a mixed burst with ineligible
@@ -48,8 +51,8 @@ Phases, in order (any failure raises; no CPU fallback):
   9. batched find: the 64 ids of phase 5 through find_in_blocks_multi
                and from 16 threads, equal to phase 5's sequential traces
   10. metrics  4 TraceQL metrics range queries over the 10 blocks at a
-               60 s step, each launching B6 once per block, series equal
-               to TempoDB(device="cpu")
+               60 s step, each launching B6 once per block (one __global__
+               a call), series equal to TempoDB(device="cpu")
   4c. (in phase 4) B9a over block 0's span.name_id with a seeded
                permutation of its dictionary, B9b of block 0's 32,768 ids
                (equal to its stored bloom), B9c of its 16 row groups (equal
@@ -96,8 +99,9 @@ Phases, in order (any failure raises; no CPU fallback):
                pair; one metrics_text() scrape and link_rtt_ms logged; then
                B8a and B8b against their plain versions at the last
                window's shape, B8b by both routes (its route and count
-               logged), and B8b's sweep of 305-65,536 rows x 4,096 and
-               65,536 ids, both routes against the plain version
+               logged), B8a's sweep of 305-65,536 rows x 4,096 and 2^18
+               ids and B8b's of 305-65,536 rows x 4,096 and 65,536 ids
+               (both routes), each against the plain version
   15. mesh     the mesh programs over torch.distributed (parallel/), on a
                hard-linked copy of the corpus as phases 5-10 saw it: run 1
                on an NCCL mesh of one rank calls the host entries directly
@@ -129,6 +133,7 @@ from __future__ import annotations
 
 import cProfile
 import dataclasses
+import functools
 import json
 import os
 import pstats
@@ -1181,7 +1186,7 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
                        generator_window=recording_tap)
     col = ing.instance(GEN_TENANT).columnar
     last = {}
-    orig = {name: getattr(R, name) for name in ("span_reduce", "edge_fold")}
+    orig = {name: getattr(R, name) for name in ("span_fold", "edge_fold")}
 
     def keep(name):
         def call(*a):
@@ -1192,7 +1197,7 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
 
     times = CallTimes()
     times.patch(ColumnarIngest, "features_for", "tap decodes (features_for)")
-    times.patch(kernels, "span_reduce", "B8a (synchronized)", sync=True)
+    times.patch(kernels, "span_fold", "B8a (synchronized)", sync=True)
     times.patch(kernels, "edge_fold", "B8b (synchronized)", sync=True)
     for name in orig:
         setattr(R, name, keep(name))
@@ -1236,12 +1241,13 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
         f"{pct(flush_s, 50) * 1e3:.1f} ms p99 {pct(flush_s, 99) * 1e3:.1f} ms; "
         + ", ".join(f"{k} {v:.3f} s" for k, v in times.s.items())
         + f"; generator stats {gen.stats}; columnar {st}; distributor {ds}; "
-        f"wrapper calls {nonzero(stream_counts)}")
+        f"wrapper calls {nonzero(stream_counts)}, __global__ {nonzero(stream_grids)}")
     if st["decodes"] - st["cached"] != 0 or st["decodes"] != n_traces + n_split:
         raise AssertionError(f"tap decodes: {st}")
     if ds.gen_tap_errors or ds.gen_tap_dropped or ds.traces_pushed != n_traces + n_split:
         raise AssertionError(f"distributor: {ds}")
     if dev.type == "cuda" and (stream_counts["span_reduce"] != n_win
+                               or stream_grids["span_reduce"] != n_win
                                or not 0 < stream_counts["edge_reduce"] <= n_win
                                or stream_grids["edge_reduce"] != stream_counts["edge_reduce"]):
         raise AssertionError(f"streaming folds: wrapper calls {nonzero(stream_counts)}, "
@@ -1322,16 +1328,16 @@ def phase_14(db, dev, pairs, tmp, n_traces=N_LIVE, window=WINDOW, n_split=N_SPLI
     rtt = link_rtt_ms(dev)
     log(f"[generator] metrics_text: {len(lines)} lines in {scrape_s:.2f} s; link_rtt_ms({dev}) "
         f"= {rtt:.4f} ms; wrapper calls {nonzero(counts)}")
-    return {"counts": counts, "last": last,
+    return {"counts": counts, "last": last, "n_series": n_series,
             "b8b": (stream_counts["edge_reduce"], stream_grids["edge_reduce"])}
 
 
-def phase_14_table(last, table, b8b_stream) -> dict:
+def phase_14_table(last, table, b8b_stream, n_series) -> dict:
     """B8a and B8b against their plain versions at the shape of phase 14's
     last window; times by CUDA events, the byte bound. B8b by both of its
-    routes there, and over a sweep of window and table sizes, each route
-    against the plain version: the sweep that sets EDGE_TILE_READS.
-    Returns B8b's two routes at that shape, for device_split."""
+    routes there; each over a sweep of window and table sizes against the
+    plain version (B8b's by both routes: the sweep that sets
+    EDGE_TILE_READS). Returns the calls to time for device_split."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import reduce as R
 
@@ -1351,17 +1357,41 @@ def phase_14_table(last, table, b8b_stream) -> dict:
                 raise AssertionError(f"output {k} (counts or histogram) differs")
         return err
 
-    # B8a -- the last window's spans into the registry's series table
-    sid, dur, n_valid, edges, sb = last["span_reduce"]
+    # B8a -- the last window's spans into the registry's series table;
+    # the row times span_reduce (the fold and span_views), as before
+    # the packed table
+    def b8a_check(sid, dur, n_valid, edges, n_ids):
+        kernels.reset_counts()
+        got = kernels.span_reduce(sid, dur, n_valid, edges, n_ids)
+        if kernels.grid_launches()["span_reduce"] != 1:
+            raise AssertionError(f"B8a: {kernels.grid_launches()['span_reduce']} __global__ a "
+                                 f"call")
+        err = compare(got, R._reduce_plain(sid, dur, n_valid, edges, n_ids), (1,))
+        fn = functools.partial(kernels.span_reduce, sid, dur, n_valid, edges, n_ids)
+        return err, fn, cuda_ms(fn)
+
+    sid, dur, n_valid, edges, sb = last["span_fold"]
     nb = edges.shape[0] + 1
-    err = compare(kernels.span_reduce(sid, dur, n_valid, edges, sb),
-                  R._reduce_plain(sid, dur, n_valid, edges, sb), (1,))
-    ms = cuda_ms(lambda: kernels.span_reduce(sid, dur, n_valid, edges, sb))
+    err, fn, ms = b8a_check(sid, dur, n_valid, edges, sb)
     pms = cuda_ms(lambda: R._reduce_plain(sid, dur, n_valid, edges, sb))
     b = bound(n_valid * 8 + 4 * sb * (nb + 2), n_valid * (nb - 1))
     log(f"[B8a] {n_valid} spans of {sid.shape[0]} into {sb} series x {nb} buckets: {ms:.4f} ms, "
-        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
+        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}; one download a window "
+        f"of {n_series} x {nb + 2} words = {n_series * (nb + 2) * 4 / 1e6:.2f} MB")
     row("span_reduce", "tempo_tpu/ops/reduce.py:23", err, ms, pms, b)
+    splits = {"B8a, phase 14's window": {"atomic": fn}}
+    # the sweep: random windows made on the card, against the plain version
+    gen = torch.Generator(device=sid.device).manual_seed(90)
+    for n_rows in (305, 8480, 65536):
+        for n_ids in (4096, 1 << 18):
+            n = max(1024, n_rows)
+            s = torch.randint(-2, min(n_ids, 180_000) + 2, (n,), device=sid.device,
+                              generator=gen, dtype=torch.int32)
+            d = torch.empty(n, device=sid.device).exponential_(20.0, generator=gen)
+            err_s, fn_s, t = b8a_check(s, d, n_rows, edges, n_ids)
+            splits[f"B8a sweep, {n_rows} rows x {n_ids} ids"] = {"atomic": fn_s}
+            log(f"[B8a sweep] {n_rows} rows into {n_ids} ids: {t:.4f} ms, bound "
+                f"{bound(n_rows * 8 + 4 * n_ids * (nb + 2), 0)[0]:.5f} ms; max abs err {err_s:.3g}")
 
     # B8b -- the last window's completed edges, by the route edge_plan
     # picks and by the other one
@@ -1391,7 +1421,7 @@ def phase_14_table(last, table, b8b_stream) -> dict:
         f"{b[0]:.5f} ms, max abs err {err:.3g}; phase 14's stream: {b8b_stream[0]} calls, "
         f"{b8b_stream[1]} __global__")
     row("edge_reduce", "tempo_tpu/ops/reduce.py:63", err, ms, pms, b)
-    split = {("tile" if p.tiled else "atomic"): (
+    splits["B8b, phase 14's window"] = {("tile" if p.tiled else "atomic"): (
         lambda p=p: kernels.edge_fold(eid, cdur, sdur, failed, n_valid, edges, eb, p))
         for p in (plan, plan._replace(tiled=not plan.tiled))}
     # the sweep: random windows made on the card, each route against the
@@ -1410,7 +1440,7 @@ def phase_14_table(last, table, b8b_stream) -> dict:
                 f"({p.ctas} CTAs of {p.per} ids, {p.ctas * n_rows} id reads), atomic "
                 f"{t['atomic']:.4f} ms; edge_plan takes the {'tile' if p.tiled else 'atomic'} "
                 f"route (EDGE_TILE_READS {kernels.EDGE_TILE_READS}); max abs err {err_s:.3g}")
-    return split
+    return splits
 
 
 MESH_WORLD, MESH_DP, MESH_SP = 4, 2, 2  # run 2: gloo ranks that share the card
@@ -2112,23 +2142,81 @@ def phase_15_search_table(shards: dict, row) -> None:
     row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
 
 
-def device_split(what: str, fns: dict) -> None:
-    """Device time a call of each route (the profiler, 20 calls each):
-    fns maps a route's name to a call. Run after every other timing (see
-    k2_split)."""
-    from torch.profiler import ProfilerActivity, profile
+def b6_sweep(prog, buf, staged, ns: int, n_b: int, t0: int, step: int, splits: dict) -> None:
+    """B6 over block 0's spans (`{ true }`, 61 buckets of the rate query's
+    axis) at counts-only and value grids of 3,904, 31,232 and 200,019
+    cells (64, 512 and 3,279 groups; random gid and values made on the
+    card), by timeseries_plan's route and every other route the grid fits
+    (timeseries_route), each against the plain version: the sweep behind
+    timeseries_plan's rules. Each point's routes join `splits` for their
+    device time."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import timeseries as TS
 
-    parts = []
-    for route, fn in fns.items():
-        fn()
+    dev = staged.cols["span.start_ms"].device
+    nsb, nrb, ntb = staged.n_spans_b, staged.n_res_b, staged.n_traces_b
+    gen = torch.Generator(device=dev).manual_seed(61)
+    for n_g in (64, 512, 3279):
+        cells = n_g * n_b
+        gid = torch.randint(-1, n_g, (nsb,), device=dev, generator=gen, dtype=torch.int32)
+        val = torch.empty(nsb, device=dev).exponential_(0.02, generator=gen)
+        pres = torch.rand(nsb, device=dev, generator=gen) < 0.9
+        for has_val in (False, True):
+            v, pr = (val, pres) if has_val else (None, None)
+            want = TS._timeseries_plain(None, (), staged.cols, None, None, {}, gid, v, pr, t0, step,
+                                        ns, n_b, n_g, nsb, nrb, ntb)
+            plans = []
+            for route in kernels.TS_ROUTES:
+                try:
+                    plans.append(kernels.timeseries_route(route, cells, has_val))
+                except kernels.KernelError:
+                    pass  # the grid does not fit that route's shared memory
+            times, fns = {}, {}
+            for p in plans:
+                fn = functools.partial(kernels.timeseries, prog, buf, staged.cols,
+                                       staged.cols["span.start_ms"], gid, v, pr, t0, step, ns,
+                                       nrb, ntb, n_b, n_g, p)
+                for i, (g, w) in enumerate(zip(fn(), want)):
+                    if not torch.allclose(g, w, rtol=1e-5 if i == 2 else 0, atol=0,
+                                          equal_nan=True):
+                        raise AssertionError(f"B6 sweep {cells} cells {p}: output {i} differs")
+                fns[p.route] = fn
+                times[p.route] = cuda_ms(fn)
+            splits[f"B6 sweep, {cells} cells {'with values' if has_val else 'counts only'}"] = fns
+            log(f"[B6 sweep] {cells} cells {'with values' if has_val else 'counts only'}: "
+                + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
+                + f"; timeseries_plan takes {kernels.timeseries_plan(cells, has_val).route}")
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The card's time a call: the calls wait behind a sleep kernel long
+    enough for the host to queue them all (checked, and the sleep
+    doubled until it is), so the card runs them back to back whatever
+    the host's pace; CUDA events around them."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 4_000_000
+    while True:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()) / 20
-        parts.append(f"{route} {us:.2f}")
-    log(f"[split] {what}: device µs a call (profiler) " + ", ".join(parts))
+        if s.elapsed_time(a) > 1.2 * host_ms:
+            return a.elapsed_time(b) / reps
+        cycles *= 2
+
+
+def device_split(what: str, fns: dict) -> None:
+    """Device time a call of each route (device_ms, 20 calls each): fns
+    maps a route's name to a call. Run after every other timing."""
+    log(f"[split] {what}: device µs a call (queued) "
+        + ", ".join(f"{route} {device_ms(fn) * 1e3:.2f}" for route, fn in fns.items()))
 
 
 def k2_split(mask, key, counts, k_search: int) -> None:
@@ -2630,14 +2718,22 @@ def main() -> int:
             n_out = len(got)
             nbytes = ns * 8 + (ns * 5 if val_t is not None else 0) + G * n_b * 4 * n_out
             b_ms, _ = bound(nbytes, ns * 4)
-            log(f"[B6 {label}] {G} groups x {n_b} buckets: {folded} spans folded, {ms:.4f} ms, "
-                f"plain {pms:.4f} ms, bound {b_ms:.5f} ms")
+            tplan = kernels.timeseries_plan(G * n_b, val_t is not None)
+            log(f"[B6 {label}] {G} groups x {n_b} buckets: route {tplan.route} (cluster "
+                f"{tplan.cluster}, {tplan.per} cells a CTA, {tplan.smem} B), {folded} spans folded, "
+                f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.5f} ms")
             if not dyadic:
+                splits[f"B6 {label}"] = {tplan.route: functools.partial(
+                    kernels.timeseries, prog, buf, ts_staged.cols,
+                    ts_staged.cols["span.start_ms"], gid_t, val_t, pres_t, t0_rel, mreq.step_ms,
+                    ns, nrb, ntb, n_b, G)}
                 b6["ms"] += ms
                 b6["plain_ms"] += pms
                 b6["nbytes"] += nbytes
                 b6["ops"] += ns * 4
             b6["err"] = max(b6["err"], err)
+            if label == "rate by service":
+                b6_sweep(prog, buf, ts_staged, ns, n_b, t0_rel, mreq.step_ms, splits)
             del ts_staged, gid_t, val_t, pres_t, buf, got, want
         b_ms, b_by = bound(b6["nbytes"], b6["ops"])
         table.append({"name": "timeseries", "route": "cuda",
@@ -2855,9 +2951,11 @@ def main() -> int:
             t0 = time.perf_counter()
             c = cpu_db.metrics_query_range(TENANT, mreq)
             cpu_s = time.perf_counter() - t0
-            if n_ts != N_BLOCKS or not r.series or not same_series(r, c):
-                raise AssertionError(f"metrics {mq_text}: {n_ts} B6 launches, series "
-                                     f"{len(r.series)} vs CPU {len(c.series)}")
+            # one __global__ a B6 call: the fold (no query here has a
+            # resource.attr condition, so no res pass)
+            if n_ts != N_BLOCKS or n_grid != N_BLOCKS or not r.series or not same_series(r, c):
+                raise AssertionError(f"metrics {mq_text}: {n_ts} B6 calls ({n_grid} __global__), "
+                                     f"series {len(r.series)} vs CPU {len(c.series)}")
             ts_total += n_ts
             metrics_card.append(r)
             log(f"[metrics] {mq_text}: {len(r.series)} series x {mreq.n_buckets} buckets, "
@@ -2907,7 +3005,7 @@ def main() -> int:
         p14 = phase_14(db, dev, pairs, tmp)
         del pairs
         log(f"[generator] phase 14 took {time.perf_counter() - t0:.1f} s")
-        splits["B8b, phase 14's window"] = phase_14_table(p14["last"], table, p14["b8b"])
+        splits.update(phase_14_table(p14["last"], table, p14["b8b"], p14["n_series"]))
         for name in ("remap", "bloom_bits", "rowgroup"):
             launches[name] = cut_counts[name]
         for name in ("bloom_union", "bloom_test"):

@@ -15,13 +15,20 @@
 //
 // Bound: bytes. A fold reads 8 B a row (B8b: 16 B) and writes its output
 // table once; for a live registry (2^18 series x 17 words) the table,
-// not the window, is most of the bytes. Design (B8a, and B8b's atomic
-// route): the outputs are zeroed with cudaMemsetAsync, then one thread a
-// row finds its bucket against the edges in shared memory and atomicAdds
-// into the count, the f32 sum and the (id, bucket) cell. The f32 atomics
-// add in an order that changes from run to run: counts and histograms
-// are exact, sums equal the plain version's within f32 rounding (exactly
-// on dyadic durations).
+// not the window, is most of the bytes. The f32 atomics add in an order
+// that changes from run to run: counts and histograms are exact, sums
+// equal the plain version's within f32 rounding (exactly on dyadic
+// durations).
+//
+// B8a writes one packed int32 table (kernels.span_views): row s = [calls,
+// f32 sum bits, hist (nb)], nb + 2 words a series, so the first n rows
+// are one contiguous download. One route: one memset of the table, then
+// span_reduce_kernel, a thread a row with three atomicAdds into its
+// series' row. A scan-tile route like B8b's (a CTA owning up to 1,024
+// ids in shared memory, streaming every row's id, writing its rows once
+// with no memset) lost to it or tied in device time at every window and
+// table size measured: the memset lands in L2, which holds the table,
+// and costs less than the tiles' id reads (PERF.md).
 //
 // B8b writes its six outputs into one packed int32 buffer (kernels.
 // edge_views): counts | fcounts | csum | ssum (n_ids each) | chist |
@@ -45,10 +52,10 @@ __device__ __forceinline__ int rd_bucket(float v, const float* e, int ne) {
     return b;
 }
 
+// B8a: the packed (n_ids, ne + 3) table, zeroed first
 __global__ void span_reduce_kernel(const int32_t* __restrict__ sid, const float* __restrict__ dur,
                                    int n_valid, const float* __restrict__ edges, int ne, int n_ids,
-                                   int32_t* __restrict__ calls, float* __restrict__ lsum,
-                                   int32_t* __restrict__ hist) {
+                                   int32_t* __restrict__ out) {
     __shared__ float e[RD_MAX_EDGES];
     for (int j = threadIdx.x; j < ne; j += blockDim.x) e[j] = edges[j];
     __syncthreads();
@@ -57,9 +64,10 @@ __global__ void span_reduce_kernel(const int32_t* __restrict__ sid, const float*
     int s = sid[i];
     if (s < 0 || s >= n_ids) return;
     float v = dur[i];
-    atomicAdd(&calls[s], 1);
-    atomicAdd(&lsum[s], v);
-    atomicAdd(&hist[(long long)s * (ne + 1) + rd_bucket(v, e, ne)], 1);
+    int32_t* row = out + (long long)s * (ne + 3);
+    atomicAdd(row, 1);
+    atomicAdd((float*)(row + 1), v);
+    atomicAdd(row + 2 + rd_bucket(v, e, ne), 1);
 }
 
 __global__ void edge_reduce_kernel(const int32_t* __restrict__ eid, const float* __restrict__ cdur,
@@ -135,17 +143,15 @@ static int rd_zero(void* p, long long words, cudaStream_t st) {
 }
 
 // sid, dur: (n,) with n >= n_valid; edges: (ne,) f32, ne <= RD_MAX_EDGES;
-// calls, lsum: (n_ids,); hist: (n_ids, ne + 1)
+// out: the packed (n_ids, ne + 3) table, zeroed here, then folded
 TT_EXPORT int tt_span_reduce(const int32_t* sid, const float* dur, int n_valid,
-                             const float* edges, int ne, int n_ids, int32_t* calls, float* lsum,
-                             int32_t* hist, void* stream) {
+                             const float* edges, int ne, int n_ids, int32_t* out, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    int err;
-    if ((err = rd_zero(calls, n_ids, st)) || (err = rd_zero(lsum, n_ids, st)) ||
-        (err = rd_zero(hist, (long long)n_ids * (ne + 1), st)))
-        return err;
+    if (n_valid < 0 || n_ids < 1 || ne < 0 || ne > RD_MAX_EDGES) return (int)cudaErrorInvalidValue;
+    int err = rd_zero(out, (long long)n_ids * (ne + 3), st);
+    if (err) return err;
     span_reduce_kernel<<<tt_blocks(n_valid, 256), 256, 0, st>>>(sid, dur, n_valid, edges, ne,
-                                                                 n_ids, calls, lsum, hist);
+                                                                 n_ids, out);
     TT_LAUNCHED_SLOT(0);
     return (int)cudaGetLastError();
 }

@@ -15,8 +15,8 @@ for `~` on a block with orphans, and on the multi-launch route a res
 pass, a span pass per slot, its struct kernels (`>>` alone is init +
 n_passes doubling + final) and a trace pass; one select_topk launches a
 tile pass and a merge pass for k <= K_SMALL, else a key pass, its
-bitonic passes and an emit; one live_patch and one edge_reduce launch
-one kernel. grid_launches() reads the __global__
+bitonic passes and an emit; one live_patch, one edge_reduce, one
+span_reduce and one timeseries (without a res pass) launch one kernel. grid_launches() reads the __global__
 launches each library counts itself, per kernel. There is no CPU path
 here: the ops modules send CPU tensors to their plain PyTorch versions
 and only CUDA tensors to these wrappers.
@@ -86,9 +86,15 @@ streaming tap):
 | span_reduce | one per tap window; one per legacy collect  | 8 B a row + 4 B x S x (nb + 2) written | none: searchsorted, two bincounts, index_add_  |
 | edge_reduce | one per tap window that completed an edge   | 16 B a row + 4 B x E x (2 nb + 4)     | none: the same per side, and a failed bincount |
 
+span_reduce writes one packed table (span_views): a memset, then the
+atomic fold.
 edge_reduce writes one packed allocation (edge_views) by one of two
 routes (edge_plan): a tile CTA a range of edge ids in shared memory (one
-launch, no memset), or a memset and the atomic fold.
+launch, no memset), or a memset and the atomic fold. timeseries (B6)
+writes one packed allocation (timeseries_views) in one cooperative
+launch (after the res pass of a program with resource.attr conditions)
+by the route timeseries_plan picks: the grid in each CTA's shared
+memory, spread over a thread-block cluster's, or device-memory atomics.
 
 The mesh programs' kernels (parallel/, one body on every rank of a
 mesh; a collective between the halves):
@@ -115,6 +121,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -172,7 +179,8 @@ _SIGNATURES = {
                                      _I, _I, _I, _P, _P, _P]),
     "tt_mq_select": ("multiquery", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
     "tt_timeseries": ("timeseries", [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "tt_timeseries_ctas": ("timeseries", [_I, _I, _I, _P]),
     "tt_remap": ("blockcut", [_P, _I, _P, _I, _P, _P]),
     "tt_bloom_bits": ("blockcut", [_P, _L, _P, _P, _I, _P, _P]),
     "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _P, _I, _P]),
@@ -183,7 +191,7 @@ _SIGNATURES = {
     "tt_live_find": ("livestage", [_P, _P, _I, _I, _P, _P, _P]),
     "tt_live_append": ("livestage", [_P, _I, _P, _I, _I, _P, _P]),
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
-    "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P]),
+    "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P]),
     "tt_edge_reduce": ("reduce", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P]),
     "tt_find_elect": ("find", [_P, _I, _I, _I, _P, _P, _P]),
     "tt_mq_partial": ("multiquery", [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P]),
@@ -699,14 +707,124 @@ def mq_select(tm: torch.Tensor, key: torch.Tensor, counts: torch.Tensor, k: int)
 
 
 # ------------------------------------------------------------------ B6
-def timeseries(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid: torch.Tensor,
-               val: torch.Tensor | None, vpres: torch.Tensor | None, t0: int, step: int,
-               n_spans: int, n_res_b: int, n_traces_b: int, n_buckets: int, n_groups: int):
+TS_THREADS = 512  # csrc/timeseries.cu TS_THREADS
+TS_ROUND = 2048  # spans a CTA a round on the cluster route (csrc/timeseries.cu TS_ROUND)
+TS_EXCH = 4 * (72 + 2 * TS_ROUND)  # bytes of a cluster-route CTA's counters and outbox
+TS_SMEM_CTA = 96 * 1024  # shared memory a CTA of the shared / cluster routes aims at (2 a SM)
+TS_SMEM_MAX = 200 * 1024  # shared memory a CTA may take (csrc/timeseries.cu TS_SMEM_CTA_MAX)
+TS_SHARED_CLUSTER = 8  # CTAs whose private grids one cluster reduces on the shared route
+TS_CLUSTER = 16  # CTAs a cluster on the cluster route (16: the H100's non-portable size)
+TS_ROUTES = ("global", "shared", "cluster")  # csrc/timeseries.cu's route codes
+
+
+class TsPlan(NamedTuple):
+    """B6's route for a grid of `cells` (group, bucket) cells: "shared"
+    (a private copy of the grid in each CTA's shared memory; clusters of
+    `cluster` CTAs reduce their copies and add them into the output with
+    device atomics), "cluster" (the grid spread over
+    a cluster of `cluster` CTAs, `per` cells of each plane a CTA, spans
+    routed to their cell's owner) or "global" (device-memory atomics);
+    `smem` bytes a CTA."""
+
+    route: str
+    cluster: int
+    per: int
+    smem: int
+
+
+def timeseries_route(route: str, cells: int, has_val: bool) -> TsPlan:
+    """The plan of `route` for a grid of `cells` cells: "shared" a private
+    grid a CTA in clusters of TS_SHARED_CLUSTER, "cluster" the grid over
+    TS_CLUSTER CTAs, "global" device-memory atomics. Raises where the
+    grid does not fit the route's shared memory (TS_SMEM_MAX a CTA). Pass
+    it to timeseries(plan=) to force a route."""
+    words = 4 * (5 if has_val else 1)
+    if route == "global":
+        return TsPlan("global", 1, 0, 0)
+    if route == "shared":
+        p = TsPlan("shared", TS_SHARED_CLUSTER, cells, words * cells)
+    elif route == "cluster":
+        per = -(-cells // TS_CLUSTER)
+        p = TsPlan("cluster", TS_CLUSTER, per, words * per + TS_EXCH)
+    else:
+        raise KernelError(f"timeseries: no route {route!r}")
+    if p.smem > TS_SMEM_MAX:
+        raise KernelError(f"timeseries: the {route} route cannot hold {cells} cells")
+    return p
+
+
+def timeseries_plan(cells: int, has_val: bool) -> TsPlan:
+    """The shared route while the A planes (5 with values, else 1) fit a
+    CTA's TS_SMEM_CTA; past that, a value grid takes the cluster route
+    while each CTA's share and the record outbox fit TS_SMEM_MAX, and a
+    counts-only grid the global route (one native atomic a span, which
+    beat the cluster route in chip_smoke.py's sweep); past the cluster,
+    the global route. A pure function of the grid."""
+    if 4 * (5 if has_val else 1) * cells <= TS_SMEM_CTA:
+        return timeseries_route("shared", cells, has_val)
+    if has_val:
+        with contextlib.suppress(KernelError):
+            return timeseries_route("cluster", cells, has_val)
+    return timeseries_route("global", cells, has_val)
+
+
+_ts_ctas: dict = {}
+
+
+def _timeseries_ctas(dev: torch.device, plan: TsPlan) -> int:
+    """CTAs of plan's route that can be co-resident on dev (the
+    cooperative launch's limit), asked of the device once a route."""
+    key = (dev.index, plan.route, plan.cluster, plan.smem)
+    if key not in _ts_ctas:
+        n = ctypes.c_int(0)
+        with _on(dev):
+            _call("tt_timeseries_ctas", TS_ROUTES.index(plan.route), plan.cluster, plan.smem,
+                  ctypes.byref(n))
+        if n.value < plan.cluster:
+            raise KernelError(f"timeseries: no co-resident grid for {plan}")
+        _ts_ctas[key] = n.value
+    return _ts_ctas[key]
+
+
+def _timeseries_grid(dev: torch.device, plan: TsPlan, n_spans: int) -> int:
+    """The grid of one call: what the spans fill (a multiple of the
+    cluster), at most what is co-resident."""
+    c = plan.cluster
+    ctas = min(_timeseries_ctas(dev, plan), max(1, -(-n_spans // (TS_THREADS * c))) * c)
+    return ctas - ctas % c
+
+
+@functools.lru_cache(maxsize=256)
+def _timeseries_launch(dev: torch.device, cells: int, has_val: bool, n_spans: int):
+    """(timeseries_plan's route, its grid) for a shape, worked out once."""
+    plan = timeseries_plan(cells, has_val)
+    return plan, _timeseries_grid(dev, plan, n_spans)
+
+
+def timeseries_views(packed: torch.Tensor, has_val: bool, n_groups: int, n_buckets: int):
+    """The planes of one packed B6 output (int32, A x n_groups x n_buckets
+    words; words past them are scratch): (counts,) or (counts, vcnt,
+    vsum, vmin, vmax), vsum, vmin and vmax as f32 views."""
+    cells = n_groups * n_buckets
+    if not has_val:
+        return (packed[:cells].view(n_groups, n_buckets),)
+    planes = packed[:5 * cells].view(5, n_groups, n_buckets)
+    counts, vcnt = planes.unbind(0)[:2]
+    return (counts, vcnt) + planes.view(torch.float32).unbind(0)[2:]
+
+
+def timeseries_fold(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid: torch.Tensor,
+                    val: torch.Tensor | None, vpres: torch.Tensor | None, t0: int, step: int,
+                    n_spans: int, n_res_b: int, n_traces_b: int, n_buckets: int, n_groups: int,
+                    plan: TsPlan | None = None) -> torch.Tensor:
     """B6: the span program of `prog` (ops/timeseries._SpanProgram, its
-    descriptor buffer `buf` on the card) -> (n_groups, n_buckets)
-    accumulators: (counts,) or (counts, vcnt, vsum, vmin, vmax).
+    descriptor buffer `buf` on the card) -> one packed int32 allocation
+    (timeseries_views' layout, then the cluster route's partial grids),
+    by the route `plan` names (default timeseries_plan; timeseries_route
+    forces one). One __global__ (after the res pass of a program with
+    resource.attr conditions).
     Bound: bytes -- one read of every column the program names plus
-    start_ms, gid, val and vpres."""
+    start_ms, gid, val and vpres, the accumulators written once."""
     dev = _cuda_device(buf)
     _check(buf, "program buffer", torch.uint8, dev)
     n_spans_b = start_ms.shape[0]
@@ -719,33 +837,47 @@ def timeseries(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid:
     _check(cols["span.trace_sid"], "span.trace_sid", torch.int32, dev)
     if prog.rconds:
         _check(cols["span.res_idx"], "span.res_idx", torch.int32, dev)
-    if step < 1 or not 0 < n_buckets or not 0 < n_groups or not 0 <= n_spans <= n_spans_b:
+    cells = n_groups * n_buckets
+    if step < 1 or not 0 < n_buckets or not 0 < n_groups or not 0 <= n_spans <= n_spans_b \
+            or cells > 1 << 24:
         raise KernelError(f"timeseries: step {step}, {n_groups} x {n_buckets} cells, "
                           f"{n_spans} spans of {n_spans_b}")
-    (_, off, ln, _), = prog.steps
-    base = buf.data_ptr()
-    shape = (n_groups, n_buckets)
-    counts = torch.empty(shape, dtype=torch.int32, device=dev)
-    outs = [counts]
-    if has_val:
-        outs += [torch.empty(shape, dtype=torch.int32, device=dev),
-                 torch.empty(shape, dtype=torch.float32, device=dev),
-                 torch.empty(shape, dtype=torch.int32, device=dev),
-                 torch.empty(shape, dtype=torch.int32, device=dev)]
+    if plan is None:
+        plan, ctas = _timeseries_launch(dev, cells, has_val, n_spans)
+    elif plan != timeseries_route(plan.route, cells, has_val):
+        raise KernelError(f"timeseries: plan {plan} refused for {cells} cells")
+    else:
+        ctas = _timeseries_grid(dev, plan, n_spans)
+    c = plan.cluster
+    n_planes = 5 if has_val else 1
+    n_out = n_planes * cells
+    scratch = (ctas // c) * n_out if plan.route == "cluster" else 0
+    packed = torch.empty(n_out + scratch, dtype=torch.int32, device=dev)
     resmask = (torch.empty((len(prog.rconds), n_res_b), dtype=torch.uint8, device=dev)
                if prog.rconds else None)
+    (_, off, ln, _), = prog.steps
+    base, p = buf.data_ptr(), packed.data_ptr()
     with _on(dev):
         _call("tt_timeseries", base + prog.desc_off, base + off, ln, base + prog.rconds_off,
               len(prog.rconds), _ptr(resmask), n_res_b, _ptr(cols.get("span.res_idx")),
               cols["span.trace_sid"].data_ptr(), n_traces_b, start_ms.data_ptr(), gid.data_ptr(),
               _ptr(val), _ptr(vpres), int(t0), int(step), int(n_spans), int(n_buckets),
-              int(n_groups), int(has_val), counts.data_ptr(),
-              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream(dev))
+              int(n_groups), int(has_val), TS_ROUTES.index(plan.route), c, plan.per, plan.smem,
+              ctas, p + 4 * n_out if scratch else None, p, _stream(dev))
     _count("timeseries")
-    if not has_val:
-        return (counts,)
-    # vmin / vmax come back as f32 bit patterns in int32 storage
-    return counts, outs[1], outs[2], outs[3].view(torch.float32), outs[4].view(torch.float32)
+    return packed
+
+
+def timeseries(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid: torch.Tensor,
+               val: torch.Tensor | None, vpres: torch.Tensor | None, t0: int, step: int,
+               n_spans: int, n_res_b: int, n_traces_b: int, n_buckets: int, n_groups: int,
+               plan: TsPlan | None = None):
+    """B6 -> (n_groups, n_buckets) accumulators: (counts,) or (counts,
+    vcnt, vsum, vmin, vmax), views of timeseries_fold's one allocation."""
+    return timeseries_views(
+        timeseries_fold(prog, buf, cols, start_ms, gid, val, vpres, t0, step, n_spans, n_res_b,
+                        n_traces_b, n_buckets, n_groups, plan),
+        val is not None, n_groups, n_buckets)
 
 
 # ------------------------------------------------------------------ B9a
@@ -955,22 +1087,35 @@ def _reduce_args(name: str, ids: torch.Tensor, rows: dict, n_valid: int, edges: 
     return dev
 
 
-def span_reduce(sid: torch.Tensor, dur: torch.Tensor, n_valid: int, edges: torch.Tensor,
-                n_ids: int):
-    """B8a: rows i < n_valid with 0 <= sid[i] < n_ids -> calls (n_ids,)
-    int32, lat_sum (n_ids,) f32, hist (n_ids, len(edges) + 1) int32, the
-    bucket being searchsorted(edges, dur, 'left'). Bound: bytes (8 B a
-    row, the table written once)."""
+def span_views(packed: torch.Tensor, n_ids: int, nb: int):
+    """The three outputs of one packed B8a table (int32, row s = [calls,
+    f32 sum bits, hist (nb)], nb + 2 words a row): calls (n_ids,) int32,
+    lat_sum (n_ids,) f32, hist (n_ids, nb) int32, as strided views."""
+    t = packed[:n_ids * (nb + 2)].view(n_ids, nb + 2)
+    return t[:, 0], t.view(torch.float32)[:, 1], t[:, 2:]
+
+
+def span_fold(sid: torch.Tensor, dur: torch.Tensor, n_valid: int, edges: torch.Tensor,
+              n_ids: int) -> torch.Tensor:
+    """B8a: rows i < n_valid with 0 <= sid[i] < n_ids -> one packed int32
+    allocation (span_views' layout): one memset, then the atomic fold.
+    Bound: bytes (8 B a row, the table written once)."""
     dev = _reduce_args("span_reduce", sid, {"dur": (dur, torch.float32)}, n_valid, edges, n_ids)
     nb = edges.shape[0] + 1
-    calls = torch.empty(n_ids, dtype=torch.int32, device=dev)
-    lsum = torch.empty(n_ids, dtype=torch.float32, device=dev)
-    hist = torch.empty((n_ids, nb), dtype=torch.int32, device=dev)
+    packed = torch.empty(n_ids * (nb + 2), dtype=torch.int32, device=dev)
     with _on(dev):
         _call("tt_span_reduce", sid.data_ptr(), dur.data_ptr(), int(n_valid), edges.data_ptr(),
-              nb - 1, int(n_ids), calls.data_ptr(), lsum.data_ptr(), hist.data_ptr(), _stream(dev))
+              nb - 1, int(n_ids), packed.data_ptr(), _stream(dev))
     _count("span_reduce")
-    return calls, lsum, hist
+    return packed
+
+
+def span_reduce(sid: torch.Tensor, dur: torch.Tensor, n_valid: int, edges: torch.Tensor,
+                n_ids: int):
+    """B8a -> calls (n_ids,) int32, lat_sum (n_ids,) f32, hist (n_ids,
+    len(edges) + 1) int32, the bucket being searchsorted(edges, dur,
+    'left'): views of span_fold's one allocation."""
+    return span_views(span_fold(sid, dur, n_valid, edges, n_ids), n_ids, edges.shape[0] + 1)
 
 
 REDUCE_SMEM = 48 * 1024  # shared memory of a B8b tile CTA at most (no opt-in needed)

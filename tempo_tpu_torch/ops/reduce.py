@@ -78,6 +78,16 @@ def span_reduce(sid, dur, n_valid: int, edges, n_ids: int):
     return _reduce_plain(sid, dur, n_valid, edges, n_ids)
 
 
+def span_fold(sid, dur, n_valid: int, edges, n_ids: int) -> torch.Tensor:
+    """B8a on sid's device into one packed int32 table (kernels.
+    span_views' layout): the kernel for a CUDA tensor, the plain version
+    for a CPU one."""
+    if sid.device.type == "cuda":
+        return kernels.span_fold(sid, dur, n_valid, edges, n_ids)
+    calls, lsum, hist = _reduce_plain(sid, dur, n_valid, edges, n_ids)
+    return torch.cat([calls[:, None], lsum.view(torch.int32)[:, None], hist], dim=1).reshape(-1)
+
+
 def edge_fold(eid, cdur, sdur, failed, n_valid: int, edges, n_ids: int) -> torch.Tensor:
     """B8b on eid's device into one packed int32 buffer (kernels.
     edge_views' layout): the kernel for a CUDA tensor, the plain version
@@ -104,9 +114,10 @@ def span_metrics_reduce(sid: np.ndarray, dur_s: np.ndarray, n_series: int,
                         bucket_edges: tuple, device=None):
     """-> (calls (n_series,) int64, latency_sum (n_series,) float64,
     histogram (n_series, len(edges)+1) int64) as numpy, folded on
-    `device` (None: the first card). Rows pad to bucket(n) with id Sb =
-    bucket(n_series), which the fold drops; sums are f32 on the device
-    and f64 only after the slice to n_series."""
+    `device` (None: the first card): one upload of the rows, one
+    download of the table's first n_series rows. Rows pad to bucket(n)
+    with id Sb = bucket(n_series), which the fold drops; sums are f32 on
+    the device and f64 only after the slice to n_series."""
     n = sid.shape[0]
     nb = len(bucket_edges) + 1
     if n == 0 or n_series == 0:
@@ -114,13 +125,18 @@ def span_metrics_reduce(sid: np.ndarray, dur_s: np.ndarray, n_series: int,
                 np.zeros((n_series, nb), np.int64))
     dev = resolve_device(device)
     Np, Sb = bucket(n), bucket(n_series)
-    calls, lsum, hist = span_reduce(
-        torch.from_numpy(_pad(sid, Np, Sb, np.int32)).to(dev),
-        torch.from_numpy(_pad(dur_s, Np, 0.0, np.float32)).to(dev), n,
-        torch.tensor(bucket_edges, dtype=torch.float32, device=dev), Sb)
-    return (calls[:n_series].cpu().numpy().astype(np.int64),
-            lsum[:n_series].cpu().numpy().astype(np.float64),
-            hist[:n_series].cpu().numpy().astype(np.int64))
+    # sid and dur in one upload as int32 words (padded rows carry id Sb,
+    # which the fold drops)
+    rows = np.zeros((2, Np), np.int32)
+    rows[0] = Sb
+    rows[0, :n] = sid
+    rows[1, :n] = np.asarray(dur_s, np.float32).view(np.int32)
+    t = torch.from_numpy(rows).to(dev)
+    packed = span_fold(t[0], t[1].view(torch.float32), n, _edges_on(dev, tuple(bucket_edges)), Sb)
+    # one download: the table's first n_series rows are contiguous
+    calls, lsum, hist = kernels.span_views(packed[:n_series * (nb + 2)].cpu(), n_series, nb)
+    return (calls.numpy().astype(np.int64), lsum.numpy().astype(np.float64),
+            hist.numpy().astype(np.int64))
 
 
 def edge_metrics_reduce(eid: np.ndarray, cdur: np.ndarray, sdur: np.ndarray,

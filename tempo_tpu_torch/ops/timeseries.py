@@ -146,22 +146,38 @@ def timeseries_fold(query, cols: dict, operands: Operands, gid, val, vpres,
     """B6 on CUDA tensors, its plain version on CPU tensors. gid / val /
     vpres are padded span-length tensors on the columns' device; t0_ms
     and step_ms must fit int32. Returns tensors of shape (n_groups,
-    n_buckets): (counts,) or (counts, vcnt, vsum, vmin, vmax)."""
+    n_buckets): (counts,) or (counts, vcnt, vsum, vmin, vmax), views of
+    timeseries_packed's one tensor."""
+    from .. import kernels
+
+    return kernels.timeseries_views(
+        timeseries_packed(query, cols, operands, gid, val, vpres, t0_ms, step_ms, n_spans,
+                          n_buckets, n_groups, n_spans_b, n_res_b, n_traces_b),
+        val is not None, n_groups, n_buckets)
+
+
+def timeseries_packed(query, cols: dict, operands: Operands, gid, val, vpres,
+                      t0_ms: int, step_ms: int, n_spans: int, n_buckets: int, n_groups: int,
+                      n_spans_b: int, n_res_b: int, n_traces_b: int) -> torch.Tensor:
+    """timeseries_fold's accumulators in one int32 tensor on gid's device
+    (kernels.timeseries_views' layout): the kernel's one allocation on
+    the card, the plain version's planes packed the same way on the CPU."""
     tree, conds = query
     tables = _table_list(operands)
     if gid.device.type == "cpu":
         ops_i = torch.from_numpy(np.ascontiguousarray(operands.ints, np.int32))
         ops_f = torch.from_numpy(np.ascontiguousarray(operands.floats, np.float32))
-        return _timeseries_plain(tree, conds, cols, ops_i, ops_f,
+        outs = _timeseries_plain(tree, conds, cols, ops_i, ops_f,
                                  {i: torch.from_numpy(t) for i, t in tables.items()},
                                  gid, val, vpres, t0_ms, step_ms, n_spans, n_buckets,
                                  n_groups, n_spans_b, n_res_b, n_traces_b)
+        return torch.cat([o.reshape(-1).view(torch.int32) for o in outs])
     from .. import kernels
 
     prog = _span_program(tree, tuple(conds))
     buf = prog.buffer(cols, operands, tables)
-    return kernels.timeseries(prog, buf, cols, cols["span.start_ms"], gid, val, vpres,
-                              t0_ms, step_ms, n_spans, n_res_b, n_traces_b, n_buckets, n_groups)
+    return kernels.timeseries_fold(prog, buf, cols, cols["span.start_ms"], gid, val, vpres, t0_ms,
+                                   step_ms, n_spans, n_res_b, n_traces_b, n_buckets, n_groups)
 
 
 def eval_timeseries_device(query, staged, operands: Operands,
@@ -171,8 +187,9 @@ def eval_timeseries_device(query, staged, operands: Operands,
                            n_buckets: int, n_groups: int):
     """One fold over a StagedBlock (ops/stage). gid/val/vpres are raw
     span-length host arrays for the staged span slice; their padded
-    copies go up in one upload. Returns numpy accumulators of shape
-    (n_groups, n_buckets): (counts,) or (counts, vcnt, vsum, vmin, vmax)."""
+    copies go up in one upload, and on a card the accumulators come back
+    in one download. Returns numpy accumulators of shape (n_groups,
+    n_buckets): (counts,) or (counts, vcnt, vsum, vmin, vmax)."""
     dev = staged.cols["span.start_ms"].device
     nb = staged.n_spans_b
     has_val = val is not None
@@ -189,10 +206,14 @@ def eval_timeseries_device(query, staged, operands: Operands,
     else:
         gid_t, val_t, pres_t = torch.from_numpy(gid_p).to(dev), None, None
     t0 = int(np.clip(t0_rel_ms, -(2**31) + 1, 2**31 - 1))
-    outs = timeseries_fold(query, staged.cols, operands, gid_t, val_t, pres_t,
-                           t0, max(1, int(step_ms)), staged.n_spans, n_buckets, n_groups,
-                           nb, staged.n_res_b, staged.n_traces_b)
-    return tuple(o.cpu().numpy() for o in outs)
+    packed = timeseries_packed(query, staged.cols, operands, gid_t, val_t, pres_t, t0,
+                               max(1, int(step_ms)), staged.n_spans, n_buckets, n_groups, nb,
+                               staged.n_res_b, staged.n_traces_b)
+    from .. import kernels
+
+    n_out = (5 if has_val else 1) * n_groups * n_buckets
+    outs = kernels.timeseries_views(packed[:n_out].cpu(), has_val, n_groups, n_buckets)
+    return tuple(o.numpy() for o in outs)
 
 
 def eval_timeseries_host(query, cols: dict[str, np.ndarray],

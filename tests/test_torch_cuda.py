@@ -397,7 +397,8 @@ def _ts_both(cuda, case, n_groups, n_buckets, has_val, dyadic, t0, step):
 
 @pytest.mark.parametrize("has_val", [False, True])
 def test_timeseries_kernel(cuda, has_val):
-    # 12 x 50 cells fold in shared memory, 700 x 60 with values in global memory
+    # 12 x 50 cells fold in one CTA's shared memory, 700 x 60 (with
+    # values) over a cluster of CTAs
     for n_groups, n_buckets in ((12, 50), (700, 60)):
         empty = set()
         for case in sorted(TC.span_level_cases()):
@@ -419,6 +420,108 @@ def test_timeseries_kernel_dyadic_sums_exact(cuda):
             got, want = _ts_both(cuda, case, n_groups, n_buckets, True, True, 1_000, 7_777)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (case, n_groups)
+
+
+def _ts_true(cuda, n_spans, n_groups, n_buckets, has_val, dyadic, seed):
+    """`{ true }` over n_spans spans (start times before, on and past the
+    axis of n_buckets steps of 1,000 ms; gid -1 to n_groups - 1; values
+    with NaN, -0.0, +0.0 and +-inf) -> (the kernel's call, its plain
+    version's outputs)."""
+    from tempo_tpu_torch import kernels
+
+    rng = np.random.default_rng(seed)
+    nsb = bucket(n_spans)
+    start = pad_rows(rng.integers(-50_000, n_buckets * 1_000 + 50_000, n_spans).astype(np.int32),
+                     nsb, np.int32(-(2**31)))
+    cols = {"span.start_ms": start, "span.trace_sid": np.zeros(nsb, np.int32)}
+    staged = ST.staged_from_numpy(cols, n_spans, 1, 1, cuda)
+    gid = torch.from_numpy(pad_rows(rng.integers(-1, n_groups, n_spans).astype(np.int32), nsb,
+                                    np.int32(-1))).to(cuda)
+    val = pres = None
+    if has_val:
+        v = (rng.integers(-511, 512, n_spans) / 8 if dyadic
+             else rng.lognormal(0, 2, n_spans)).astype(np.float32)
+        special = np.asarray([np.nan, -0.0, 0.0, np.inf, -np.inf], np.float32)
+        hit = rng.random(n_spans) < 0.001
+        v[hit] = special[rng.integers(0, 5, hit.sum())]
+        val = torch.from_numpy(pad_rows(v, nsb, np.float32(0))).to(cuda)
+        pres = torch.from_numpy(pad_rows(rng.random(n_spans) < 0.9, nsb, False)).to(cuda)
+    prog = TS._span_program(None, ())
+    buf = prog.buffer(staged.cols, F.Operands.build([]), {})
+    args = (0, 1_000, n_spans, staged.n_res_b, staged.n_traces_b, n_buckets, n_groups)
+
+    def run(plan=None):
+        return kernels.timeseries(prog, buf, staged.cols, staged.cols["span.start_ms"], gid, val,
+                                  pres, *args, plan=plan)
+
+    want = TS._timeseries_plain(None, (), staged.cols, None, None, {}, gid, val, pres, 0, 1_000,
+                                n_spans, n_buckets, n_groups, nsb, staged.n_res_b,
+                                staged.n_traces_b)
+    return run, want
+
+
+def _ts_cap(words: int, cluster: int) -> int:
+    """Cells one CTA (cluster 1: a private grid) or a 16-CTA cluster
+    (slices beside the record outbox) holds at most."""
+    from tempo_tpu_torch import kernels
+
+    if cluster == 1:
+        return kernels.TS_SMEM_CTA // words
+    return cluster * ((kernels.TS_SMEM_MAX - kernels.TS_EXCH) // words)
+
+
+# (spans, groups, buckets, values, dyadic): phase 10's rate() by service
+# and avg_over_time by name on a block's 1,048,576 spans; a grid one cell
+# past one CTA's TS_SMEM_CTA and one past a 16-CTA cluster's TS_SMEM_MAX,
+# with and without values (a counts-only grid past one CTA takes the
+# global route, and is forced onto the others)
+TS_GRIDS = [(1 << 20, 64, 61, False, False), (1 << 20, 512, 61, True, False),
+            (1 << 20, 512, 61, True, True), (200_000, 1, _ts_cap(20, 1) + 1, True, False),
+            (200_000, 1, _ts_cap(20, 16) + 1, True, True),
+            (200_000, 1, _ts_cap(4, 1) + 1, False, False),
+            (200_000, 1, _ts_cap(4, 16) + 1, False, False)]
+
+
+@pytest.mark.parametrize("n_spans,n_groups,n_buckets,has_val,dyadic", TS_GRIDS)
+def test_timeseries_routes(cuda, n_spans, n_groups, n_buckets, has_val, dyadic):
+    """B6 by timeseries_plan's route and by every route the grid fits,
+    forced, against the plain version: counts and value counts exact, min
+    and max equal (NaN where a NaN was folded), sums within rtol 1e-5
+    (exact on dyadic values); one __global__ a call; a forced plan the
+    grid does not fit raises."""
+    from tempo_tpu_torch import kernels
+
+    run, want = _ts_true(cuda, n_spans, n_groups, n_buckets, has_val, dyadic,
+                         n_groups + n_buckets)
+    cells = n_groups * n_buckets
+    fits, refused = [], []
+    for route in kernels.TS_ROUTES:
+        try:
+            fits.append(kernels.timeseries_route(route, cells, has_val))
+        except kernels.KernelError:
+            refused.append(route)
+    for p in [None] + fits:
+        kernels.reset_counts()
+        got = run(p)
+        torch.cuda.synchronize()
+        p = p or kernels.timeseries_plan(cells, has_val)
+        assert kernels.LAUNCHES["timeseries"] == 1 and kernels.grid_launches()["timeseries"] == 1
+        assert int(got[0].sum()) > 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            exact = i != 2 or dyadic
+            torch.testing.assert_close(g, w, rtol=0 if exact else 1e-5, atol=0, equal_nan=True,
+                                       msg=f"{p} output {i}")
+    assert kernels.timeseries_plan(cells, has_val).route == (
+        "shared" if cells <= _ts_cap(20 if has_val else 4, 1)
+        else "cluster" if has_val and cells <= _ts_cap(20, 16) else "global")
+    words = 20 if has_val else 4
+    for route in refused:  # the plan the route would need, forced, raises
+        per = cells if route == "shared" else -(-cells // kernels.TS_CLUSTER)
+        c = kernels.TS_SHARED_CLUSTER if route == "shared" else kernels.TS_CLUSTER
+        with pytest.raises(kernels.KernelError):
+            run(kernels.TsPlan(route, c, per, words * per + (route == "cluster") * kernels.TS_EXCH))
+    with pytest.raises(kernels.KernelError):  # a plan that is no route's
+        run(kernels.TsPlan("cluster", 4, -(-cells // 4), words * -(-cells // 4) + kernels.TS_EXCH))
 
 
 def test_tempodb_batched_burst_card_matches_cpu(cuda, block):

@@ -1,6 +1,7 @@
 """Kernel-vs-plain tests of the metrics-generator's CUDA kernels (B8a
-span_reduce, B8b edge_reduce) on the card, and the card's generator and
-distributor tap against the same on the CPU.
+span_reduce, B8b edge_reduce) on the card, B8b by each route its plan
+can take, and the card's generator and distributor tap against the same
+on the CPU.
 
 Marked `cuda`; the fixture below skips them where no card exists. Run
 on a machine with one H100:
@@ -70,6 +71,33 @@ def test_span_reduce_kernel(cuda, n, n_valid, n_ids, kind):
     got = R.span_reduce(*(x.to(cuda) for x in t[:2]), n_valid, t[2].to(cuda), n_ids)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["span_reduce"] == 1 and kernels.grid_launches()["span_reduce"] == 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
+    _sums_close(got[1], want[1], kind)
+
+
+@pytest.mark.parametrize("kind", ["dyadic", "edges"])
+@pytest.mark.parametrize("n,n_valid,n_ids", [(1024, 305, 4096), (16384, 8480, 1 << 18),
+                                             (65536, 65536, 4096), (65536, 65536, 1 << 18),
+                                             (16384, 16384, 1 << 20)])
+def test_span_fold_table(cuda, n, n_valid, n_ids, kind):
+    """B8a's packed table against the plain version at the generator's
+    window (8,480 of 16,384 rows into 2^18 series) and the sweep's
+    corners: one wrapper call and one __global__ a call into one
+    allocation, read through span_views."""
+    rng = np.random.default_rng(n_valid + n_ids)
+    sid = rng.integers(-3, min(n_ids, 180_000) + 3, n).astype(np.int32)
+    sid[n_valid:] = n_ids
+    dur = _durations(rng, n, kind)
+    t = [torch.from_numpy(a) for a in (sid, dur, EDGES)]
+    want = R._reduce_plain(t[0], t[1], n_valid, t[2], n_ids)
+    d = [x.to(cuda) for x in t]
+    nb = len(EDGES) + 1
+    kernels.reset_counts()
+    packed = kernels.span_fold(d[0], d[1], n_valid, d[2], n_ids)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["span_reduce"] == 1 and kernels.grid_launches()["span_reduce"] == 1
+    assert packed.shape == (n_ids * (nb + 2),)
+    got = kernels.span_views(packed, n_ids, nb)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
     _sums_close(got[1], want[1], kind)
 
