@@ -33,8 +33,12 @@ Phases, in order (any failure raises; no CPU fallback):
                calls; the __global__ launches behind them are logged);
                K1 at most 120 __global__ for phase 6's 10 searches
   4b. (in phase 4) B5a with 16 same-shape programs (operands taken from
-               block 0's own spans, so each matches), B5b at k = 64 over
-               their rows, B6 for `rate() by (resource.service.name)` and
+               block 0's own spans, so each matches; one __global__ a
+               call), B5b at k = 64 over their rows (two passes: two
+               __global__ a call; its order equal to torch.topk's), then
+               B5a at Q = 1, 4 and 16 and B5b at k = 64, 256, 2,048 and
+               K_SMALL + 1 by both routes, each against its plain
+               version, B6 for `rate() by (resource.service.name)` and
                `avg_over_time(duration) by (name)` at a 60 s step, plus a
                dyadic-value fold; each against its plain version (B6's
                f32 sum at rtol 1e-5, exact on dyadic values), B6's route
@@ -42,8 +46,8 @@ Phases, in order (any failure raises; no CPU fallback):
                and value grids of 3,904, 31,232 and 200,019 cells by
                every route each fits, against the plain version
   8. batched search on block 0: the 16 queries as one
-               search_blocks_multi group (1 B5a + 1 B5b launch, occupancy
-               16) and from 16 threads; a mixed burst with ineligible
+               search_blocks_multi group (1 B5a + 1 B5b call, 1 and 2
+               __global__, occupancy 16) and from 16 threads; a mixed burst with ineligible
                queries (fallbacks); a search_block_shard_multi burst over
                row-group ranges; each response equal to the CPU port's
                unbatched answer; no fused_error; the host-clock wall of
@@ -1982,12 +1986,14 @@ def phase_15_table(p15: dict, table) -> None:
     q_b, sl = prow.shape[0], span_mat.shape[1]
     n_conds = int((tables["cond_op"] >= 0).sum(dim=1).max().item())
     ms = cuda_ms(lambda: kernels.mq_partial(prow, dims, span_mat, row0, span_off, n_spans))
+    m2_us = device_ms(lambda: kernels.mq_partial(prow, dims, span_mat, row0, span_off,
+                                                 n_spans)) * 1e3
     pms = cuda_ms(lambda: MQ._mq_partial_plain(span_mat, span_off, tables, row0, n_spans),
                   reps=3, warm=1)
     b = bound(span_mat.numel() * 4 + span_off.numel() * 4 + got.numel() * 4,
               q_b * sl * max(1, n_conds))
     log(f"[M2] Q={q_b} slice {sl} rows at {row0}, {span_mat.shape[0]} columns: {ms:.4f} ms, "
-        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+        f"device {m2_us:.2f} µs (queued), plain {pms:.4f} ms, bound {b[0]:.5f} ms")
     row("mq_partial", "multiquery.cu", "tempo_tpu/parallel/multiquery.py:130", err, ms, pms, b)
     (crow, cdims, counts, trace_mat, n_traces), _ = args["mq_combine"]
     ctables = MQ.program_tables(crow, cdims)
@@ -2612,52 +2618,104 @@ def main() -> int:
         span_off = mq_staged.cols["trace.span_off"]
 
         def b5a():
-            return kernels.multiquery(prog_t, dims, ptr_t, len(sc), len(tc), span_off, ns, nt, ntb)
+            return kernels.multiquery(prog_t, dims, ptr_t, len(sc), len(tc), span_off, ns, nt, ntb,
+                                      nsb)
 
         tprogs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in progs.items()}
 
         def b5a_plain():
             return MQ._multiquery_plain(sc, tc, span_off, tprogs, ns, nt, nsb, ntb)
 
+        kernels.reset_counts()
         mq_tm, mq_cnt = b5a()
+        b5a_grids = kernels.grid_launches()["multiquery"]
         err = max_abs_err((mq_tm, mq_cnt), b5a_plain())
         per_row = mq_tm.sum(dim=1).tolist()
-        if err or min(per_row) < 1:
-            raise AssertionError(f"B5a: err {err}, matched traces per query {per_row}")
+        if err or min(per_row) < 1 or b5a_grids != 1:
+            raise AssertionError(f"B5a: err {err}, matched traces per query {per_row}, "
+                                 f"{b5a_grids} __global__ a call")
         ms = cuda_ms(b5a)
+        dev_us = device_ms(b5a) * 1e3
         pms = cuda_ms(b5a_plain, reps=3, warm=1)
         n_conds = max(len(p.conds) for p in bplans)
         b_ms, b_by = bound(4 * ns * len(sc) + 4 * (ntb + 1) + 4 * nt * len(tc)
                            + 16 * 4 * kernels.MQ_W + 16 * ntb * 5, 16 * ns * n_conds)
-        log(f"[B5a] Q=16 {shape.span_cols}: {per_row} traces, {ms:.4f} ms, plain {pms:.4f} ms, "
+        log(f"[B5a] Q=16 {shape.span_cols}: {per_row} traces, {ms:.4f} ms ({b5a_grids} "
+            f"__global__ a call), device {dev_us:.2f} µs (queued), plain {pms:.4f} ms, "
             f"bound {b_ms:.4f} ms")
         table.append({"name": "multiquery", "route": "cuda",
                       "source": "tempo_tpu_torch/csrc/multiquery.cu",
                       "replaces": "tempo_tpu/ops/multiquery.py:356", "launches": 0,
                       "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
+        # the sweep: the first 1 and 4 of the programs, then all 16, each
+        # against the plain version
+        sweep = []
+        for q in (1, 4, 16):
+            progs_q = MQ.pack_queries(lowered[:q], q)
+            prog_q, _, ptr_q = MQ.device_program(lowered[:q], mq_staged, progs_q)
+            tp_q = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in progs_q.items()}
 
-        # B5b -- the 16 rows, k = 64; yardstick: one torch.topk of the
-        # (Q, T) composite keys (unique, so its order is defined)
+            def b5a_q(prog_q=prog_q, ptr_q=ptr_q):
+                return kernels.multiquery(prog_q, dims, ptr_q, len(sc), len(tc), span_off, ns, nt,
+                                          ntb, nsb)
+
+            if max_abs_err(b5a_q(), MQ._multiquery_plain(sc, tc, span_off, tp_q, ns, nt, nsb, ntb)):
+                raise AssertionError(f"B5a at Q={q} differs from its plain version")
+            sweep.append(f"Q={q} {cuda_ms(b5a_q):.4f} ms")
+        log("[B5a sweep] " + ", ".join(sweep) + "; each equal to the plain version")
+
+        # B5b -- the 16 rows, k = 64, by the route select_plan takes (two
+        # passes); yardstick: one torch.topk of the (Q, T) composite keys
+        # (unique, so its order is defined)
         mq_key = mq_staged.cols["trace.start_ms"]
+        mq_plan = kernels.select_plan(ntb, 64)
+        kernels.reset_counts()
         got = kernels.mq_select(mq_tm, mq_key, mq_cnt, 64)
+        b5b_grids = kernels.grid_launches()["mq_select"]
         err = max_abs_err(got, MQ._mq_select_plain(mq_tm, mq_key, mq_cnt, 64))
         comp16 = (torch.where(mq_tm, mq_key[None, :], int(PAD_I32)).to(torch.int64) * (1 << 32)
                   + ((1 << 32) - 1 - torch.arange(ntb, device=dev))[None, :])
         lib_idx = torch.topk(comp16, 64, dim=1).indices
         if err or not torch.equal(lib_idx.to(torch.int32), got[:, :64]):
             raise AssertionError("B5b differs from its plain version or from torch.topk's order")
+        if not mq_plan.tiled or b5b_grids != 2:
+            raise AssertionError(f"B5b at Q=16 N={ntb} k=64: tiled {mq_plan.tiled}, {b5b_grids} "
+                                 f"__global__ a call (2 expected)")
         ms = cuda_ms(lambda: kernels.mq_select(mq_tm, mq_key, mq_cnt, 64))
+        dev_us = device_ms(lambda: kernels.mq_select(mq_tm, mq_key, mq_cnt, 64)) * 1e3
         pms = cuda_ms(lambda: MQ._mq_select_plain(mq_tm, mq_key, mq_cnt, 64))
         lms = cuda_ms(lambda: torch.topk(comp16, 64, dim=1))
-        b_ms, b_by = bound(16 * ntb * 5 + ntb * 4 + 16 * (3 * 64 + 1) * 4, 16 * ntb)
-        log(f"[B5b] Q=16 N={ntb} k=64: {ms:.4f} ms, plain {pms:.4f} ms, torch.topk {lms:.4f} ms, "
+        lib_us = device_ms(lambda: torch.topk(comp16, 64, dim=1)) * 1e3
+        # the mask (1 B a row and trace), the shared key, counts at the
+        # 16 x 64 winners, the output
+        b_ms, b_by = bound(16 * ntb + ntb * 4 + 16 * 64 * 4 + 16 * (3 * 64 + 1) * 4, 16 * ntb)
+        log(f"[B5b] Q=16 N={ntb} k=64: {ms:.4f} ms (two passes, tile {mq_plan.tile}, "
+            f"{mq_plan.tiles} tiles a row, {b5b_grids} __global__ a call), device {dev_us:.2f} µs "
+            f"(queued), plain {pms:.4f} ms, torch.topk {lms:.4f} ms and {lib_us:.2f} µs (queued), "
             f"bound {b_ms:.5f} ms")
         table.append({"name": "mq_select", "route": "cuda",
                       "source": "tempo_tpu_torch/csrc/multiquery.cu",
                       "replaces": "tempo_tpu/ops/multiquery.py:461", "launches": 0,
                       "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": lms})
+        # the sweep: both routes at each k, each against the plain version
+        for k in (64, 256, 2048, kernels.K_SMALL + 1):
+            want = MQ._mq_select_plain(mq_tm, mq_key, mq_cnt, k)
+            times = {}
+            for plan in (kernels._tiled_plan(ntb, k), kernels._sort_plan(ntb, k)):
+                def b5b_k(k=k, plan=plan):
+                    return kernels._select_run(mq_tm, mq_key, mq_cnt, k, plan, "mq_select")
+
+                if max_abs_err(b5b_k(), want):
+                    raise AssertionError(f"B5b differs from its plain version at k={k}, "
+                                         f"tiled={plan.tiled}")
+                times["two passes" if plan.tiled else "full sort"] = cuda_ms(b5b_k)
+            log(f"[B5b sweep] Q=16 N={ntb} k={k}: " + ", ".join(f"{r} {t:.4f} ms"
+                                                                 for r, t in times.items())
+                + f", torch.topk {cuda_ms(lambda: torch.topk(comp16, k, dim=1)):.4f} ms; "
+                f"select_plan takes the "
+                f"{'two passes' if kernels.select_plan(ntb, k).tiled else 'full sort'}")
         del mq_staged, sc, tc, span_off, tprogs, mq_tm, mq_cnt, comp16, lib_idx
 
         # B6 -- two metrics folds over block 0 at a 60 s step, then the
@@ -2829,8 +2887,10 @@ def main() -> int:
             raise AssertionError("batched search: a response differs from the unbatched CPU answer")
         occ = db.batchers.search.stats["max_occupancy"]
         if group_counts["multiquery"] != 1 or group_counts["mq_select"] != 1 or \
-                group_counts["filter"] or occ != 16:
-            raise AssertionError(f"batched search: launches {group_counts}, occupancy {occ}")
+                group_counts["filter"] or occ != 16 or group_grids["multiquery"] != 1 or \
+                group_grids["mq_select"] != 2:
+            raise AssertionError(f"batched search: launches {group_counts}, __global__ "
+                                 f"{group_grids} (B5a 1, B5b 2 on the two passes), occupancy {occ}")
         log(f"[batch] 16 queries, one group (first run of this column set, {first_s:.2f} s): "
             f"occupancy {occ}, wrapper calls {group_counts}, __global__ launches {group_grids}")
         with ThreadPoolExecutor(16) as ex:

@@ -13,11 +13,13 @@ filter program, which on the trace tiles (filter_plan) launches one
 kernel, after a res pass for resource.attr conditions and a flag pass
 for `~` on a block with orphans, and on the multi-launch route a res
 pass, a span pass per slot, its struct kernels (`>>` alone is init +
-n_passes doubling + final) and a trace pass; one select_topk launches a
-tile pass and a merge pass for k <= K_SMALL, else a key pass, its
-bitonic passes and an emit; one live_patch, one edge_reduce, one
-span_reduce and one timeseries (without a res pass) launch one kernel. grid_launches() reads the __global__
-launches each library counts itself, per kernel. There is no CPU path
+n_passes doubling + final) and a trace pass; one select_topk, and one
+mq_select over all its rows, launches a tile pass and a merge pass
+where select_plan takes the tiles, else a key pass, its bitonic passes
+and an emit; one multiquery, one live_patch, one edge_reduce, one
+span_reduce and one timeseries (without a res pass) launch one kernel.
+grid_launches() reads the __global__ launches each library counts
+itself, per kernel. There is no CPU path
 here: the ops modules send CPU tensors to their plain PyTorch versions
 and only CUDA tensors to these wrappers.
 
@@ -166,8 +168,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "tt_res_to_span": ("stage", [_P, _I, _P, _P, _I, _P]),
     "tt_find": ("find", [_P, _I, _I, _P, _I, _P, _I, _P, _P]),
-    "tt_select": ("select", [_P, _P, _P, _I, _I, _P, _I, _P, _P]),
-    "tt_select_tiled": ("select", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "tt_select": ("select", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
+    "tt_select_tiled": ("select", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "tt_filter_res_pass": ("filter", [_P, _P, _I, _I, _P, _P]),
     "tt_filter_span_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P]),
     "tt_filter_struct": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
@@ -176,8 +178,10 @@ _SIGNATURES = {
     "tt_filter_tiles": ("filter", [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]),
     "tt_multiquery": ("multiquery", [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
-                                     _I, _I, _I, _P, _P, _P]),
+                                     _I, _I, _I, _I, _P, _P, _P]),
     "tt_mq_select": ("multiquery", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
+    "tt_mq_select_tiled": ("multiquery", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                          _P]),
     "tt_timeseries": ("timeseries", [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "tt_timeseries_ctas": ("timeseries", [_I, _I, _I, _P]),
@@ -451,27 +455,39 @@ def select_topk(mask: torch.Tensor, key: torch.Tensor, counts: torch.Tensor,
     return _select_run(mask, key, counts, k, None)
 
 
-def _select_run(mask, key, counts, k: int, plan: SelectPlan | None) -> torch.Tensor:
+# the exports of each row-wise top-k: (two passes, full sort)
+_SELECT_EXPORTS = {"select": ("tt_select_tiled", "tt_select"),
+                   "mq_select": ("tt_mq_select_tiled", "tt_mq_select")}
+
+
+def _select_run(mask, key, counts, k: int, plan: SelectPlan | None,
+                name: str = "select") -> torch.Tensor:
+    """K2 (name "select": mask (n,)) or B5b ("mq_select": mask (Q, n),
+    each row selected alone, key shared) by plan, select_plan's when
+    None; scratch: rows x the plan's, in one allocation."""
     dev = _cuda_device(mask)
-    n = mask.shape[0]
-    _check(mask, "mask", torch.bool, dev, (n,))
+    if mask.dim() != (1 if name == "select" else 2):
+        raise KernelError(f"{name}: mask {'(n,)' if name == 'select' else '(Q, n)'} expected")
+    n, rows = mask.shape[-1], (1 if mask.dim() == 1 else mask.shape[0])
+    _check(mask, "mask", torch.bool, dev)
     _check(key, "key", torch.int32, dev, (n,))
-    _check(counts, "counts", torch.int32, dev, (n,))
+    _check(counts, "counts", torch.int32, dev, tuple(mask.shape))
     if not 0 < k <= n:
-        raise KernelError(f"select_topk: need 0 < k <= n, got k={k} n={n}")
+        raise KernelError(f"{name}: need 0 < k <= n, got k={k} n={n}")
     plan = plan or select_plan(n, k)
-    scratch = torch.empty(plan.scratch, dtype=torch.int64, device=dev)
-    out = torch.empty(3 * k + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(rows * plan.scratch, dtype=torch.int64, device=dev)
+    out = torch.empty((*mask.shape[:-1], 3 * k + 1), dtype=torch.int32, device=dev)
+    tiled, full = _SELECT_EXPORTS[name]
     with _on(dev):
         if plan.tiled:
             cand = scratch.data_ptr()
-            _call("tt_select_tiled", mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n,
-                  int(k), plan.k_pad.bit_length() - 1, plan.tile, plan.tiles, plan.buf, cand,
-                  cand + 8 * plan.tiles * plan.k_pad, out.data_ptr(), _stream(dev))
+            _call(tiled, mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n, rows, int(k),
+                  plan.k_pad.bit_length() - 1, plan.tile, plan.tiles, plan.buf, cand,
+                  cand + 8 * rows * plan.tiles * plan.k_pad, out.data_ptr(), _stream(dev))
         else:
-            _call("tt_select", mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n, int(k),
+            _call(full, mask.data_ptr(), key.data_ptr(), counts.data_ptr(), n, rows, int(k),
                   scratch.data_ptr(), plan.n_pad, out.data_ptr(), _stream(dev))
-    _count("select")
+    _count(name)
     return out
 
 
@@ -657,12 +673,21 @@ MQ_W = 296  # csrc/multiquery.cu MQ_W: int32 words of one packed program row
 
 
 def multiquery(progs: torch.Tensor, dims: tuple, col_ptrs: torch.Tensor, n_sc: int, n_tc: int,
-               span_off: torch.Tensor, n_spans: int, n_traces: int, n_traces_b: int):
+               span_off: torch.Tensor, n_spans: int, n_traces: int, n_traces_b: int,
+               n_spans_b: int):
     """B5a: q_b packed CNF programs (progs (q_b, MQ_W) int32, table dims
     (P, NC, NG, PT, NA, TC)) over one staged block whose span columns
-    and then trace columns are the n_sc + n_tc int64 device pointers of
-    col_ptrs. Returns (tm (q_b, n_traces_b) bool, counts int32).
-    Bound: bytes -- the named span columns read once per query."""
+    (n_spans_b rows each: a negative span offset counts from their end,
+    as the reference gathers it) and then trace columns are the n_sc +
+    n_tc int64 device pointers of col_ptrs. Returns (tm (q_b,
+    n_traces_b) bool, counts int32).
+    One launch: a grid sized to the card walks tiles of traces; each CTA
+    compiles a chunk of 32 / P programs in shared memory into one
+    condition word a span (equality conditions by one hash probe a
+    column) and, for monotone offsets, word operations for its clauses,
+    groups and unions. Each span's column words are read from device
+    memory once a chunk. Bound: bytes (the named span columns once, the
+    outputs)."""
     dev = _cuda_device(progs)
     q_b = progs.shape[0]
     _check(progs, "progs", torch.int32, dev, (q_b, MQ_W))
@@ -675,35 +700,22 @@ def multiquery(progs: torch.Tensor, dims: tuple, col_ptrs: torch.Tensor, n_sc: i
     base = col_ptrs.data_ptr()
     with _on(dev):
         _call("tt_multiquery", progs.data_ptr(), q_b, *(int(d) for d in dims), base, n_sc,
-              base + 8 * n_sc, n_tc, span_off.data_ptr(), int(n_spans), int(n_traces),
-              n_traces_b, tm.data_ptr(), counts.data_ptr(), _stream(dev))
+              base + 8 * n_sc, n_tc, span_off.data_ptr(), int(n_spans), int(n_spans_b),
+              int(n_traces), n_traces_b, tm.data_ptr(), counts.data_ptr(), _stream(dev))
     _count("multiquery")
     return tm, counts
 
 
 # ------------------------------------------------------------------ B5b
 def mq_select(tm: torch.Tensor, key: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
-    """B5b: K2's masked top-k on every row of tm (Q, n) in one launch
-    sequence; key (n,) is shared by the rows. Returns (Q, 3k+1) int32
-    rows [idx(k) | count(k) | valid(k) | n_match]. Bound: bytes; as
-    K2, the bitonic passes re-read 8 B an element per pass."""
-    dev = _cuda_device(tm)
-    if tm.dim() != 2:
-        raise KernelError("mq_select: tm (Q, n) expected")
-    q, n = tm.shape
-    _check(tm, "tm", torch.bool, dev)
-    _check(key, "key", torch.int32, dev, (n,))
-    _check(counts, "counts", torch.int32, dev, (q, n))
-    if not 0 < k <= n:
-        raise KernelError(f"mq_select: need 0 < k <= n, got k={k} n={n}")
-    n_pad = max(_SORT_TILE, 1 << (n - 1).bit_length())
-    comp = torch.empty((q, n_pad), dtype=torch.int64, device=dev)
-    out = torch.empty((q, 3 * k + 1), dtype=torch.int32, device=dev)
-    with _on(dev):
-        _call("tt_mq_select", tm.data_ptr(), key.data_ptr(), counts.data_ptr(), n, q, int(k),
-              comp.data_ptr(), n_pad, out.data_ptr(), _stream(dev))
-    _count("mq_select")
-    return out
+    """B5b: K2's masked top-k on every row of tm (Q, n); key (n,) is
+    shared by the rows. Returns (Q, 3k+1) int32 rows [idx(k) | count(k) |
+    valid(k) | n_match]. The route is select_plan(n, k)'s, as K2's: two
+    passes (a tile pass over (tiles, Q) CTAs reading the mask and key
+    once, a merge CTA a row; 2 launches) where it takes the tiles, else
+    the full sort over all rows at once. Bound: bytes (the mask, the
+    key, counts at the Q x k winners, the output)."""
+    return _select_run(tm, key, counts, k, None, "mq_select")
 
 
 # ------------------------------------------------------------------ B6

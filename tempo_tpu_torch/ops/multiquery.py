@@ -371,8 +371,21 @@ def _cmp_code(opc, x, v0, v1):
 
 
 def _take(a: torch.Tensor, idx, n: int) -> torch.Tensor:
-    """a[clip(idx, 0, n-1)] along axis 0: XLA's clamped gather."""
+    """a[clip(idx, 0, n-1)] along axis 0: the reference's explicit clip."""
     return a[torch.clamp(torch.as_tensor(idx, device=a.device).long(), 0, n - 1)]
+
+
+def _jidx(idx, n: int) -> torch.Tensor:
+    """The row an index gathers where the reference indexes without a clip
+    (an offset table, span_off): a negative index counts from the end,
+    then XLA clamps it into [0, n - 1]."""
+    idx = torch.as_tensor(idx).long()
+    return torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+
+
+def _jtake(a: torch.Tensor, idx) -> torch.Tensor:
+    """a[idx] along axis 0 as the reference's implicit gather takes it."""
+    return a[_jidx(torch.as_tensor(idx, device=a.device), a.shape[0])]
 
 
 def _zcumsum(m: torch.Tensor, dim: int) -> torch.Tensor:
@@ -406,15 +419,15 @@ def _multiquery_plain(span_cols: list, trace_cols: list, span_off: torch.Tensor,
         m = m & valid_span[None, :]
         cs = _zcumsum(m, 0)
         co = p["clause_off"].long()
-        clause_ok = (_take(cs, co[1:], cs.shape[0]) - _take(cs, co[:-1], cs.shape[0])) > 0
+        clause_ok = (_jtake(cs, co[1:]) - _jtake(cs, co[:-1])) > 0
         cs2 = _zcumsum(clause_ok, 0)
-        go = p["group_off"].long()
-        n_cl = (go[1:] - go[:-1])[:, None]
-        grp_ok = ((_take(cs2, go[1:], cs2.shape[0]) - _take(cs2, go[:-1], cs2.shape[0])) == n_cl) \
+        go = p["group_off"].int()
+        n_cl = (go[1:] - go[:-1])[:, None]  # int32, as the reference's
+        grp_ok = ((_jtake(cs2, go[1:]) - _jtake(cs2, go[:-1])) == n_cl) \
             & valid_span[None, :]
         cs3 = _zcumsum(grp_ok, 1)
-        o1 = torch.clamp(off[1:], 0, n_spans_b)
-        o0 = torch.clamp(off[:-1], 0, n_spans_b)
+        o1 = _jidx(off[1:], n_spans_b + 1)
+        o0 = _jidx(off[:-1], n_spans_b + 1)
         gmask = (cs3[:, o1] - cs3[:, o0]) > 0  # (NG, T)
         tx = _take(trace_mat, p["tcond_col"], trace_mat.shape[0])
         tcm = _cmp_code(p["tcond_op"][:, None], tx, p["tcond_v0"][:, None], p["tcond_v1"][:, None])
@@ -423,7 +436,7 @@ def _multiquery_plain(span_cols: list, trace_cols: list, span_off: torch.Tensor,
                            _take(tcm, p["atom_idx"], tcm.shape[0])) & (kind >= 0)[:, None]
         cs4 = _zcumsum(aval, 0)
         to = p["tclause_off"].long()
-        tcl_ok = ((_take(cs4, to[1:], cs4.shape[0]) - _take(cs4, to[:-1], cs4.shape[0])) > 0) | (
+        tcl_ok = ((_jtake(cs4, to[1:]) - _jtake(cs4, to[:-1])) > 0) | (
             torch.arange(to.shape[0] - 1, device=dev) >= p["n_tclauses"])[:, None]
         tm = torch.all(tcl_ok, dim=0) & valid_trace
         live = (torch.arange(grp_ok.shape[0], device=dev) < p["n_groups"])[:, None]
@@ -512,7 +525,8 @@ def eval_multiquery(lowered: list[LoweredQuery], staged, progs: dict):
 
     prog_t, dims, ptr_t = device_program(lowered, staged, progs)
     return kernels.multiquery(prog_t, dims, ptr_t, len(shape.span_cols), len(shape.trace_cols),
-                              span_off, staged.n_spans, staged.n_traces, staged.n_traces_b)
+                              span_off, staged.n_spans, staged.n_traces, staged.n_traces_b,
+                              staged.n_spans_b)
 
 
 def select_multiquery(tm, key, counts, k: int):
@@ -582,11 +596,11 @@ def _mq_partial_plain(span_mat: torch.Tensor, span_off: torch.Tensor, progs: dic
         m = m & (~p["cond_guard"].bool()[:, None] | (x != int(PAD_I32))) & valid_span[None, :]
         cs = _zcumsum(m, 0)
         co = p["clause_off"].long()
-        clause_ok = (_take(cs, co[1:], cs.shape[0]) - _take(cs, co[:-1], cs.shape[0])) > 0
+        clause_ok = (_jtake(cs, co[1:]) - _jtake(cs, co[:-1])) > 0
         cs2 = _zcumsum(clause_ok, 0)
-        go = p["group_off"].long()
-        n_cl = (go[1:] - go[:-1])[:, None]
-        grp_ok = ((_take(cs2, go[1:], cs2.shape[0]) - _take(cs2, go[:-1], cs2.shape[0])) == n_cl) \
+        go = p["group_off"].int()
+        n_cl = (go[1:] - go[:-1])[:, None]  # int32, as the reference's
+        grp_ok = ((_jtake(cs2, go[1:]) - _jtake(cs2, go[:-1])) == n_cl) \
             & valid_span[None, :]
         live = (torch.arange(grp_ok.shape[0], device=dev) < p["n_groups"])[:, None]
         union = torch.any(grp_ok & live, dim=0) if int(p["n_groups"]) > 0 else valid_span
@@ -615,7 +629,7 @@ def _mq_combine_plain(counts: torch.Tensor, trace_mat: torch.Tensor, progs: dict
                            _take(tcm, p["atom_idx"], tcm.shape[0])) & (kind >= 0)[:, None]
         cs4 = _zcumsum(aval, 0)
         to = p["tclause_off"].long()
-        tcl_ok = ((_take(cs4, to[1:], cs4.shape[0]) - _take(cs4, to[:-1], cs4.shape[0])) > 0) | (
+        tcl_ok = ((_jtake(cs4, to[1:]) - _jtake(cs4, to[:-1])) > 0) | (
             torch.arange(to.shape[0] - 1, device=dev) >= p["n_tclauses"])[:, None]
         tm = torch.all(tcl_ok, dim=0) & valid_trace
         tms.append(tm)

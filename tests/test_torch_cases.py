@@ -216,11 +216,12 @@ def _mq_operands(rng, col: str) -> tuple[int, int]:
     return a, b
 
 
-def random_program(rng, n_groups: int | None = None) -> dict:
-    """One well-formed CNF program over mq_cols at MQ_DIMS, as the
-    arrays LoweredQuery.from_arrays takes (monotone offsets, padded
-    slots op -1, span@res conditions guarded)."""
-    d = MQ_DIMS
+def random_program(rng, n_groups: int | None = None, dims: dict | None = None) -> dict:
+    """One well-formed CNF program over mq_cols at MQ_DIMS (or dims, such
+    as a condition table whose length is no power of two), as the arrays
+    LoweredQuery.from_arrays takes (monotone offsets, padded slots op -1,
+    span@res conditions guarded)."""
+    d = MQ_DIMS if dims is None else dims
     P, NC, NG = d["n_conds_b"], d["n_clauses_b"], d["n_groups_b"]
     PT, NA, TC = d["n_tconds_b"], d["n_atoms_b"], d["n_tclauses_b"]
     ng = int(rng.integers(0, NG + 1)) if n_groups is None else n_groups
@@ -269,6 +270,35 @@ def random_program(rng, n_groups: int | None = None) -> dict:
 
 
 # ------------------------------------------------------ timeseries fold (B6)
+
+
+def hostile_program(arrays: dict, rng, kind: int) -> dict:
+    """The program with offset tables lower_plan never writes: permuted
+    (kind 1: runs out of order), or with entries below zero and past
+    their table (kind 2: the reference's gathers count a negative index
+    from the end, then clamp)."""
+    out = dict(arrays)
+    for f in ("clause_off", "group_off", "tclause_off"):
+        a = np.asarray(arrays[f]).copy()
+        if kind == 1:
+            a = rng.permutation(a)
+        else:
+            a[rng.random(a.shape[0]) < 0.3] = rng.integers(-6, 12, a.shape[0])[:1]
+        out[f] = a
+    return out
+
+
+def hostile_cols(seed: int) -> dict:
+    """mq_cols with span offsets that run backwards for some traces and
+    fall below zero for others."""
+    cols = mq_cols(seed)
+    off = cols["trace.span_off"].copy()
+    rng = np.random.default_rng(seed)
+    for t in rng.choice(N_TRACES, 12, replace=False):
+        off[t], off[t + 1] = off[t + 1], off[t]
+    off[rng.choice(N_TRACES, 4, replace=False)] = rng.integers(-40, -1, 4)
+    cols["trace.span_off"] = off
+    return cols
 
 
 def span_level_cases() -> dict:

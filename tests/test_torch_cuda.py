@@ -339,41 +339,143 @@ def test_multiquery_kernel_on_a_block(cuda, block):
             assert torch.equal(g, w), shape
 
 
-def test_multiquery_kernel(cuda):
+def _no_span_program() -> dict:
+    """A program with no group and no span column: one trace clause of
+    one trace condition (the multi-query kernel's n_sc = 0 path)."""
+    d = TC.MQ_DIMS
+    P, NC, NG = d["n_conds_b"], d["n_clauses_b"], d["n_groups_b"]
+    PT, NA, TC_ = d["n_tconds_b"], d["n_atoms_b"], d["n_tclauses_b"]
+    z = lambda n: np.zeros(n, np.int32)  # noqa: E731
+    return {"cond_col": z(P), "cond_op": np.full(P, -1, np.int32), "cond_v0": z(P),
+            "cond_v1": z(P), "cond_guard": np.zeros(P, bool), "clause_off": z(NC + 1),
+            "group_off": z(NG + 1), "tcond_col": z(PT),
+            "tcond_op": np.asarray([5] + [-1] * (PT - 1), np.int32),
+            "tcond_v0": np.asarray([1_000_000] + [0] * (PT - 1), np.int32), "tcond_v1": z(PT),
+            "atom_kind": np.asarray([1] + [-1] * (NA - 1), np.int32), "atom_idx": z(NA),
+            "tclause_off": np.asarray([0] + [1] * TC_, np.int32), "n_groups": 0,
+            "n_tclauses": 1, "span_cols": (), "trace_cols": TC.MQ_TRACE_COLS}
+
+
+@pytest.mark.parametrize("q", [1, 3, 16, 64])
+def test_multiquery_kernel(cuda, q):
+    """Random programs (some with no group, trace clauses past
+    n_tclauses, PAD-guarded span@res conditions) over a block with empty
+    traces, traces of up to 70 spans and padded traces past n_traces; 64
+    queries take two query chunks. Then the same block with no span
+    column named. Bit for bit against the plain version, one launch."""
     from tempo_tpu_torch import kernels
 
-    for q in (1, 3, 16):
-        rng = np.random.default_rng(q)
-        lowered = [MQ.LoweredQuery.from_arrays(TC.random_program(rng)) for _ in range(q)]
-        staged = ST.staged_from_numpy(TC.mq_cols(q), TC.N_SPANS, TC.N_TRACES, TC.N_RES, cuda)
-        progs = MQ.pack_queries(lowered, MQ._p2(q, lo=1))
-        n0 = kernels.LAUNCHES["multiquery"]
+    rng = np.random.default_rng(q)
+    staged = ST.staged_from_numpy(TC.mq_cols(q), TC.N_SPANS, TC.N_TRACES, TC.N_RES, cuda)
+    assert (np.diff(TC.mq_cols(q)["trace.span_off"][:TC.N_TRACES + 1]) > 32).any()
+    for arrays in ([TC.random_program(rng, n_groups=0 if i % 5 == 4 else None) for i in range(q)],
+                   [_no_span_program()]):
+        lowered = [MQ.LoweredQuery.from_arrays(a) for a in arrays]
+        progs = MQ.pack_queries(lowered, MQ._p2(len(lowered), lo=1))
+        kernels.reset_counts()
         got = MQ.eval_multiquery(lowered, staged, progs)
-        assert kernels.LAUNCHES["multiquery"] == n0 + 1
+        assert kernels.LAUNCHES["multiquery"] == 1
+        assert kernels.grid_launches()["multiquery"] == 1
         tp = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in progs.items()}
         shape = lowered[0].shape
         want = MQ._multiquery_plain([staged.cols[n] for n in shape.span_cols],
                                     [staged.cols[n] for n in shape.trace_cols],
                                     staged.cols["trace.span_off"], tp, TC.N_SPANS, TC.N_TRACES,
                                     TC.N_SPANS_B, TC.N_TRACES_B)
-        assert got[0][:q].any()
+        assert got[0][:len(lowered)].any()
         for g, w in zip(got, want):
-            assert torch.equal(g, w), q
+            assert torch.equal(g, w), (q, len(lowered))
 
 
-def test_mq_select_kernel(cuda):
+@pytest.mark.parametrize("p", [3, 6])
+def test_multiquery_kernel_odd_condition_tables(cuda, p):
+    """Condition tables whose length is no power of two (from_arrays takes
+    it as it comes): 32 programs, so a chunk holds 32 // p of them side by
+    side in one word; each program's union must stay within its own p
+    bits. Bit for bit against the plain version."""
+    rng = np.random.default_rng(300 + p)
+    dims = dict(TC.MQ_DIMS, n_conds_b=p, n_clauses_b=p // 3, n_groups_b=1)
+    lowered = [MQ.LoweredQuery.from_arrays(
+        TC.random_program(rng, n_groups=0 if i % 5 == 4 else None, dims=dims)) for i in range(32)]
+    staged = ST.staged_from_numpy(TC.mq_cols(39), TC.N_SPANS, TC.N_TRACES, TC.N_RES, cuda)
+    progs = MQ.pack_queries(lowered, 32)
+    got = MQ.eval_multiquery(lowered, staged, progs)
+    tp = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in progs.items()}
+    shape = lowered[0].shape
+    want = MQ._multiquery_plain([staged.cols[n] for n in shape.span_cols],
+                                [staged.cols[n] for n in shape.trace_cols],
+                                staged.cols["trace.span_off"], tp, TC.N_SPANS, TC.N_TRACES,
+                                TC.N_SPANS_B, TC.N_TRACES_B)
+    assert got[0].any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), p
+
+
+@pytest.mark.parametrize("kind", [1, 2])
+def test_multiquery_kernel_hostile_offsets(cuda, kind):
+    """Programs whose clause, group and trace-clause offsets run out of
+    order (kind 1) or below zero and past their tables (kind 2), over span
+    offsets that run backwards or below zero: gathered as the plain
+    version (and the reference) gathers them, bit for bit; such chunks
+    take the per-program tables."""
+    rng = np.random.default_rng(40 + kind)
+    lowered = [MQ.LoweredQuery.from_arrays(
+        TC.hostile_program(TC.random_program(rng), rng, kind) if i % 2 else TC.random_program(rng))
+        for i in range(8)]
+    staged = ST.staged_from_numpy(TC.hostile_cols(kind), TC.N_SPANS, TC.N_TRACES, TC.N_RES, cuda)
+    progs = MQ.pack_queries(lowered, 8)
+    got = MQ.eval_multiquery(lowered, staged, progs)
+    tp = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for k, v in progs.items()}
+    shape = lowered[0].shape
+    want = MQ._multiquery_plain([staged.cols[n] for n in shape.span_cols],
+                                [staged.cols[n] for n in shape.trace_cols],
+                                staged.cols["trace.span_off"], tp, TC.N_SPANS, TC.N_TRACES,
+                                TC.N_SPANS_B, TC.N_TRACES_B)
+    assert (want[1] < 0).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), kind
+
+
+def _sort_grids(n: int) -> int:
+    """__global__ launches of one full-sort select (csrc/select.cuh
+    tt_select_rows): keys, the first tile pass, for each merge size past
+    a tile its global passes and a tile pass, the emit."""
     from tempo_tpu_torch import kernels
 
-    for q, n, k in [(16, 1024, 16), (16, 1024, 64), (3, 5000, 64), (16, 32768, 64), (2, 4096, 4096)]:
-        rng = np.random.default_rng(n + k + q)
-        tm = torch.from_numpy(rng.random((q, n)) < 0.3).to(cuda)
-        key = torch.from_numpy(rng.integers(0, 7, n).astype(np.int32)).to(cuda)  # heavy ties
-        counts = torch.from_numpy(rng.integers(0, 50, (q, n)).astype(np.int32)).to(cuda)
-        got = kernels.mq_select(tm, key, counts, k)
-        assert torch.equal(got, MQ._mq_select_plain(tm, key, counts, k)), (q, n, k)
-        # each row equals K2 on that row alone
-        for r in range(q):
-            assert torch.equal(got[r], kernels.select_topk(tm[r], key, counts[r], k)), (q, n, k, r)
+    n_pad, tile = kernels._sort_plan(n, 1).n_pad, kernels._SORT_TILE
+    return 3 + sum(kk.bit_length() - tile.bit_length() + 1
+                   for kk in (1 << e for e in range(tile.bit_length(), n_pad.bit_length())))
+
+
+@pytest.mark.parametrize("q,n,k", [(16, 1024, 16), (16, 1024, 64), (3, 5000, 64),
+                                   (16, 32768, 64), (5, 40000, 2048), (2, 4096, 4096)])
+def test_mq_select_kernel(cuda, q, n, k):
+    """Both routes on every case where each exists (the plan's first):
+    equal to the plain version, each row equal to K2 on that row alone,
+    2 __global__ a call on the tiles and the full sort's count on it."""
+    from tempo_tpu_torch import kernels
+
+    rng = np.random.default_rng(n + k + q)
+    tm = torch.from_numpy(rng.random((q, n)) < 0.3).to(cuda)
+    key = torch.from_numpy(rng.integers(0, 7, n).astype(np.int32)).to(cuda)  # heavy ties
+    counts = torch.from_numpy(rng.integers(0, 50, (q, n)).astype(np.int32)).to(cuda)
+    want = MQ._mq_select_plain(tm, key, counts, k)
+    plan = kernels.select_plan(n, k)
+    assert plan.tiled == (k <= kernels.K_SMALL)
+    kernels.reset_counts()
+    got = kernels.mq_select(tm, key, counts, k)
+    assert kernels.grid_launches()["mq_select"] == (2 if plan.tiled else _sort_grids(n))
+    assert torch.equal(got, want), (q, n, k)
+    # each row equals K2 on that row alone
+    for r in range(q):
+        assert torch.equal(got[r], kernels.select_topk(tm[r], key, counts[r], k)), (q, n, k, r)
+    for other in (kernels._tiled_plan(n, k), kernels._sort_plan(n, k)):
+        if other.tiled == plan.tiled:
+            continue
+        kernels.reset_counts()
+        alt = kernels._select_run(tm, key, counts, k, other, "mq_select")
+        assert kernels.grid_launches()["mq_select"] == (2 if other.tiled else _sort_grids(n))
+        assert torch.equal(alt, want), (q, n, k, other.tiled)
 
 
 def _ts_both(cuda, case, n_groups, n_buckets, has_val, dyadic, t0, step):

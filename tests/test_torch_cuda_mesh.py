@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import test_torch_cases as TC
 
 from tempo_tpu_torch import kernels
 from tempo_tpu_torch.backend import MemBackend
@@ -124,6 +125,45 @@ def test_mq_partial_combine_match_plain_and_b5a(cuda):
         assert torch.equal(tm, ptm) and torch.equal(cnt, pcnt), w
         assert torch.equal(tm, tm1) and torch.equal(cnt, c1), w
     assert tm1.any()
+
+
+@pytest.mark.parametrize("kind", [1, 2])
+def test_mq_partial_combine_hostile_offsets(cuda, kind):
+    """M2 over 1 and 3 row slices, then M3, on programs with offsets out
+    of order or out of their tables and span offsets that run backwards:
+    equal to their plain versions and, summed, to B5a, bit for bit."""
+    rng = np.random.default_rng(50 + kind)
+    arrays = [TC.hostile_program(TC.random_program(rng), rng, kind) if i % 2
+              else TC.random_program(rng) for i in range(4)]
+    lqs = [MQ.LoweredQuery.from_arrays(a) for a in arrays]
+    cols = TC.hostile_cols(kind)
+    cols["trace.span_off"] = np.maximum(cols["trace.span_off"], 0)  # backwards, not below zero
+    staged = ST.staged_from_numpy(cols, TC.N_SPANS, TC.N_TRACES, TC.N_RES, cuda)
+    shape = lqs[0].shape
+    progs = MQ.pack_queries(lqs, 4)
+    rows = torch.from_numpy(MQ._program_rows(progs)).to(cuda)
+    dims = (shape.n_conds_b, shape.n_clauses_b, shape.n_groups_b, shape.n_tconds_b,
+            shape.n_atoms_b, shape.n_tclauses_b)
+    span_mat = torch.stack([staged.cols[n] for n in shape.span_cols])
+    trace_mat = torch.stack([staged.cols[n] for n in shape.trace_cols])
+    span_off = staged.cols["trace.span_off"]
+    tm1, c1 = MQ.eval_multiquery(lqs, staged, progs)
+    tables = MQ.program_tables(rows, dims)
+    for w in (1, 3):
+        bounds = [staged.n_spans_b * r // w for r in range(w + 1)]
+        parts = []
+        for r in range(w):
+            sm = span_mat[:, bounds[r]:bounds[r + 1]].contiguous()
+            got = kernels.mq_partial(rows, dims, sm, bounds[r], span_off, staged.n_spans)
+            assert torch.equal(got, MQ._mq_partial_plain(sm, span_off, tables, bounds[r],
+                                                         staged.n_spans)), (w, r)
+            parts.append(got)
+        total = torch.stack(parts).sum(dim=0, dtype=torch.int32)
+        tm, cnt = kernels.mq_combine(rows, dims, total, trace_mat, staged.n_traces)
+        ptm, pcnt = MQ._mq_combine_plain(total, trace_mat, tables, staged.n_traces)
+        assert torch.equal(tm, ptm) and torch.equal(cnt, pcnt), w
+        assert torch.equal(tm, tm1) and torch.equal(cnt, c1), w
+    assert (np.diff(cols["trace.span_off"][:TC.N_TRACES + 1]) < 0).any()
 
 
 def _stacked(rng, B=4, S=4096, R=1024, NT=1024):

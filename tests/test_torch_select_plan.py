@@ -1,5 +1,7 @@
 """K2's route and scratch sizes (kernels.select_plan), and its two-pass
-decomposition against the JAX package's selection, on the CPU.
+decomposition against the JAX package's selection, on the CPU; the same
+for B5b, which runs K2's routes on each row of a batch (kernels.mq_select
+takes select_plan(n, k) for all Q rows).
 
 The card's two-pass route (csrc/select.cu) keeps each tile's top k_pad
 composites, then folds the candidates `buf` composites at a time into a
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tempo_tpu.ops import multiquery as RMQ
 from tempo_tpu.ops import select as RSE
 from tempo_tpu_torch import kernels
 from tempo_tpu_torch.ops import select as SE
@@ -129,3 +132,36 @@ def test_select_plan_at_the_search_shapes():
     assert not kernels.select_plan(327_680, kernels.K_SMALL + 1).tiled
     assert not kernels.select_plan(1024, 1024).tiled
     assert not kernels.select_plan(60, 40).tiled
+
+
+def test_mq_select_plan_at_the_batched_shape():
+    """B5b at the batched search's shape (a block's 32,768 traces, k = 64
+    for limit 20): the two passes, 8 tiles of 4,096 a row, so the tile
+    pass is 8 x Q CTAs and the merge one CTA a row of 512 candidates;
+    scratch Q x (8 x 64 + 4) int64 words. Past K_SMALL, or where the
+    candidates are not fewer than the rows, the full sort."""
+    p = kernels.select_plan(32768, 64)
+    assert p.tiled and (p.tile, p.tiles, p.k_pad) == (4096, 8, 64)
+    assert p.scratch == 8 * 64 + 4
+    p = kernels.select_plan(32768, kernels.K_SMALL)
+    assert p.tiled and (p.tile, p.tiles) == (4096, 8)
+    assert not kernels.select_plan(32768, kernels.K_SMALL + 1).tiled
+    assert not kernels.select_plan(4096, 4096).tiled
+    assert kernels.select_plan(4096, 4096).n_pad == 4096
+
+
+@pytest.mark.parametrize("q,n,k,seed", [
+    (16, 32768, 64, 1),  # the batched search's shape
+    (3, 5000, 64, 2),  # a ragged last tile in every row
+    (5, 40000, kernels.K_SMALL, 3),  # each row's merge takes two chunks
+])
+def test_row_two_pass_equals_jax_mq_select(q, n, k, seed):
+    """Each row by select.cu's decomposition, the key shared, equals
+    tempo_tpu's jitted row-wise top-k over the (Q, n) batch."""
+    rng = np.random.default_rng(seed)
+    tm = rng.random((q, n)) < 0.3
+    key = rng.integers(0, 9, n).astype(np.int32)
+    counts = rng.integers(0, 50, (q, n)).astype(np.int32)
+    want = np.asarray(RMQ._compiled_mq_select(k, q)(tm, key, counts))
+    got = np.stack([_two_pass(tm[r], key, counts[r], k) for r in range(q)])
+    np.testing.assert_array_equal(got, want)
