@@ -24,7 +24,8 @@ Phases, in order (any failure raises; no CPU fallback):
                times by CUDA events (warm),
                the byte bound at 3.35 TB/s, and a one-call PyTorch
                yardstick where one exists
-  5. find      find_trace_by_id on 48 present + 16 absent ids
+  5. find      find_trace_by_id on 48 present + 16 absent ids, one K3
+               __global__ a find (no stack: a descriptor a block)
   6. search    10 TraceQL queries (limit 20) on the card, each response
                equal to a second TempoDB(device="cpu") over the same
                backend; then 2 of them on the per-block fallback
@@ -84,10 +85,12 @@ Phases, in order (any failure raises; no CPU fallback):
                each refresh's route logged and its device columns held
                against the host tails; 10 live searches equal to the CPU
                ingester and the index walk; 48 present + 16 absent finds
-               on the map and the device route; rate() over the live head
+               on the map and the device route (one B7b __global__ a
+               device find); rate() over the live head
                card vs CPU; the flush (B9a-B9c) after a copy of the WAL,
                and a replay of that copy into a new Ingester; then B7a-B7d
                against their plain versions on the staged 16,384-slot head
+               (B7b at every cluster size, and find_slot_device's call)
   14. generator the metrics-generator behind the distributor's streaming
                tap: block 0's traces 16,384-32,767 (524,288 spans) pushed
                in 64 windows of 256 (the first 8 as OTLP bytes through
@@ -218,6 +221,21 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def host_ms(fn, reps: int = 40, rounds: int = 7, warm: int = 5) -> float:
+    """A call's wall on the host clock, for calls that end in a
+    read-back (so the card's work is inside each call): the median of
+    `rounds` means of `reps` calls (the host's jitter moves a mean)."""
+    for _ in range(warm):
+        fn()
+    means = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        means.append((time.perf_counter() - t0) / reps * 1e3)
+    return float(np.median(means))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -910,8 +928,11 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
         if any(g is not None for g in got[len(pick):]):
             raise AssertionError(f"live find {route}: an absent id returned a trace")
     find_counts = dict(kernels.LAUNCHES)
-    if dev.type == "cuda" and find_counts["live_find"] != len(pick) + len(absent):
-        raise AssertionError(f"live finds: wrapper calls {nonzero(find_counts)}")
+    find_grids = kernels.grid_launches()["live_find"]
+    if dev.type == "cuda" and not (find_counts["live_find"] == find_grids
+                                   == len(pick) + len(absent)):
+        raise AssertionError(f"live finds: wrapper calls {nonzero(find_counts)}, "
+                             f"{find_grids} __global__")
     log(f"[ingest] {len(pick)} present ({sum(i in split for i in pick)} split) + {len(absent)} "
         f"absent live finds equal the materialized traces on both routes: map "
         f"{find_s['map']:.2f} s, device {find_s['device']:.2f} s; wrapper calls {nonzero(find_counts)}")
@@ -974,9 +995,11 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
                        for k in push_counts}, "snap": full_snap}
 
 
-def phase_13_table(snap, table) -> None:
+def phase_13_table(snap, table) -> dict:
     """B7a-B7d against their plain versions on the staged live head at
-    full width; times by CUDA events, the byte bound, yardsticks."""
+    full width; times by CUDA events, the byte bound, yardsticks.
+    Returns B7b's device-time split by cluster size (device_split's
+    input)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import livestage as L
 
@@ -1025,16 +1048,41 @@ def phase_13_table(snap, table) -> None:
     # B7b -- the id codes of that trace
     from tempo_tpu_torch.block import schema as S
 
-    qid = torch.tensor(S.trace_id_to_codes(tid), dtype=torch.int32, device=dev)
-    got = kernels.live_find(d["id_codes"], d["alive"], qid, n)
+    codes = S.trace_id_to_codes(tid)
+    qid = torch.tensor(codes, dtype=torch.int32, device=dev)
+    kernels.reset_counts()
+    got = kernels.live_find(d["id_codes"], d["alive"], codes, n)
     err = max_abs_err(got, L._live_find_plain(d["id_codes"], d["alive"], qid, n))
-    if err or int(got.item()) != n // 3:
-        raise AssertionError("B7b differs from its plain version or misses its slot")
-    ms = cuda_ms(lambda: kernels.live_find(d["id_codes"], d["alive"], qid, n))
+    if err or int(got.item()) != n // 3 or kernels.grid_launches()["live_find"] != 1:
+        raise AssertionError("B7b differs from its plain version, misses its slot or was not "
+                             "one __global__")
+    ms = cuda_ms(lambda: kernels.live_find(d["id_codes"], d["alive"], codes, n))
     pms = cuda_ms(lambda: L._live_find_plain(d["id_codes"], d["alive"], qid, n))
     b = bound(sb * 20 + 16 + 4, sb * 5)
     log(f"[B7b] {sb} slots: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.6f} ms")
     row("live_find", "tempo_tpu/ops/livestage.py:243", err, ms, pms, b, None)
+    # the path's call (find_slot_device: the codes, the launch and the
+    # read-back, host clock); then every cluster size the plan takes (C =
+    # ceil(n / 2,048) CTAs, at most 8), each reached by its n_slots, held
+    # against the plain version, and timed at 2,048 slots (one CTA, a
+    # plain launch), 2,049 (a cluster of 2) and 8,192 and 16,384 (4, 8)
+    if L.find_slot_device(snap, tid) != n // 3:
+        raise AssertionError("B7b: find_slot_device misses its slot")
+    path_ms = host_ms(lambda: L.find_slot_device(snap, tid))
+    for c in range(1, 9):
+        for n_c in (2048 * (c - 1) + 1, 2048 * c):
+            if n_c > sb:
+                continue
+            cq = [int(x) for x in d["id_codes"][n_c - 1].tolist()]
+            want = L._live_find_plain(d["id_codes"], d["alive"],
+                                      torch.tensor(cq, dtype=torch.int32, device=dev), n_c)
+            if max_abs_err(kernels.live_find(d["id_codes"], d["alive"], cq, n_c), want):
+                raise AssertionError(f"B7b differs from its plain version at {n_c} slots")
+    log(f"[B7b path] find_slot_device: {path_ms:.4f} ms a call (host clock, read-back included)")
+    splits = {f"B7b by the plan's CTAs (n_slots, C), the live head's {sb} slots": {
+        f"{n_c},{min(8, -(-n_c // 2048))}": functools.partial(
+            kernels.live_find, d["id_codes"], d["alive"], codes, n_c)
+        for n_c in (2048, 2049, 8192, 16384) if n_c <= sb}}
 
     # B7c -- one refresh's delta of kv rows (2,048 traces x about 70
     # rows, bucket 2^18) into the staged kv code column
@@ -1126,6 +1174,7 @@ def phase_13_table(snap, table) -> None:
         f"(profiler), 200 bare ctypes calls {bare_ms:.4f} ms a call (CUDA events), the wrapper "
         f"{ms:.4f} ms a call (cuda_ms; {after_ms:.4f} ms after the profiler); host µs a call: "
         + ", ".join(f"{name} {us:.2f}" for name, us in host.items()))
+    return splits
 
 
 GEN_TENANT = "smoke-gen"
@@ -2546,9 +2595,13 @@ def main() -> int:
                       "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lms})
 
-        # K3 -- every block's index against 48 present + 16 absent ids;
-        # timed at the find path's shape (one block past the bloom gate,
-        # one query padded to its bucket)
+        # K3 -- every block's index against 48 present + 16 absent ids,
+        # on the stack and on the blocks' own indexes; the row times the
+        # wrapper the find path calls at phase 5's shape (one block's
+        # cached index, one id, kernels.find_blocks), and the log line
+        # adds the path's call and the stacked form at phase 4's shape
+        # (one block, the queries padded to their bucket: 1,024 rows, the
+        # row's shape before the find path stopped stacking)
         blks = [open_block(backend, TENANT, m.block_id) for m in metas]
         qrng = np.random.default_rng(11)
         present = [ids_per[b][i].tobytes() for b, i in zip(qrng.integers(0, N_BLOCKS, 48),
@@ -2561,22 +2614,46 @@ def main() -> int:
                 absent.append(t)
         qcodes = np.asarray([S.trace_id_to_codes(t) for t in present + absent], np.int32)
         T = bucket(N_TRACES)
+        steps = T.bit_length()
         ids = torch.from_numpy(np.stack([pad_rows(b.trace_index["trace.id_codes"], T, 2**31 - 1)
                                          for b in blks]).astype(np.int32)).to(dev)
         nv = torch.tensor([N_TRACES] * N_BLOCKS, dtype=torch.int32, device=dev)
         qs = torch.from_numpy(pad_rows(qcodes, bucket(len(qcodes)), PAD_I32)).to(dev)
-        got = kernels.find_rows(ids, qs, nv, T.bit_length())
-        want = FD._bisect_plain(ids, qs, nv, T.bit_length())
+        got = kernels.find_rows(ids, qs, nv, steps)
+        want = FD._bisect_plain(ids, qs, nv, steps)
         err = max_abs_err(got, want)
         hits = int((got[:, :48] >= 0).sum().item())
         if err or hits != 48 or int((got[:, 48:64] >= 0).sum().item()):
             raise AssertionError(f"K3: err {err}, {hits} of 48 present ids found")
+        kernels.reset_counts()
+        got = kernels.find_blocks([FD._device_ids(b, dev) for b in blks], qcodes, steps)
+        if max_abs_err(got, want[:, :len(qcodes)]) or kernels.grid_launches()["find"] != 1:
+            raise AssertionError("K3 over the blocks' own indexes differs from the stack's, or "
+                                 "was not one __global__")
+        # phase 5's shape: block 0's cached index and one present id
+        one = [blks[0]]
+        q1 = np.ascontiguousarray(blks[0].trace_index["trace.id_codes"][5:6], dtype=np.int32)
+        per1 = [FD._device_ids(blks[0], dev)]
         ids1, nv1 = ids[:1].contiguous(), nv[:1].contiguous()
-        ms = cuda_ms(lambda: kernels.find_rows(ids1, qs, nv1, T.bit_length()))
-        pms = cuda_ms(lambda: FD._bisect_plain(ids1, qs, nv1, T.bit_length()))
-        Q, steps = qs.shape[0], T.bit_length()
-        b_ms, b_by = bound(Q * 16 + 4 + Q * (steps + 1) * 16 + Q * 4, Q * steps * 8)
-        log(f"[K3] B=1 T={T} Q={Q}: {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms")
+        q1_dev = torch.from_numpy(q1).to(dev)
+        got = kernels.find_blocks(per1, q1, steps)
+        err = max(err, max_abs_err(got, FD._bisect_plain(ids1, q1_dev, nv1, steps)))
+        if err or int(got[0, 0]) != 5 or int(FD.lookup_ids_blocks_cached(one, q1, dev)[0, 0]) != 5:
+            raise AssertionError("K3 at the find path's shape differs from its plain version "
+                                 "or misses block 0's row 5")
+        ms = cuda_ms(lambda: kernels.find_blocks(per1, q1, steps))
+        pms = cuda_ms(lambda: FD._bisect_plain(ids1, q1_dev, nv1, steps))
+        path_ms = host_ms(lambda: FD.lookup_ids_blocks_cached(one, q1, dev))
+        stacked_ms = cuda_ms(lambda: kernels.find_rows(ids1, qs, nv1, steps))
+        b_ms, b_by = bound(16 + 4 + (steps + 1) * 16 + 4, steps * 8)
+        log(f"[K3] B=1 T={T} Q=1 (kernels.find_blocks, phase 5's shape): {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {b_ms:.3g} ms; the path's call (lookup_ids_blocks_cached, "
+            f"read-back included, host clock) {path_ms:.4f} ms; stacked B=1 Q={qs.shape[0]} "
+            f"(kernels.find_rows, phase 4's shape) {stacked_ms:.4f} ms")
+        splits["K3, the find path's shape and phase 4's stacked one"] = {
+            "1 block, 1 id": functools.partial(kernels.find_blocks, per1, q1, steps),
+            f"stacked B=1 Q={qs.shape[0]}": functools.partial(kernels.find_rows, ids1, qs, nv1,
+                                                             steps)}
         table.append({"name": "find", "route": "cuda", "source": "tempo_tpu_torch/csrc/find.cu",
                       "replaces": "tempo_tpu/ops/find.py:68", "launches": 0, "max_abs_err": err,
                       "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
@@ -2851,6 +2928,9 @@ def main() -> int:
         missing = [k for k in ("filter", "select", "find", "res_to_span") if counts_after[k] <= 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: {missing}")
+        if grids_after["find"] != counts_after["find"]:
+            raise AssertionError(f"K3: {grids_after['find']} __global__ for "
+                                 f"{counts_after['find']} finds (one each)")
         if grids_after["filter"] > K1_SEARCH_GRIDS:
             raise AssertionError(f"K1: {grids_after['filter']} __global__ launches for "
                                  f"{counts_after['filter']} program runs of the "
@@ -3058,7 +3138,7 @@ def main() -> int:
         t0 = time.perf_counter()
         p13 = phase_13(db, dev, pairs, ingest_queries, span_s, tmp)
         log(f"[ingest] phase 13 took {time.perf_counter() - t0:.1f} s")
-        phase_13_table(p13["snap"], table)
+        splits.update(phase_13_table(p13["snap"], table))
 
         # ---- 14. the metrics-generator behind the distributor's tap
         t0 = time.perf_counter()

@@ -8,6 +8,7 @@
 //                                          over the (owner, code) rows
 //   B7b :243 _compiled_find -> run         first alive slot whose 4 id
 //                                          codes equal the query's, or -1
+//                                          (one launch, below)
 //   B7c :290 _append_rows_device           dynamic_update_slice of a row
 //                                          column (the delta append)
 //   B7d :298 _patch_slots_device           dst.at[idx].set(vals) of dirty
@@ -20,7 +21,11 @@
 // per 32 codes, not once per code. B7c and B7d write a NEW tensor (the
 // wrapper allocates it): the live snapshot a query holds is immutable, as
 // the JAX arrays are, so the resident columns are never written in place.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 #define LIVE_CHUNK 32
 
@@ -117,26 +122,102 @@ TT_EXPORT int tt_live_filter(const int32_t* start_s, const int32_t* end_s, const
     return 0;
 }
 
-// B7b: one thread per slot; a match takes the lowest index by an unsigned
-// atomicMin into a word preset to 0xFFFFFFFF, which reads as -1 when no
-// slot matched (argmax's first-match order; -1 otherwise).
-__global__ void live_find_kernel(const int4* __restrict__ id_codes,
-                                 const int32_t* __restrict__ alive, int slot_b, int n_slots,
-                                 const int32_t* __restrict__ q, unsigned int* __restrict__ out) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= slot_b || i >= n_slots || alive[i] <= 0) return;
-    int4 c = id_codes[i];
-    if (c.x == q[0] && c.y == q[1] && c.z == q[2] && c.w == q[3])
-        atomicMin(out, (unsigned int)i);
+// B7b: the lowest slot below lim = clamp(n_slots, 0, slot_b) that is
+// alive and whose 4 id codes equal (q0, q1, q2, q3), or -1: `argmax`'s
+// first match. One launch and nothing else: the query arrives as four
+// kernel arguments, so no query is uploaded, and the minimum is reduced
+// inside the launch, so no word is preset and no atomic touches device
+// memory. The launch is one thread-block cluster of C = ceil(lim /
+// LF_SLOTS_CTA) CTAs, at most 8 (portable); past 8 CTAs' worth of slots
+// the cluster strides over them. Each thread walks slots r * LF_THREADS +
+// tid + k * C * LF_THREADS in rounds of LF_UNROLL (int4 loads of the
+// codes, coalesced loads of alive, all issued before any compare) and
+// stops at its first match; a warp takes its minimum by
+// __reduce_min_sync, the CTA through one shared word a warp, and each CTA
+// folds its minimum into rank 0's shared word through distributed shared
+// memory (a shared-memory atomicMin); after the cluster barrier rank 0
+// writes the word (0xFFFFFFFF reads as -1). The barrier is split: each
+// CTA arrives when rank 0's word is set, before its loads, and waits
+// only before its remote atomic, so the wait overlaps the loads.
+//
+// Bound: bytes, 20 B a slot below lim (0.33 MB, 0.098 us at 3.35 TB/s at
+// the live head's 16,384 slots), far under a launch; so the launch is the
+// cost. A launch with the cluster attribute costs more than a plain one,
+// and one CTA reads a few thousand slots in about a launch's time, so the
+// plan launches a cluster only where the slots need more than one CTA:
+// C == 1 is a plain launch (no cluster attribute; the cluster barrier and
+// the shared atomic then act on the CTA itself). Times by C: chip_smoke.py's
+// `[split] B7b` line (PERF.md). The old route (a memset of the word, a
+// thread a slot with a device atomicMin, the query uploaded by the caller)
+// made three stream operations before the read-back.
+#define LF_THREADS 512
+#define LF_UNROLL 4
+#define LF_SLOTS_CTA (LF_THREADS * LF_UNROLL)
+#define LF_CLUSTER_MAX 8
+
+__global__ void __launch_bounds__(LF_THREADS)
+    live_find_kernel(const int4* __restrict__ id_codes, const int32_t* __restrict__ alive,
+                     int lim, int q0, int q1, int q2, int q3, int32_t* __restrict__ out) {
+    __shared__ unsigned s_warp[LF_THREADS / 32];
+    __shared__ unsigned s_min;  // rank 0's is the cluster's
+    cg::cluster_group cl = cg::this_cluster();
+    const int C = (int)cl.num_blocks(), r = (int)cl.block_rank();
+    if (threadIdx.x == 0) s_min = 0xFFFFFFFFu;
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");  // s_min set
+    const int stride = C * LF_THREADS;
+    unsigned best = 0xFFFFFFFFu;
+    for (long long i = (long long)r * LF_THREADS + threadIdx.x; i < lim && best == 0xFFFFFFFFu;
+         i += (long long)LF_UNROLL * stride) {
+        int4 c[LF_UNROLL];
+        int al[LF_UNROLL];
+#pragma unroll
+        for (int u = 0; u < LF_UNROLL; ++u) {
+            const long long j = i + (long long)u * stride;
+            al[u] = 0;
+            if (j < lim) {
+                c[u] = __ldg(id_codes + j);
+                al[u] = __ldg(alive + j);
+            }
+        }
+#pragma unroll
+        for (int u = LF_UNROLL - 1; u >= 0; --u)  // the lowest match written last
+            if (al[u] > 0 && c[u].x == q0 && c[u].y == q1 && c[u].z == q2 && c[u].w == q3)
+                best = (unsigned)(i + (long long)u * stride);
+    }
+    best = __reduce_min_sync(0xFFFFFFFFu, best);
+    if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = best;
+    __syncthreads();
+    unsigned v = threadIdx.x < LF_THREADS / 32 ? s_warp[threadIdx.x] : 0xFFFFFFFFu;
+    if (threadIdx.x < 32) v = __reduce_min_sync(0xFFFFFFFFu, v);
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank's s_min set
+    if (threadIdx.x == 0 && v != 0xFFFFFFFFu) atomicMin(cl.map_shared_rank(&s_min, 0), v);
+    cl.sync();  // every fold landed; no CTA leaves before
+    if (r == 0 && threadIdx.x == 0) *out = (int32_t)s_min;
 }
 
+// The plan: C = ceil(lim / LF_SLOTS_CTA) CTAs, clamped to [1, 8]. One
+// CTA is a plain launch, more a cluster of them.
 TT_EXPORT int tt_live_find(const int32_t* id_codes, const int32_t* alive, int slot_b,
-                           int n_slots, const int32_t* q, int32_t* out, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    int err = (int)cudaMemsetAsync(out, 0xFF, sizeof(int32_t), st);
-    if (err) return err;
-    live_find_kernel<<<tt_blocks(slot_b, 256), 256, 0, st>>>(
-        (const int4*)id_codes, alive, slot_b, n_slots, q, (unsigned int*)out);
+                           int n_slots, int q0, int q1, int q2, int q3, int32_t* out,
+                           void* stream) {
+    if (slot_b < 0) return (int)cudaErrorInvalidValue;
+    const int lim = n_slots < slot_b ? (n_slots > 0 ? n_slots : 0) : slot_b;
+    long long C = ((long long)lim + LF_SLOTS_CTA - 1) / LF_SLOTS_CTA;
+    C = C < 1 ? 1 : (C > LF_CLUSTER_MAX ? LF_CLUSTER_MAX : C);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute at[1];
+    cfg.gridDim = dim3((unsigned)C);
+    cfg.blockDim = dim3(LF_THREADS);
+    cfg.stream = (cudaStream_t)stream;
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = (unsigned)C;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = C > 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, live_find_kernel, (const int4*)id_codes, alive,
+                                             lim, q0, q1, q2, q3, out);
+    if (e != cudaSuccess) return (int)e;
     TT_LAUNCHED_SLOT(1);
     return (int)cudaGetLastError();
 }

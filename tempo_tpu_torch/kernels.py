@@ -16,8 +16,10 @@ pass, a span pass per slot, its struct kernels (`>>` alone is init +
 n_passes doubling + final) and a trace pass; one select_topk, and one
 mq_select over all its rows, launches a tile pass and a merge pass
 where select_plan takes the tiles, else a key pass, its bitonic passes
-and an emit; one multiquery, one live_patch, one edge_reduce, one
-span_reduce and one timeseries (without a res pass) launch one kernel.
+and an emit; one find launches one kernel a chunk of FIND_BLOCKS
+blocks (a descriptor a block, no stack); one multiquery, one live_find,
+one live_patch, one edge_reduce, one span_reduce and one timeseries
+(without a res pass) launch one kernel.
 grid_launches() reads the __global__ launches each library counts
 itself, per kernel. There is no CPU path
 here: the ops modules send CPU tensors to their plain PyTorch versions
@@ -80,6 +82,11 @@ live/cut/flushing traces):
 | live_append | two per row kind per delta refresh        | the column read and written once    | torch.slice_scatter                                |
 | live_patch  | six per delta refresh with dirty slots    | the column read and written once    | torch.index_put (out of place)                     |
 
+live_find is one launch with the query as four kernel arguments: no
+upload, no memset, no device atomic (a thread-block cluster of up to 8
+CTAs where the slots need more than one, their minima folded through
+distributed shared memory; else one CTA, launched without a cluster).
+
 The metrics-generator's kernels (ops/reduce.py, fed by the distributor's
 streaming tap):
 
@@ -130,6 +137,7 @@ import subprocess
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -167,7 +175,7 @@ class KernelError(RuntimeError):
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "tt_res_to_span": ("stage", [_P, _I, _P, _P, _I, _P]),
-    "tt_find": ("find", [_P, _I, _I, _P, _I, _P, _I, _P, _P]),
+    "tt_find": ("find", [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P]),
     "tt_select": ("select", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
     "tt_select_tiled": ("select", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "tt_filter_res_pass": ("filter", [_P, _P, _I, _I, _P, _P]),
@@ -192,7 +200,7 @@ _SIGNATURES = {
     "tt_bloom_test": ("bloom", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
     "tt_live_filter": ("livestage", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
-    "tt_live_find": ("livestage", [_P, _P, _I, _I, _P, _P, _P]),
+    "tt_live_find": ("livestage", [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
     "tt_live_append": ("livestage", [_P, _I, _P, _I, _I, _P, _P]),
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
     "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P]),
@@ -378,11 +386,32 @@ def res_to_span(res: torch.Tensor, res_idx: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ K3
+FIND_BLOCKS = 64  # csrc/find.cu: block descriptors a launch
+FIND_INLINE_Q = 32  # csrc/find.cu: queries carried in the launch's parameter
+
+
+def _find_launch(dev: torch.device, B: int, desc, stack: torch.Tensor | None, q_host,
+                 q_dev: torch.Tensor | None, Q: int, nv_dev: torch.Tensor | None,
+                 n_steps: int) -> torch.Tensor:
+    # desc and q_host are ctypes arrays: addressof is cheaper than a numpy
+    # array's .ctypes.data, which builds an object on every call
+    out = torch.empty((B, Q), dtype=torch.int32, device=dev)
+    with _on(dev):
+        _call("tt_find", None if desc is None else ctypes.addressof(desc), _ptr(stack),
+              0 if stack is None else stack.shape[1], B,
+              None if q_host is None else ctypes.addressof(q_host), _ptr(q_dev), Q,
+              _ptr(nv_dev), int(n_steps), out.data_ptr(), _stream(dev))
+    _count("find")
+    return out
+
+
 def find_rows(ids: torch.Tensor, queries: torch.Tensor, n_valid: torch.Tensor,
               n_steps: int) -> torch.Tensor:
-    """K3: (B,T,4) sorted id codes x (Q,4) queries -> (B,Q) row or -1.
-    Bound: the n_steps+1 probed rows per (block, query) plus launch
-    latency at the find path's few queries."""
+    """K3 on a stack: (B,T,4) sorted id codes x (Q,4) queries -> (B,Q)
+    row or -1, with n_valid (B,) on the device (the mesh bodies' form).
+    One launch a chunk of FIND_BLOCKS blocks, its descriptors made by
+    the launcher over the stack's slices. Bound: a chain of dependent
+    loads (3 steps of a warp at T = 32,768) and the launch."""
     dev = _cuda_device(ids)
     _check(ids, "ids", torch.int32, dev)
     _check(queries, "queries", torch.int32, dev)
@@ -390,17 +419,38 @@ def find_rows(ids: torch.Tensor, queries: torch.Tensor, n_valid: torch.Tensor,
     if ids.dim() != 3 or ids.shape[2] != 4 or queries.dim() != 2 or queries.shape[1] != 4:
         raise KernelError("find_rows: ids (B,T,4) and queries (Q,4) expected")
     B, T, _ = ids.shape
-    Q = queries.shape[0]
     if n_valid.shape != (B,) or T == 0:
         raise KernelError("find_rows: n_valid (B,) and T > 0 expected")
     if ids.data_ptr() % 16 or queries.data_ptr() % 16:
         raise KernelError("find_rows: ids and queries must be 16-byte aligned")
-    out = torch.empty((B, Q), dtype=torch.int32, device=dev)
-    with _on(dev):
-        _call("tt_find", ids.data_ptr(), B, T, queries.data_ptr(), Q, n_valid.data_ptr(),
-              int(n_steps), out.data_ptr(), _stream(dev))
-    _count("find")
-    return out
+    return _find_launch(dev, B, None, ids, None, queries, queries.shape[0], n_valid, n_steps)
+
+
+def find_blocks(tables: list, queries: np.ndarray, n_steps: int) -> torch.Tensor:
+    """K3 over blocks' own indexes: tables = [(ids (T_b,4) int32 on one
+    card, n_valid)] and queries (Q,4) int32 on the host -> (B,Q) row or
+    -1. Nothing is stacked: each block is a descriptor (pointer, n_valid,
+    T_b), and up to FIND_INLINE_Q queries ride in the launch's parameter
+    (more take one upload). One launch a chunk of FIND_BLOCKS blocks."""
+    if not tables:
+        raise KernelError("find_blocks: no blocks")
+    dev = _cuda_device(tables[0][0])
+    flat = []
+    for i, (t, n) in enumerate(tables):
+        _check(t, "ids", torch.int32, dev)
+        if t.dim() != 2 or t.shape[1] != 4 or t.shape[0] == 0 or not 0 <= n <= t.shape[0]:
+            raise KernelError(f"find_blocks: block {i}: ids {tuple(t.shape)}, n_valid {n}")
+        flat += (t.data_ptr(), n, t.shape[0])
+    desc = (ctypes.c_longlong * len(flat))(*flat)
+    queries = np.asarray(queries, dtype=np.int32)
+    if queries.ndim != 2 or queries.shape[1] != 4:
+        raise KernelError("find_blocks: queries (Q,4) expected")
+    Q, B = queries.shape[0], len(tables)
+    if Q <= FIND_INLINE_Q:
+        q_host = (ctypes.c_int32 * (4 * Q))(*queries.ravel().tolist())
+        return _find_launch(dev, B, desc, None, q_host, None, Q, None, n_steps)
+    q_dev = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+    return _find_launch(dev, B, desc, None, None, q_dev, Q, None, n_steps)
 
 
 # ------------------------------------------------------------------ K2
@@ -1019,21 +1069,25 @@ def live_filter(slots: tuple, kv: tuple, names: tuple, q: torch.Tensor, n_tags: 
 
 
 # ------------------------------------------------------------------ B7b
-def live_find(id_codes: torch.Tensor, alive: torch.Tensor, q: torch.Tensor,
-              n_slots: int) -> torch.Tensor:
+def live_find(id_codes: torch.Tensor, alive: torch.Tensor, codes, n_slots: int) -> torch.Tensor:
     """B7b: (1,) int32, the first slot < n_slots that is alive and whose
-    4 id codes equal q's, else -1. Bound: bytes (20 B a slot)."""
+    4 id codes equal `codes` (4 ints, passed to the kernel as its
+    arguments), else -1. One launch: a thread-block cluster of one CTA a
+    2,048 slots (at most 8), one CTA without a cluster where that is all.
+    Bound: bytes (20 B a slot); the launch is the cost."""
     dev = _cuda_device(id_codes)
     slot_b = id_codes.shape[0]
     _check(id_codes, "id_codes", torch.int32, dev, (slot_b, 4))
     _check(alive, "alive", torch.int32, dev, (slot_b,))
-    _check(q, "q", torch.int32, dev, (4,))
+    q = [int(c) for c in codes]
+    if len(q) != 4 or min(q) < -(2**31) or max(q) >= 2**31:
+        raise KernelError(f"live_find: 4 int32 codes expected, got {q}")
     if id_codes.data_ptr() % 16:
         raise KernelError("live_find: id_codes must be 16-byte aligned")
     out = torch.empty(1, dtype=torch.int32, device=dev)
     with _on(dev):
-        _call("tt_live_find", id_codes.data_ptr(), alive.data_ptr(), slot_b, int(n_slots),
-              q.data_ptr(), out.data_ptr(), _stream(dev))
+        _call("tt_live_find", id_codes.data_ptr(), alive.data_ptr(), slot_b,
+              max(-(2**31), min(int(n_slots), 2**31 - 1)), *q, out.data_ptr(), _stream(dev))
     _count("live_find")
     return out
 

@@ -3,8 +3,10 @@
 Q query ids against B blocks' sorted 128-bit trace-id indexes, ids as 4
 order-preserving int32 lanes (block/schema.trace_id_to_codes). All
 queries step through the log2(T) bisection together. CUDA tensors run
-kernel K3 (csrc/find.cu), one thread per (block, query); CPU tensors run
-`_bisect_plain`, the reference's lockstep bisection written in torch.
+kernel K3 (csrc/find.cu): a warp per (block, query) searching 32 rows a
+step, equal to the bisection on a sorted index (the contract in the
+source); CPU tensors run `_bisect_plain`, the reference's lockstep
+bisection written in torch.
 The sharded find's election (M1, `find_elect`, in the same source) picks
 each query's highest hit block, then that block's row, on one rank's
 blocks; parallel/find.py puts an all_reduce MAX after each stage.
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .device import PAD_I32, bucket, pad_rows, resolve_device
+from .device import bucket, pad_rows, resolve_device
 
 _ID_PAD = np.int32(2**31 - 1)  # +max rows sort after every real id
 
@@ -75,27 +77,31 @@ def _device_ids(blk, device: torch.device) -> tuple[torch.Tensor, int]:
 
 
 def lookup_ids_blocks_cached(blocks: list, query_codes: np.ndarray, device) -> np.ndarray:
-    """Multi-block lookup over the blocks' cached device indexes: the
-    per-block (T_b,4) indexes stack into one (B,T,4) tensor on the
-    device (pad rows +max) and ONE K3 launch bisects them all. Returns
-    (B, Q) int32 row-in-block (-1 miss). Every block reports its own
-    hit row, so callers combine partial traces (the reference's Find
-    fan-out + combiner, tempodb/tempodb.go:271-352)."""
+    """Multi-block lookup over the blocks' cached device indexes. On a
+    card, ONE K3 launch (kernels.find_blocks) searches every block's own
+    (T_b,4) index through a descriptor a block, the queries riding in the
+    launch's parameter: nothing is stacked or uploaded, and the (B, Q)
+    rows come back in one read. On the CPU the plain version bisects one
+    (B,T,4) stack (pad rows +max). Returns (B, Q) int32 row-in-block (-1
+    miss). Every block reports its own hit row, so callers combine
+    partial traces (the reference's Find fan-out + combiner,
+    tempodb/tempodb.go:271-352)."""
     dev = resolve_device(device)
     B, q = len(blocks), query_codes.shape[0]
     if B == 0 or q == 0:
         return np.full((B, q), -1, dtype=np.int32)
     per = [_device_ids(b, dev) for b in blocks]
     T = max(int(t.shape[0]) for t, _ in per)
+    if dev.type == "cuda":
+        from .. import kernels
+
+        return kernels.find_blocks(per, query_codes, int(T).bit_length()).cpu().numpy()
     ids = torch.full((B, T, 4), int(_ID_PAD), dtype=torch.int32, device=dev)
     for i, (t, _) in enumerate(per):
         ids[i, : t.shape[0]] = t
     n_valid = torch.tensor([n for _, n in per], dtype=torch.int32, device=dev)
-    queries = torch.from_numpy(
-        pad_rows(np.asarray(query_codes, np.int32), bucket(q), PAD_I32)).to(dev)
-    out = bisect_rows(ids, queries, n_valid, int(T).bit_length())
-    return out.cpu().numpy()[:, :q]
-
+    queries = torch.from_numpy(np.ascontiguousarray(query_codes, np.int32))
+    return _bisect_plain(ids, queries, n_valid, int(T).bit_length()).numpy()
 
 
 def _find_elect_plain(rows: torch.Tensor, base: int,

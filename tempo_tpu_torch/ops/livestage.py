@@ -234,13 +234,17 @@ def eval_live_host(snap: LiveSnapshot, tag_codes: list[int],
 
 
 # ------------------------------------------------------------ B7b
-def live_find(id_codes: torch.Tensor, alive: torch.Tensor, q: torch.Tensor,
-              n_slots: int) -> torch.Tensor:
+def live_find(id_codes: torch.Tensor, alive: torch.Tensor, q, n_slots: int) -> torch.Tensor:
     """(1,) int32: the first slot below n_slots that is alive and whose
-    4 id codes equal q's, else -1."""
+    4 id codes equal q's, else -1. q: the 4 codes, as ints or a CPU
+    tensor; on a card they reach the kernel as its arguments (a CUDA q
+    would cost a read-back, so it is refused)."""
+    if isinstance(q, torch.Tensor) and q.device.type != "cpu":
+        raise ValueError(f"live_find: q on {q.device}; pass the 4 codes as ints")
     if id_codes.device.type == "cuda":
-        return kernels.live_find(id_codes, alive, q, n_slots)
-    return _live_find_plain(id_codes, alive, q, n_slots)
+        return kernels.live_find(id_codes, alive, q.tolist() if isinstance(q, torch.Tensor) else q,
+                                 n_slots)
+    return _live_find_plain(id_codes, alive, torch.as_tensor(q, dtype=torch.int32), n_slots)
 
 
 def _live_find_plain(id_codes, alive, q, n_slots) -> torch.Tensor:
@@ -253,11 +257,11 @@ def _live_find_plain(id_codes, alive, q, n_slots) -> torch.Tensor:
 
 def find_slot_device(snap: LiveSnapshot, trace_id: bytes) -> int:
     """A live trace's slot by its 4x int32 id codes on the device; -1 =
-    not staged or not alive. One tiny fetch."""
+    not staged or not alive. One launch with the codes as its arguments,
+    and one tiny fetch."""
     d = snap.dev
-    q = torch.tensor(S.trace_id_to_codes(trace_id.rjust(16, b"\x00")),
-                     dtype=torch.int32).to(d["alive"].device)
-    return int(live_find(d["id_codes"], d["alive"], q, snap.n_slots).item())
+    codes = S.trace_id_to_codes(trace_id.rjust(16, b"\x00"))
+    return int(live_find(d["id_codes"], d["alive"], codes, snap.n_slots).item())
 
 
 def find_slot_host(snap: LiveSnapshot, trace_id: bytes) -> int:

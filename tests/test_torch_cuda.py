@@ -1,6 +1,7 @@
 """Kernel-vs-plain tests of the port's CUDA kernels (K1-K4, B5a, B5b, B6)
 on the card; K1 by both of its routes (the trace tiles and the
-multi-launch kernels).
+multi-launch kernels); K3 on its stacked form and on the blocks' own
+indexes (one launch a chunk of blocks, queries inline or uploaded).
 
 Marked `cuda`; the fixture below skips them where no card exists. Run
 on a machine with one H100:
@@ -80,6 +81,8 @@ def test_res_to_span_kernel(cuda):
 
 
 def test_find_kernel(cuda):
+    from tempo_tpu_torch import kernels
+
     rng = np.random.default_rng(1)
     B, T, n = 3, 2048, [2048, 1500, 7]
     ids = np.full((B, T, 4), 2**31 - 1, np.int32)
@@ -90,10 +93,124 @@ def test_find_kernel(cuda):
     q = np.concatenate([ids[0, :40], ids[1, 100:140], rng.integers(-9, 9, (48, 4)).astype(np.int32),
                         np.asarray([[-(2**31)] * 4, [2**31 - 1] * 4], np.int32)])
     args = [torch.from_numpy(x).to(cuda) for x in (ids, q, np.asarray(n, np.int32))]
+    kernels.reset_counts()
     got = FD.bisect_rows(*args, T.bit_length())
     want = FD._bisect_plain(*args, T.bit_length())
     assert torch.equal(got, want)
     assert (got[0, :40].cpu().numpy() == np.arange(40)).all()
+    assert kernels.grid_launches()["find"] == 1
+
+
+def _sorted_stack(rng, T: int, n_valid: list, fill: str = "pad") -> np.ndarray:
+    """(len(n_valid), T, 4) indexes sorted by signed lanes with
+    duplicates and shared heads; past n_valid pad rows or garbage."""
+    ids = np.full((len(n_valid), T, 4), 2**31 - 1, np.int32)
+    if fill == "garbage":
+        ids[:] = rng.integers(-(2**31), 2**31 - 1, ids.shape, dtype=np.int64).astype(np.int32)
+    for b, n in enumerate(n_valid):
+        pool = rng.integers(-(2**31), 2**31 - 1, (max(n // 3, 1), 4), dtype=np.int64)
+        pool[:, 0] = rng.choice([-(2**31), -7, 0, 5, 2**31 - 2], pool.shape[0])
+        a = pool[rng.integers(0, pool.shape[0], n)].astype(np.int32)
+        ids[b, :n] = a[np.lexsort(a.T[::-1])]
+    return ids
+
+
+def _find_queries(rng, ids: np.ndarray, n_valid: list, n_random: int = 8) -> np.ndarray:
+    """Rows of each block, rows nudged by one in a lane, the id space's
+    ends (the pad row among them) and random ids."""
+    qs = [np.full(4, -(2**31), np.int32), np.full(4, 2**31 - 1, np.int32)]
+    for b, n in enumerate(n_valid):
+        for i in (rng.integers(0, n, 4) if n else []):
+            row = ids[b, i].astype(np.int64)
+            qs.append(row.astype(np.int32))
+            row[rng.integers(0, 4)] += rng.choice([-1, 1])
+            qs.append(np.clip(row, -(2**31), 2**31 - 1).astype(np.int32))
+    qs += list(rng.integers(-(2**31), 2**31 - 1, (n_random, 4), dtype=np.int64).astype(np.int32))
+    return np.stack(qs)
+
+
+@pytest.mark.parametrize("T", [1, 32, 1024, 2048])
+def test_find_kernel_edges(cuda, T):
+    """K3 equals _bisect_plain with duplicates, at n_valid 0, 1, 31, 32,
+    33, T - 1 and T, and at every n_steps from 0 to bit_length(T) + 2
+    (the lockstep lane below bit_length(n_valid)), over pad rows and
+    over garbage past n_valid."""
+    rng = np.random.default_rng(T)
+    nvs = sorted({n for n in (0, 1, 31, 32, 33, T - 1, T) if 0 <= n <= T})
+    for fill in ("pad", "garbage"):
+        ids = _sorted_stack(rng, T, nvs, fill)
+        q = _find_queries(rng, ids, nvs)
+        args = [torch.from_numpy(x).to(cuda) for x in (ids, q, np.asarray(nvs, np.int32))]
+        for n_steps in range(T.bit_length() + 3):
+            got = FD.bisect_rows(*args, n_steps)
+            want = FD._bisect_plain(*[a.cpu() for a in args], n_steps)
+            assert torch.equal(got.cpu(), want), (T, fill, n_steps)
+
+
+def test_find_kernel_chunks_and_queries(cuda):
+    """Past the block cap (150 blocks: 3 launches, one wrapper call) and
+    past the inline-query cap (32 inline, 33 and 100 uploaded), on the
+    stacked form and on the descriptor form over the same blocks."""
+    from tempo_tpu_torch import kernels
+
+    rng = np.random.default_rng(5)
+    B, T = 150, 1024
+    nvs = [int(n) for n in rng.integers(0, T + 1, B)]
+    ids = _sorted_stack(rng, T, nvs)
+    ids_t = torch.from_numpy(ids).to(cuda)
+    n_steps = T.bit_length()
+    chunks = -(-B // kernels.FIND_BLOCKS)
+    for n_q in (1, kernels.FIND_INLINE_Q, kernels.FIND_INLINE_Q + 1, 100):
+        present = [ids[b, int(rng.integers(0, nvs[b]))] for b in range(6) if nvs[b]]
+        q = np.concatenate([np.stack(present), _find_queries(rng, ids[:6], nvs[:6],
+                                                             n_random=n_q)])[:n_q]
+        want = FD._bisect_plain(torch.from_numpy(ids), torch.from_numpy(q),
+                                torch.tensor(nvs, dtype=torch.int32), n_steps)
+        kernels.reset_counts()
+        got = kernels.find_rows(ids_t, torch.from_numpy(q).to(cuda),
+                                torch.tensor(nvs, dtype=torch.int32, device=cuda), n_steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), n_q
+        assert kernels.LAUNCHES["find"] == 1 and kernels.grid_launches()["find"] == chunks
+        kernels.reset_counts()
+        got = kernels.find_blocks([(ids_t[b], nvs[b]) for b in range(B)], q, n_steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), n_q
+        assert kernels.LAUNCHES["find"] == 1 and kernels.grid_launches()["find"] == chunks
+        assert int((want >= 0).sum()) > 0
+
+
+def test_find_blocks_cached_one_launch_no_stack(cuda, monkeypatch):
+    """lookup_ids_blocks_cached over 3 blocks of different T (1,024,
+    4,096 and 32,768 rows): one __global__, no torch.full and no upload
+    on the card, the rows equal to the CPU route's (the stacked plain
+    version)."""
+    import types
+
+    from tempo_tpu_torch import kernels
+
+    rng = np.random.default_rng(8)
+    blocks = []
+    for n in (700, 4096, 20000):
+        blocks.append(types.SimpleNamespace(trace_index={
+            "trace.id_codes": _sorted_stack(rng, n, [n])[0]}))
+    q = np.concatenate([blocks[1].trace_index["trace.id_codes"][[0, 17, 4095]],
+                        blocks[2].trace_index["trace.id_codes"][[5, 19999]],
+                        _find_queries(rng, blocks[0].trace_index["trace.id_codes"][None],
+                                      [700], n_random=3)])
+    want = FD.lookup_ids_blocks_cached(blocks, q, "cpu")
+    FD.lookup_ids_blocks_cached(blocks, q, cuda)  # the indexes' one-time upload
+    full, to = torch.full, torch.Tensor.to
+    made = []
+    monkeypatch.setattr(torch, "full", lambda *a, **k: made.append("full") or full(*a, **k))
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: made.append("to") or to(self, *a, **k))
+    kernels.reset_counts()
+    got = FD.lookup_ids_blocks_cached(blocks, q, cuda)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(got, want)
+    assert (want >= 0).sum() >= 5 and want.shape == (3, q.shape[0])
+    assert not made, made
+    assert kernels.LAUNCHES["find"] == 1 and kernels.grid_launches()["find"] == 1
 
 
 def test_select_kernel(cuda):

@@ -79,25 +79,55 @@ def test_live_filter_kernel(cuda, tags, names, t0, t1, dmin, n_slots):
             assert bool(want.any())
 
 
-@pytest.mark.parametrize("slot_b", [1024, 1 << 14])
+@pytest.mark.parametrize("slot_b", [1024, 1 << 14, 1 << 20])
 def test_live_find_kernel(cuda, slot_b):
+    """B7b equals _live_find_plain at every n_slots (0, inside, slot_b,
+    past it, negative), with repeated ids (the first alive wins) and
+    dead slots, one __global__ a call; the query goes in as 4 ints or a
+    CPU tensor, never uploaded. Every cluster size the plan takes
+    agrees, each reached by its n_slots."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import livestage as L
 
     rng = np.random.default_rng(slot_b)
     ids = rng.integers(-(2**31), 2**31 - 1, (slot_b, 4)).astype(np.int32)
-    ids[10] = ids[500] = ids[900] = ids[3]
+    ids[10] = ids[500] = ids[900] = ids[slot_b - 2] = ids[3]
     alive = (rng.random(slot_b) < 0.7).astype(np.int32)
     alive[3] = 0
     ids_t, alive_t = torch.from_numpy(ids), torch.from_numpy(alive)
+    ids_c, alive_c = ids_t.to(cuda), alive_t.to(cuda)
+    n_calls = 0
     kernels.reset_counts()
-    for n_slots in (0, 5, 11, 700, slot_b):
-        for row in (3, 10, 600, slot_b - 1):
+    for n_slots in (0, 5, 11, 700, slot_b // 2 + 1, slot_b, slot_b + 5, -1):
+        for row in (3, 10, 600, slot_b // 2, slot_b - 1):
             for q in (ids[row], ids[row] + 1):
                 qt = torch.from_numpy(q.astype(np.int32))
-                got = L.live_find(ids_t.to(cuda), alive_t.to(cuda), qt.to(cuda), n_slots)
-                assert torch.equal(got.cpu(), L._live_find_plain(ids_t, alive_t, qt, n_slots))
-    assert kernels.LAUNCHES["live_find"] == 5 * 4 * 2
+                want = L._live_find_plain(ids_t, alive_t, qt, n_slots)
+                got = L.live_find(ids_c, alive_c, [int(c) for c in q.astype(np.int32)], n_slots)
+                assert torch.equal(got.cpu(), want), (n_slots, row)
+                assert torch.equal(L.live_find(ids_c, alive_c, qt, n_slots).cpu(), want)
+                n_calls += 2
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["live_find"] == n_calls
+    assert kernels.grid_launches()["live_find"] == n_calls
+    with pytest.raises(ValueError):
+        L.live_find(ids_c, alive_c, torch.from_numpy(ids[3]).to(cuda), slot_b)
+    # every cluster size the plan takes (C = ceil(n / 2,048) CTAs, at
+    # most 8): each C at its fewest and most slots, queried for the last
+    # slot inside n, one in its middle, the first past it and the last
+    # alive one inside n, which must be found
+    for c in range(1, 9):
+        for n_slots in (2048 * (c - 1) + 1, 2048 * c):
+            if n_slots > slot_b:
+                continue
+            last = np.flatnonzero(alive[:n_slots])[-1:].tolist()
+            for row in [n_slots - 1, n_slots // 2, min(n_slots, slot_b - 1)] + last:
+                q = [int(x) for x in ids[row]]
+                want = L._live_find_plain(ids_t, alive_t, torch.tensor(q, dtype=torch.int32),
+                                          n_slots)
+                got = kernels.live_find(ids_c, alive_c, q, n_slots)
+                assert torch.equal(got.cpu(), want), (c, n_slots, row)
+            assert not last or int(want) >= 0, (c, n_slots)
 
 
 @pytest.mark.parametrize("n", [1024, 1 << 21])
