@@ -998,8 +998,8 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
 def phase_13_table(snap, table) -> dict:
     """B7a-B7d against their plain versions on the staged live head at
     full width; times by CUDA events, the byte bound, yardsticks.
-    Returns B7b's device-time split by cluster size (device_split's
-    input)."""
+    Returns B7a's device-time split by route and code count and B7b's by
+    cluster size (device_split's input)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import livestage as L
 
@@ -1013,37 +1013,64 @@ def phase_13_table(snap, table) -> dict:
                       "bound_ms": b[0], "bound_by": b[1], "library_ms": lms})
 
     # B7a -- two tag codes and one name code read off a staged trace,
-    # with the window and min-duration prefilters on
+    # with the window and min-duration prefilters on; the codes as ints,
+    # the snapshot's real rows only (the wrapper's default route)
     tid = snap.slot_tid[n // 3]
-    rows = snap.kv_owner == n // 3
-    tag = [int(c) for c in snap.kv_code[rows][:2]]
+    own = [int(c) for c in snap.kv_code[snap.kv_owner == n // 3]]
+    tag = own[:2]
     name = [int(snap.name_code[snap.name_owner == n // 3][0])]
-    q = torch.tensor(tag + name, dtype=torch.int32, device=dev)
     slots = (d["start_s"], d["end_s"], d["dur_ms"], d["alive"])
     kv, nm = (d["kv_owner"], d["kv_code"]), (d["name_owner"], d["name_code"])
     t0, t1, dmin = int(snap.end_s.min()), int(snap.start_s.max()), int(snap.dur_ms[n // 3])
+    # the sweep's codes: 1 (a tag), 3 (the row's), 33 (32 of the trace's
+    # tags, repeated where it has fewer, and the name: two launches)
+    sweep = {1: (tag[:1], 1), 3: (tag + name, 2), 33: ((own * 32)[:32] + name, 32)}
 
-    def b7a():
-        return kernels.live_filter(slots, kv, nm, q, 2, t0, t1, dmin, n)
+    def b7a(codes=tag + name, nt=2):
+        return kernels.live_filter(slots, kv, nm, codes, nt, t0, t1, dmin, n, snap.n_kv,
+                                   snap.n_name)
 
-    def b7a_plain():
-        return L._live_filter_plain(slots, kv, nm, q, 2, t0, t1, dmin, n)
+    def b7a_plain(codes=tag + name, nt=2):
+        return L._live_filter_plain(slots, kv, nm, torch.tensor(codes, dtype=torch.int32,
+                                                                device=dev), nt, t0, t1, dmin, n)
 
+    kernels.reset_counts()
     got = b7a()
     err = max_abs_err(got, b7a_plain())
-    if err or not bool(got[n // 3]):
-        raise AssertionError("B7a differs from its plain version or misses its own trace")
+    if err or not bool(got[n // 3]) or kernels.grid_launches()["live_filter"] != 1:
+        raise AssertionError("B7a differs from its plain version, misses its own trace or was "
+                             "not one __global__")
+    for k, (codes, nt) in sweep.items():
+        want = b7a_plain(codes, nt)
+        if max_abs_err(b7a(codes, nt), want) or not bool(want[n // 3]):
+            raise AssertionError(f"B7a differs at {k} codes")
     ms, pms = cuda_ms(b7a), cuda_ms(b7a_plain, reps=5, warm=1)
-    # bytes: the four slot columns read and the mask written (17 B a
-    # slot), every row's code read, and the owner read only by a row
-    # whose code is a query code (this run's data: the hits below)
-    sb, kb, nb = snap.slot_b, snap.kv_b, snap.name_b
-    hits = int(np.isin(snap.kv_code, tag).sum()) + int(np.isin(snap.name_code, name).sum())
-    b = bound(sb * 17 + (kb + nb) * 4 + hits * 4, (kb * 2 + nb) + sb * 4)
-    log(f"[B7a] {n} slots in {sb}, {kb} kv + {nb} name rows, 2 tag codes + 1 name code: "
-        f"{hits} rows hit, {int(got.sum())} slots, {ms:.4f} ms, plain {pms:.4f} ms, "
-        f"bound {b[0]:.5f} ms")
+    # bytes (kernels.live_filter's bound): the four slot columns read and
+    # the mask written (17 B a slot), each real row's code read (the
+    # snapshot's n_kv kv rows and n_name name rows: both kinds have a code
+    # here), and the owner of each row that hits
+    sb, nkv, nnm = snap.slot_b, snap.n_kv, snap.n_name
+    hits = int(np.isin(snap.kv_code[:nkv], tag).sum()) + \
+        int(np.isin(snap.name_code[:nnm], name).sum())
+    b = bound(sb * 17 + (nkv + nnm) * 4 + hits * 4, (nkv * 2 + nnm) + sb * 4)
+    log(f"[B7a] {n} slots in {sb}, {nkv} of {snap.kv_b} kv + {nnm} of {snap.name_b} name rows, "
+        f"2 tag codes + 1 name code: {hits} rows hit, {int(got.sum())} slots, {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms")
     row("live_filter", "tempo_tpu/ops/livestage.py:147", err, ms, pms, b, None)
+
+    # the path's call: eval_live_device (the codes as ints, one launch),
+    # then a synchronise, on the host clock
+    def b7a_path():
+        m = L.eval_live_device(snap, tag, name, t0, t1, dmin)
+        torch.cuda.synchronize()
+        return m
+
+    if not bool(b7a_path()[n // 3]):
+        raise AssertionError("B7a: eval_live_device misses its own trace")
+    log(f"[B7a path] eval_live_device: {host_ms(b7a_path):.4f} ms a call (host clock, "
+        f"synchronised)")
+    splits = {f"B7a by codes, the live head's {sb} slots": {
+        str(k): functools.partial(b7a, codes, nt) for k, (codes, nt) in sweep.items()}}
 
     # B7b -- the id codes of that trace
     from tempo_tpu_torch.block import schema as S
@@ -1079,10 +1106,10 @@ def phase_13_table(snap, table) -> dict:
             if max_abs_err(kernels.live_find(d["id_codes"], d["alive"], cq, n_c), want):
                 raise AssertionError(f"B7b differs from its plain version at {n_c} slots")
     log(f"[B7b path] find_slot_device: {path_ms:.4f} ms a call (host clock, read-back included)")
-    splits = {f"B7b by the plan's CTAs (n_slots, C), the live head's {sb} slots": {
+    splits[f"B7b by the plan's CTAs (n_slots, C), the live head's {sb} slots"] = {
         f"{n_c},{min(8, -(-n_c // 2048))}": functools.partial(
             kernels.live_find, d["id_codes"], d["alive"], codes, n_c)
-        for n_c in (2048, 2049, 8192, 16384) if n_c <= sb}}
+        for n_c in (2048, 2049, 8192, 16384) if n_c <= sb}
 
     # B7c -- one refresh's delta of kv rows (2,048 traces x about 70
     # rows, bucket 2^18) into the staged kv code column
@@ -1993,11 +2020,12 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
     return {"counts": counts.total, "args": cap.args, "shards": shards}
 
 
-def phase_15_table(p15: dict, table) -> None:
+def phase_15_table(p15: dict, table) -> dict:
     """M1-M8 against their plain versions at the shapes the mesh path gave
     them (M1 from run 1, M2-M4 from run 2's rank 0, M5-M8 from run 1's
     sharded searches); times by CUDA events, the bound of each, no
-    one-call yardstick (none computes these functions)."""
+    one-call yardstick (none computes these functions). Returns M5's
+    device-time split by leaf (device_split's input)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import find as FD
     from tempo_tpu_torch.ops import multiquery as MQ
@@ -2091,14 +2119,15 @@ def phase_15_table(p15: dict, table) -> None:
         f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
     row("timeseries_stacked", "timeseries.cu", "tempo_tpu/parallel/timeseries.py:131", err, ms,
         pms, b)
-    phase_15_search_table(p15["shards"], row)
+    return phase_15_search_table(p15["shards"], row)
 
 
-def phase_15_search_table(shards: dict, row) -> None:
+def phase_15_search_table(shards: dict, row) -> dict:
     """M5-M8 against their plain versions on the shards of run 1's
     sharded searches (10 blocks at full width, one rank): M5 on the
-    `span.attr` query, M6 on the `>` query's lhs slot, M7 and M8 on the
-    span query. No one PyTorch call computes any of them."""
+    `span.attr` query (and an `any` leaf of its key on the same rows),
+    M6 on the `>` query's lhs slot, M7 and M8 on the span query. No one
+    PyTorch call computes any of them. Returns M5's calls by leaf."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import filter as F
     from tempo_tpu_torch.ops import meshsearch as MS
@@ -2136,6 +2165,24 @@ def phase_15_search_table(shards: dict, row) -> None:
     log(f"[M5] {bl} blocks, {rows_real} attr rows ({n_key} of the leaf's key) into {n_seg} "
         f"owners: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
     row("attr_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    # the sweep: an `any` leaf of the same key over the same shard rows
+    # (each key row a hit: no vtype or value read)
+    anyc = F.Cond("sattr", "any", "exists")
+    ints = sh.ops_i[:, i:i + 1].cpu().numpy().copy()
+    ints[:, :, 1:] = 0
+    sh_any = MS.ShardSearch(F.normalize_tree(("cond", 0), (anyc,)), (anyc,), sh.cols, ints,
+                            np.zeros((bl, 1, 2), np.float32), {}, sh.n_spans, sh.sp_index, sh.nt)
+    check(kernels.attr_partial(sh_any.descs, 0, n_seg, al, 0),
+          MS._attr_partial_plain(anyc, sh.cols, sh_any.ops_i, sh_any.ops_f, 0, None, 0),
+          "M5's any leaf")
+    # descs holds the addresses of the ShardSearch's descriptor tables
+    # (its bufs), so each call holds the ShardSearch: the splits run after
+    # this function returns, when sh_any would be gone and its tables freed
+    def m5_call(s_, j):
+        return kernels.attr_partial(s_.descs, j, n_seg, al, 0)
+
+    m5_splits = {f"M5 by leaf, phase 15's shard ({bl} x {n_seg} owners, {rows_real} rows)": {
+        c.col: functools.partial(m5_call, s_, j) for c, s_, j in ((c, sh, i), (anyc, sh_any, 0))}}
 
     # M6 -- the `>` node's lhs mask, as the struct step packs it
     sh = shards["child"]
@@ -2195,6 +2242,7 @@ def phase_15_search_table(shards: dict, row) -> None:
     b = bound(counts.numel() * 4 + got[0].numel() * 5, counts.numel())
     log(f"[M8] {bl} x {sh.nt} traces: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
     row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    return m5_splits
 
 
 def b6_sweep(prog, buf, staged, ns: int, n_b: int, t0: int, step: int, splits: dict) -> None:
@@ -3160,7 +3208,7 @@ def main() -> int:
         p15 = phase_15(mesh_store, dev, tmp, ids64, seq_found, batch_q, meta0.block_id, want16,
                        metrics_card, lo_s, hi_s, responses)
         log(f"[mesh] phase 15 took {time.perf_counter() - t0:.1f} s")
-        phase_15_table(p15, table)
+        splits.update(phase_15_table(p15, table))
         k2_split(mask10, key10, cnt10, k10)
         for what, fns in splits.items():
             device_split(what, fns)

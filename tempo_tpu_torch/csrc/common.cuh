@@ -38,3 +38,16 @@ static inline int tt_blocks(long long n, int threads) {
 __device__ __forceinline__ int tt_clamp(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
+
+// 4 bytes from device to shared memory without passing through registers
+// (cp.async, sm_80 and later); tt_copy_wait waits for this thread's copies
+__device__ __forceinline__ void tt_copy4(int32_t* dst, const int32_t* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void tt_copy_wait() {
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}

@@ -42,12 +42,13 @@ __device__ __forceinline__ bool cmp_t(int op, T x, T a, T b) {
     }
 }
 
-// the reference's _cmp on one element of column `col` at `row`
-__device__ __forceinline__ bool cmp_at(const long long* d, const void* col, long long row) {
+// the reference's _cmp on one 32-bit element w of the leaf's column
+// (an int32, or the bits of an f32 where D_COLFLOAT)
+__device__ __forceinline__ bool cmp_word(const long long* d, int w) {
     int op = (int)d[D_OP];
     if (op == OP_EXISTS) return true;
     if (!d[D_FLOATCMP]) {
-        int x = ((const int32_t*)col)[row];
+        int x = w;
         if (op == OP_INTABLE || op == OP_NOTINTABLE) {
             const uint8_t* table = (const uint8_t*)d[D_TABLE];
             bool hit = table[tt_clamp(x, 0, (int)d[D_TABLEN] - 1)] > 0;
@@ -57,8 +58,14 @@ __device__ __forceinline__ bool cmp_at(const long long* d, const void* col, long
         return cmp_t<int>(op, x, (int)d[D_V0], (int)d[D_V1]);
     }
     // int32 vs f32 promotes to f32, as in the jitted program
-    float x = d[D_COLFLOAT] ? ((const float*)col)[row] : (float)((const int32_t*)col)[row];
+    float x = d[D_COLFLOAT] ? __int_as_float(w) : (float)w;
     return cmp_t<float>(op, x, __int_as_float((int)d[D_F0]), __int_as_float((int)d[D_F1]));
+}
+
+// the reference's _cmp on one element of column `col` at `row`
+__device__ __forceinline__ bool cmp_at(const long long* d, const void* col, long long row) {
+    if ((int)d[D_OP] == OP_EXISTS) return true;
+    return cmp_word(d, ((const int32_t*)col)[row]);
 }
 
 // any attr row of [lo, hi) matching key (+ vtype and value)

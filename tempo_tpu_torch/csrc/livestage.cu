@@ -13,12 +13,7 @@
 //                                          column (the delta append)
 //   B7d :298 _patch_slots_device           dst.at[idx].set(vals) of dirty
 //                                          slots, 1-D or (slot_b, 4)
-// All four are bound by bytes. XLA's B7a makes one segment_max pass over
-// every row per query code; here one pass over the kv rows and one over
-// the name rows compare each row's code against up to 32 query codes held
-// in shared memory and atomicOr bit i into a per-slot hit word, and a
-// slot pass ANDs `hit == all bits` into the mask: the rows are read once
-// per 32 codes, not once per code. B7c and B7d write a NEW tensor (the
+// All four are bound by bytes. B7c and B7d write a NEW tensor (the
 // wrapper allocates it): the live snapshot a query holds is immutable, as
 // the JAX arrays are, so the resident columns are never written in place.
 #include <cooperative_groups.h>
@@ -27,98 +22,184 @@
 
 namespace cg = cooperative_groups;
 
+// B7a: one __global__ a chunk of up to 32 query codes, nothing else on
+// the stream (no memset, no upload). XLA's B7a makes one segment_max
+// pass over every row a code; here one row pass compares each row's code
+// with the chunk's codes of its kind and ors bit j of every equal code j
+// into its owner slot's hit word, and a slot pass ANDs the prefilters
+// with `hit == all bits`. The codes travel by value in the
+// __grid_constant__ LiveArgs (tag codes first, then name codes), so a
+// live search uploads nothing. The row pass reads only the snapshot's
+// real rows, n_kv kv rows and n_name name rows, LV_UNROLL independent
+// coalesced code loads a thread; an owner is read, clamped to [0,
+// slot_b - 1], and or'ed only on a hit. Rows past the real ones are the
+// stager's padding, owner 0 and code PAD_I32 (the JAX package's fill):
+// the reference reads them, so a query code equal to PAD_I32 of a kind
+// whose bucket has padding sets its bit on slot 0 directly. Result:
+// `_live_filter_plain` (ops/livestage.py) bit for bit.
+//
+// The hit words carry the call's epoch: a 64-bit word is epoch << 32 |
+// bits, a hit raises it to at least epoch << 32 (dropping an older call's
+// bits: epochs only grow) and then ors its bits in, and the slot pass
+// reads an older epoch as no bits. So nothing zeroes the words before a
+// call (a zero phase and a second grid barrier cost about 1.4 us), and
+// they cannot sit in the call's fresh allocation: they live a stream,
+// with the epoch, in scratch the wrapper keeps (zero when made; calls on
+// one stream run in order). The row pass must be complete before the
+// slot pass reads the words: a cooperative launch, rows, grid.sync(),
+// slots, its grid LV_COOP_PER_SM CTAs an SM at most (grid-stride loops).
+// (A plain launch whose last CTAs to finish their rows waited for the
+// rest and shared the slot pass was 2-3 % faster at 1 and 3 codes and
+// 11 % at 33 on an NVIDIA H100 80GB HBM3 at 700 W; it spun on a device
+// counter and kept a ticket count a stream, so it went: PERF.md.)
+// Bound: bytes: 17 B a slot (alive, start_s, end_s, dur_ms read, the mask
+// written), 4 B a real row of a kind with a query code (its code), 4 B a
+// row that hits (its owner); about 6.5 MB, 1.9 us at 3.35 TB/s, for the
+// live head's 16,384 slots and 1.56 M real rows. The launch and the grid
+// barrier are the rest.
 #define LIVE_CHUNK 32
+#define LV_THREADS 512
+#define LV_UNROLL 4        // independent row loads a thread
+#define LV_COOP_PER_SM 2   // the cooperative grid: at most 2 CTAs an SM
 
-// B7a step 1: one thread per row. The chunk's codes [lo, hi) of the
-// combined list (tag codes first, then name codes) sit in shared memory;
-// this pass takes the ones of its row kind, [a, b), and ORs bit (j - lo)
-// of every code j equal to the row's code into its owner slot's word.
-__global__ void live_rows_kernel(const int32_t* __restrict__ owner,
-                                 const int32_t* __restrict__ code, int n_rows,
-                                 const int32_t* __restrict__ q, int lo, int a, int b,
-                                 int slot_b, unsigned int* __restrict__ hit) {
-    __shared__ int32_t s_q[LIVE_CHUNK];
-    int nq = b - a;
-    if (threadIdx.x < nq) s_q[threadIdx.x] = q[a + threadIdx.x];
-    __syncthreads();
-    int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= n_rows) return;
-    int c = code[r];
-    unsigned int bits = 0;
-    for (int j = 0; j < nq; ++j) bits |= (unsigned int)(s_q[j] == c) << (a - lo + j);
-    if (bits) atomicOr(hit + tt_clamp(owner[r], 0, slot_b - 1), bits);
+struct LiveArgs {
+    const int32_t *start_s, *end_s, *dur_ms, *alive;
+    const int32_t *kv_owner, *kv_code, *name_owner, *name_code;
+    unsigned long long* hit;  // slot_b words: epoch << 32 | hit bits
+    bool* mask;
+    unsigned int epoch;
+    int slot_b, n_slots, n_kv, n_name;  // n_kv / n_name: the real rows the pass reads
+    int kv_pad, name_pad;               // the kind's bucket has padding past its real rows
+    int f_start, t0, f_end, t1, f_min, dmin;
+    int first;       // the first chunk: the prefilters; later chunks AND into the mask
+    int n_tags, n;   // codes [0, n_tags) are tag codes, [n_tags, n) name codes
+    int32_t code[LIVE_CHUNK];
+};
+
+// or bits into slot o's word for this call's epoch: a max with epoch <<
+// 32 first (a word of an older call becomes the bare tag, one of this
+// call keeps its bits), then the or; one thread's two atomics on one word
+// land in order, and neither waits for a result
+__device__ __forceinline__ void live_or(const LiveArgs& a, int o, unsigned int bits) {
+    atomicMax(a.hit + o, (unsigned long long)a.epoch << 32);
+    atomicOr(a.hit + o, (unsigned long long)bits);
 }
 
-// B7a step 2: one thread per slot. The first pass applies the scalar
-// prefilters; every pass with codes ANDs `hit == full` and re-zeroes the
-// word for the next chunk.
-__global__ void live_slots_kernel(const int32_t* __restrict__ start_s,
-                                  const int32_t* __restrict__ end_s,
-                                  const int32_t* __restrict__ dur_ms,
-                                  const int32_t* __restrict__ alive, int slot_b, int n_slots,
-                                  int f_start, int t0, int f_end, int t1, int f_min, int dmin,
-                                  int first, unsigned int full, unsigned int* __restrict__ hit,
-                                  bool* __restrict__ mask) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= slot_b) return;
-    bool m;
-    if (first) {
-        m = alive[i] > 0 && i < n_slots;
-        if (f_start) m = m && end_s[i] >= t0;
-        if (f_end) m = m && start_s[i] <= t1;
-        if (f_min) m = m && dur_ms[i] >= dmin;
-    } else {
-        m = mask[i];
+// the row pass over CTAs [cta, ...) of n_ctas: rows [0, nk) are kv rows,
+// [nk, nk + nn) name rows (a kind without a code of the chunk has none)
+__device__ __forceinline__ void live_rows(const LiveArgs& a, long long cta, long long n_ctas) {
+    const long long nk = a.n_tags > 0 ? a.n_kv : 0, nn = a.n > a.n_tags ? a.n_name : 0;
+    const long long total = nk + nn, step = n_ctas * LV_THREADS * LV_UNROLL;
+    for (long long r0 = cta * LV_THREADS * LV_UNROLL + threadIdx.x; r0 < total; r0 += step) {
+        int c[LV_UNROLL];
+#pragma unroll
+        for (int u = 0; u < LV_UNROLL; ++u) {  // every load issued before any compare
+            const long long r = r0 + (long long)u * LV_THREADS;
+            c[u] = r < nk ? __ldg(a.kv_code + r) : (r < total ? __ldg(a.name_code + (r - nk)) : 0);
+        }
+#pragma unroll
+        for (int u = 0; u < LV_UNROLL; ++u) {
+            const long long r = r0 + (long long)u * LV_THREADS;
+            if (r >= total) break;
+            const bool kv = r < nk;
+            const int j0 = kv ? 0 : a.n_tags, j1 = kv ? a.n_tags : a.n;
+            unsigned int bits = 0;
+            for (int j = j0; j < j1; ++j) bits |= (unsigned int)(a.code[j] == c[u]) << j;
+            if (bits) {
+                const int o = kv ? __ldg(a.kv_owner + r) : __ldg(a.name_owner + (r - nk));
+                live_or(a, tt_clamp(o, 0, a.slot_b - 1), bits);
+            }
+        }
     }
-    if (full) {
-        m = m && hit[i] == full;
-        hit[i] = 0;
-    }
-    mask[i] = m;
 }
 
-// q: n_tags tag codes then n_names name codes (device). hit: slot_b words
-// of scratch. mask: slot_b bools.
+// the slot pass over slots start, start + stride, ...: every load of a
+// slot issued before any test (the prefilters are uniform, so no load
+// waits on another)
+__device__ __forceinline__ void live_slots(const LiveArgs& a, long long start, long long stride) {
+    unsigned int pad = 0;  // the padding rows: owner 0, code PAD_I32
+    for (int j = 0; j < a.n; ++j)
+        if (a.code[j] == PAD_I32 && (j < a.n_tags ? a.kv_pad : a.name_pad)) pad |= 1u << j;
+    const unsigned int full = a.n == 32 ? 0xFFFFFFFFu : (1u << a.n) - 1u;
+    for (long long i = start; i < a.slot_b; i += stride) {
+        int al = 0, es = 0, ss = 0, du = 0;
+        bool m = false;
+        unsigned long long w = 0;
+        if (a.first) {
+            al = a.alive[i];
+            if (a.f_start) es = a.end_s[i];
+            if (a.f_end) ss = a.start_s[i];
+            if (a.f_min) du = a.dur_ms[i];
+        } else {
+            m = a.mask[i];
+        }
+        if (a.n > 0) w = __ldcg(a.hit + i);
+        if (a.first)
+            m = (al > 0) & (i < a.n_slots) & (!a.f_start | (es >= a.t0)) &
+                (!a.f_end | (ss <= a.t1)) & (!a.f_min | (du >= a.dmin));
+        if (a.n > 0) {
+            const unsigned int h = (unsigned int)(w >> 32) == a.epoch ? (unsigned int)w : 0u;
+            m = m && (h | (i == 0 ? pad : 0u)) == full;
+        }
+        a.mask[i] = m;
+    }
+}
+
+__global__ void __launch_bounds__(LV_THREADS) live_filter_kernel(const __grid_constant__ LiveArgs a) {
+    cg::grid_group g = cg::this_grid();
+    if (a.n > 0) {
+        live_rows(a, blockIdx.x, gridDim.x);
+        g.sync();
+    }
+    live_slots(a, g.thread_rank(), g.size());
+}
+
+static int lv_coop_ctas = 0;  // CTAs of the cooperative grid that fit at once
+
+// One launch: the first chunk's codes (`first`) or a later one's.
+// hit: the stream's slot_b (or more) 64-bit hit words; state: the
+// stream's epoch on the host, read, used and advanced here. The wrapper
+// makes one call a chunk of up to 32 codes.
 TT_EXPORT int tt_live_filter(const int32_t* start_s, const int32_t* end_s, const int32_t* dur_ms,
                              const int32_t* alive, int slot_b, const int32_t* kv_owner,
-                             const int32_t* kv_code, int kv_b, const int32_t* name_owner,
-                             const int32_t* name_code, int name_b, const int32_t* q, int n_tags,
-                             int n_names, int f_start, int t0, int f_end, int t1, int f_min,
-                             int dmin, int n_slots, unsigned int* hit, bool* mask,
-                             void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    int n = n_tags + n_names;
-    int err;
-    if (n > 0) {
-        err = (int)cudaMemsetAsync(hit, 0, sizeof(unsigned int) * (size_t)slot_b, st);
-        if (err) return err;
+                             const int32_t* kv_code, int n_kv, int kv_b,
+                             const int32_t* name_owner, const int32_t* name_code, int n_name,
+                             int name_b, const int32_t* codes, int n_tags, int n, int f_start,
+                             int t0, int f_end, int t1, int f_min, int dmin, int n_slots,
+                             int first, unsigned long long* hit, unsigned long long* state,
+                             bool* mask, void* stream) {
+    if (slot_b < 1 || n < 0 || n > LIVE_CHUNK || n_tags < 0 || n_tags > n || n_kv < 0 ||
+        n_kv > kv_b || n_name < 0 || n_name > name_b || state[0] < 1 ||
+        state[0] > 0xFFFFFFFFull)
+        return (int)cudaErrorInvalidValue;
+    LiveArgs a = {start_s, end_s, dur_ms, alive, kv_owner, kv_code, name_owner, name_code,
+                  hit, mask, (unsigned int)state[0], slot_b, n_slots, n_kv, n_name,
+                  kv_b > n_kv, name_b > n_name, f_start, t0, f_end, t1, f_min, dmin, first,
+                  n_tags, n, {0}};
+    for (int j = 0; j < n; ++j) a.code[j] = codes[j];
+    cudaError_t e;
+    if (!lv_coop_ctas) {
+        int dev, sms, per_sm = 0;
+        if ((e = cudaGetDevice(&dev)) ||
+            (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, live_filter_kernel,
+                                                               LV_THREADS, 0)))
+            return (int)e;
+        lv_coop_ctas = (per_sm < LV_COOP_PER_SM ? per_sm : LV_COOP_PER_SM) * sms;
     }
-    int first = 1;
-    for (int lo = 0; first || lo < n; lo += LIVE_CHUNK) {
-        int hi = lo + LIVE_CHUNK < n ? lo + LIVE_CHUNK : n;
-        int ta = lo, tb = hi < n_tags ? hi : n_tags;  // tag codes of the chunk
-        int na = lo > n_tags ? lo : n_tags, nb = hi;  // name codes of the chunk
-        if (tb > ta && kv_b > 0) {
-            live_rows_kernel<<<tt_blocks(kv_b, 256), 256, 0, st>>>(kv_owner, kv_code, kv_b, q,
-                                                                   lo, ta, tb, slot_b, hit);
-            TT_LAUNCHED_SLOT(0);
-            if ((err = (int)cudaGetLastError())) return err;
-        }
-        if (nb > na && name_b > 0) {
-            live_rows_kernel<<<tt_blocks(name_b, 256), 256, 0, st>>>(
-                name_owner, name_code, name_b, q, lo, na, nb, slot_b, hit);
-            TT_LAUNCHED_SLOT(0);
-            if ((err = (int)cudaGetLastError())) return err;
-        }
-        int w = hi - lo;
-        unsigned int full = w <= 0 ? 0u : (w == 32 ? 0xFFFFFFFFu : (1u << w) - 1u);
-        live_slots_kernel<<<tt_blocks(slot_b, 256), 256, 0, st>>>(
-            start_s, end_s, dur_ms, alive, slot_b, n_slots, f_start, t0, f_end, t1, f_min, dmin,
-            first, full, hit, mask);
-        TT_LAUNCHED_SLOT(0);
-        if ((err = (int)cudaGetLastError())) return err;
-        first = 0;
-    }
+    const long long rows = (n_tags > 0 ? (long long)n_kv : 0) + (n > n_tags ? n_name : 0);
+    const long long per = (long long)LV_THREADS * LV_UNROLL;
+    long long ctas = (rows + per - 1) / per;
+    const long long slots = ((long long)slot_b + LV_THREADS - 1) / LV_THREADS;
+    ctas = ctas > slots ? ctas : slots;  // at least a CTA a LV_THREADS slots
+    ctas = ctas > lv_coop_ctas ? lv_coop_ctas : ctas;
+    void* args[] = {&a};
+    if ((e = cudaLaunchCooperativeKernel((const void*)live_filter_kernel, dim3((unsigned)ctas),
+                                         dim3(LV_THREADS), args, 0, (cudaStream_t)stream)))
+        return (int)e;
+    if ((e = cudaGetLastError())) return (int)e;
+    TT_LAUNCHED_SLOT(0);
+    state[0] += 1;
     return 0;
 }
 

@@ -36,12 +36,56 @@
 //        292-322).
 //
 // Bound: bytes for all of them. M5 reads each attr row's key once (4 B),
-// the vtype and value only of the rows whose key matches, and each owner
-// offset once; M6 moves 9 B a row; M7 reads each
-// slot byte once (and the offsets or trace_sid); M8 reads the counts and
-// the trace columns once. A thread an owner, a byte, a trace or a span
-// row: simple kernels first, as every first port here.
+// the vtype and value only of the rows whose key matches, each owner
+// offset once and writes each count once; M6 moves 9 B a row; M7 reads
+// each slot byte once (and the offsets or trace_sid); M8 reads the counts
+// and the trace columns once. M6-M8 are a thread a byte, a trace or a
+// span row: simple kernels first, as every first port here.
+//
+// M5's count (attr_tile_kernel) is a CTA a tile of AP_TILE consecutive
+// owners of one block. Its contract: out[b, o] = E(hi) - E(lo) with lo =
+// clamp(off[o] - arow0, 0, al), hi = clamp(off[o + 1] - arow0, 0, al)
+// (in 64 bits) and E(x) the shard's matching rows below x -- the
+// reference's ecs[hi] - ecs[lo], negative on a falling offset, bit for
+// bit `_attr_partial_plain` (ops/meshsearch.py) for every arow0, shard
+// cut, leaf op and offset row. The CTA reads the block's descriptor once
+// into shared memory and the tile's n + 1 offsets coalesced (scalar
+// loads: block b's offset row starts 4 b (n_seg + 1) bytes into the
+// column, not 16-byte aligned), clipped. A CTA-wide vote asks whether
+// the clipped offsets c[0..n] are monotone. If they are, the tile's rows
+// are one window [c[0], c[n]), walked in chunks of AP_CHUNK rows: the
+// chunk's keys are copied to shared memory (cp.async, AP_ROWS 4-byte
+// copies a thread, all in flight at once and none holding a register;
+// the window's first chunk is issued before the vote), then the vtype
+// and value of the rows whose key matched are loaded, AP_BATCH rows a
+// thread together, and the hits are balloted into AP_WORDS words with an
+// exclusive prefix of their popcounts. E(c[i]) - E(c[0]) is the running
+// base plus the prefix and popcount at c[i], taken in the chunk that
+// holds c[i], so a window of any length is walked (no cap on an owner's
+// rows), and owner i's count is the difference of its two offsets'
+// values. A tile that is not monotone (offsets no writer produces)
+// counts each owner's rows itself, signs included, as the first port
+// did. A resource leaf writes its compare per resource. What bounds it
+// on the card: each CTA's chain of round trips (descriptor, offsets, the
+// chunk's keys, then the values of the rows whose key matched), hidden
+// by the CTAs an SM holds (AP_MIN_CTAS, by shared memory). Phase 15's
+// windows (about 4,096 rows a tile) fit one chunk, so a value leaf waits
+// for its values once a tile where chunks of 2,048 keys in registers
+// waited twice: 12 % less device time for a `str` leaf, 2 % more for an
+// `any` leaf (NVIDIA H100 80GB HBM3, 700 W; PERF.md has them and
+// the variants measured).
 #include "cond.cuh"
+
+#define AP_THREADS 256
+#define AP_OWN 8                             // owners a thread
+#define AP_ROWS 32                           // rows a thread a chunk (bits of one hit word)
+#define AP_MIN_CTAS 5                        // CTAs an SM (shared memory: 42 KB a CTA)
+#define AP_BATCH 2                           // value loads a thread issues together
+#define AP_TILE (AP_THREADS * AP_OWN)        // owners a CTA
+#define AP_CHUNK (AP_THREADS * AP_ROWS)      // rows a chunk, their keys in shared memory
+#define AP_WORDS (AP_CHUNK / 32)             // hit words a chunk
+#define AP_WPL (AP_WORDS / 32)               // words a lane of the prefix warp
+static_assert(AP_ROWS <= 32 && AP_ROWS % 4 == 0, "a thread's hits are one word; whole words a lane");
 
 __device__ __forceinline__ int attr_count(const long long* d, int lo, int hi) {
     const int32_t* keycol = (const int32_t*)d[D_KEYCOL];
@@ -49,27 +93,162 @@ __device__ __forceinline__ int attr_count(const long long* d, int lo, int hi) {
     const void* col = (const void*)d[D_COL];
     int key = (int)d[D_KEY], vt = (int)d[D_VT];
     int c = 0;
-    for (int j = lo; j < hi; ++j) {
-        if (keycol[j] != key) continue;
-        if (vt < 0 || (vtcol[j] == vt && cmp_at(d, col, j))) ++c;  // vt < 0: 'any'
-    }
+    for (int j = lo; j < hi; ++j)
+        c += keycol[j] == key && (vt < 0 || (vtcol[j] == vt && cmp_at(d, col, j)));
     return c;
 }
 
-__global__ void attr_partial_kernel(const long long* __restrict__ descs, int cond, int bl,
-                                    int n_seg, int al, int arow0, int32_t* __restrict__ out) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)bl * n_seg) return;
-    int b = (int)(t / n_seg), o = (int)(t % n_seg);
-    const long long* d = (const long long*)descs[b] + (long long)cond * DW;
+__device__ __forceinline__ int clip_off(int32_t off, int arow0, int al) {
+    long long x = (long long)off - arow0;
+    return (int)(x < 0 ? 0 : (x > al ? al : x));
+}
+
+// the keys of the chunk's rows [base, w1) into s_key (row base + r at r),
+// AP_ROWS 4-byte copies a thread that hold no register while in flight
+// (tt_copy_wait lands them)
+__device__ __forceinline__ void chunk_keys(int32_t* s_key, const int32_t* keycol, int base, int w1) {
+#pragma unroll
+    for (int u = 0; u < AP_ROWS; ++u) {
+        const int r = u * AP_THREADS + (int)threadIdx.x;
+        if (base + r < w1) tt_copy4(s_key + r, keycol + base + r);
+    }
+}
+
+// of the rows in `hit` (bit u: row base + u AP_THREADS + tid, its key the
+// leaf's), those whose vtype and value match too; AP_BATCH rows' loads
+// issued together, so a thread with a few such rows waits about once
+__device__ __forceinline__ unsigned chunk_values(const long long* d, const int32_t* vtcol,
+                                                 const int32_t* col, int vt, int base,
+                                                 unsigned hit) {
+    for (unsigned todo = hit; todo;) {
+        unsigned bit[AP_BATCH];
+        int v[AP_BATCH], x[AP_BATCH];
+#pragma unroll
+        for (int q = 0; q < AP_BATCH; ++q) {
+            bit[q] = todo & (0u - todo);  // the lowest row left, or 0
+            todo ^= bit[q];
+            const int j = base + (__ffs(bit[q]) - 1) * AP_THREADS + (int)threadIdx.x;
+            if (bit[q]) {
+                v[q] = __ldg(vtcol + j);
+                x[q] = __ldg(col + j);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < AP_BATCH; ++q)
+            if (bit[q] && !(v[q] == vt && cmp_word(d, x[q]))) hit ^= bit[q];
+    }
+    return hit;
+}
+
+__global__ void __launch_bounds__(AP_THREADS, AP_MIN_CTAS)
+    attr_tile_kernel(const long long* __restrict__ descs, int cond, int n_seg, int al, int arow0,
+                     int32_t* __restrict__ out) {
+    __shared__ long long s_d[DW];
+    __shared__ int s_off[AP_TILE + 1];   // the tile's clipped offsets c[0..n], then E(c[i]) - E(c[0])
+    __shared__ int32_t s_key[AP_CHUNK];  // the chunk's keys
+    __shared__ unsigned s_word[AP_WORDS];
+    __shared__ int s_pre[AP_WORDS + 1];  // exclusive prefix; [AP_WORDS] the chunk's total
+    const int tid = threadIdx.x, b = blockIdx.y;
+    const int o0 = blockIdx.x * AP_TILE, n = min(AP_TILE, n_seg - o0);
+    if (tid < DW) s_d[tid] = ((const long long*)descs[b])[(long long)cond * DW + tid];
+    __syncthreads();
+    const long long* d = s_d;
+    int32_t* ob = out + (long long)b * n_seg + o0;
     if ((int)d[D_KIND] == K_RES) {
-        out[t] = cmp_at(d, (const void*)d[D_COL], o);
+        const void* col = (const void*)d[D_COL];
+        for (int i = tid; i < n; i += AP_THREADS) ob[i] = cmp_at(d, col, o0 + i);
         return;
     }
-    const int32_t* off = (const int32_t*)d[D_OFF];
-    int lo = tt_clamp(off[o] - arow0, 0, al), hi = tt_clamp(off[o + 1] - arow0, 0, al);
-    // ecs[hi] - ecs[lo] of the reference, negative on a falling offset
-    out[t] = hi >= lo ? attr_count(d, lo, hi) : -attr_count(d, hi, lo);
+    // one round trip: the window's two ends (the same two words for every
+    // thread) and this thread's offsets c[tid + m AP_THREADS], coalesced;
+    // then the window's first keys, copied before the vote, which they do
+    // not wait for
+    const int32_t* off = (const int32_t*)d[D_OFF] + o0;
+    const int32_t* keycol = (const int32_t*)d[D_KEYCOL];
+    const int w0 = clip_off(__ldg(off), arow0, al), w1 = clip_off(__ldg(off + n), arow0, al);
+    int c[AP_OWN + 1];
+#pragma unroll
+    for (int m = 0; m <= AP_OWN; ++m) {
+        const int i = tid + m * AP_THREADS;
+        c[m] = i <= n ? clip_off(__ldg(off + i), arow0, al) : w1;
+        if (i <= n) s_off[i] = c[m];
+    }
+    chunk_keys(s_key, keycol, w0, w1);
+    __syncthreads();
+    bool mono = true;
+#pragma unroll
+    for (int m = 0; m < AP_OWN; ++m) {
+        const int i = tid + m * AP_THREADS;
+        if (i < n) mono &= c[m] <= s_off[i + 1];
+    }
+    if (!__syncthreads_and(mono)) {  // each owner's rows, the sign of a falling range kept
+        tt_copy_wait();              // the copies land before the CTA leaves
+        for (int i = tid; i < n; i += AP_THREADS) {
+            const int lo = s_off[i], hi = s_off[i + 1];
+            ob[i] = hi >= lo ? attr_count(d, lo, hi) : -attr_count(d, hi, lo);
+        }
+        return;
+    }
+    const int32_t* vtcol = (const int32_t*)d[D_VTCOL];
+    const int32_t* col = (const int32_t*)d[D_COL];
+    const int key = (int)d[D_KEY], vt = (int)d[D_VT];
+    const int lane = tid & 31, warp = tid >> 5;
+    unsigned done = 0;  // bit m: c[m] holds E(c[m]) - E(w0), taken in the chunk that holds it
+    int run = 0;        // E(base) - E(w0)
+    for (int base = w0; base < w1; base += AP_CHUNK) {
+        if (base != w0) chunk_keys(s_key, keycol, base, w1);
+        tt_copy_wait();  // this thread's copies: it reads only its own rows
+        unsigned hit = 0;  // bit u: row base + u AP_THREADS + tid
+#pragma unroll
+        for (int u = 0; u < AP_ROWS; ++u) {
+            const int r = u * AP_THREADS + tid;
+            if (base + r < w1 && s_key[r] == key) hit |= 1u << u;
+        }
+        if (vt >= 0 && hit) hit = chunk_values(d, vtcol, col, vt, base, hit);
+#pragma unroll
+        for (int u = 0; u < AP_ROWS; ++u) {
+            const unsigned m = __ballot_sync(0xFFFFFFFFu, hit >> u & 1);
+            if (lane == 0) s_word[u * (AP_THREADS / 32) + warp] = m;  // rows base + 32 word
+        }
+        __syncthreads();
+        if (warp == 0) {
+            int cw[AP_WPL], t = 0;
+#pragma unroll
+            for (int q = 0; q < AP_WPL; ++q) t += cw[q] = __popc(s_word[lane * AP_WPL + q]);
+            int incl = t;
+#pragma unroll
+            for (int sh = 1; sh < 32; sh <<= 1) {
+                const int y = __shfl_up_sync(0xFFFFFFFFu, incl, sh);
+                if (lane >= sh) incl += y;
+            }
+            int e = incl - t;
+#pragma unroll
+            for (int q = 0; q < AP_WPL; ++q) {
+                s_pre[lane * AP_WPL + q] = e;
+                e += cw[q];
+            }
+            if (lane == 31) s_pre[AP_WORDS] = incl;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int m = 0; m <= AP_OWN; ++m) {  // each offset in the chunk that holds it
+            const int pos = c[m] - base;
+            if (!(done >> m & 1) && pos < AP_CHUNK) {
+                const int k = pos >> 5;
+                c[m] = run + s_pre[k] + __popc(s_word[k] & ((1u << (pos & 31)) - 1u));
+                done |= 1u << m;
+            }
+        }
+        run += s_pre[AP_WORDS];
+        __syncthreads();  // the next chunk rewrites the words
+    }
+#pragma unroll
+    for (int m = 0; m <= AP_OWN; ++m) {  // c[m] == w1 past the last chunk: the total
+        const int i = tid + m * AP_THREADS;
+        if (i <= n) s_off[i] = done >> m & 1 ? c[m] : run;
+    }
+    __syncthreads();
+    for (int i = tid; i < n; i += AP_THREADS) ob[i] = s_off[i + 1] - s_off[i];
 }
 
 __global__ void attr_mask_kernel(const int32_t* __restrict__ cnt, int n_own,
@@ -195,8 +374,18 @@ __global__ void search_finish_kernel(const int32_t* __restrict__ prog, int len,
 
 TT_EXPORT int tt_attr_partial(const long long* descs, int cond, int bl, int n_seg, int al,
                               int arow0, int32_t* out, void* stream) {
-    attr_partial_kernel<<<tt_blocks((long long)bl * n_seg, 256), 256, 0, (cudaStream_t)stream>>>(
-        descs, cond, bl, n_seg, al, arow0, out);
+    if (bl < 1 || bl > 65535 || n_seg < 1 || al < 0) return (int)cudaErrorInvalidValue;
+    static bool carved = false;  // AP_MIN_CTAS CTAs' shared memory an SM
+    if (!carved) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            attr_tile_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+        if (e) return (int)e;
+        carved = true;
+    }
+    const dim3 grid((unsigned)((n_seg + AP_TILE - 1) / AP_TILE), (unsigned)bl);  // a CTA a tile
+    attr_tile_kernel<<<grid, AP_THREADS, 0, (cudaStream_t)stream>>>(descs, cond, n_seg, al, arow0,
+                                                                    out);
     TT_LAUNCHED_SLOT(0);
     return (int)cudaGetLastError();
 }

@@ -412,19 +412,6 @@ __device__ __forceinline__ unsigned mq_union_word(const MqWords& w, unsigned gw)
     return (gw & w.lhg) | w.cu;
 }
 
-// 4 bytes from device to shared memory without passing through registers
-// (cp.async, sm_80 and later); mq_copy_wait waits for this thread's copies
-__device__ __forceinline__ void mq_copy(int32_t* dst, const int32_t* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(dst)),
-                 "l"(src));
-}
-
-__device__ __forceinline__ void mq_copy_wait() {
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // The trace-level half, shared by B5a and M3: the trace clauses over the
 // group hits gany (bit g) and trace t's trace columns; clauses at index
 // >= n_tclauses count as true.
@@ -482,8 +469,8 @@ mq_eval_kernel(const int32_t* __restrict__ progs, int q_b, int qc, int P, int NC
     int32_t* off_s = cnt_s + nq * (MQ_TT + 1);
     uint8_t* tm_s = (uint8_t*)(off_s + MQ_TT + 1);
     for (int i = threadIdx.x; i < nq * MQ_W; i += blockDim.x)  // every word in flight at once
-        mq_copy(pg + i, progs + (long long)q0 * MQ_W + i);
-    mq_copy_wait();
+        tt_copy4(pg + i, progs + (long long)q0 * MQ_W + i);
+    tt_copy_wait();
     for (int i = threadIdx.x; i < n_sc; i += blockDim.x) scol[i] = (const int32_t*)span_cols[i];
     for (int i = threadIdx.x; i < n_tc; i += blockDim.x) tcol[i] = (const int32_t*)trace_cols[i];
     if (threadIdx.x == 0) zero = 0;
@@ -525,8 +512,8 @@ mq_eval_kernel(const int32_t* __restrict__ progs, int q_b, int qc, int P, int NC
                     const int s = base + lane;
                     const bool in = s < b;
                     if (in) {  // the span's column words, all in flight at once
-                        for (int j = 0; j < n_sc; ++j) mq_copy(my + 32 * j, scol[j] + s);
-                        mq_copy_wait();
+                        for (int j = 0; j < n_sc; ++j) tt_copy4(my + 32 * j, scol[j] + s);
+                        tt_copy_wait();
                     }
                     const unsigned cb = in && regular ? mq_cond_bits(*pr, vals, vs) : 0u;
                     if (regular) {

@@ -77,11 +77,15 @@ live/cut/flushing traces):
 
 | kernel      | launches on its path                      | bound (bytes moved)                 | one PyTorch call                                   |
 |-------------|-------------------------------------------|-------------------------------------|----------------------------------------------------|
-| live_filter | one per live search on the device route   | 16 B a slot, 8 B a row per 32 codes | none: a membership test per code over owner rows   |
+| live_filter | one per live search on the device route   | 17 B a slot, 4 B a real row, 4 B a hit | none: a membership test per code over owner rows |
 | live_find   | one per live find, TEMPO_LIVE_FIND_DEVICE | 20 B a slot                         | none: an all over 4 lanes, then a first-true index |
 | live_append | two per row kind per delta refresh        | the column read and written once    | torch.slice_scatter                                |
 | live_patch  | six per delta refresh with dirty slots    | the column read and written once    | torch.index_put (out of place)                     |
 
+live_filter is one cooperative launch a chunk of 32 codes (the codes by
+value, only the snapshot's real rows read, hit words tagged with the
+call's epoch in scratch kept a stream, one grid barrier), no upload and
+no memset.
 live_find is one launch with the query as four kernel arguments: no
 upload, no memset, no device atomic (a thread-block cluster of up to 8
 CTAs where the slots need more than one, their minima folded through
@@ -114,7 +118,7 @@ mesh; a collective between the halves):
 | mq_partial  | one per mesh-batched window on every rank      | 4 B a span a column, (NG+1) x 4 B out | none: a cumsum and two gathers per group       |
 | mq_combine  | one per mesh-batched window on every rank      | (NG+1) x 4 B in, 5 B out a trace      | none: a compare, a gather and an all per query |
 | timeseries_stacked | fold, then finish for value folds, per stacked fold on every rank | 13 B a span + the columns | none: index_add_ and two scatter_reduce_ |
-| attr_partial | count, then mask, per attr or res leaf of a sharded search on every rank | 4 B an attr row, 8 B a row of the leaf's key, the offsets; 5 B a span row for the mask | none: a compare, a cumsum and two gathers per leaf |
+| attr_partial | count (a CTA a tile of owners), then mask, per attr or res leaf of a sharded search on every rank | 4 B an attr row, 8 B a row of the leaf's key, the offsets and counts; 5 B a span row for the mask | none: a compare, a cumsum and two gathers per leaf |
 | mask_pack   | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a sum over a reshaped view   |
 | mask_unpack | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a mask over a broadcast view |
 | search_partial | one per sharded search on every rank          | 1 B a span row a tracify slot + the offsets | none: a cumsum and two gathers per slot, or index_add_ |
@@ -198,8 +202,8 @@ _SIGNATURES = {
     "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _P, _I, _P]),
     "tt_bloom_union": ("bloom", [_P, _I, _L, _P, _P]),
     "tt_bloom_test": ("bloom", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
-    "tt_live_filter": ("livestage", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I,
-                                     _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "tt_live_filter": ("livestage", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "tt_live_find": ("livestage", [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
     "tt_live_append": ("livestage", [_P, _I, _P, _I, _I, _P, _P]),
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
@@ -1034,36 +1038,75 @@ def bloom_test(words: torch.Tensor, word_idx: torch.Tensor, bit_idx: torch.Tenso
 
 
 # ------------------------------------------------------------------ B7a
-def live_filter(slots: tuple, kv: tuple, names: tuple, q: torch.Tensor, n_tags: int,
-                t0: int | None, t1: int | None, dmin: int | None, n_slots: int) -> torch.Tensor:
+LIVE_CHUNK = 32  # query codes a launch carries by value (csrc/livestage.cu)
+_live_scratch: dict = {}  # (device, stream) -> (hit words, [epoch])
+_live_lock = threading.Lock()
+
+
+def _live_stream_scratch(dev: torch.device, stream: int, slot_b: int, launches: int):
+    """B7a's words on one stream: slot_b 64-bit hit words tagged with the
+    call's epoch, zero when made, and the host's [epoch] the launcher
+    advances. Calls on one stream run in order, and the caller holds
+    _live_lock, so no two calls share an epoch. A new set is made for a
+    larger bucket and before the 32-bit epoch would wrap."""
+    key = (dev.index, stream)
+    got = _live_scratch.get(key)
+    if got is None or got[0].shape[0] < slot_b or got[1][0] + launches > 2**32 - 1:
+        got = _live_scratch[key] = (torch.zeros(slot_b, dtype=torch.int64, device=dev),
+                                    (ctypes.c_uint64 * 1)(1))
+    return got
+
+
+def live_filter(slots: tuple, kv: tuple, names: tuple, codes, n_tags: int,
+                t0: int | None, t1: int | None, dmin: int | None, n_slots: int,
+                n_kv: int | None = None, n_name: int | None = None) -> torch.Tensor:
     """B7a: the live head's slot mask. slots = (start_s, end_s, dur_ms,
     alive), each (slot_b,) int32; kv and names = (owner, code) row
-    columns; q = n_tags tag codes then the name codes (int32); t0, t1,
-    dmin are the clipped thresholds, None where the filter is off.
-    Returns (slot_b,) bool. Bound: bytes (16 B a slot, 8 B a row for
-    every 32 codes)."""
-    dev = _cuda_device(q)
+    columns, of which the first n_kv / n_name are real (None: all) and
+    the rest the stager's padding, owner 0 and code PAD_I32; codes =
+    n_tags tag codes then the name codes, as ints (carried by value: no
+    upload); t0, t1, dmin are the clipped thresholds, None where the
+    filter is off. Returns (slot_b,) bool. One cooperative launch a
+    chunk of LIVE_CHUNK codes (one for none), no memset. Bound: bytes (17 B a slot, 4 B a real row of
+    a kind with a code, 4 B a row that hits)."""
+    dev = _cuda_device(slots[3])
     slot_b = slots[0].shape[0]
     for name, t in zip(("start_s", "end_s", "dur_ms", "alive"), slots):
         _check(t, name, torch.int32, dev, (slot_b,))
     rows = []
-    for kind, (owner, code) in (("kv", kv), ("name", names)):
+    for kind, (owner, code), n_real in (("kv", kv, n_kv), ("name", names, n_name)):
         _check(owner, f"{kind}_owner", torch.int32, dev)
         _check(code, f"{kind}_code", torch.int32, dev, tuple(owner.shape))
         if owner.dim() != 1:
             raise KernelError(f"live_filter: 1-D {kind} rows expected")
-        rows.append(owner.shape[0])
-    _check(q, "q", torch.int32, dev)
-    if q.dim() != 1 or not 0 <= n_tags <= q.shape[0] or slot_b == 0:
-        raise KernelError(f"live_filter: {q.shape[0]} codes with {n_tags} tags over {slot_b} slots")
+        b = owner.shape[0]
+        n_real = b if n_real is None else int(n_real)
+        if not 0 <= n_real <= b:
+            raise KernelError(f"live_filter: {n_real} real {kind} rows of {b}")
+        rows.append((n_real, b))
+    if isinstance(codes, torch.Tensor) and codes.device.type != "cpu":
+        raise KernelError("live_filter: codes on the card; pass them as ints")
+    q = [int(c) for c in (codes.tolist() if isinstance(codes, torch.Tensor) else codes)]
+    if (not 0 <= n_tags <= len(q) or slot_b == 0
+            or any(c < -(2**31) or c >= 2**31 for c in q)):
+        raise KernelError(f"live_filter: {len(q)} int32 codes with {n_tags} tags over "
+                          f"{slot_b} slots")
+    stream = _stream(dev)
     mask = torch.empty(slot_b, dtype=torch.bool, device=dev)
-    hit = torch.empty(slot_b, dtype=torch.int32, device=dev)
     flags = [(0, 0) if v is None else (1, int(v)) for v in (t0, t1, dmin)]
-    with _on(dev):
-        _call("tt_live_filter", *(t.data_ptr() for t in slots), slot_b, kv[0].data_ptr(),
-              kv[1].data_ptr(), rows[0], names[0].data_ptr(), names[1].data_ptr(), rows[1],
-              q.data_ptr(), int(n_tags), q.shape[0] - int(n_tags), *flags[0], *flags[1],
-              *flags[2], int(n_slots), hit.data_ptr(), mask.data_ptr(), _stream(dev))
+    cols = [t.data_ptr() for t in slots]
+    n_tags = int(n_tags)
+    with _on(dev), _live_lock:
+        chunks = range(0, max(len(q), 1), LIVE_CHUNK)
+        hit, state = _live_stream_scratch(dev, stream, slot_b, len(chunks))
+        for lo in chunks:
+            chunk = q[lo:lo + LIVE_CHUNK]
+            arr = (ctypes.c_int32 * LIVE_CHUNK)(*chunk)
+            _call("tt_live_filter", *cols, slot_b, kv[0].data_ptr(), kv[1].data_ptr(),
+                  *rows[0], names[0].data_ptr(), names[1].data_ptr(), *rows[1],
+                  ctypes.addressof(arr), min(max(n_tags - lo, 0), len(chunk)), len(chunk),
+                  *flags[0], *flags[1], *flags[2], int(n_slots), int(lo == 0), hit.data_ptr(),
+                  ctypes.addressof(state), mask.data_ptr(), stream)
     _count("live_filter")
     return mask
 
@@ -1458,12 +1501,15 @@ def attr_partial(descs: torch.Tensor, cond: int, n_seg: int, al: int, arow0: int
     `cond`, through each block's descriptor table (descs (Bl,) int64
     addresses): the owner's global offsets minus arow0 clipped to
     [0, al) -> (Bl, n_seg) int32 partial counts; a resource leaf gives
-    its compare per resource. Bound: bytes (4 B an attr row's key, the
-    vtype and value of the rows whose key matches, the offsets once)."""
+    its compare per resource. One launch: a CTA a tile of 2,048 owners,
+    whose rows it reads as one coalesced window where the tile's clipped
+    offsets are monotone (csrc/meshsearch.cu). Bound: bytes (4 B
+    an attr row's key, the vtype and value of the rows whose key matches,
+    the offsets and the counts once)."""
     dev = _cuda_device(descs)
     _check(descs, "descs", torch.int64, dev)
     bl = descs.shape[0]
-    if descs.dim() != 1 or n_seg < 1 or al < 0:
+    if descs.dim() != 1 or not 1 <= bl <= 65535 or n_seg < 1 or al < 0:
         raise KernelError(f"attr_partial: {bl} blocks, {n_seg} owners, {al} rows")
     out = torch.empty((bl, n_seg), dtype=torch.int32, device=dev)
     with _on(dev):

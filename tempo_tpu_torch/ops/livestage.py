@@ -165,17 +165,26 @@ def snapshot_from_numpy(snap, device) -> LiveSnapshot:
 
 
 # ------------------------------------------------------------ B7a
-def live_filter(slots: tuple, kv: tuple, names: tuple, q: torch.Tensor, n_tags: int,
+def live_filter(slots: tuple, kv: tuple, names: tuple, q, n_tags: int,
                 t0: int | None, t1: int | None, dmin: int | None,
-                n_slots: int) -> torch.Tensor:
+                n_slots: int, n_kv: int | None = None, n_name: int | None = None) -> torch.Tensor:
     """The slot mask: alive, below n_slots, end_s >= t0, start_s <= t1,
     dur_ms >= dmin (each where given), and for each of q's first n_tags
     codes a kv row of the slot with that code, for each later code a
     name row (owners clipped to the slot bucket). slots = (start_s,
-    end_s, dur_ms, alive); kv and names = (owner, code)."""
-    if q.device.type == "cuda":
-        return kernels.live_filter(slots, kv, names, q, n_tags, t0, t1, dmin, n_slots)
-    return _live_filter_plain(slots, kv, names, q, n_tags, t0, t1, dmin, n_slots)
+    end_s, dur_ms, alive); kv and names = (owner, code). q: the codes, as
+    ints or a CPU tensor; on a card they reach the kernel by value (a
+    CUDA q would cost a read-back, so it is refused), and the kernel reads
+    only the first n_kv / n_name rows (None: all), the rest being the
+    stager's padding (owner 0, code PAD_I32), which the plain version
+    reads as rows."""
+    if isinstance(q, torch.Tensor) and q.device.type != "cpu":
+        raise ValueError(f"live_filter: q on {q.device}; pass the codes as ints")
+    if slots[3].device.type == "cuda":
+        return kernels.live_filter(slots, kv, names, q, n_tags, t0, t1, dmin, n_slots, n_kv,
+                                   n_name)
+    return _live_filter_plain(slots, kv, names, torch.as_tensor(q, dtype=torch.int32), n_tags,
+                              t0, t1, dmin, n_slots)
 
 
 def _live_filter_plain(slots, kv, names, q, n_tags, t0, t1, dmin, n_slots) -> torch.Tensor:
@@ -203,12 +212,13 @@ def eval_live_device(snap: LiveSnapshot, tag_codes: list[int], name_codes: list[
     t0/t1/dmin <= 0 mean 'no filter' (SearchRequest's zero-is-unset
     convention). Returns the (slot_b,) bool mask on the device."""
     d = snap.dev
-    q = torch.tensor(list(tag_codes) + list(name_codes), dtype=torch.int32).to(d["alive"].device)
     return live_filter((d["start_s"], d["end_s"], d["dur_ms"], d["alive"]),
-                       (d["kv_owner"], d["kv_code"]), (d["name_owner"], d["name_code"]), q,
+                       (d["kv_owner"], d["kv_code"]), (d["name_owner"], d["name_code"]),
+                       [int(c) for c in tag_codes] + [int(c) for c in name_codes],
                        len(tag_codes), _clip_i32(t0) if t0 > 0 else None,
                        _clip_i32(t1) if t1 > 0 else None,
-                       _clip_i32(dmin) if dmin > 0 else None, snap.n_slots)
+                       _clip_i32(dmin) if dmin > 0 else None, snap.n_slots, snap.n_kv,
+                       snap.n_name)
 
 
 def eval_live_host(snap: LiveSnapshot, tag_codes: list[int],

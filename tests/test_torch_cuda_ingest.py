@@ -14,6 +14,7 @@ import random
 import numpy as np
 import pytest
 import torch
+from torch_tile_cases import LIVE_CASES, live_case
 
 from tempo_tpu_torch.backend import MemBackend
 from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
@@ -58,8 +59,12 @@ def _cols(rng, slot_b, kv_b, name_b, n_codes=40):
     (list(range(20)), list(range(13)), None, None, None, 1024),  # 33 codes: two chunks
     (list(range(35)), list(range(35)), 1, 999, 1, 1024),  # 70 codes: three chunks
     ([0], [5], 2**31 - 1, -(2**31) + 1, 2**31 - 1, 0),
+    ([PAD_I32, 3], [PAD_I32], None, None, None, 1024),  # the padding rows' code
 ])
 def test_live_filter_kernel(cuda, tags, names, t0, t1, dmin, n_slots):
+    """B7a equals _live_filter_plain reading the whole padded buckets,
+    with the codes as ints and only the real rows (3/4 of each bucket)
+    read; one __global__ a chunk of 32 codes."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import livestage as L
 
@@ -68,15 +73,92 @@ def test_live_filter_kernel(cuda, tags, names, t0, t1, dmin, n_slots):
         slots, kv, nm = _cols(rng, slot_b, kv_b, name_b)
         q = torch.tensor(tags + names, dtype=torch.int32)
         want = L._live_filter_plain(slots, kv, nm, q, len(tags), t0, t1, dmin, n_slots)
+        args = (tuple(t.to(cuda) for t in slots), tuple(t.to(cuda) for t in kv),
+                tuple(t.to(cuda) for t in nm))
+        chunks = max(1, -(-len(tags + names) // kernels.LIVE_CHUNK))
         kernels.reset_counts()
-        got = L.live_filter(tuple(t.to(cuda) for t in slots), tuple(t.to(cuda) for t in kv),
-                            tuple(t.to(cuda) for t in nm), q.to(cuda), len(tags), t0, t1, dmin,
-                            n_slots)
+        got = kernels.live_filter(*args, tags + names, len(tags), t0, t1, dmin, n_slots,
+                                  kv_b * 3 // 4, name_b * 3 // 4)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["live_filter"] == 1
+        assert kernels.grid_launches()["live_filter"] == chunks
         assert torch.equal(got.cpu(), want)
-        if len(tags) == 2 and n_slots:
+        assert torch.equal(L.live_filter(*args, q, len(tags), t0, t1, dmin, n_slots).cpu(), want)
+        if tags == [3, 7] and n_slots:
             assert bool(want.any())
+    with pytest.raises(ValueError):
+        L.live_filter(*args, q.to(cuda), len(tags), t0, t1, dmin, n_slots)
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_live_filter_one_launch_cases(cuda, case):
+    """The one-launch route's cases (tests/torch_tile_cases.py: PAD_I32
+    codes over padded and full buckets, owners below 0 and past slot_b,
+    duplicates, 0-70 codes, the int32 extremes) at every n_slots against
+    the plain version, every call on one stream after the last (the
+    epoch-tagged hit words carry nothing from one call to the next)."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    tags, names, t0, t1, dmin = LIVE_CASES[case]
+    for slot_b, kv_b, name_b, n_kv, n_name in ((1024, 4096, 2048, 3000, 1500),
+                                               (1024, 4096, 2048, 4096, 2048),
+                                               (1 << 14, 1 << 21, 1 << 19, 1_146_880, 409_600)):
+        cols = live_case(len(case), slot_b, kv_b, name_b, n_kv, n_name)
+        tc = {k: torch.from_numpy(v) for k, v in cols.items()}
+        plain_args = ((tc["start_s"], tc["end_s"], tc["dur_ms"], tc["alive"]),
+                      (tc["kv_owner"], tc["kv_code"]), (tc["name_owner"], tc["name_code"]))
+        card_args = tuple(tuple(t.to(cuda) for t in a) for a in plain_args)
+        for n_slots in (0, 5, slot_b, slot_b + 7):
+            want = L._live_filter_plain(*plain_args, torch.tensor(tags + names, dtype=torch.int32),
+                                        len(tags), t0, t1, dmin, n_slots)
+            got = kernels.live_filter(*card_args, tags + names, len(tags), t0, t1, dmin,
+                                      n_slots, n_kv, n_name)
+            assert torch.equal(got.cpu(), want), (slot_b, n_kv, n_slots)
+    torch.cuda.synchronize()
+
+
+def test_eval_live_device_one_launch_no_upload(cuda, monkeypatch):
+    """A live search with at most 32 codes is one wrapper call, one
+    __global__, no memset and no host-to-device copy: nothing moves a
+    tensor to the card (every such call is recorded) and the profiler
+    sees the kernel and no memset or memcpy."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    cols = live_case(5, 1 << 14, 1 << 21, 1 << 19, 1_146_880, 409_600)
+    dev = {k: torch.from_numpy(v).to(cuda) for k, v in cols.items()}
+    snap = types.SimpleNamespace(dev=dev, n_slots=1 << 14, n_kv=1_146_880, n_name=409_600)
+    want = L._live_filter_plain(
+        (dev["start_s"], dev["end_s"], dev["dur_ms"], dev["alive"]),
+        (dev["kv_owner"], dev["kv_code"]), (dev["name_owner"], dev["name_code"]),
+        torch.tensor([3, 7, 5], dtype=torch.int32, device=cuda), 2, 1, 900, 5, 1 << 14)
+    moved = []
+    to = torch.Tensor.to
+
+    def spy_to(self, *a, **k):
+        out = to(self, *a, **k)
+        if self.device.type == "cpu" and out.device.type == "cuda":
+            moved.append(tuple(self.shape))
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "to", spy_to)
+    L.eval_live_device(snap, [3, 7], [5], 1, 900, 5)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = L.eval_live_device(snap, [3, 7], [5], 1, 900, 5)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool(want[42])
+    assert not moved, moved
+    assert kernels.LAUNCHES["live_filter"] == 1 and kernels.grid_launches()["live_filter"] == 1
+    keys = [e.key for e in prof.key_averages()]
+    assert any(k.startswith("live_filter_") for k in keys), keys
+    assert not any("memset" in k.lower() or "memcpy" in k.lower() for k in keys), keys
 
 
 @pytest.mark.parametrize("slot_b", [1024, 1 << 14, 1 << 20])

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_mesh_search import CASES, _operands
+from torch_tile_cases import ATTR_SPECS, attr_case, attr_shard
 
 from tempo_tpu_torch import kernels
 from tempo_tpu_torch.ops import filter as F
@@ -103,6 +104,74 @@ def test_shard_kernels_match_plain(cuda, case):
                                    sh.ops_f, sh.tables, counts)
     _eq(tm, want[0], "M8 trace_mask")
     _eq(cnt, want[1], "M8 counts")
+
+
+def _attr_search(case: dict, sp: int, k: int, dev) -> MS.ShardSearch:
+    """Shard k of sp of an attr_case on dev, every leaf of ATTR_SPECS in
+    one tree (descriptors built on the card)."""
+    conds = tuple(F.Cond(t, c, op, is_float=f) for t, c, op, f in ATTR_SPECS)
+    tree = ("cond", len(conds) - 1)
+    for i in range(len(conds) - 2, -1, -1):
+        tree = ("or", ("cond", i), tree)
+    tree = F.normalize_tree(tree, conds)
+    cols = {n: torch.from_numpy(a).to(dev) for n, a in attr_shard(case, sp, k).items()}
+    n_own = cols["span.trace_sid"].shape[1] * sp
+    return MS.ShardSearch(tree, conds, cols, case["ints"], case["floats"], case["tables"],
+                          [n_own] * case["ints"].shape[0], k, 1)
+
+
+def _attr_check(sh, what):
+    """M5's count of every leaf on the shard against its plain version,
+    one __global__ a call."""
+    for i in range(len(ATTR_SPECS)):
+        kernels.reset_counts()
+        got = sh.attr_partial(i)
+        torch.cuda.synchronize()
+        assert kernels.grid_launches()["attr_partial"] == 1
+        arow0 = sh.sp_index * sh.cols["sattr.key_id"].shape[1]
+        _eq(got, MS._attr_partial_plain(sh.conds[i], sh.cols, sh.ops_i, sh.ops_f, i,
+                                        sh.tables.get(i), arow0), f"{what} leaf {i}")
+
+
+@pytest.mark.parametrize("shape", ["plain", "hostile", "no_rows", "ragged_tile", "past_shard"])
+def test_attr_tiles_match_plain(cuda, shape):
+    """M5's tiled count over the CPU model's cases (tests/test_torch_attr_
+    tiles.py) on every shard of sp = 1, 2 and 4 (arow0 > 0 past the
+    first), each leaf: any, string, int, float and table."""
+    if shape == "hostile":
+        case = attr_case(7, hostile=True)
+    elif shape == "no_rows":
+        case = attr_case(3, big=0)
+        case["cols"]["sattr.off"][:] = 0
+    elif shape == "ragged_tile":
+        case = attr_case(4, n_own=2049)
+    elif shape == "past_shard":
+        case = attr_case(5, big=0)
+        case["cols"]["sattr.off"] //= 8
+    else:
+        case = attr_case(41)
+    for sp in (1, 2, 4):
+        for k in range(sp):
+            _attr_check(_attr_search(case, sp, k, cuda), f"{shape} sp={sp} k={k}")
+
+
+@pytest.mark.parametrize("big,n_own,A,hostile", [(100_000, 4096, 1 << 17, False),
+                                                 (0, 1 << 20, 1 << 21, False),
+                                                 (0, 1 << 20, 1 << 21, True)])
+def test_attr_tiles_at_scale(cuda, big, n_own, A, hostile):
+    """An owner of 100,000 rows (hundreds of chunks of one tile's
+    window), on the whole block and on the second of two shards; then
+    phase 15's shape in the rows a block (2^20 owners, 2^21 attr rows)
+    over 10 blocks, with and without tiles that are not monotone among
+    the monotone ones."""
+    case = attr_case(17, n_own=n_own, A=A, big=big, hostile=hostile)
+    if n_own == 1 << 20:  # 10 blocks: the operand rows of the two repeated
+        case["cols"] = {n: np.concatenate([a] * 5) for n, a in case["cols"].items()}
+        case["ints"], case["floats"] = np.concatenate([case["ints"]] * 5), \
+            np.concatenate([case["floats"]] * 5)
+        case["tables"] = {i: np.concatenate([t] * 5) for i, t in case["tables"].items()}
+    for sp, k in ((1, 0), (2, 1)):
+        _attr_check(_attr_search(case, sp, k, cuda), f"big={big} sp={sp} k={k}")
 
 
 @pytest.mark.parametrize("sl", [8, 4096])
