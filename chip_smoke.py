@@ -129,8 +129,13 @@ Phases, in order (any failure raises; no CPU fallback):
                block 0, 10 searches (`>>` and `~` refused by the budget,
                as reckoned) and 4 metrics queries take the mesh routes
                (routing counted by reason) and equal phases 5, 8 and 10 and
-               run 1's answers, then the step at 2x2; then M1-M8 against
-               their plain versions at the shapes the runs gave them
+               run 1's answers, then the step at 2x2; run 1's sharded
+               searches (sp = 1) take M7 and M8 in one launch
+               (search_fused), run 2's (sp = 2) M7, the sum, then M8;
+               then M1-M8 and the fused route against their plain
+               versions at the shapes the runs gave them, M7 beside
+               torch.segment_reduce, and the device µs of M7, M8 and the
+               fused route queued
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -1711,13 +1716,18 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
     cap.patch(PMQ, "mq_combine")
     cap.patch(PTS, "timeseries_stacked")
     shards_seen: list = []  # the ShardSearch of each sharded search, for the kernel rows
-    partial0 = MS.ShardSearch.partial
+    partial0, fused0 = MS.ShardSearch.partial, MS.ShardSearch.partial_finish
 
     def partial_spy(self):
         shards_seen.append(self)
         return partial0(self)
 
+    def fused_spy(self):  # an sp axis of one rank: M7 and M8 in one launch
+        shards_seen.append(self)
+        return fused0(self)
+
     MS.ShardSearch.partial = partial_spy
+    MS.ShardSearch.partial_finish = fused_spy
     q_codes = np.asarray([S.trace_id_to_codes(t.rjust(16, b"\x00")) for t in ids64], np.int32)
     n_present = sum(seq_found.get(t) is not None for t in ids64)
     counts = Counts()
@@ -1819,7 +1829,10 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             del groups, want_k1
             c_search = counts.take("run 1: 8 sharded searches",
                                    ("filter", "attr_partial", "mask_pack", "mask_unpack",
-                                    "search_partial", "search_finish"))
+                                    "search_fused"))
+            if c_search["search_fused"] != len(K1_QUERIES) or c_search["search_partial"] or \
+                    c_search["search_finish"]:
+                raise AssertionError(f"run 1 (sp = 1): M7 and M8 not fused {nonzero(c_search)}")
             log(f"[mesh run 1] 8 sharded searches ({len(blocks)} blocks, per-block operands) "
                 f"equal K1 block by block, {search1_s:.2f} s "
                 f"(s, traces: {times}); wrapper calls "
@@ -1835,8 +1848,7 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                     raise AssertionError(f"run 1: search_blocks_device {q} differs from phase 6")
                 stacked1.append(got)
             stacked1_s = time.perf_counter() - t0
-            c_stacked = counts.take("run 1: search_blocks_device",
-                                    ("filter", "search_partial", "search_finish"))
+            c_stacked = counts.take("run 1: search_blocks_device", ("filter", "search_fused"))
             log(f"[mesh run 1] search_blocks_device of the 10 searches: {stacked1_s:.2f} s, "
                 f"equal to phase 6; wrapper calls {nonzero(c_stacked)}")
             # the per-block route's answers for the queries run 2 refuses
@@ -1851,7 +1863,7 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                                            union.words)
             shards_seen.clear()
             c_step = counts.take("run 1: the step", ("find", "find_elect", "bloom_union", "filter",
-                                                     "search_partial", "search_finish"))
+                                                     "search_fused"))
             log(f"[mesh run 1] distributed_query_step ({len(ids64)} ids, {K1_QUERIES[0][1]}, "
                 f"{len(blocks)} blooms): {step1_s:.2f} s, {step1_hits} traces, equal to the three "
                 f"host entries; wrapper calls {nonzero(c_step)}")
@@ -1947,6 +1959,9 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             c_search2 = counts.take("run 2: 10 searches through TempoDB",
                                     ("filter", "attr_partial", "mask_pack", "mask_unpack",
                                      "search_partial", "search_finish"))
+            if c_search2["search_fused"]:
+                raise AssertionError(f"run 2 (sp = {MESH_SP}): the fused route launched "
+                                     f"{nonzero(c_search2)}")
             routes = {k: v - r0.get(k, 0) for k, v in BX.routing_counts().items()
                       if v != r0.get(k, 0)}
             blocks = [db.open_block(m) for m in metas]
@@ -2022,19 +2037,20 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
 
 def phase_15_table(p15: dict, table) -> dict:
     """M1-M8 against their plain versions at the shapes the mesh path gave
-    them (M1 from run 1, M2-M4 from run 2's rank 0, M5-M8 from run 1's
-    sharded searches); times by CUDA events, the bound of each, no
-    one-call yardstick (none computes these functions). Returns M5's
-    device-time split by leaf (device_split's input)."""
+    them (M1 from run 1, M2-M4 from run 2's rank 0, M5-M8 and the fused
+    route from run 1's sharded searches); times by CUDA events, the bound
+    of each; M7's one-call yardstick (torch.segment_reduce), none for the
+    rest (no one call computes them). Returns M5's device-time split by
+    leaf and M7's, M8's and the fused route's (device_split's input)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import find as FD
     from tempo_tpu_torch.ops import multiquery as MQ
     from tempo_tpu_torch.ops import timeseries as TS
 
-    def row(name, source, replaces, err, ms, pms, b):
+    def row(name, source, replaces, err, ms, pms, b, lms=None):
         table.append({"name": name, "route": "cuda", "source": f"tempo_tpu_torch/csrc/{source}",
                       "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
-                      "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+                      "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": lms})
 
     args = p15["args"]
 
@@ -2126,8 +2142,10 @@ def phase_15_search_table(shards: dict, row) -> dict:
     """M5-M8 against their plain versions on the shards of run 1's
     sharded searches (10 blocks at full width, one rank): M5 on the
     `span.attr` query (and an `any` leaf of its key on the same rows),
-    M6 on the `>` query's lhs slot, M7 and M8 on the span query. No one
-    PyTorch call computes any of them. Returns M5's calls by leaf."""
+    M6 on the `>` query's lhs slot, M7 and M8 on the span query, then
+    the fused route of both on it. No one PyTorch call computes any of
+    them but M7 (torch.segment_reduce a slot). Returns M5's calls by leaf
+    and M7's, M8's and the fused route's calls."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import filter as F
     from tempo_tpu_torch.ops import meshsearch as MS
@@ -2203,7 +2221,8 @@ def phase_15_search_table(shards: dict, row) -> dict:
             f"{b[0]:.5f} ms")
         row(name, "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
 
-    # M7, M8 -- the span query's partial counts, then its trace program
+    # M7, M8 -- the span query's partial counts, then its trace program;
+    # then both in one launch, as a one-rank sp axis runs them
     sh = shards["span"]
     span_off = sh.cols["trace.span_off"]
     n_tr = len(sh.prog.tslots)
@@ -2218,13 +2237,26 @@ def phase_15_search_table(shards: dict, row) -> dict:
 
     counts = m7()
     err = check(counts, m7_plain(), "M7")
-    ms, pms = cuda_ms(m7), cuda_ms(m7_plain, reps=3, warm=1)
+    # the yardstick: torch.segment_reduce (f32: it has no int kernel) of
+    # each tracify slot and of their union over the clipped offsets
+    masks = [sh.slots[:, s] != 0 for s in sh.prog.tslots]
+    union = functools.reduce(torch.logical_or, masks) if masks else \
+        torch.arange(sh.sl, device=span_off.device)[None] < sh.n_spans_t[:, None]
+    segs = [m.to(torch.float32) for m in masks + [union]]
+    clipped = torch.clamp(span_off.long(), 0, sh.sl)
+
+    def m7_lib():
+        return [torch.segment_reduce(x, "sum", offsets=clipped, axis=1) for x in segs]
+
+    if not all(torch.equal(y.to(torch.int32), counts[:, j]) for j, y in enumerate(m7_lib())):
+        raise AssertionError("M7 differs from torch.segment_reduce")
+    ms, pms, lms = cuda_ms(m7), cuda_ms(m7_plain, reps=3, warm=1), cuda_ms(m7_lib)
     spans = int(sh.n_spans_t.sum().item())
     b = bound(spans * max(n_tr, 1) + span_off.numel() * 4 + counts.numel() * 4,
               spans * max(n_tr, 1))
     log(f"[M7] {bl} blocks, {spans} spans, {n_tr} tracify slots: {ms:.4f} ms, plain {pms:.4f} ms, "
-        f"bound {b[0]:.5f} ms")
-    row("search_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+        f"segment_reduce x {len(segs)} {lms:.4f} ms, bound {b[0]:.5f} ms")
+    row("search_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b, lms)
     code = sh.prog.code(sh.prog.trace_off)
 
     def m8():
@@ -2242,6 +2274,27 @@ def phase_15_search_table(shards: dict, row) -> dict:
     b = bound(counts.numel() * 4 + got[0].numel() * 5, counts.numel())
     log(f"[M8] {bl} x {sh.nt} traces: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
     row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+
+    def fused():
+        return kernels.search_fused(sh.prog, sh.bufs[0], sh.descs, sh.slots, span_off,
+                                    sh.n_spans_t, 0, sh.nt)
+
+    def fused_plain():
+        return MS._search_finish_plain(code, sh.conds, sh.cols, sh.ops_i, sh.ops_f, sh.tables,
+                                       m7_plain())
+
+    got = fused()
+    err = check(got[0], want[0], "the fused route's trace mask") + \
+        check(got[1], want[1], "the fused route's counts")
+    ms, pms = cuda_ms(fused), cuda_ms(fused_plain, reps=3, warm=1)
+    b = bound(spans * max(n_tr, 1) + span_off.numel() * 4 + got[0].numel() * 5,
+              spans * max(n_tr, 1))
+    log(f"[M7+M8 fused] {bl} blocks, {spans} spans into {bl} x {sh.nt} traces: {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+    row("search_fused", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    # each call holds sh: descs are the addresses of its descriptor tables
+    m5_splits[f"M7, M8 and the fused route, phase 15's shard ({bl} x {sh.nt} traces, {spans} "
+              f"spans)"] = {"search_partial": m7, "search_finish": m8, "search_fused": fused}
     return m5_splits
 
 
@@ -3216,7 +3269,7 @@ def main() -> int:
         del p15["args"], p15["shards"]
         for name in ("find_elect", "mq_partial", "mq_combine", "timeseries_stacked",
                      "attr_partial", "mask_pack", "mask_unpack", "search_partial",
-                     "search_finish"):
+                     "search_finish", "search_fused"):
             launches[name] = p15["counts"][name]
         for row in table:
             row["launches"] = launches[row["name"]]

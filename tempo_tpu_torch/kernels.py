@@ -18,8 +18,9 @@ mq_select over all its rows, launches a tile pass and a merge pass
 where select_plan takes the tiles, else a key pass, its bitonic passes
 and an emit; one find launches one kernel a chunk of FIND_BLOCKS
 blocks (a descriptor a block, no stack); one multiquery, one live_find,
-one live_patch, one edge_reduce, one span_reduce and one timeseries
-(without a res pass) launch one kernel.
+one live_patch, one edge_reduce, one span_reduce, one timeseries
+(without a res pass), one search_partial over span_off, one
+search_finish and one search_fused launch one kernel.
 grid_launches() reads the __global__ launches each library counts
 itself, per kernel. There is no CPU path
 here: the ops modules send CPU tensors to their plain PyTorch versions
@@ -59,6 +60,7 @@ never hidden behind a plain version or another route.
 | mask_unpack | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:175-189 (M6)      |
 | search_partial | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:272-290 (M7)   |
 | search_finish | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:292-322 (M8)    |
+| search_fused | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:272-322 (M7, M8 at sp = 1) |
 
 The write path's kernels: launches on their path, what bounds them, and
 the one PyTorch call that computes the same function (the yardstick
@@ -121,8 +123,9 @@ mesh; a collective between the halves):
 | attr_partial | count (a CTA a tile of owners), then mask, per attr or res leaf of a sharded search on every rank | 4 B an attr row, 8 B a row of the leaf's key, the offsets and counts; 5 B a span row for the mask | none: a compare, a cumsum and two gathers per leaf |
 | mask_pack   | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a sum over a reshaped view   |
 | mask_unpack | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a mask over a broadcast view |
-| search_partial | one per sharded search on every rank          | 1 B a span row a tracify slot + the offsets | none: a cumsum and two gathers per slot, or index_add_ |
-| search_finish | one per sharded search on every rank           | the counts and trace columns read, 5 B a trace out | none: the trace program's compares and folds |
+| search_partial | one per sharded search on every rank of an sp axis of 2 or more | 1 B a span row a tracify slot + the offsets + the counts | torch.segment_reduce a slot (sum over the clipped offsets); or index_add_ |
+| search_finish | one per sharded search on every rank of an sp axis of 2 or more | the counts and trace columns read, 5 B a trace out | none: the trace program's compares and folds |
+| search_fused | one per sharded search on every rank where sp = 1 (both halves, no counts in device memory) | 1 B a span row a tracify slot + the offsets + 5 B a trace out | none: the two rows above |
 
 K1 on a mesh shard (parallel/search.py) runs its span and struct passes
 through filter_span_shard and filter_struct_shard: each call runs one
@@ -160,7 +163,7 @@ LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
             "live_find": 0, "live_append": 0, "live_patch": 0, "span_reduce": 0,
             "edge_reduce": 0, "find_elect": 0, "mq_partial": 0, "mq_combine": 0,
             "timeseries_stacked": 0, "attr_partial": 0, "mask_pack": 0, "mask_unpack": 0,
-            "search_partial": 0, "search_finish": 0}
+            "search_partial": 0, "search_finish": 0, "search_fused": 0}
 # source -> its kernels, in the library's launch-counter slot order
 _KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find", "find_elect"),
               "stage": ("res_to_span",),
@@ -170,7 +173,7 @@ _KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find", "fi
               "livestage": ("live_filter", "live_find", "live_append", "live_patch"),
               "reduce": ("span_reduce", "edge_reduce"),
               "meshsearch": ("attr_partial", "mask_pack", "mask_unpack", "search_partial",
-                             "search_finish")}
+                             "search_finish", "search_fused")}
 
 
 class KernelError(RuntimeError):
@@ -219,8 +222,11 @@ _SIGNATURES = {
     "tt_attr_mask": ("meshsearch", [_P, _I, _P, _P, _I, _I, _I, _P, _L, _P]),
     "tt_mask_pack": ("meshsearch", [_P, _L, _I, _I, _P, _P]),
     "tt_mask_unpack": ("meshsearch", [_P, _I, _I, _P, _P]),
-    "tt_search_partial": ("meshsearch", [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "tt_search_finish": ("meshsearch", [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "tt_search_partial": ("meshsearch", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                                         _P]),
+    "tt_search_finish": ("meshsearch", [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "tt_search_fused": ("meshsearch", [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I,
+                                       _P, _P, _P, _P]),
 }
 
 # one lock over build and load: the first use may come from several
@@ -1580,9 +1586,12 @@ def search_partial(prog, buf: torch.Tensor, slots: torch.Tensor, span_off: torch
                    nt: int) -> torch.Tensor:
     """M7: per (block, trace) the shard's matched rows of each tracify
     slot of `prog` and of their union -> (Bl, n_tr + 1, nt) int32
-    partial counts; through span_off (Bl, nt + 1) clipped to the shard,
-    or by atomicAdd at the clamped tsid (Bl, Sl). The slot list is read
-    from buf. Bound: bytes (a byte a row a slot, the offsets or tsid)."""
+    partial counts. Through span_off (Bl, nt + 1) clipped to the shard:
+    one launch, a CTA a tile of 512 traces reading the tile's row window
+    once (csrc/meshsearch.cu search_tile_kernel), the slot list by value
+    (past 32 slots from buf). Without span_off, a memset and an atomicAdd
+    at the clamped tsid (Bl, Sl). Bound: bytes (a byte a row a slot, the
+    offsets or tsid, the counts)."""
     dev = _cuda_device(slots)
     _check(slots, "slots", torch.uint8, dev)
     _check(buf, "program buffer", torch.uint8, dev)
@@ -1597,19 +1606,22 @@ def search_partial(prog, buf: torch.Tensor, slots: torch.Tensor, span_off: torch
     n_tr = len(prog.tslots)
     out = torch.empty((bl, n_tr + 1, nt), dtype=torch.int32, device=dev)
     with _on(dev):
-        _call("tt_search_partial", slots.data_ptr(), n_slots, buf.data_ptr() + prog.tslots_off, n_tr,
-              _ptr(span_off), _ptr(tsid) if span_off is None else None, n_spans.data_ptr(), bl, sl,
-              int(row0), int(nt), out.data_ptr(), _stream(dev))
+        _call("tt_search_partial", slots.data_ptr(), n_slots, buf.data_ptr() + prog.tslots_off,
+              prog.tslots_ptr, n_tr, _ptr(span_off),
+              _ptr(tsid) if span_off is None else None, n_spans.data_ptr(), bl, sl, int(row0),
+              int(nt), out.data_ptr(), _stream(dev))
     _count("search_partial")
     return out
 
 
 def search_finish(prog, buf: torch.Tensor, descs: torch.Tensor, counts: torch.Tensor):
-    """M8: the trace program of `prog` (its code read from buf) over the
-    summed (Bl, n_tr + 1, nt) counts, trace conditions through each
-    block's descriptor table (descs (Bl,) int64) -> (trace_mask bool,
-    where(trace_mask, union count, 0) int32), each (Bl, nt). Bound:
-    bytes (the counts and trace columns read, 5 B a trace written)."""
+    """M8: the trace program of `prog` over the summed (Bl, n_tr + 1, nt)
+    counts, trace conditions through each block's descriptor table
+    (descs (Bl,) int64) -> (trace_mask bool, where(trace_mask, union
+    count, 0) int32), each (Bl, nt). One launch, 4 traces a thread, the
+    program and its trace conditions' indexes by value (a program past
+    64 operations or 16 trace conditions read from buf). Bound: bytes
+    (the counts and trace columns read, 5 B a trace written)."""
     dev = _cuda_device(counts)
     _check(buf, "program buffer", torch.uint8, dev)
     _check(descs, "descs", torch.int64, dev)
@@ -1622,7 +1634,42 @@ def search_finish(prog, buf: torch.Tensor, descs: torch.Tensor, counts: torch.Te
     tm = torch.empty((bl, nt), dtype=torch.bool, device=dev)
     cnt = torch.empty((bl, nt), dtype=torch.int32, device=dev)
     with _on(dev):
-        _call("tt_search_finish", buf.data_ptr() + prog.trace_off, prog.trace_len, descs.data_ptr(),
-              counts.data_ptr(), n_tr, bl, nt, tm.data_ptr(), cnt.data_ptr(), _stream(dev))
+        _call("tt_search_finish", buf.data_ptr() + prog.trace_off, prog.trace_code_ptr,
+              prog.trace_len, descs.data_ptr(), counts.data_ptr(), n_tr, bl, nt, tm.data_ptr(),
+              cnt.data_ptr(), _stream(dev))
     _count("search_finish")
+    return tm, cnt
+
+
+FUSED_MAX_TR = 32  # tracify slots the fused route's per-trace bits hold
+
+
+def search_fused(prog, buf: torch.Tensor, descs: torch.Tensor, slots: torch.Tensor,
+                 span_off: torch.Tensor, n_spans: torch.Tensor, row0: int, nt: int):
+    """M7 and M8 in one launch, for a shard whose counts need no sum over
+    sp (an sp axis of one rank): M7's tile count over span_off (Bl,
+    nt + 1), then M8's program on each tile's counts, which stay in
+    shared memory and registers -> (trace_mask bool, where(trace_mask,
+    union count, 0) int32), each (Bl, nt), as search_finish(search_
+    partial(...)) gives them. At most FUSED_MAX_TR tracify slots. Bound:
+    bytes (a byte a row a slot, the offsets, 5 B a trace written)."""
+    dev = _cuda_device(slots)
+    _check(slots, "slots", torch.uint8, dev)
+    _check(buf, "program buffer", torch.uint8, dev)
+    _check(descs, "descs", torch.int64, dev)
+    bl, n_slots, sl = slots.shape
+    _check(n_spans, "n_spans", torch.int32, dev, (bl,))
+    _check(span_off, "span_off", torch.int32, dev, (bl, nt + 1))
+    n_tr = len(prog.tslots)
+    if descs.shape != (bl,) or n_tr > FUSED_MAX_TR:
+        raise KernelError(f"search_fused: {tuple(descs.shape)} descriptors for {bl} blocks, "
+                          f"{n_tr} tracify slots (at most {FUSED_MAX_TR})")
+    tm = torch.empty((bl, nt), dtype=torch.bool, device=dev)
+    cnt = torch.empty((bl, nt), dtype=torch.int32, device=dev)
+    with _on(dev):
+        _call("tt_search_fused", slots.data_ptr(), n_slots, buf.data_ptr() + prog.tslots_off,
+              prog.tslots_ptr, n_tr, span_off.data_ptr(), n_spans.data_ptr(), bl, sl,
+              int(row0), int(nt), buf.data_ptr() + prog.trace_off, prog.trace_code_ptr,
+              prog.trace_len, descs.data_ptr(), tm.data_ptr(), cnt.data_ptr(), _stream(dev))
+    _count("search_fused")
     return tm, cnt

@@ -537,10 +537,16 @@ class _FilterProgram:
                                   or feeds_sib.get(rslot, False))
         self.steps = steps
         self.trace_off, self.trace_len = off, len(trace_code)
-        codes.append((off, np.asarray(trace_code, np.int32)))
+        # host copies of the trace program and the slot list, and their
+        # addresses: M7 and M8 (csrc/meshsearch.cu) take them by value
+        self.trace_code = np.asarray(trace_code, np.int32)
+        self.tslots_host = np.asarray(self.tslots, np.int32)
+        self.trace_code_ptr = self.trace_code.ctypes.data
+        self.tslots_ptr = self.tslots_host.ctypes.data
+        codes.append((off, self.trace_code))
         off = _align(off + 4 * len(trace_code))
         self.tslots_off = off
-        codes.append((off, np.asarray(self.tslots, np.int32)))
+        codes.append((off, self.tslots_host))
         off = _align(off + 4 * len(self.tslots))
         self.rconds_off = off
         codes.append((off, np.asarray(self.rconds, np.int32)))

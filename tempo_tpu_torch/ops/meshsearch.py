@@ -23,6 +23,8 @@ parallel/search.py runs its steps between the collectives:
   M7 search_partial per-trace partial counts of every tracify slot and
                     their union; an all_reduce SUM over sp follows
   M8 search_finish  the trace program over the summed counts
+  M7 + M8           partial_finish: both in one launch where sp is one
+                    rank (nothing to sum)
 
 Every public function runs its CUDA kernel (csrc/meshsearch.cu) on CUDA
 tensors and its plain PyTorch version, the reference's arithmetic line
@@ -285,3 +287,18 @@ class ShardSearch:
         from .. import kernels
 
         return kernels.search_finish(self.prog, self.bufs[0], self.descs, counts.contiguous())
+
+    def partial_finish(self):
+        """finish(partial()) for a shard whose partial counts are the sums
+        (an sp axis of one rank): on a card one launch of both halves
+        (kernels.search_fused), the counts never in device memory, where
+        the blocks have trace.span_off and the tree at most
+        kernels.FUSED_MAX_TR tracify slots; else M7, then M8."""
+        span_off = self.cols.get("trace.span_off")
+        if self.on_card and span_off is not None:
+            from .. import kernels
+
+            if len(self.prog.tslots) <= kernels.FUSED_MAX_TR:
+                return kernels.search_fused(self.prog, self.bufs[0], self.descs, self.slots,
+                                            span_off, self.n_spans_t, self.row0, self.nt)
+        return self.finish(self.partial())

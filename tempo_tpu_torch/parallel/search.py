@@ -11,7 +11,8 @@ replicated resource axis). Struct nodes (`>`, `>>`, `~`) gather their
 lhs mask over sp, bit-packed 8 rows to a byte (M6), and `>>` and `~`
 gather the parent table once per launch. Per-trace partial counts
 (M7) add up over sp with one all_reduce SUM, and the trace program
-(M8) runs on the sums. The per-shard steps are ops/meshsearch.py.
+(M8) runs on the sums; with one sp rank there is nothing to sum, and
+both run in one launch. The per-shard steps are ops/meshsearch.py.
 
 Operands are per block: every block resolves strings through its own
 dictionary, so ops_i / ops_f / tables carry a leading block axis split
@@ -117,6 +118,8 @@ def search_local(mesh, static: dict, ops: dict):
                 pid_g = mesh.all_gather(pidx, "sp", dim=1)
             pidx = pid_g
         sh.struct_step(step, lm_g, pidx)
+    if mesh.sp == 1:  # nothing to sum: M7 and M8 in one launch
+        return sh.partial_finish()
     counts = mesh.all_reduce(sh.partial(), "sum", "sp")  # M7, then ONE sum over sp
     return sh.finish(counts)  # M8
 

@@ -3,7 +3,9 @@ versions: M5 attr_partial (and its mask), M6 mask_pack / mask_unpack, M7
 search_partial, M8 search_finish, and K1's span pass and struct kernels
 on a shard (the `>` offset by the shard's first row), stage by stage on
 the second of two sp shards of every case of tests/test_torch_mesh_search.py;
-then the host entry on a one-rank card mesh against the CPU.
+M7's tile and trace_sid routes, M8 and the fused route of both
+(search_fused) over tests/torch_tile_cases.search_case's shapes and at
+phase 15's; then the host entry on a one-rank card mesh against the CPU.
 
 Marked `cuda`; the fixture below skips them where no card exists. Run on
 a machine with one H100:
@@ -16,7 +18,14 @@ import numpy as np
 import pytest
 import torch
 from test_torch_mesh_search import CASES, _operands
-from torch_tile_cases import ATTR_SPECS, attr_case, attr_shard
+from torch_tile_cases import (
+    ATTR_SPECS,
+    SEARCH_SPECS,
+    SEARCH_TREES,
+    attr_case,
+    attr_shard,
+    search_case,
+)
 
 from tempo_tpu_torch import kernels
 from tempo_tpu_torch.ops import filter as F
@@ -199,3 +208,126 @@ def test_sharded_search_card_matches_cpu(cuda, case):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert want[0].any()
+
+
+TAIL_CONDS = tuple(F.Cond(t, c, op, is_float=f) for t, c, op, f in SEARCH_SPECS)
+# 34 tracify slots in 67 operations: past the fused route's 32 slot bits,
+# M7's 32 slots by value and the 64 operations M8 carries by value
+MANY_SLOTS = ("and", ("cond", 3), ("or",) + tuple(("tracify", ("cond", j % 3)) for j in range(34)))
+
+
+def _tail_search(case: dict, tree, sp: int, k: int, dev) -> MS.ShardSearch:
+    """Shard k of sp of a search_case on dev, its mask slots set from the
+    case's bytes (slot j from the case's slot j % 4)."""
+    tree = F.normalize_tree(tree, TAIL_CONDS)
+    S, nt = case["slots"].shape[2], case["span_off"].shape[1] - 1
+    sl = S // sp
+    cols = {n: a[:, k * sl:(k + 1) * sl] if n.startswith("span.") else a
+            for n, a in case["cols"].items()}
+    cols["trace.span_off"] = case["span_off"]
+    cols = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for n, a in cols.items()}
+    sh = MS.ShardSearch(tree, TAIL_CONDS, cols, case["ints"], case["floats"], case["tables"],
+                        case["n_spans"].tolist(), k, nt)
+    n = sh.slots.shape[1]
+    src = case["slots"][:, [j % 4 for j in range(n)], k * sl:(k + 1) * sl]
+    sh.slots.copy_(torch.from_numpy(np.ascontiguousarray(src)).to(dev))
+    return sh
+
+
+def _launched(fn, name):
+    """fn() with one wrapper call and one __global__ of `name` counted."""
+    kernels.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == 1 and kernels.grid_launches()[name] == 1, name
+    return out
+
+
+def _tail_check(sh: MS.ShardSearch, what: str) -> None:
+    """M7 on both routes, M8 on its counts and on summed-looking ones, and
+    the fused route, each against its plain version; the fused route's
+    outputs equal M7 then M8's."""
+    span_off, tsid = sh.cols["trace.span_off"], sh.cols["span.trace_sid"]
+    tslots, code = sh.prog.tslots, sh.prog.trace_code
+    parts = _launched(sh.partial, "search_partial")
+    _eq(parts, MS._search_partial_plain(sh.slots, tslots, span_off, None, sh.n_spans_t, sh.row0,
+                                        sh.nt), f"{what}: M7 tiles")
+    got = kernels.search_partial(sh.prog, sh.bufs[0], sh.slots, None, tsid, sh.n_spans_t,
+                                 sh.row0, sh.nt)
+    _eq(got, MS._search_partial_plain(sh.slots, tslots, None, tsid, sh.n_spans_t, sh.row0, sh.nt),
+        f"{what}: M7 trace_sid")
+    for counts in (parts, parts * 2 - 1):
+        tm, cnt = _launched(lambda c=counts: sh.finish(c), "search_finish")
+        want = MS._search_finish_plain(code, sh.conds, sh.cols, sh.ops_i, sh.ops_f, sh.tables,
+                                       counts)
+        _eq(tm, want[0], f"{what}: M8 trace_mask")
+        _eq(cnt, want[1], f"{what}: M8 counts")
+    want = sh.finish(parts)
+    if len(tslots) <= kernels.FUSED_MAX_TR:
+        got = _launched(lambda: kernels.search_fused(sh.prog, sh.bufs[0], sh.descs, sh.slots,
+                                                     span_off, sh.n_spans_t, sh.row0, sh.nt),
+                        "search_fused")
+    else:
+        with pytest.raises(kernels.KernelError):
+            kernels.search_fused(sh.prog, sh.bufs[0], sh.descs, sh.slots, span_off, sh.n_spans_t,
+                                 sh.row0, sh.nt)
+        got = sh.partial_finish()  # M7, then M8
+    _eq(got[0], want[0], f"{what}: fused trace_mask")
+    _eq(got[1], want[1], f"{what}: fused counts")
+
+
+@pytest.mark.parametrize("shape", ["grouped", "hostile", "ragged_tile", "empty_tile", "unaligned",
+                                   "long_trace"])
+def test_search_tail_matches_plain(cuda, shape):
+    """M7, M8 and the fused route over search_case's shapes on every shard
+    of sp = 1, 2 and 4 (row0 > 0 past the first): n_tr 0, 1 and 3, trace
+    conditions and a table, a program past 64 operations and one past 16
+    trace conditions, 34 tracify slots (M7 walks, M8 reads its program
+    from the buffer, the fused route refuses it); falling, negative and
+    past-the-shard offsets; a last tile of one trace; a tile of empty
+    traces; shard rows not 16-byte aligned; a trace of 100,000 rows."""
+    trees = dict(SEARCH_TREES, many_slots=MANY_SLOTS)
+    sps = (1, 2, 4)
+    if shape == "hostile":
+        case = search_case(7, hostile=True)
+    elif shape == "ragged_tile":
+        case = search_case(8, nt=513)
+    elif shape == "empty_tile":
+        case = search_case(3, empty_tile=True)
+    elif shape == "unaligned":
+        case, sps = search_case(5, S=8200), (1, 2)
+    elif shape == "long_trace":
+        case, sps = search_case(4, S=1 << 17, big=100_000), (1, 2)
+        assert np.diff(case["span_off"][0])[700] == 100_000
+    else:
+        case = search_case(31)
+    for name, tree in trees.items():
+        for sp in sps:
+            for k in range(sp):
+                _tail_check(_tail_search(case, tree, sp, k, torch.device("cuda", 0)),
+                            f"{shape} {name} sp={sp} k={k}")
+
+
+@pytest.mark.parametrize("tree", ["n_tr1", "n_tr3"])
+def test_search_tail_at_scale(cuda, tree):
+    """Phase 15's shape: 10 blocks of 2^20 span rows, 32,768 traces of 32
+    rows a block, one rank (and the second of two shards)."""
+    rng = np.random.default_rng(15)
+    bl, S, nt = 10, 1 << 20, 1 << 15
+    off = np.broadcast_to(np.arange(nt + 1, dtype=np.int32) * (S // nt), (bl, nt + 1))
+    nz = rng.choice(np.asarray([1, 0x80, 0xFF], np.uint8), (bl, 4, S))
+    case = {"slots": np.where(rng.random((bl, 4, S)) < 0.04, nz, 0).astype(np.uint8),
+            "span_off": np.ascontiguousarray(off), "n_spans": np.full(bl, S, np.int32),
+            "cols": {"span.dur_us": np.zeros((bl, S), np.int32),
+                     "span.kind": np.zeros((bl, S), np.int32),
+                     "span.trace_sid": np.broadcast_to(np.arange(S, dtype=np.int32) // (S // nt),
+                                                       (bl, S)),
+                     "trace.dur_ms": rng.integers(0, 100, (bl, nt)).astype(np.int32),
+                     "trace.root_name_id": rng.integers(-1, 6, (bl, nt)).astype(np.int32)}}
+    small = search_case(1)
+    case["ints"] = np.concatenate([small["ints"]] * 5)
+    case["floats"] = np.concatenate([small["floats"]] * 5)
+    case["tables"] = {4: np.concatenate([small["tables"][4]] * 5)}
+    for sp, k in ((1, 0), (2, 1)):
+        _tail_check(_tail_search(case, SEARCH_TREES[tree], sp, k, torch.device("cuda", 0)),
+                    f"phase 15 {tree} sp={sp} k={k}")

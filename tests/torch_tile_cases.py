@@ -133,3 +133,84 @@ LIVE_CASES = {
     "int32_extremes": ([1], [2], 2**31 - 1, -(2**31) + 1, 2**31 - 1),
     "low_extremes": ([1], [], -(2**31) + 1, 2**31 - 1, -(2**31) + 1),
 }
+
+
+# M7 and M8 (the sharded search's tail, csrc/meshsearch.cu): conditions
+# (target, column, op, is_float): span leaves 0-2 (each tracify'd leaf a
+# mask slot; the cases set the slot bytes themselves), trace leaves 3-4
+# and twenty more trace leaves 5-24 for a program with many conditions
+SEARCH_SPECS = ([("span", "span.dur_us", "gt", False), ("span", "span.dur_us", "lt", False),
+                 ("span", "span.kind", "eq", False), ("trace", "trace.dur_ms", "ge", False),
+                 ("trace", "trace.root_name_id", "intable", False)]
+                + [("trace", "trace.dur_ms", "ge", False)] * 20)
+
+
+def _any(op, leaves):
+    out = leaves[0]
+    for x in leaves[1:]:
+        out = (op, out, x)
+    return out
+
+
+SEARCH_TREES = {
+    "n_tr0": ("or", ("cond", 3), ("cond", 4)),  # no tracify slot: the union is the valid rows
+    "n_tr1": ("or", ("and", ("tracify", ("cond", 0)), ("cond", 3)), ("cond", 4)),
+    "n_tr3": ("or", ("and", ("tracify", ("cond", 0)), ("tracify", ("cond", 1))),
+              ("and", ("tracify", ("cond", 2)), ("cond", 3))),
+    # 81 operations: past the 64 carried by value
+    "long_program": ("and", ("tracify", ("cond", 0)),
+                     _any("or", [("cond", 3 + (j % 2)) for j in range(40)])),
+    # 20 trace conditions in 40 operations: past the 16 descriptor rows
+    "many_conditions": ("and", ("tracify", ("cond", 0)),
+                        _any("or", [("cond", 5 + j) for j in range(20)])),
+}
+
+
+def search_case(seed: int, S: int = 8192, nt: int = 1203, big: int = 0, hostile: bool = False,
+                empty_tile: bool = False) -> dict:
+    """Two blocks of S span rows grouped by trace (0-12 rows a trace, 15 %
+    of traces empty; trace 700 with `big` rows; with `empty_tile`, traces
+    512-1,023 all empty), n_spans S and S - 300, the last 20 offsets of
+    block 0 past S (monotone after clipping). Four mask slots of bytes 0
+    and 1, 2, 0x7F, 0x80, 0xFF (30 % not 0). With `hostile`, block 1's
+    first tile holds a falling offset and offsets below 0 and past S.
+    Returns the numpy "slots" (2, 4, S), "span_off" (2, nt + 1), "n_spans",
+    the columns ("span.dur_us", "span.kind", "span.trace_sid", "trace.*"),
+    ints (2, C, 3), floats (2, C, 2) and tables {4: (2, 8)} of
+    SEARCH_SPECS."""
+    rng = np.random.default_rng(seed)
+    bl = 2
+    off = np.zeros((bl, nt + 1), np.int64)
+    for b in range(bl):
+        c = rng.integers(0, 13, nt)
+        c[rng.random(nt) < 0.15] = 0
+        if big:
+            c[700] = big
+        if empty_tile:
+            c[512:1024] = 0
+        c[np.cumsum(c) > S - 8] = 0
+        off[b, 1:] = np.cumsum(c)
+    off[0, -20:] = S + 5 + np.arange(20)
+    off = off.astype(np.int32)
+    if hostile:
+        o = off[1]
+        o[100] = o[101] + 37  # falling into 101
+        o[200], o[300] = -7, S + 100
+    nz = rng.choice(np.asarray([1, 2, 0x7F, 0x80, 0xFF], np.uint8), (bl, 4, S))
+    slots = np.where(rng.random((bl, 4, S)) < 0.3, nz, 0).astype(np.uint8)
+    sid = np.stack([np.clip(np.searchsorted(np.clip(off[b], 0, S), np.arange(S), "right") - 1,
+                            0, nt - 1) for b in range(bl)]).astype(np.int32)
+    cols = {"span.dur_us": rng.integers(0, 1000, (bl, S)).astype(np.int32),
+            "span.kind": rng.integers(0, 5, (bl, S)).astype(np.int32),
+            "span.trace_sid": sid,
+            "trace.dur_ms": rng.integers(0, 100, (bl, nt)).astype(np.int32),
+            "trace.root_name_id": rng.integers(-1, 6, (bl, nt)).astype(np.int32)}
+    n_c = len(SEARCH_SPECS)
+    ints = np.zeros((bl, n_c, 3), np.int32)
+    ints[:, 0, 1], ints[:, 1, 1], ints[:, 2, 1] = 500, 300, 2
+    ints[:, 3, 1] = [60, 85]
+    ints[:, 5:, 1] = rng.integers(90, 100, (bl, n_c - 5))
+    tables = {4: (rng.random((bl, 8)) < 0.3).astype(np.uint8)}
+    return {"slots": slots, "span_off": off, "n_spans": np.asarray([S, S - 300], np.int32),
+            "cols": cols, "ints": ints, "floats": np.zeros((bl, n_c, 2), np.float32),
+            "tables": tables}
