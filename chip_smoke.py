@@ -58,14 +58,17 @@ Phases, in order (any failure raises; no CPU fallback):
   10. metrics  4 TraceQL metrics range queries over the 10 blocks at a
                60 s step, each launching B6 once per block (one __global__
                a call), series equal to TempoDB(device="cpu")
-  4c. (in phase 4) B9a over block 0's span.name_id with a seeded
-               permutation of its dictionary, B9b of block 0's 32,768 ids
+  4c. (in phase 4) B9a's one-column form over block 0's span.name_id
+               with a seeded permutation of its dictionary (both of its
+               routes), B9b of block 0's 32,768 ids
                (equal to its stored bloom), B9c of its 16 row groups (equal
                to its stored stats), B10a over blocks 0-3's blooms and 4
                seeded 12-shard blooms, B10b of 48 own and 16 absent ids,
                each against its plain version, bit for bit
   11. cut      every trace of block 0 materialized and cut by
-               TempoDB.write_block on the card (B9a/B9b/B9c launched) and
+               TempoDB.write_block on the card (B9a once for all 29 code
+               columns, B9b, B9c; B9a's row in the kernel line is this
+               cut's codes in one call) and
                by a CPU TempoDB into another store: equal blocks; 48
                finds in the new tenant equal the materialized traces; 2
                searches card vs CPU; the cut's host/kernel split
@@ -133,9 +136,10 @@ Phases, in order (any failure raises; no CPU fallback):
                searches (sp = 1) take M7 and M8 in one launch
                (search_fused), run 2's (sp = 2) M7, the sum, then M8;
                then M1-M8 and the fused route against their plain
-               versions at the shapes the runs gave them, M7 beside
-               torch.segment_reduce, and the device µs of M7, M8 and the
-               fused route queued
+               versions at the shapes the runs gave them (M4 on each of
+               its routes, one cooperative __global__ a fold), M7 beside
+               torch.segment_reduce, and the device µs of M4, M7, M8 and
+               the fused route queued
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -402,19 +406,20 @@ def phase_4c(blocks, metas, absent, dev, table) -> None:
                       "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
                       "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": lms})
 
-    # B9a -- span.name_id through a seeded permutation of the dictionary
+    # B9a -- span.name_id through a seeded permutation of the dictionary:
+    # the one-column form (its row in the kernel line is phase 11's cut)
     col = torch.from_numpy(blk0.pack.read("span.name_id").copy()).to(dev)
     r = len(blk0.dictionary)
     remap = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(dev)
-    err = max_abs_err(kernels.remap_codes(col, remap), BC._remap_plain(col, remap))
-    if err:
-        raise AssertionError("B9a differs from its plain version")
+    for plan in ("shared", "l2"):
+        if max_abs_err(kernels.remap_codes(col, remap, plan), BC._remap_plain(col, remap)):
+            raise AssertionError(f"B9a ({plan} route) differs from its plain version")
     n = col.shape[0]
     ms = cuda_ms(lambda: kernels.remap_codes(col, remap))
-    pms = cuda_ms(lambda: BC._remap_plain(col, remap))
+    us = device_ms(lambda: kernels.remap_codes(col, remap)) * 1e3
     b = bound(n * 8 + r * 4, n)
-    log(f"[B9a] {n} codes, table of {r}: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
-    row("remap", "blockcut.cu", "tempo_tpu/ops/blockcut.py:53-58", err, ms, pms, b, None)
+    log(f"[B9a] one column, {n} codes, table of {r} ({kernels.remap_plan(r)} route): {ms:.4f} ms, "
+        f"device {us:.2f} µs (queued), bound {b[0]:.5f} ms")
 
     # B9b -- block 0's ids into its own geometry, from zero words: the
     # result is block 0's stored bloom
@@ -517,12 +522,13 @@ def phase_4c(blocks, metas, absent, dev, table) -> None:
     row("bloom_test", "bloom.cu", "tempo_tpu/ops/bloom_ops.py:48", err, ms, pms, b, None)
 
 
-def phase_11(db, blk0, dev, tmp) -> tuple[dict, list]:
+def phase_11(db, blk0, dev, tmp) -> tuple[dict, list, tuple]:
     """The cut at full width: every trace of block 0 materialized and cut
     on the card by TempoDB.write_block, and again by a CPU TempoDB into
     another store; the two blocks equal; finds and searches on the new
-    tenant. Returns the cut's wrapper calls and the materialized (trace
-    id, trace) pairs, which phase 13 pushes."""
+    tenant. Returns the cut's wrapper calls, the materialized (trace id,
+    trace) pairs, which phase 13 pushes, and B9a's inputs (the codes on
+    the card, the segment bounds, the table) for its row."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.backend import LocalBackend
     from tempo_tpu_torch.block import builder as BB
@@ -538,10 +544,19 @@ def phase_11(db, blk0, dev, tmp) -> tuple[dict, list]:
     times = CallTimes()
     times.patch(BB.BlockBuilder, "add_trace", "add_trace")
     times.patch(BB, "write_block", "write objects")
-    for name in ("remap", "bloom_bits", "rowgroup_minmax"):
-        times.patch(BC.CutEngine, name, "device steps (upload, kernel, download)")
+    times.patch(BC.CutEngine, "remap_many", "remap steps (one upload, launch, download)")
+    for name in ("bloom_bits", "rowgroup_minmax"):
+        times.patch(BC.CutEngine, name, "bloom and row-group steps (upload, kernel, download)")
     times.patch(BC, "bloom_scatter", "bloom hashing (host)")
-    for name in ("remap_codes", "bloom_bits", "rowgroup_minmax"):
+    cut_args = []
+    many = kernels.remap_many
+
+    def keep_many(codes, offs, remap, plan=None):  # the cut's codes, for B9a's row
+        cut_args.append((codes, list(offs), remap))
+        return many(codes, offs, remap, plan)
+
+    kernels.remap_many = keep_many
+    for name in ("remap_many", "bloom_bits", "rowgroup_minmax"):
         times.patch(kernels, name, "kernels (synchronized)", sync=True)
     kernels.reset_counts()
     try:
@@ -550,12 +565,18 @@ def phase_11(db, blk0, dev, tmp) -> tuple[dict, list]:
         card_s = time.perf_counter() - t0
     finally:
         times.restore()
+        kernels.remap_many = many
     counts, grids = dict(kernels.LAUNCHES), kernels.grid_launches()
     log(f"[cut] {n} traces, {meta.total_spans} spans materialized from block 0 in {mat_s:.1f} s; "
         f"card cut {card_s:.2f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.s.items())
         + f"; wrapper calls {counts}; __global__ launches {grids}")
-    if counts["remap"] < 1 or counts["bloom_bits"] != 1 or counts["rowgroup"] != 1:
-        raise AssertionError(f"cut: B9a/B9b/B9c not all launched: {counts}")
+    if counts["remap"] != 1 or grids["remap"] != 1 or len(cut_args) != 1 \
+            or counts["bloom_bits"] != 1 or counts["rowgroup"] != 1:
+        raise AssertionError(f"cut: not one B9a launch a cut, or B9b/B9c not launched: {counts}")
+    codes, offs, remap = cut_args[0]
+    lens = np.diff(offs).tolist()
+    log(f"[cut] B9a: {len(lens)} code columns, {codes.shape[0]} codes in one launch "
+        f"(column lengths {lens}), table of {remap.shape[0]}")
     cpu_be = LocalBackend(os.path.join(tmp, "cut-cpu"))
     cpu_db = TempoDB(TempoDBConfig(), backend=cpu_be, device="cpu")
     t0 = time.perf_counter()
@@ -582,7 +603,38 @@ def phase_11(db, blk0, dev, tmp) -> tuple[dict, list]:
             raise AssertionError(f"cut search {q}: card and CPU differ")
     log(f"[cut] 48 finds in the new tenant equal block 0's traces ({find_s:.2f} s); 2 searches "
         f"card vs CPU agree")
-    return counts, pairs
+    return counts, pairs, cut_args[0]
+
+
+def phase_11_table(cut, table) -> dict:
+    """B9a against its plain version on phase 11's cut: every code column
+    in one call (kernels.remap_many), by each route; times by CUDA events
+    and queued device time, the bound from the cut's bytes. Returns the
+    device split of the one-call cut against a call a column."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import blockcut as BC
+
+    codes, offs, remap = cut
+    want = BC._remap_many_plain(codes, offs, remap)
+    err = max(max_abs_err(kernels.remap_many(codes, offs, remap, plan), want)
+              for plan in ("shared", "l2"))
+    if err:
+        raise AssertionError("B9a over the cut differs from its plain version")
+    n, r = codes.shape[0], remap.shape[0]
+    ms = cuda_ms(lambda: kernels.remap_many(codes, offs, remap))
+    us = device_ms(lambda: kernels.remap_many(codes, offs, remap)) * 1e3
+    pms = cuda_ms(lambda: BC._remap_many_plain(codes, offs, remap), reps=5, warm=1)
+    b = bound(n * 8 + r * 4, n)
+    log(f"[B9a] phase 11's cut, {len(offs) - 1} columns, {n} codes, table of {r} "
+        f"({kernels.remap_plan(r)} route): {ms:.4f} ms, device {us:.2f} µs (queued), plain "
+        f"{pms:.4f} ms, bound {b[0]:.5f} ms")
+    table.append({"name": "remap", "route": "cuda", "source": "tempo_tpu_torch/csrc/blockcut.cu",
+                  "replaces": "tempo_tpu/ops/blockcut.py:54-58", "launches": 0,
+                  "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b[0],
+                  "bound_by": b[1], "library_ms": None})
+    return {f"B9a, phase 11's cut ({len(offs) - 1} columns, {n} codes)": {
+        "shared route": lambda: kernels.remap_many(codes, offs, remap, "shared"),
+        "l2 route": lambda: kernels.remap_many(codes, offs, remap, "l2")}}
 
 
 def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
@@ -2104,36 +2156,48 @@ def phase_15_table(p15: dict, table) -> dict:
     # M4 -- run 2's last stacked fold on rank 0's blocks
     (query, cols, operands, gid, val, vpres, t0s, nspans, step, nb, ng), _ = \
         args["timeseries_stacked"]
-    got = TS.timeseries_stacked(query, cols, operands, gid, val, vpres, t0s, nspans, step, nb, ng)
     want = TS._timeseries_stacked_plain(query[0], query[1], cols, operands, gid, val, vpres,
                                         t0s.tolist(), nspans.tolist(), step, nb, ng)
     err = 0.0
-    for k, (g, w) in enumerate(zip(got, want)):
-        if k == 2:
-            if not torch.allclose(g, w, rtol=1e-5, atol=0):
-                raise AssertionError("M4's f32 sums beyond rtol 1e-5")
-            err = float((g - w).abs().max().item())
-        elif max_abs_err(g, w):
-            raise AssertionError(f"M4 output {k} differs from its plain version")
-    if len(got) == 5:
+    for plan in (None, *(kernels.timeseries_route(rt, ng * nb, val is not None)
+                         for rt in ("shared", "cluster", "global"))):
+        kernels.reset_counts()
+        got = TS.timeseries_stacked(query, cols, operands, gid, val, vpres, t0s, nspans, step, nb,
+                                    ng, plan)
+        if kernels.grid_launches()["timeseries_stacked"] != 1:
+            raise AssertionError(f"M4 ({plan}): not one __global__ a fold")
+        for k, (g, w) in enumerate(zip(got, want)):
+            if k == 2:
+                if not torch.allclose(g, w, rtol=1e-5, atol=0):
+                    raise AssertionError("M4's f32 sums beyond rtol 1e-5")
+                err = max(err, float((g - w).abs().max().item()))
+            elif max_abs_err(g, w):
+                raise AssertionError(f"M4 ({plan}) output {k} differs from its plain version")
+    if len(want) == 5:
         mn, mx = kernels.timeseries_stacked_finish(got[3].clone(), got[4].clone())
         if not (torch.equal(mn.view(torch.int32), TS.ts_decode(want[3]).view(torch.int32))
                 and torch.equal(mx.view(torch.int32), TS.ts_decode(want[4]).view(torch.int32))):
             raise AssertionError("M4's finish differs from the plain decode")
-    prog, bufs, descs = TS.stacked_program(query, cols, operands)
-    ms = cuda_ms(lambda: kernels.timeseries_stacked(prog, bufs, descs, cols, gid, val, vpres, t0s,
-                                                    nspans, step, nb, ng))
+    prog, buf, blocks = TS.stacked_program(query, cols, operands, t0s, nspans)
+
+    def m4():
+        return kernels.timeseries_stacked(prog, buf, blocks, cols, gid, val, vpres, step, nb, ng)
+
+    ms = cuda_ms(m4)
+    m4_us = device_ms(m4) * 1e3
     pms = cuda_ms(lambda: TS._timeseries_stacked_plain(query[0], query[1], cols, operands, gid,
                                                        val, vpres, t0s.tolist(), nspans.tolist(),
                                                        step, nb, ng), reps=3, warm=1)
-    spans = int(nspans.sum().item())
+    spans = int(nspans.sum())
     named = {c.col if c.target != "res" else f"span@{c.col}" for c in query[1]}
     per_span = 8 + 4 * len([n for n in named if not n.startswith("trace.")]) \
         + (4 if any(n.startswith("trace.") for n in named) else 0) + (5 if val is not None else 0)
-    b = bound(spans * per_span + ng * nb * 4 * len(got), spans * 4)
-    log(f"[M4] {gid.shape[0]} blocks, {spans} spans into {ng} x {nb}: {ms:.4f} ms, "
-        f"plain {pms:.4f} ms, bound {b[0]:.5f} ms, max abs err {err:.3g}")
-    row("timeseries_stacked", "timeseries.cu", "tempo_tpu/parallel/timeseries.py:131", err, ms,
+    b = bound(spans * per_span + ng * nb * 4 * len(want), spans * 4)
+    log(f"[M4] {gid.shape[0]} blocks, {spans} spans into {ng} x {nb} "
+        f"({kernels.timeseries_plan(ng * nb, val is not None).route} route): {ms:.4f} ms, "
+        f"device {m4_us:.2f} µs (queued), plain {pms:.4f} ms, bound {b[0]:.5f} ms, "
+        f"max abs err {err:.3g}")
+    row("timeseries_stacked", "timeseries.cu", "tempo_tpu/parallel/timeseries.py:51-131", err, ms,
         pms, b)
     return phase_15_search_table(p15["shards"], row)
 
@@ -3224,7 +3288,9 @@ def main() -> int:
         # ---- 11. the cut at full width; 12. compaction, last
         t0 = time.perf_counter()
         blk0 = open_block(backend, TENANT, metas[0].block_id)
-        cut_counts, pairs = phase_11(db, blk0, dev, tmp)
+        cut_counts, pairs, cut = phase_11(db, blk0, dev, tmp)
+        splits.update(phase_11_table(cut, table))
+        del cut
         # phase 12's retention deletes block 0: phase 13 takes what it
         # needs of it now
         ingest_queries = batch_queries(blk0, 2)

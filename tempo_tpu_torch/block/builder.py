@@ -314,8 +314,22 @@ class BlockBuilder:
         n_traces = len(self.tr_ids)
         dictionary, remap = self.dictb.finalize()
         cut = blockcut.CutEngine(self.device)
-        codes = cut.table(remap)
-        rm = lambda lst: cut.remap(lst, codes)  # noqa: E731
+        # every code column of the cut, remapped together (one B9a launch)
+        attr_cols = {prefix: table.columns(prefix, owner) for table, prefix, owner in (
+            (self.sattr, "sattr", "span"), (self.rattr, "rattr", "res"),
+            (self.evattr, "evattr", "ev"), (self.lnattr, "lnattr", "ln"))}
+        code_cols = {
+            "span.name_id": self.sp_name, "span.service_id": self.sp_service,
+            "span.http_method_id": self.sp_http_method, "span.http_url_id": self.sp_http_url,
+            "span.trace_state_id": self.sp_trace_state, "span.status_msg_id": self.sp_status_msg,
+            "trace.root_service_id": self.tr_root_service, "trace.root_name_id": self.tr_root_name,
+            "scope.name_id": self.scope_name, "scope.version_id": self.scope_version,
+            "ev.name_id": self.ev_name, "ln.state_id": self.ln_state, **self.res_dedicated,
+            **{f"{p}.{f}": tcols[f"{p}.{f}"] for p, tcols in attr_cols.items()
+               for f in ("key_id", "str_id")}}
+        remapped = dict(zip(code_cols, cut.remap_many(list(code_cols.values()),
+                                                      cut.table(remap))))
+        rm = remapped.__getitem__
 
         start_ns = np.asarray(self.sp_start_ns, dtype=np.uint64)
         end_ns = np.asarray(self.sp_end_ns, dtype=np.uint64)
@@ -340,24 +354,24 @@ class BlockBuilder:
 
         cols: dict[str, np.ndarray] = {
             "span.trace_sid": np.asarray(self.sp_trace_sid, dtype=np.int32),
-            "span.name_id": rm(self.sp_name),
-            "span.service_id": rm(self.sp_service),
+            "span.name_id": rm("span.name_id"),
+            "span.service_id": rm("span.service_id"),
             "span.kind": np.asarray(self.sp_kind, dtype=np.int32),
             "span.status": np.asarray(self.sp_status, dtype=np.int32),
             "span.start_ms": start_ms,
             "span.dur_us": dur_us,
             "span.dur_lo": dur_lo,
             "span.http_status": np.asarray(self.sp_http_status, dtype=np.int32),
-            "span.http_method_id": rm(self.sp_http_method),
-            "span.http_url_id": rm(self.sp_http_url),
+            "span.http_method_id": rm("span.http_method_id"),
+            "span.http_url_id": rm("span.http_url_id"),
             "span.res_idx": np.asarray(self.sp_res_idx, dtype=np.int32),
             "span.start_ns": start_ns,
             "span.end_ns": end_ns,
             "span.id": np.frombuffer(b"".join(self.sp_id) or b"", dtype=np.uint8).reshape(n_spans, 8),
             "span.parent_id": np.frombuffer(b"".join(self.sp_parent_id) or b"", dtype=np.uint8).reshape(n_spans, 8),
             "span.parent_idx": np.asarray(self.sp_parent_idx, dtype=np.int32),
-            "span.trace_state_id": rm(self.sp_trace_state),
-            "span.status_msg_id": rm(self.sp_status_msg),
+            "span.trace_state_id": rm("span.trace_state_id"),
+            "span.status_msg_id": rm("span.status_msg_id"),
             "span.dropped_attrs": np.asarray(self.sp_dropped, dtype=np.int32),
             "span.scope_idx": np.asarray(self.sp_scope_idx, dtype=np.int32),
             "trace.id": np.frombuffer(b"".join(self.tr_ids) or b"", dtype=np.uint8).reshape(n_traces, 16),
@@ -367,23 +381,23 @@ class BlockBuilder:
             "trace.end_ms": tr_end_ms,
             "trace.dur_us": tr_dur_us,
             "trace.dur_lo": tr_dur_lo,
-            "trace.root_service_id": rm(self.tr_root_service),
-            "trace.root_name_id": rm(self.tr_root_name),
+            "trace.root_service_id": rm("trace.root_service_id"),
+            "trace.root_name_id": rm("trace.root_name_id"),
             "trace.start_ns": tr_start_ns,
             "trace.end_ns": tr_end_ns,
-            "scope.name_id": rm(self.scope_name),
-            "scope.version_id": rm(self.scope_version),
+            "scope.name_id": rm("scope.name_id"),
+            "scope.version_id": rm("scope.version_id"),
             "ev.span": np.asarray(self.ev_span, dtype=np.int32),
             "ev.time_ns": np.asarray(self.ev_time_ns, dtype=np.uint64),
-            "ev.name_id": rm(self.ev_name),
+            "ev.name_id": rm("ev.name_id"),
             "ev.dropped": np.asarray(self.ev_dropped, dtype=np.int32),
             "ln.span": np.asarray(self.ln_span, dtype=np.int32),
             "ln.trace_id": np.frombuffer(b"".join(self.ln_trace_id) or b"", dtype=np.uint8).reshape(len(self.ln_span), 16),
             "ln.span_id": np.frombuffer(b"".join(self.ln_span_id) or b"", dtype=np.uint8).reshape(len(self.ln_span), 8),
-            "ln.state_id": rm(self.ln_state),
+            "ln.state_id": rm("ln.state_id"),
         }
-        for col, vals in self.res_dedicated.items():
-            cols[col] = rm(vals)
+        for col in self.res_dedicated:
+            cols[col] = rm(col)
 
         # trace-resource membership summary (tres axis): one row per
         # (trace, resource) pair with the span count, offsets per trace.
@@ -394,15 +408,9 @@ class BlockBuilder:
         # its res predicates skip span pages for free (schema.go:75-172);
         # this is the SoA equivalent of that skip.
         cols.update(build_tres(cols["span.trace_sid"], cols["span.res_idx"], n_traces))
-        for table, prefix, owner in (
-            (self.sattr, "sattr", "span"),
-            (self.rattr, "rattr", "res"),
-            (self.evattr, "evattr", "ev"),
-            (self.lnattr, "lnattr", "ln"),
-        ):
-            tcols = table.columns(prefix, owner)
-            tcols[f"{prefix}.key_id"] = rm(tcols[f"{prefix}.key_id"])
-            tcols[f"{prefix}.str_id"] = rm(tcols[f"{prefix}.str_id"])
+        for prefix, tcols in attr_cols.items():
+            tcols[f"{prefix}.key_id"] = rm(f"{prefix}.key_id")
+            tcols[f"{prefix}.str_id"] = rm(f"{prefix}.str_id")
             cols.update(tcols)
 
         axes, col_axis, row_groups = compute_row_groups(cols, start_ms, dur_us,

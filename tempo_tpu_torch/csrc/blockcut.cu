@@ -1,7 +1,7 @@
 // B9a/B9b/B9c: the block cut's device steps (a block's finalize).
 //
 // Replaces the three jitted programs of tempo_tpu/ops/blockcut.py:
-//   B9a :53-58   _compiled_remap    gather every code through the
+//   B9a :54-58   _compiled_remap    gather every code through the
 //                                   dictionary's sort permutation
 //   B9b :104-112 _compiled_bloom    OR the deduped one-bit words of every
 //                                   trace id into the bloom's words
@@ -12,21 +12,147 @@
 // each reads its inputs once and writes its outputs once.
 #include "common.cuh"
 
-// B9a: one thread per code. Negative codes (absent / sentinel) pass
-// through; a code past the table clamps to its last entry, so the kernel
-// never reads outside the table (a cut never makes such a code).
-__global__ void remap_kernel(const int32_t* __restrict__ col, int n,
-                             const int32_t* __restrict__ remap, int r,
-                             int32_t* __restrict__ out) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    int c = col[i];
-    out[i] = c >= 0 ? remap[c < r ? c : r - 1] : c;
+// B9a: every code column of a cut through one table in ONE launch
+// (kernels.remap_many; kernels.remap_codes is the same kernel with one
+// segment). The columns arrive end to end in one buffer (one upload);
+// segment j is codes [off[j], off[j + 1]), the bounds by value. Negative
+// codes (absent / sentinel) pass through; a code past the table clamps to
+// its last entry, so the kernel never reads outside the table (a cut
+// never makes such a code).
+//
+// Bound: bytes -- 8 B a code (read once, written once) and the table once.
+// The table is read at random, so it is kept close: the shared route
+// copies it into each CTA's shared memory (cp.async, 16 B at a time)
+// while it fits RM_SMEM_MAX, the l2 route reads it through the read-only
+// path (kernels.remap_plan, a pure function of its size). The codes
+// stream: a thread takes a quad (4 codes from a multiple of 4, one 16 B
+// load and store) and RM_UNROLL of them in flight; a quad that a
+// segment's start or end cuts (or codes off a 16 B boundary) goes code by
+// code. The grid is sized to the card (co-resident CTAs), fewer where the
+// codes are few, so that a CTA copies the table once for many quads.
+#define RM_THREADS 512
+#define RM_SEGS 64                 // kernels.py REMAP_SEGS
+#define RM_UNROLL 2
+#define RM_QUADS_CTA (RM_THREADS * RM_UNROLL)  // quads a CTA takes at least
+#define RM_SMEM_MAX (192 * 1024)   // kernels.py REMAP_SMEM_MAX
+
+struct RemapArgs {
+    const int32_t* codes;
+    int32_t* out;
+    const int32_t* table;
+    int r, n_seg, vec;             // vec: codes and out 16 B aligned
+    int off[RM_SEGS + 1];          // segment j: codes [off[j], off[j + 1])
+    int quad[RM_SEGS + 1];         // quads before segment j
+};
+
+template <bool SMEM>
+__device__ __forceinline__ int rm_one(const int32_t* tab, int r, int c) {
+    if (c < 0) return c;
+    const int i = c < r ? c : r - 1;
+    return SMEM ? tab[i] : __ldg(tab + i);
 }
 
-TT_EXPORT int tt_remap(const int32_t* col, int n, const int32_t* remap, int r, int32_t* out,
-                       void* stream) {
-    remap_kernel<<<tt_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(col, n, remap, r, out);
+// route: SMEM (the table in shared memory) or l2
+template <bool SMEM>
+__global__ void __launch_bounds__(RM_THREADS) remap_kernel(const __grid_constant__ RemapArgs a) {
+    extern __shared__ __align__(16) int32_t s_tab[];
+    const int r = a.r, tid = threadIdx.x;
+    if (SMEM) {
+        int i = tid;
+        if ((((uintptr_t)a.table) & 15) == 0) {
+            for (int j = 4 * tid; j + 4 <= r; j += 4 * RM_THREADS)
+                asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                                 (unsigned)__cvta_generic_to_shared(s_tab + j)),
+                             "l"(a.table + j));
+            i = (r & ~3) + tid;  // the last r % 4 entries
+        }
+        for (; i < r; i += RM_THREADS) tt_copy4(s_tab + i, a.table + i);
+        tt_copy_wait();
+        __syncthreads();
+    }
+    const int32_t* tab = SMEM ? s_tab : a.table;
+    const int nq = a.quad[a.n_seg], stride = gridDim.x * RM_THREADS;
+    for (int q0 = blockIdx.x * RM_THREADS + tid; q0 < nq; q0 += RM_UNROLL * stride) {
+        int4 x[RM_UNROLL];
+        int e0[RM_UNROLL], lo[RM_UNROLL], hi[RM_UNROLL];
+        bool whole[RM_UNROLL];
+#pragma unroll
+        for (int u = 0; u < RM_UNROLL; ++u) {  // every whole quad's load issued first
+            const int q = q0 + u * stride;
+            whole[u] = false;
+            lo[u] = hi[u] = e0[u] = 0;
+            if (q >= nq) continue;
+            int j = 0, top = a.n_seg - 1;  // the last segment whose quads start at or before q
+            while (j < top) {
+                const int mid = (j + top + 1) >> 1;
+                if (a.quad[mid] <= q) j = mid;
+                else top = mid - 1;
+            }
+            lo[u] = a.off[j];
+            hi[u] = a.off[j + 1];
+            e0[u] = (lo[u] & ~3) + 4 * (q - a.quad[j]);
+            whole[u] = a.vec && e0[u] >= lo[u] && e0[u] + 4 <= hi[u];
+            if (whole[u]) x[u] = __ldcs((const int4*)(a.codes + e0[u]));
+        }
+#pragma unroll
+        for (int u = 0; u < RM_UNROLL; ++u) {
+            if (whole[u]) {
+                const int4 y = make_int4(rm_one<SMEM>(tab, r, x[u].x), rm_one<SMEM>(tab, r, x[u].y),
+                                         rm_one<SMEM>(tab, r, x[u].z), rm_one<SMEM>(tab, r, x[u].w));
+                __stcs((int4*)(a.out + e0[u]), y);
+            } else {
+                for (int e = max(e0[u], lo[u]); e < min(e0[u] + 4, hi[u]); ++e)
+                    a.out[e] = rm_one<SMEM>(tab, r, a.codes[e]);
+            }
+        }
+    }
+}
+
+static int rm_attrs_set = 0;
+static int rm_sms = 0;
+
+// codes: the segments end to end; offs: n_seg + 1 bounds (host memory),
+// 0 = offs[0] <= ... <= offs[n_seg]; route 0 l2, 1 shared.
+TT_EXPORT int tt_remap_many(const int32_t* codes, const int* offs, int n_seg,
+                            const int32_t* table, int r, int route, int32_t* out, void* stream) {
+    if (n_seg < 1 || n_seg > RM_SEGS || r < 1 || offs[0] != 0 || route < 0 || route > 1 ||
+        (route == 1 && 4LL * r > RM_SMEM_MAX))
+        return (int)cudaErrorInvalidValue;
+    RemapArgs a{codes, out, table, r, n_seg,
+                (((uintptr_t)codes) & 15) == 0 && (((uintptr_t)out) & 15) == 0};
+    a.quad[0] = 0;
+    for (int j = 0; j < n_seg; ++j) {
+        const int lo = offs[j], hi = offs[j + 1];
+        if (hi < lo) return (int)cudaErrorInvalidValue;
+        a.off[j] = lo;
+        a.quad[j + 1] = a.quad[j] + (hi > lo ? ((hi + 3) >> 2) - (lo >> 2) : 0);
+    }
+    a.off[n_seg] = offs[n_seg];
+    cudaError_t e = cudaSuccess;
+    if (!rm_attrs_set) {
+        int dev;
+        if ((e = cudaGetDevice(&dev)) ||
+            (e = cudaDeviceGetAttribute(&rm_sms, cudaDevAttrMultiProcessorCount, dev)) ||
+            (e = cudaFuncSetAttribute(remap_kernel<true>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, RM_SMEM_MAX)))
+            return (int)e;
+        rm_attrs_set = 1;
+    }
+    const int smem = route == 1 ? ((4 * r + 15) & ~15) : 0;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, route == 1 ? (const void*)remap_kernel<true> : (const void*)remap_kernel<false>,
+        RM_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int nq = a.quad[n_seg];
+    const int want = (nq + RM_QUADS_CTA - 1) / RM_QUADS_CTA;
+    const int card = (per_sm > 1 ? per_sm : 1) * rm_sms;
+    const int ctas = want < 1 ? 1 : want < card ? want : card;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (route == 1)
+        remap_kernel<true><<<ctas, RM_THREADS, smem, st>>>(a);
+    else
+        remap_kernel<false><<<ctas, RM_THREADS, 0, st>>>(a);
     TT_LAUNCHED_SLOT(0);
     return (int)cudaGetLastError();
 }

@@ -62,15 +62,14 @@
 //           decodes min and max in place.
 // Records, not remote atomics: an atomic into another CTA's shared memory
 // costs about as much as a device-memory atomic on the H100 (PERF.md).
-// M4 (tt_timeseries_stacked) keeps the memset / init / fold / finish
-// launches of ts_fold_kernel.
+// M4 (tt_timeseries_stacked) is the same kernel over a rank's stacked
+// blocks (ts_one_kernel<ROUTE, true>, see tt_timeseries_stacked).
 #include <cooperative_groups.h>
+#include <string.h>
 
 #include "cond.cuh"
 
 namespace cg = cooperative_groups;
-
-#define TS_SMEM_MAX (96 * 1024)
 
 __device__ __forceinline__ int ts_enc(float f) {
     int i = __float_as_int(f);
@@ -81,11 +80,6 @@ __device__ __forceinline__ int ts_enc(float f) {
 // a NaN bit pattern, and no other float encodes to either
 __device__ __forceinline__ int ts_enc_min(float f) { return isnan(f) ? PAD_I32 : ts_enc(f); }
 __device__ __forceinline__ int ts_enc_max(float f) { return isnan(f) ? INT32_MAXV : ts_enc(f); }
-
-__device__ __forceinline__ int ts_floordiv(int a, int b) {
-    int q = a / b;
-    return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
 
 // the span mask: K1's span program plus C_TCOND leaves
 __device__ __forceinline__ bool ts_span_mask(const int32_t* prog, int len, const long long* desc,
@@ -113,97 +107,6 @@ __device__ __forceinline__ bool ts_span_mask(const int32_t* prog, int len, const
     return st & 1;
 }
 
-__global__ void ts_init_kernel(int32_t* __restrict__ vmin, int32_t* __restrict__ vmax, int n) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    vmin[i] = ts_enc(__int_as_float(0x7F800000));   // +inf
-    vmax[i] = ts_enc(__int_as_float((int)0xFF800000));  // -inf
-}
-
-// Both folds: B6 over one block (descs == NULL: desc, t0 and n_spans as
-// given) and M4 over Bl stacked blocks (blockIdx.y = block b, its
-// descriptor table descs[b], origin t0s[b], span count nspans[b], and
-// its row b * S of tsid, start_ms, gid, val and vpres), all into one
-// (G, n_buckets) grid.
-template <bool SMEM>
-__global__ void ts_fold_kernel(const int32_t* __restrict__ prog, int len,
-                               const long long* __restrict__ desc,
-                               const long long* __restrict__ descs, long long S,
-                               const uint8_t* __restrict__ resmask, int n_res_b,
-                               const int32_t* __restrict__ res_idx, const int32_t* __restrict__ tsid,
-                               int n_traces_b, const int32_t* __restrict__ start_ms,
-                               const int32_t* __restrict__ gid, const float* __restrict__ val,
-                               const uint8_t* __restrict__ vpres, int t0, int n_spans,
-                               const int32_t* __restrict__ t0s, const int32_t* __restrict__ nspans,
-                               int step, int n_buckets, int G, int has_val,
-                               int32_t* __restrict__ counts, int32_t* __restrict__ vcnt,
-                               float* __restrict__ vsum, int32_t* __restrict__ vmin,
-                               int32_t* __restrict__ vmax) {
-    extern __shared__ int32_t smem[];
-    if (descs) {
-        const int b = blockIdx.y;
-        const long long o = (long long)b * S;
-        desc = (const long long*)descs[b];
-        tsid += o;
-        start_ms += o;
-        gid += o;
-        if (has_val) {
-            val += o;
-            vpres += o;
-        }
-        t0 = t0s[b];
-        n_spans = nspans[b];
-    }
-    const int cells = G * n_buckets;
-    int32_t *c_acc = counts, *vc_acc = vcnt, *mn_acc = vmin, *mx_acc = vmax;
-    float* vs_acc = vsum;
-    if (SMEM) {
-        c_acc = smem;
-        vc_acc = smem + cells;
-        vs_acc = (float*)(smem + 2 * cells);
-        mn_acc = smem + 3 * cells;
-        mx_acc = smem + 4 * cells;
-        for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-            c_acc[i] = 0;
-            if (has_val) {
-                vc_acc[i] = 0;
-                vs_acc[i] = 0.f;
-                mn_acc[i] = ts_enc(__int_as_float(0x7F800000));
-                mx_acc[i] = ts_enc(__int_as_float((int)0xFF800000));
-            }
-        }
-        __syncthreads();
-    }
-    const int stride = gridDim.x * blockDim.x;
-    for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < n_spans; s += stride) {
-        if (!ts_span_mask(prog, len, desc, s, resmask, n_res_b, res_idx, tsid, n_traces_b)) continue;
-        // int32 wrap-around subtraction, as XLA's int32 arithmetic
-        const int b = ts_floordiv((int)((unsigned)start_ms[s] - (unsigned)t0), step);
-        const int g = gid[s];
-        if (b < 0 || b >= n_buckets || g < 0 || g >= G) continue;
-        const int cell = g * n_buckets + b;
-        atomicAdd(c_acc + cell, 1);
-        if (has_val && vpres[s]) {
-            const float v = val[s];
-            atomicAdd(vc_acc + cell, 1);
-            atomicAdd(vs_acc + cell, v);
-            atomicMin(mn_acc + cell, ts_enc_min(v));
-            atomicMax(mx_acc + cell, ts_enc_max(v));
-        }
-    }
-    if (!SMEM) return;
-    __syncthreads();
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-        if (c_acc[i]) atomicAdd(counts + i, c_acc[i]);
-        if (has_val && vc_acc[i]) {
-            atomicAdd(vcnt + i, vc_acc[i]);
-            atomicAdd(vsum + i, vs_acc[i]);
-            atomicMin(vmin + i, mn_acc[i]);
-            atomicMax(vmax + i, mx_acc[i]);
-        }
-    }
-}
-
 // order-preserving int32 encodings back to f32, in place
 __global__ void ts_finish_kernel(int32_t* __restrict__ vmin, int32_t* __restrict__ vmax, int n) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -221,7 +124,17 @@ __global__ void ts_finish_kernel(int32_t* __restrict__ vmin, int32_t* __restrict
 #define TS_CLUSTER_MAX 16
 #define TS_SMEM_CTA_MAX (200 * 1024)      // kernels.py TS_SMEM_MAX
 
-// one fold's arguments (a struct: cudaLaunchKernelEx passes it by value)
+#define TS_BLOCKS 32                      // kernels.py TS_BLOCKS
+
+// one of M4's stacked blocks: its descriptor table (its operands, its row
+// of every column), its origin and its span count (kernels.py TS_BLOCK)
+struct TsBlock {
+    const long long* desc;
+    int t0, n;
+};
+
+// one fold's arguments (in a __grid_constant__ TsLaunch: cudaLaunchKernelEx
+// passes it by value, and a block's row is read where it lies)
 struct TsArgs {
     const int32_t* prog;
     int len;
@@ -238,7 +151,35 @@ struct TsArgs {
     int t0, step, n_spans, n_buckets, G, has_val;
     int cells, per;    // per: cells of each plane a CTA owns (the shared route: all)
     int32_t* scratch;  // K partial grids of A planes (the cluster route)
-    int32_t* out;      // A planes of cells, decoded
+    int32_t* out;      // A planes of cells, decoded (M4: min and max still encoded)
+    // M4: Bl stacked blocks of S rows (n_spans is then Bl S, the rows walked);
+    // block b's table row by value while Bl <= TS_BLOCKS (TsLaunch), else
+    // read from the card
+    int Bl, S;
+    unsigned s_inv;  // floor(2^32 / S) (2^32 - 1 for S = 1): r / S without a divide
+    const TsBlock* tbl;
+    // the bucket's floor division by step without a divide (ts_bucket):
+    // floor(2^32 / step) (2^32 - 1 for step = 1), 2^31 / step, 2^31 % step
+    unsigned st_inv, st_k, st_m;
+};
+
+// floor(2^32 / d) for d >= 1, 2^32 - 1 for d = 1: umulhi(v, it) is v / d
+// or one short of it for every 32-bit v
+static unsigned ts_inv(long long d) {
+    return d > 1 ? (unsigned)((1ULL << 32) / (unsigned long long)d) : 0xFFFFFFFFu;
+}
+
+static void ts_set_step(TsArgs* a) {
+    a->st_inv = ts_inv(a->step);
+    a->st_k = (unsigned)((1ULL << 31) / (unsigned)a->step);
+    a->st_m = (unsigned)((1ULL << 31) % (unsigned)a->step);
+}
+
+// a launch's parameters: B6's fold, or M4's with its blocks' rows
+template <bool STK>
+struct TsLaunch {
+    TsArgs a;
+    TsBlock blk[STK ? TS_BLOCKS : 1];
 };
 
 __device__ __forceinline__ int ts_identity(int plane) {
@@ -254,13 +195,27 @@ __device__ __forceinline__ int ts_combine(int p, int x, int y) {
                   : p == 3 ? min(x, y) : p == 4 ? max(x, y) : x + y;
 }
 
-// the cell span s folds into, or -1
-__device__ __forceinline__ int ts_cell(const TsArgs& a, int s, int start, int g) {
-    if (!ts_span_mask(a.prog, a.len, a.desc, s, a.resmask, a.n_res_b, a.res_idx, a.tsid,
+// floor((start - t0) / step) with the subtraction wrapping in int32, as
+// XLA's int32 arithmetic: u = (start - t0) + 2^31 as unsigned, and with
+// 2^31 = k step + m, the quotient is (u - m) / step - k, or -1 - k where
+// u < m; the unsigned quotient from the reciprocal, corrected once
+__device__ __forceinline__ int ts_bucket(const TsArgs& a, int start, int t0) {
+    const unsigned u = ((unsigned)start - (unsigned)t0) ^ 0x80000000u;
+    if (u < a.st_m) return (int)(0xFFFFFFFFu - a.st_k);
+    const unsigned v = u - a.st_m;
+    unsigned q = __umulhi(v, a.st_inv);
+    if (v - q * (unsigned)a.step >= (unsigned)a.step) ++q;
+    return (int)(q - a.st_k);
+}
+
+// the cell span s of a block (its descriptor table, origin and trace_sid
+// row) folds into, or -1
+__device__ __forceinline__ int ts_cell(const TsArgs& a, const long long* desc, int t0,
+                                       const int32_t* tsid, int s, int start, int g) {
+    if (!ts_span_mask(a.prog, a.len, desc, s, a.resmask, a.n_res_b, a.res_idx, tsid,
                       a.n_traces_b))
         return -1;
-    // int32 wrap-around subtraction, as XLA's int32 arithmetic
-    const int b = ts_floordiv((int)((unsigned)start - (unsigned)a.t0), a.step);
+    const int b = ts_bucket(a, start, t0);
     if (b < 0 || b >= a.n_buckets || g < 0 || g >= a.G) return -1;
     return g * a.n_buckets + b;
 }
@@ -277,50 +232,80 @@ __device__ __forceinline__ void ts_fold_span(int32_t* p, long long stride, bool 
     }
 }
 
-// spans s0 + u stride (u < TS_R): their cells (-1: none), presence and values,
-// every load issued before the first span's mask
-__device__ __forceinline__ void ts_load(const TsArgs& a, int s0, int stride, int* cell, bool* pr,
-                                        float* v) {
-    int st[TS_R], g[TS_R];
+// rows s0 + u stride (u < TS_R): their cells (-1: none), presence and
+// values, every load issued before the first row's mask. B6: row s is
+// span s. M4 (STK): row r is span l = r - b S of block b = r / S, and none
+// where l >= the block's span count; its columns are row r of the stack
+template <bool STK>
+__device__ __forceinline__ void ts_load(const TsArgs& a, const TsBlock* tb, int s0, int stride,
+                                        int* cell, bool* pr, float* v) {
+    int st[TS_R], g[TS_R], loc[TS_R], t0[TS_R];
+    const long long* desc[TS_R];
 #pragma unroll
     for (int u = 0; u < TS_R; ++u) {
-        const int s = s0 + u * stride;
+        const int r = s0 + u * stride;
         pr[u] = false;
         v[u] = 0.f;
-        if (s < a.n_spans) {
-            st[u] = a.start_ms[s];
-            g[u] = a.gid[s];
+        loc[u] = -1;
+        if (r < a.n_spans) {
+            if (STK) {
+                // r / S from the reciprocal: at most one short, one correction
+                int b = (int)__umulhi((unsigned)r, a.s_inv), l = r - b * a.S;
+                if (l >= a.S) {
+                    ++b;
+                    l -= a.S;
+                }
+                const TsBlock k = tb[b];
+                if (l < k.n) {
+                    loc[u] = l;
+                    desc[u] = k.desc;
+                    t0[u] = k.t0;
+                }
+            } else {
+                loc[u] = r;
+                desc[u] = a.desc;
+                t0[u] = a.t0;
+            }
+        }
+        if (loc[u] >= 0) {
+            st[u] = a.start_ms[r];
+            g[u] = a.gid[r];
             if (a.has_val) {
-                pr[u] = a.vpres[s];
-                v[u] = a.val[s];
+                pr[u] = a.vpres[r];
+                v[u] = a.val[r];
             }
         }
     }
 #pragma unroll
     for (int u = 0; u < TS_R; ++u) {
-        const int s = s0 + u * stride;
-        cell[u] = s < a.n_spans ? ts_cell(a, s, st[u], g[u]) : -1;
+        const int r = s0 + u * stride;
+        cell[u] = loc[u] >= 0 ? ts_cell(a, desc[u], t0[u], a.tsid + (r - loc[u]), loc[u], st[u], g[u])
+                              : -1;
     }
 }
 
-// every span of the grid-stride loop into `fold`
-template <typename F>
-__device__ __forceinline__ void ts_each_span(const TsArgs& a, F fold) {
+// every row of the grid-stride loop into `fold`
+template <bool STK, typename F>
+__device__ __forceinline__ void ts_each_span(const TsArgs& a, const TsBlock* tb, F fold) {
     const int stride = gridDim.x * blockDim.x;
     for (int s0 = blockIdx.x * blockDim.x + threadIdx.x; s0 < a.n_spans; s0 += TS_R * stride) {
         int cell[TS_R];
         bool pr[TS_R];
         float v[TS_R];
-        ts_load(a, s0, stride, cell, pr, v);
+        ts_load<STK>(a, tb, s0, stride, cell, pr, v);
 #pragma unroll
         for (int u = 0; u < TS_R; ++u)
             if (cell[u] >= 0) fold(cell[u], pr[u], v[u]);
     }
 }
 
-// ROUTE 0 global, 1 shared, 2 cluster (see the header)
-template <int ROUTE>
-__global__ void __launch_bounds__(TS_THREADS, 2) ts_one_kernel(TsArgs a) {
+// ROUTE 0 global, 1 shared, 2 cluster (see the header); STK: M4 over
+// stacked blocks, min and max left encoded
+template <int ROUTE, bool STK>
+__global__ void __launch_bounds__(TS_THREADS, 2)
+    ts_one_kernel(const __grid_constant__ TsLaunch<STK> launch) {
+    const TsArgs& a = launch.a;
+    const TsBlock* tb = STK && a.Bl <= TS_BLOCKS ? launch.blk : a.tbl;  // M4's block rows
     extern __shared__ int32_t smem[];
     cg::grid_group grid = cg::this_grid();
     const int A = a.has_val ? 5 : 1, cells = a.cells, tid = threadIdx.x;
@@ -330,9 +315,10 @@ __global__ void __launch_bounds__(TS_THREADS, 2) ts_one_kernel(TsArgs a) {
     if (ROUTE == 0) {
         for (long long i = gtid; i < n_out; i += gstride) a.out[i] = ts_identity((int)(i / cells));
         grid.sync();
-        ts_each_span(a, [&](int cell, bool pres, float v) {
+        ts_each_span<STK>(a, tb, [&](int cell, bool pres, float v) {
             ts_fold_span(a.out + cell, cells, a.has_val, pres, v);
         });
+        if (STK) return;
         grid.sync();
         for (long long i = 3LL * cells + gtid; i < n_out; i += gstride) a.out[i] = ts_decode(a.out[i]);
         return;
@@ -347,7 +333,7 @@ __global__ void __launch_bounds__(TS_THREADS, 2) ts_one_kernel(TsArgs a) {
         // a private copy of the whole grid a CTA, local atomics only
         for (int j = tid; j < A * cells; j += blockDim.x) smem[j] = ts_identity(j / cells);
         __syncthreads();
-        ts_each_span(a, [&](int cell, bool pres, float v) {
+        ts_each_span<STK>(a, tb, [&](int cell, bool pres, float v) {
             ts_fold_span(smem + cell, cells, a.has_val, pres, v);
         });
         cl.sync();
@@ -378,7 +364,7 @@ __global__ void __launch_bounds__(TS_THREADS, 2) ts_one_kernel(TsArgs a) {
             else if (p == 4) atomicMax(a.out + i, x);
             else atomicAdd(a.out + i, x);
         }
-        if (A == 1) return;
+        if (A == 1 || STK) return;
         grid.sync();
         for (long long i = 3LL * cells + gtid; i < n_out; i += gstride) a.out[i] = ts_decode(a.out[i]);
         return;
@@ -405,7 +391,7 @@ __global__ void __launch_bounds__(TS_THREADS, 2) ts_one_kernel(TsArgs a) {
             int cell[TS_R], slot[TS_R];
             bool pr[TS_R];
             float v[TS_R];
-            ts_load(a, s0, TS_THREADS, cell, pr, v);
+            ts_load<STK>(a, tb, s0, TS_THREADS, cell, pr, v);
 #pragma unroll
             for (int u = 0; u < TS_R; ++u) {  // a slot in the owner's bucket, a warp's lanes aggregated
                 const int key = cell[u] >= 0 ? cell[u] / per : -1;
@@ -488,29 +474,36 @@ __global__ void __launch_bounds__(TS_THREADS, 2) ts_one_kernel(TsArgs a) {
             for (int u = 0; u < 8; ++u) x = ts_combine(p, x, y[u]);
         }
         for (; k < K; ++k) x = ts_combine(p, x, src[k * n_out]);
-        a.out[i] = p >= 3 ? ts_decode(x) : x;
+        a.out[i] = !STK && p >= 3 ? ts_decode(x) : x;
     }
 }
 
 static int ts_attrs_set = 0;
 
+static const void* ts_kernel(int route, int stk) {
+    if (stk)
+        return route == 0 ? (const void*)ts_one_kernel<0, true>
+                          : route == 1 ? (const void*)ts_one_kernel<1, true>
+                                       : (const void*)ts_one_kernel<2, true>;
+    return route == 0 ? (const void*)ts_one_kernel<0, false>
+                      : route == 1 ? (const void*)ts_one_kernel<1, false>
+                                   : (const void*)ts_one_kernel<2, false>;
+}
+
 static cudaError_t ts_attrs() {
     if (ts_attrs_set) return cudaSuccess;
     cudaError_t e = cudaSuccess;
-    for (const void* k : {(const void*)ts_one_kernel<1>, (const void*)ts_one_kernel<2>}) {
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     TS_SMEM_CTA_MAX);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    }
+    for (int stk = 0; stk < 2; ++stk)
+        for (int route = 1; route < 3; ++route) {
+            const void* k = ts_kernel(route, stk);
+            if (e == cudaSuccess)
+                e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         TS_SMEM_CTA_MAX);
+            if (e == cudaSuccess)
+                e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        }
     if (e == cudaSuccess) ts_attrs_set = 1;
     return e;
-}
-
-static const void* ts_kernel(int route) {
-    return route == 0 ? (const void*)ts_one_kernel<0>
-                      : route == 1 ? (const void*)ts_one_kernel<1> : (const void*)ts_one_kernel<2>;
 }
 
 static void ts_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* at, int ctas, int cluster,
@@ -533,20 +526,20 @@ static void ts_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* at, int ctas
     }
 }
 
-// CTAs of one route (0 global, 1 shared, 2 cluster) that can be
-// co-resident on the current device (the cooperative launch's limit),
-// with `cluster` CTAs a cluster and `smem` bytes each. Returns 0 and sets
-// *ctas, or the cudaError_t.
-TT_EXPORT int tt_timeseries_ctas(int route, int cluster, int smem, int* ctas) {
+// CTAs of one route (0 global, 1 shared, 2 cluster) of B6 (stacked 0) or
+// M4 (stacked 1) that can be co-resident on the current device (the
+// cooperative launch's limit), with `cluster` CTAs a cluster and `smem`
+// bytes each. Returns 0 and sets *ctas, or the cudaError_t.
+TT_EXPORT int tt_timeseries_ctas(int route, int stacked, int cluster, int smem, int* ctas) {
     cudaError_t e = ts_attrs();
     if (e != cudaSuccess) return (int)e;
     int dev, sms, per_sm = 0;
     if ((e = cudaGetDevice(&dev)) ||
         (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
         return (int)e;
+    const void* k = ts_kernel(route, stacked);
     if (cluster <= 1) {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ts_kernel(route), TS_THREADS,
-                                                          smem);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, TS_THREADS, smem);
         *ctas = per_sm * sms;
         return (int)e;
     }
@@ -556,9 +549,34 @@ TT_EXPORT int tt_timeseries_ctas(int route, int cluster, int smem, int* ctas) {
     cfg.attrs = &at[1];  // the cluster dimension alone
     cfg.numAttrs = 1;
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, ts_kernel(route), &cfg);
+    e = cudaOccupancyMaxActiveClusters(&clusters, k, &cfg);
     *ctas = clusters * cluster;
     return (int)e;
+}
+
+// the route's arguments, checked (see tt_timeseries)
+static bool ts_bad(int step, int n_buckets, int G, int has_val, const float* val,
+                   const uint8_t* vpres, int route, int cluster, int per, int smem, int ctas,
+                   const int32_t* scratch) {
+    const long long cells = (long long)G * n_buckets;
+    const int A = has_val ? 5 : 1;
+    const long long need = route == 1 ? 4LL * A * cells : 4LL * A * per + 4LL * TS_EXCH_WORDS;
+    return step < 1 || n_buckets < 1 || G < 1 || cells > (1 << 24) || ctas < 1 ||
+           (has_val && (!val || !vpres)) || route < 0 || route > 2 ||
+           (route > 0 && (cluster < 1 || cluster > TS_CLUSTER_MAX || ctas % cluster ||
+                          (route == 2 && !scratch) || smem < need || smem > TS_SMEM_CTA_MAX ||
+                          (route == 2 && (per < 1 || (long long)per * cluster < cells))));
+}
+
+template <bool STK>
+static cudaError_t ts_launch(const TsLaunch<STK>& l, int route, int cluster, int smem, int ctas,
+                             cudaStream_t st) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute at[2];
+    ts_config(&cfg, at, ctas, route > 0 ? cluster : 1, route > 0 ? smem : 0, st);
+    return route == 0 ? cudaLaunchKernelEx(&cfg, ts_one_kernel<0, STK>, l)
+                      : route == 1 ? cudaLaunchKernelEx(&cfg, ts_one_kernel<1, STK>, l)
+                                   : cudaLaunchKernelEx(&cfg, ts_one_kernel<2, STK>, l);
 }
 
 // desc/prog/rconds: the span program buffer (ops/filter.py layout);
@@ -576,16 +594,8 @@ TT_EXPORT int tt_timeseries(const long long* desc, const int32_t* prog, int len,
                             int G, int has_val, int route, int cluster, int per, int smem,
                             int ctas, int32_t* scratch, int32_t* out, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    long long cells = (long long)G * n_buckets;
-    const int A = has_val ? 5 : 1;
-    const long long need = route == 1 ? 4LL * A * cells
-                                      : 4LL * A * per + 4LL * TS_EXCH_WORDS;
-    if (step < 1 || n_buckets < 1 || G < 1 || cells > (1 << 24) || n_spans < 0 || ctas < 1 ||
-        (has_val && (!val || !vpres)) || route < 0 || route > 2 ||
-        (route > 0 && (cluster < 1 || cluster > TS_CLUSTER_MAX || ctas % cluster ||
-                       (route == 2 && !scratch) ||
-                       smem < need || smem > TS_SMEM_CTA_MAX ||
-                       (route == 2 && (per < 1 || (long long)per * cluster < cells)))))
+    if (n_spans < 0 ||
+        ts_bad(step, n_buckets, G, has_val, val, vpres, route, cluster, per, smem, ctas, scratch))
         return (int)cudaErrorInvalidValue;
     cudaError_t e = ts_attrs();
     if (e != cudaSuccess) return (int)e;
@@ -594,74 +604,57 @@ TT_EXPORT int tt_timeseries(const long long* desc, const int32_t* prog, int len,
         res_pass_kernel<<<tt_blocks(n, 256), 256, 0, st>>>(desc, rconds, n_rc, n_res_b, resmask);
         TT_LAUNCHED();
     }
-    TsArgs a{prog, len, desc, resmask, n_res_b, res_idx, tsid, n_traces_b, start_ms, gid, val,
-             vpres, t0, step, n_spans, n_buckets, G, has_val, (int)cells, per, scratch, out};
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute at[2];
-    ts_config(&cfg, at, ctas, route > 0 ? cluster : 1, route > 0 ? smem : 0, st);
-    e = route == 0 ? cudaLaunchKernelEx(&cfg, ts_one_kernel<0>, a)
-                   : route == 1 ? cudaLaunchKernelEx(&cfg, ts_one_kernel<1>, a)
-                                : cudaLaunchKernelEx(&cfg, ts_one_kernel<2>, a);
+    TsLaunch<false> l{{prog, len, desc, resmask, n_res_b, res_idx, tsid, n_traces_b, start_ms,
+                       gid, val, vpres, t0, step, n_spans, n_buckets, G, has_val, G * n_buckets,
+                       per, scratch, out}};
+    ts_set_step(&l.a);
+    e = ts_launch(l, route, cluster, smem, ctas, st);
     if (e != cudaSuccess) return (int)e;
     TT_LAUNCHED();
     return (int)cudaGetLastError();
 }
 
-// M4: B6 over this rank's Bl stacked blocks in ONE launch (the block on
-// gridDim.y), into one (G, n_buckets) grid (parallel/timeseries.py).
-// Replaces the per-shard fold of tempo_tpu/parallel/timeseries.py:45-131
+// M4: B6 over this rank's Bl stacked blocks (parallel/timeseries.py) in
+// ONE cooperative launch, ts_one_kernel<route, true>: the routes, the
+// identity written in the kernel before a grid sync, the shared route's
+// cluster reduce through distributed shared memory -- B6's design, with
+// no memset and no init launch. The grid walks the Bl S rows of the
+// stack (sized by what is co-resident, not by Bl): row r is span r % S
+// of block r / S, skipped past the block's span count. Replaces the
+// per-shard fold of tempo_tpu/parallel/timeseries.py:51-131
 // (`make_sharded_timeseries`' `local`) before its psum / pmin / pmax.
-// Each block brings its own descriptor table (descs[b]: its dictionary
-// codes the query its own way, and its columns sit at its own row), its
-// own origin t0s[b] and span count nspans[b]; group ids are global.
-// min and max stay in B6's ordered-int32 encoding (vmin / vmax as int32)
-// so the caller's all_reduce MIN / MAX keep B6's NaN, -0 and inf rules;
-// tt_ts_stacked_finish decodes them after the collective.
+// Each block brings its own descriptor table (its dictionary codes the
+// query its own way, and its columns sit at its own row), origin and
+// span count (blocks: Bl TsBlock rows by value while Bl <= TS_BLOCKS;
+// tbl: the same rows on the card, read past that); group ids are
+// global. min and max stay in B6's ordered-int32 encoding so the
+// caller's all_reduce MIN / MAX keep B6's NaN, -0 and inf rules;
+// tt_ts_stacked_finish decodes them after the collective. out, scratch,
+// route, cluster, per, smem, ctas: as tt_timeseries (no res pass: a res
+// condition reads span@<col>, which K4 gathers per block beforehand).
 //
 // Bound: bytes -- per span the columns the program names plus start_ms,
 // gid, val and vpres (13 B), the grid written once. Launch slot 1.
-TT_EXPORT int tt_timeseries_stacked(const long long* descs, int Bl, const int32_t* prog, int len,
-                                    long long S, const int32_t* tsid, int n_traces_b,
-                                    const int32_t* start_ms, const int32_t* gid, const float* val,
-                                    const uint8_t* vpres, const int32_t* t0s,
-                                    const int32_t* nspans, int step,
-                                    int n_buckets, int G, int has_val, int32_t* counts,
-                                    int32_t* vcnt, float* vsum, int32_t* vmin, int32_t* vmax,
+TT_EXPORT int tt_timeseries_stacked(const int32_t* prog, int len, const TsBlock* blocks,
+                                    const TsBlock* tbl, int Bl, int S, const int32_t* tsid,
+                                    int n_traces_b, const int32_t* start_ms, const int32_t* gid,
+                                    const float* val, const uint8_t* vpres, int step,
+                                    int n_buckets, int G, int has_val, int route, int cluster,
+                                    int per, int smem, int ctas, int32_t* scratch, int32_t* out,
                                     void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    long long cells = (long long)G * n_buckets;
-    if (Bl < 1 || Bl > 65535 || step < 1 || n_buckets < 1 || G < 1 || cells > (1 << 24) ||
-        S < 0 || S > INT32_MAXV ||
-        (has_val && (!val || !vpres || !vcnt || !vsum || !vmin || !vmax)))
+    if (Bl < 1 || S < 0 || (long long)Bl * S > INT32_MAXV || !tbl ||
+        (Bl <= TS_BLOCKS && !blocks) ||
+        ts_bad(step, n_buckets, G, has_val, val, vpres, route, cluster, per, smem, ctas, scratch))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int32_t) * cells, st);
-    if (e == cudaSuccess && has_val) e = cudaMemsetAsync(vcnt, 0, sizeof(int32_t) * cells, st);
-    if (e == cudaSuccess && has_val) e = cudaMemsetAsync(vsum, 0, sizeof(float) * cells, st);
+    cudaError_t e = ts_attrs();
     if (e != cudaSuccess) return (int)e;
-    if (has_val) {
-        ts_init_kernel<<<tt_blocks(cells, 256), 256, 0, st>>>(vmin, vmax, (int)cells);
-        TT_LAUNCHED_SLOT(1);
-    }
-    size_t smem = (size_t)cells * sizeof(int32_t) * (has_val ? 5 : 1);
-    int span_blocks = tt_blocks(S, 256);  // a block's spans fit its row of S
-    if (smem <= TS_SMEM_MAX) {
-        e = cudaFuncSetAttribute(ts_fold_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)TS_SMEM_MAX);
-        if (e != cudaSuccess) return (int)e;
-        int per = (264 + Bl - 1) / Bl;  // about 2 blocks a SM in all, each flushes its cells
-        dim3 grid(span_blocks < per ? span_blocks : per, Bl);
-        ts_fold_kernel<true><<<grid, 256, smem, st>>>(
-            prog, len, nullptr, descs, S, nullptr, 0, nullptr, tsid, n_traces_b, start_ms, gid,
-            val, vpres, 0, 0, t0s, nspans, step, n_buckets, G, has_val, counts, vcnt, vsum, vmin,
-            vmax);
-    } else {
-        int per = (132 * 16 + Bl - 1) / Bl;
-        dim3 grid(span_blocks < per ? span_blocks : per, Bl);
-        ts_fold_kernel<false><<<grid, 256, 0, st>>>(
-            prog, len, nullptr, descs, S, nullptr, 0, nullptr, tsid, n_traces_b, start_ms, gid,
-            val, vpres, 0, 0, t0s, nspans, step, n_buckets, G, has_val, counts, vcnt, vsum, vmin,
-            vmax);
-    }
+    TsLaunch<true> l{{prog, len, nullptr, nullptr, 0, nullptr, tsid, n_traces_b, start_ms, gid,
+                      val, vpres, 0, step, Bl * S, n_buckets, G, has_val, G * n_buckets, per,
+                      scratch, out, Bl, S, ts_inv(S), tbl}};
+    ts_set_step(&l.a);
+    if (Bl <= TS_BLOCKS) memcpy(l.blk, blocks, sizeof(TsBlock) * Bl);
+    e = ts_launch(l, route, cluster, smem, ctas, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
     TT_LAUNCHED_SLOT(1);
     return (int)cudaGetLastError();
 }

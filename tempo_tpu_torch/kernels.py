@@ -19,8 +19,10 @@ where select_plan takes the tiles, else a key pass, its bitonic passes
 and an emit; one find launches one kernel a chunk of FIND_BLOCKS
 blocks (a descriptor a block, no stack); one multiquery, one live_find,
 one live_patch, one edge_reduce, one span_reduce, one timeseries
-(without a res pass), one search_partial over span_off, one
-search_finish and one search_fused launch one kernel.
+(without a res pass), one timeseries_stacked fold (its finish is a
+second call), one remap over every code column of a cut, one
+search_partial over span_off, one search_finish and one search_fused
+launch one kernel.
 grid_launches() reads the __global__ launches each library counts
 itself, per kernel. There is no CPU path
 here: the ops modules send CPU tensors to their plain PyTorch versions
@@ -40,7 +42,7 @@ never hidden behind a plain version or another route.
 | multiquery  | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:356 run (B5a)      |
 | mq_select   | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:461 sel (B5b)      |
 | timeseries  | csrc/timeseries.cu | tempo_tpu/ops/timeseries.py:53 run (B6)        |
-| remap       | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:53-58 (B9a)          |
+| remap       | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:54-58 (B9a)          |
 | bloom_bits  | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:104-112 (B9b)        |
 | rowgroup    | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:149-158 (B9c)        |
 | bloom_union | csrc/bloom.cu      | tempo_tpu/ops/bloom_ops.py:20 _union_kernel    |
@@ -54,7 +56,7 @@ never hidden behind a plain version or another route.
 | find_elect  | csrc/find.cu       | tempo_tpu/parallel/find.py:47-68 local (M1)    |
 | mq_partial  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:57-100 (M2)   |
 | mq_combine  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:102-125 (M3)  |
-| timeseries_stacked | csrc/timeseries.cu | tempo_tpu/parallel/timeseries.py:45-131 local (M4) |
+| timeseries_stacked | csrc/timeseries.cu | tempo_tpu/parallel/timeseries.py:51-131 local (M4) |
 | attr_partial | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:122-170 (M5)      |
 | mask_pack   | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:175-189 (M6)      |
 | mask_unpack | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:175-189 (M6)      |
@@ -68,7 +70,7 @@ chip_smoke.py times; the port calls none):
 
 | kernel      | launches on its path                     | bound (bytes moved)                 | one PyTorch call                                   |
 |-------------|------------------------------------------|-------------------------------------|----------------------------------------------------|
-| remap       | one per code column of a cut (29)        | 8 B a code + the table              | none: a clamp, a gather and a select               |
+| remap       | one per cut, every code column (29 segments) | 8 B a code + the table          | none: a clamp, a gather and a select               |
 | bloom_bits  | one per cut without a given bloom        | words read and written, 8 B a pair  | index_put_(accumulate=True) on zeroed words        |
 | rowgroup    | one per cut with spans                   | 8 B a span + 12 B a group           | torch.segment_reduce (max of [-start, start, dur]) |
 | bloom_union | one per compaction job whose union fits  | K + 1 words per output word         | none: no bitwise-OR reduction over a dimension     |
@@ -119,7 +121,7 @@ mesh; a collective between the halves):
 | find_elect  | two per sharded_find on every rank             | 4 B x Bl x Q read, 4 B x Q written    | none: a where, then an amax                    |
 | mq_partial  | one per mesh-batched window on every rank      | 4 B a span a column, (NG+1) x 4 B out | none: a cumsum and two gathers per group       |
 | mq_combine  | one per mesh-batched window on every rank      | (NG+1) x 4 B in, 5 B out a trace      | none: a compare, a gather and an all per query |
-| timeseries_stacked | fold, then finish for value folds, per stacked fold on every rank | 13 B a span + the columns | none: index_add_ and two scatter_reduce_ |
+| timeseries_stacked | one cooperative fold, then the finish for value folds, per stacked fold on every rank | 13 B a span + the columns | none: index_add_ and two scatter_reduce_ |
 | attr_partial | count (a CTA a tile of owners), then mask, per attr or res leaf of a sharded search on every rank | 4 B an attr row, 8 B a row of the leaf's key, the offsets and counts; 5 B a span row for the mask | none: a compare, a cumsum and two gathers per leaf |
 | mask_pack   | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a sum over a reshaped view   |
 | mask_unpack | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a mask over a broadcast view |
@@ -199,8 +201,8 @@ _SIGNATURES = {
                                           _P]),
     "tt_timeseries": ("timeseries", [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
-    "tt_timeseries_ctas": ("timeseries", [_I, _I, _I, _P]),
-    "tt_remap": ("blockcut", [_P, _I, _P, _I, _P, _P]),
+    "tt_timeseries_ctas": ("timeseries", [_I, _I, _I, _I, _P]),
+    "tt_remap_many": ("blockcut", [_P, _P, _I, _P, _I, _I, _P, _P]),
     "tt_bloom_bits": ("blockcut", [_P, _L, _P, _P, _I, _P, _P]),
     "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _P, _I, _P]),
     "tt_bloom_union": ("bloom", [_P, _I, _L, _P, _P]),
@@ -215,8 +217,8 @@ _SIGNATURES = {
     "tt_find_elect": ("find", [_P, _I, _I, _I, _P, _P, _P]),
     "tt_mq_partial": ("multiquery", [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P]),
     "tt_mq_combine": ("multiquery", [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
-    "tt_timeseries_stacked": ("timeseries", [_P, _I, _P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P,
-                                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "tt_timeseries_stacked": ("timeseries", [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I,
+                                             _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "tt_ts_stacked_finish": ("timeseries", [_P, _P, _I, _P]),
     "tt_attr_partial": ("meshsearch", [_P, _I, _I, _I, _I, _I, _P, _P]),
     "tt_attr_mask": ("meshsearch", [_P, _I, _P, _P, _I, _I, _I, _P, _L, _P]),
@@ -843,34 +845,47 @@ def timeseries_plan(cells: int, has_val: bool) -> TsPlan:
 _ts_ctas: dict = {}
 
 
-def _timeseries_ctas(dev: torch.device, plan: TsPlan) -> int:
-    """CTAs of plan's route that can be co-resident on dev (the
-    cooperative launch's limit), asked of the device once a route."""
-    key = (dev.index, plan.route, plan.cluster, plan.smem)
+def _timeseries_ctas(dev: torch.device, plan: TsPlan, stacked: bool = False) -> int:
+    """CTAs of plan's route (B6's kernel, or M4's with `stacked`) that can
+    be co-resident on dev (the cooperative launch's limit), asked of the
+    device once a route."""
+    key = (dev.index, plan.route, stacked, plan.cluster, plan.smem)
     if key not in _ts_ctas:
         n = ctypes.c_int(0)
         with _on(dev):
-            _call("tt_timeseries_ctas", TS_ROUTES.index(plan.route), plan.cluster, plan.smem,
-                  ctypes.byref(n))
+            _call("tt_timeseries_ctas", TS_ROUTES.index(plan.route), int(stacked), plan.cluster,
+                  plan.smem, ctypes.byref(n))
         if n.value < plan.cluster:
             raise KernelError(f"timeseries: no co-resident grid for {plan}")
         _ts_ctas[key] = n.value
     return _ts_ctas[key]
 
 
-def _timeseries_grid(dev: torch.device, plan: TsPlan, n_spans: int) -> int:
-    """The grid of one call: what the spans fill (a multiple of the
-    cluster), at most what is co-resident."""
+def _timeseries_grid(dev: torch.device, plan: TsPlan, n_spans: int, stacked: bool = False) -> int:
+    """The grid of one call: what the spans (M4: the stack's rows) fill, a
+    multiple of the cluster, at most what is co-resident."""
     c = plan.cluster
-    ctas = min(_timeseries_ctas(dev, plan), max(1, -(-n_spans // (TS_THREADS * c))) * c)
+    ctas = min(_timeseries_ctas(dev, plan, stacked), max(1, -(-n_spans // (TS_THREADS * c))) * c)
     return ctas - ctas % c
 
 
 @functools.lru_cache(maxsize=256)
-def _timeseries_launch(dev: torch.device, cells: int, has_val: bool, n_spans: int):
+def _timeseries_launch(dev: torch.device, cells: int, has_val: bool, n_spans: int,
+                       stacked: bool = False):
     """(timeseries_plan's route, its grid) for a shape, worked out once."""
     plan = timeseries_plan(cells, has_val)
-    return plan, _timeseries_grid(dev, plan, n_spans)
+    return plan, _timeseries_grid(dev, plan, n_spans, stacked)
+
+
+def _timeseries_route_grid(dev: torch.device, cells: int, has_val: bool, n_spans: int,
+                           plan: TsPlan | None, stacked: bool = False):
+    """(plan, grid) of one B6 or M4 call: timeseries_plan's route, or the
+    forced `plan` where it is the plan of its route for these cells."""
+    if plan is None:
+        return _timeseries_launch(dev, cells, has_val, n_spans, stacked)
+    if plan != timeseries_route(plan.route, cells, has_val):
+        raise KernelError(f"timeseries: plan {plan} refused for {cells} cells")
+    return plan, _timeseries_grid(dev, plan, n_spans, stacked)
 
 
 def timeseries_views(packed: torch.Tensor, has_val: bool, n_groups: int, n_buckets: int):
@@ -914,12 +929,7 @@ def timeseries_fold(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor,
             or cells > 1 << 24:
         raise KernelError(f"timeseries: step {step}, {n_groups} x {n_buckets} cells, "
                           f"{n_spans} spans of {n_spans_b}")
-    if plan is None:
-        plan, ctas = _timeseries_launch(dev, cells, has_val, n_spans)
-    elif plan != timeseries_route(plan.route, cells, has_val):
-        raise KernelError(f"timeseries: plan {plan} refused for {cells} cells")
-    else:
-        ctas = _timeseries_grid(dev, plan, n_spans)
+    plan, ctas = _timeseries_route_grid(dev, cells, has_val, n_spans, plan)
     c = plan.cluster
     n_planes = 5 if has_val else 1
     n_out = n_planes * cells
@@ -953,20 +963,73 @@ def timeseries(prog, buf: torch.Tensor, cols: dict, start_ms: torch.Tensor, gid:
 
 
 # ------------------------------------------------------------------ B9a
-def remap_codes(col: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
-    """B9a: where(col >= 0, remap[min(col, r - 1)], col) over an int32
-    code column. Bound: bytes (8 B a code; the table stays in L2)."""
-    dev = _cuda_device(col)
-    _check(col, "col", torch.int32, dev)
+REMAP_SEGS = 64  # segments a launch takes by value (csrc/blockcut.cu RM_SEGS)
+REMAP_SMEM_MAX = 192 * 1024  # the table in a CTA's shared memory up to 49,152 entries
+REMAP_ROUTES = ("l2", "shared")  # csrc/blockcut.cu's route codes
+
+
+def remap_plan(r: int) -> str:
+    """B9a's route for a table of r entries: "shared" (the table copied
+    into each CTA's shared memory, cp.async 16 bytes at a time) while it
+    fits REMAP_SMEM_MAX, else "l2" (read through the read-only path from
+    L2). A pure function of r; pass it as remap_many(plan=) to force one."""
+    return "shared" if 4 * r <= REMAP_SMEM_MAX else "l2"
+
+
+def remap_bounds(offs, n: int) -> list[int]:
+    """The segment bounds one B9a launch takes for `offs` over n codes:
+    checked (rising from 0 to n), and past REMAP_SEGS segments merged
+    with their neighbours (one table serves every segment, so a merged
+    segment remaps the same codes the same way)."""
+    offs = [int(o) for o in offs]
+    if not offs or offs[0] != 0 or offs[-1] != n or any(b < a for a, b in zip(offs, offs[1:])) \
+            or n > 2**31 - 16:
+        raise KernelError(f"remap_many: segment bounds {offs[:4]}... of {n} codes")
+    k = len(offs) - 1
+    if k > REMAP_SEGS:
+        offs = offs[:-1:-(-k // REMAP_SEGS)] + [n]
+    return offs
+
+
+def remap_many(codes: torch.Tensor, offs, remap: torch.Tensor, plan: str | None = None
+               ) -> torch.Tensor:
+    """B9a over consecutive segments of one int32 code tensor (a cut's code
+    columns end to end): segment j is codes[offs[j]:offs[j + 1]], offs
+    rising from 0 to len(codes); every code becomes where(code >= 0,
+    remap[min(code, r - 1)], code). One launch: the segment bounds by
+    value (past REMAP_SEGS segments, neighbours merge: one table serves
+    them all), a grid sized to the card striding over the codes 16 bytes
+    a load, a scalar head and tail where a segment starts or ends off a
+    16-byte boundary; the table in shared memory or read through L2 by
+    remap_plan's route (or `plan`, forced).
+    Bound: bytes (8 B a code, the table once)."""
+    dev = _cuda_device(codes)
+    _check(codes, "codes", torch.int32, dev)
     _check(remap, "remap", torch.int32, dev)
-    if col.dim() != 1 or remap.dim() != 1 or remap.shape[0] == 0:
-        raise KernelError("remap_codes: 1-D col and a non-empty 1-D remap expected")
-    out = torch.empty_like(col)
+    if codes.dim() != 1 or remap.dim() != 1 or remap.shape[0] == 0:
+        raise KernelError("remap_many: 1-D codes and a non-empty 1-D remap expected")
+    n, r = codes.shape[0], remap.shape[0]
+    offs = remap_bounds(offs, n)
+    route = plan or remap_plan(r)
+    if route not in REMAP_ROUTES or (route == "shared" and 4 * r > REMAP_SMEM_MAX):
+        raise KernelError(f"remap_many: no route {route!r} for a table of {r}")
+    bounds = np.asarray(offs, np.int32)
+    out = torch.empty_like(codes)
     with _on(dev):
-        _call("tt_remap", col.data_ptr(), col.shape[0], remap.data_ptr(), remap.shape[0],
-              out.data_ptr(), _stream(dev))
+        _call("tt_remap_many", codes.data_ptr(), bounds.ctypes.data, len(offs) - 1,
+              remap.data_ptr(), r, REMAP_ROUTES.index(route), out.data_ptr(), _stream(dev))
     _count("remap")
     return out
+
+
+def remap_codes(col: torch.Tensor, remap: torch.Tensor, plan: str | None = None) -> torch.Tensor:
+    """B9a over one int32 code column: remap_many's kernel with one
+    segment. Bound: bytes (8 B a code, the table once)."""
+    dev = _cuda_device(col)
+    if col.dim() != 1:
+        raise KernelError("remap_codes: a 1-D col expected")
+    _check(col, "col", torch.int32, dev)
+    return remap_many(col, (0, col.shape[0]), remap, plan)
 
 
 # ------------------------------------------------------------------ B9b
@@ -1379,16 +1442,31 @@ def mq_combine(progs: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat
 
 
 # ------------------------------------------------------------------ M4
-def timeseries_stacked(prog, bufs: list, descs: torch.Tensor, cols: dict, gid: torch.Tensor,
-                       val: torch.Tensor | None, vpres: torch.Tensor | None, t0s: torch.Tensor,
-                       nspans: torch.Tensor, step: int, n_buckets: int, n_groups: int):
+TS_BLOCKS = 32  # blocks whose table rows travel by value (csrc/timeseries.cu TS_BLOCKS)
+TS_BLOCK = 16  # bytes of a block's row (csrc/timeseries.cu TsBlock: descriptors, t0, n)
+
+
+def stacked_views(packed: torch.Tensor, has_val: bool, n_groups: int, n_buckets: int):
+    """The planes of one packed M4 output: (counts,) or (counts, vcnt,
+    vsum, vmin, vmax), vsum an f32 view, vmin and vmax still in B6's
+    ordered-int32 encoding (timeseries_stacked_finish decodes them)."""
+    planes = timeseries_views(packed, has_val, n_groups, n_buckets)
+    return planes[:3] + tuple(p.view(torch.int32) for p in planes[3:])
+
+
+def timeseries_stacked(prog, buf: torch.Tensor, blocks: np.ndarray, cols: dict, gid: torch.Tensor,
+                       val: torch.Tensor | None, vpres: torch.Tensor | None, step: int,
+                       n_buckets: int, n_groups: int, plan: TsPlan | None = None):
     """M4: the span program of `prog` (ops/timeseries._SpanProgram) over Bl
-    stacked blocks, block b's descriptor buffer bufs[b] pointing at row b
-    of the (Bl, S) columns in cols and descs (Bl,) int64 on the card
-    holding each buffer's descriptor address -> one (n_groups, n_buckets)
-    grid:
-    (counts,) or (counts, vcnt, vsum, vmin, vmax) with vmin / vmax in
-    B6's ordered-int32 encoding (timeseries_stacked_finish decodes them).
+    stacked blocks into one (n_groups, n_buckets) grid, B6's kernel in one
+    cooperative launch by the route `plan` names (default
+    timeseries_plan; timeseries_route forces one), its grid sized by the
+    Bl x S rows of the stack. `buf`: ops/timeseries.stacked_program's one
+    upload, the block table (Bl rows of TS_BLOCK bytes) at its end;
+    `blocks` (Bl, 4) int32 the same table on the host, passed by value
+    while Bl <= TS_BLOCKS. Returns stacked_views of one allocation: min
+    and max in B6's ordered-int32 encoding (timeseries_stacked_finish
+    decodes them after the collective).
     Bound: bytes (13 B a span plus the named columns)."""
     dev = _cuda_device(gid)
     if gid.dim() != 2:
@@ -1402,32 +1480,31 @@ def timeseries_stacked(prog, bufs: list, descs: torch.Tensor, cols: dict, gid: t
     if has_val:
         _check(val, "val", torch.float32, dev, (bl, S))
         _check(vpres, "vpres", torch.bool, dev, (bl, S))
-    _check(t0s, "t0s", torch.int32, dev, (bl,))
-    _check(nspans, "nspans", torch.int32, dev, (bl,))
-    if len(bufs) != bl or prog.rconds or len(prog.steps) != 1:
-        raise KernelError("timeseries_stacked: one span program buffer a block, no rattr conds")
-    if step < 1 or n_buckets < 1 or n_groups < 1:
+    _check(buf, "program buffer", torch.uint8, dev)
+    if prog.rconds or len(prog.steps) != 1:
+        raise KernelError("timeseries_stacked: one span program, no rattr conds")
+    if blocks.dtype != np.int32 or blocks.shape != (bl, 4) or not blocks.flags.c_contiguous \
+            or buf.shape[0] < bl * TS_BLOCK or bl * S > 2**31 - 1:
+        raise KernelError(f"timeseries_stacked: a (Bl, 4) int32 block table for {bl} x {S} rows")
+    cells = n_groups * n_buckets
+    if step < 1 or n_buckets < 1 or n_groups < 1 or cells > 1 << 24:
         raise KernelError(f"timeseries_stacked: step {step}, {n_groups} x {n_buckets} cells")
-    for b in bufs:
-        _check(b, "program buffer", torch.uint8, dev)
-    _check(descs, "descs", torch.int64, dev, (bl,))
     n_traces_b = next((t.shape[1] for n, t in cols.items() if n.startswith("trace.")), 1)
+    plan, ctas = _timeseries_route_grid(dev, cells, has_val, bl * S, plan, stacked=True)
+    c = plan.cluster
+    n_out = (5 if has_val else 1) * cells
+    scratch = (ctas // c) * n_out if plan.route == "cluster" else 0
+    packed = torch.empty(n_out + scratch, dtype=torch.int32, device=dev)
     (_, off, ln, _), = prog.steps
-    shape = (n_groups, n_buckets)
-    outs = [torch.empty(shape, dtype=torch.int32, device=dev)]
-    if has_val:
-        outs += [torch.empty(shape, dtype=torch.int32, device=dev),
-                 torch.empty(shape, dtype=torch.float32, device=dev),
-                 torch.empty(shape, dtype=torch.int32, device=dev),
-                 torch.empty(shape, dtype=torch.int32, device=dev)]
+    base, p = buf.data_ptr(), packed.data_ptr()
     with _on(dev):
-        _call("tt_timeseries_stacked", descs.data_ptr(), bl, bufs[0].data_ptr() + off, ln, S,
-              tsid.data_ptr(), int(n_traces_b), start_ms.data_ptr(), gid.data_ptr(), _ptr(val),
-              _ptr(vpres), t0s.data_ptr(), nspans.data_ptr(), int(step),
-              int(n_buckets), int(n_groups), int(has_val), outs[0].data_ptr(),
-              *(_ptr(o) for o in outs[1:]) if has_val else (None,) * 4, _stream(dev))
+        _call("tt_timeseries_stacked", base + off, ln, blocks.ctypes.data if bl <= TS_BLOCKS else None,
+              base + buf.shape[0] - bl * TS_BLOCK, bl, S, tsid.data_ptr(), int(n_traces_b),
+              start_ms.data_ptr(), gid.data_ptr(), _ptr(val), _ptr(vpres), int(step),
+              int(n_buckets), int(n_groups), int(has_val), TS_ROUTES.index(plan.route), c,
+              plan.per, plan.smem, ctas, p + 4 * n_out if scratch else None, p, _stream(dev))
     _count("timeseries_stacked")
-    return tuple(outs)
+    return stacked_views(packed, has_val, n_groups, n_buckets)
 
 
 def timeseries_stacked_finish(vmin: torch.Tensor, vmax: torch.Tensor):

@@ -12,7 +12,9 @@ host, as in the JAX package (`bloom_scatter`).
 The JAX package picks its engine by its backend and an env override
 (TEMPO_CUT_ENGINE); the port picks by the device of the tensors, so a
 cut on a card always runs these kernels. `CutEngine` is the builder's
-numpy-facing side: it uploads, launches and downloads.
+numpy-facing side: it uploads, launches and downloads; a cut's code
+columns go through it together (`CutEngine.remap_many`: one upload, one
+launch, one download).
 """
 
 from __future__ import annotations
@@ -41,6 +43,24 @@ def _remap_plain(col: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
         return col.clone()
     idx = col.clamp(0, remap.shape[0] - 1).long()
     return torch.where(col >= 0, remap[idx], col)
+
+
+def remap_many(codes: torch.Tensor, offs, remap: torch.Tensor) -> torch.Tensor:
+    """remap_codes over consecutive segments of one code tensor (segment j
+    is codes[offs[j]:offs[j + 1]]): one B9a launch on a card."""
+    if codes.device.type == "cuda":
+        return kernels.remap_many(codes, offs, remap)
+    return _remap_many_plain(codes, offs, remap)
+
+
+def _remap_many_plain(codes: torch.Tensor, offs, remap: torch.Tensor) -> torch.Tensor:
+    """Plain version of remap_many: _remap_plain a segment."""
+    offs = [int(o) for o in offs]
+    if not offs or offs[0] != 0 or offs[-1] != codes.shape[0] \
+            or any(b < a for a, b in zip(offs, offs[1:])):
+        raise ValueError(f"remap_many: segment bounds {offs[:4]}... of {codes.shape[0]} codes")
+    return torch.cat([codes[:0]] + [_remap_plain(codes[a:b], remap)
+                                    for a, b in zip(offs, offs[1:])])
 
 
 # ---------------------------------------------------------------- B9b
@@ -126,8 +146,33 @@ class CutEngine:
         return self._t(np.asarray(remap, dtype=np.int32))
 
     def remap(self, col, table: torch.Tensor) -> np.ndarray:
+        """One code column: an upload, a launch and a download."""
         col = np.asarray(col, dtype=np.int32)
         return remap_codes(self._t(col), table).cpu().numpy()
+
+    def remap_many(self, cols: list, table: torch.Tensor) -> list[np.ndarray]:
+        """Every code column of a cut (lists or arrays of int codes) through
+        one table in one round trip: the columns end to end in one host
+        buffer (pinned on a card), one upload, one B9a launch over their
+        segments, one download into a pinned buffer and one synchronize.
+        Returns one int32 array a column (views of that buffer), equal to
+        remap's column by column."""
+        offs = np.zeros(len(cols) + 1, np.int64)
+        np.cumsum([len(c) for c in cols], out=offs[1:])
+        n = int(offs[-1])
+        card = self.device.type == "cuda"
+        host = torch.empty(n, dtype=torch.int32, pin_memory=card)
+        h = host.numpy()
+        for c, a, b in zip(cols, offs[:-1], offs[1:]):
+            h[a:b] = c
+        out = remap_many(host.to(self.device, non_blocking=True), offs.tolist(), table)
+        if card:
+            back = torch.empty(n, dtype=torch.int32, pin_memory=True)
+            back.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            out = back
+        o = out.numpy()
+        return [o[a:b] for a, b in zip(offs[:-1], offs[1:])]
 
     def bloom_bits(self, words: np.ndarray, trace_ids: list[bytes], shard_bits: int) -> np.ndarray:
         """Every trace id's K bits set in a copy of the (n_shards, W)

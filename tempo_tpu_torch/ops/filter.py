@@ -636,20 +636,33 @@ class _FilterProgram:
         trace_off): the plain versions walk it as the kernels do."""
         return dict(self._codes)[off]
 
+    def layout(self, tables: dict) -> tuple[dict, int]:
+        """Where this call's dictionary tables start in its program
+        buffer, and the buffer's size (a multiple of 16 bytes)."""
+        tbl_offs, total = {}, self.tables_off
+        for i, t in tables.items():
+            tbl_offs[i] = total
+            total = _align(total + t.shape[0])
+        return tbl_offs, max(total, 16)
+
     def buffer(self, cols: dict, operands: Operands, tables: dict) -> torch.Tensor:
         """The per-call program buffer on the card: descriptors with this
         call's column pointers and operand values, the cached programs,
         and this call's dictionary tables -- one upload."""
         # span.trace_sid is staged for every program (required_columns);
         # trace.span_off is not staged for the span-level metrics fold
+        tbl_offs, total = self.layout(tables)
+        buf = torch.empty(total, dtype=torch.uint8, device=cols["span.trace_sid"].device)
+        host = np.zeros(total, np.uint8)
+        self.fill(host, buf.data_ptr(), cols, operands, tables, tbl_offs)
+        buf.copy_(torch.from_numpy(host))
+        return buf
+
+    def fill(self, host: np.ndarray, base: int, cols: dict, operands: Operands, tables: dict,
+             tbl_offs: dict) -> None:
+        """A program buffer's bytes in `host` (layout's size), for a buffer
+        that will lie at device address `base`."""
         dev = cols["span.trace_sid"].device
-        tbl_offs, total = {}, self.tables_off
-        for i, t in tables.items():
-            tbl_offs[i] = total
-            total = _align(total + t.shape[0])
-        buf = torch.empty(max(total, 16), dtype=torch.uint8, device=dev)
-        base = buf.data_ptr()
-        host = np.zeros(buf.shape[0], np.uint8)
         desc = np.zeros((len(self.conds), DW), np.int64)
         ints, floats = operands.ints, operands.floats
 
@@ -701,8 +714,6 @@ class _FilterProgram:
             host[off : off + code.nbytes] = code.view(np.uint8)
         for i, t in tables.items():
             host[tbl_offs[i] : tbl_offs[i] + t.shape[0]] = t
-        buf.copy_(torch.from_numpy(host))
-        return buf
 
 
 @dataclass(frozen=True)

@@ -20,10 +20,11 @@ Value folds take a per-span f32 value + presence mask derived host-side
 from the exact host columns, so the only device-side loss is the f32
 cast -- integer counts are exact on every engine.
 
-On a mesh (parallel/timeseries.py) `timeseries_stacked` (kernel M4 in
-the same source) folds one rank's stacked blocks into one grid with min
-and max kept in B6's ordered-int32 encoding through the all_reduce MIN /
-MAX; `timeseries_stacked_finish` decodes them after it.
+On a mesh (parallel/timeseries.py) `timeseries_stacked` (kernel M4: B6's
+kernel over stacked blocks, one cooperative launch) folds one rank's
+stacked blocks into one grid with min and max kept in B6's
+ordered-int32 encoding through the all_reduce MIN / MAX;
+`timeseries_stacked_finish` decodes them after it.
 
 `eval_timeseries_host` mirrors the semantics in numpy over raw columns
 (int64 bucket math, f64 accumulation): the route for a step or origin
@@ -312,35 +313,61 @@ def _timeseries_stacked_plain(tree, conds, cols: dict, operands: list, gid, val,
     return tuple(t[:-1].reshape(shape) for t in (counts, vcnt, vsum, vmin, vmax))
 
 
+def _host_i32(x) -> np.ndarray:
+    """A (Bl,) per-block operand on the host (a tensor is read back)."""
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.int32)
+
+
 def timeseries_stacked(query, cols: dict, operands: list, gid, val, vpres, t0s, nspans,
-                       step_ms: int, n_buckets: int, n_groups: int) -> tuple:
+                       step_ms: int, n_buckets: int, n_groups: int, plan=None) -> tuple:
     """M4 on CUDA tensors, its plain version on CPU tensors: the fold of Bl
     stacked blocks (cols (Bl, ·) per axis, span@ columns materialized,
     one Operands a block; gid / val / vpres (Bl, S); t0s, nspans (Bl,)
-    int32) into (counts,) or (counts, vcnt, vsum, vmin, vmax), min and
-    max still encoded for the collective (`timeseries_stacked_finish`)."""
+    ints on the host) into (counts,) or (counts, vcnt, vsum, vmin, vmax),
+    min and max still encoded for the collective
+    (`timeseries_stacked_finish`). `plan` (kernels.timeseries_route)
+    forces the kernel's route."""
     tree, conds = query
+    t0s, nspans = _host_i32(t0s), _host_i32(nspans)
     if gid.device.type == "cpu":
         return _timeseries_stacked_plain(tree, conds, cols, operands, gid, val, vpres,
                                          t0s.tolist(), nspans.tolist(), step_ms, n_buckets,
                                          n_groups)
     from .. import kernels
 
-    prog, bufs, descs = stacked_program(query, cols, operands)
-    return kernels.timeseries_stacked(prog, bufs, descs, cols, gid, val, vpres, t0s, nspans,
-                                      step_ms, n_buckets, n_groups)
+    prog, buf, blocks = stacked_program(query, cols, operands, t0s, nspans)
+    return kernels.timeseries_stacked(prog, buf, blocks, cols, gid, val, vpres, step_ms,
+                                      n_buckets, n_groups, plan)
 
 
-def stacked_program(query, cols: dict, operands: list):
-    """M4's operands on the card: the span program, one descriptor buffer
-    a block (its operands, its row of every column) and the (Bl,) table
-    of their descriptor addresses."""
+def stacked_program(query, cols: dict, operands: list, t0s, nspans):
+    """M4's operands on the card in ONE upload: block b's program buffer
+    (its descriptors over its row of every column, its operands and
+    tables) at b x stride, stride the largest block's, then the block
+    table, kernels.TS_BLOCK bytes a block (the descriptor table's
+    address, the origin, the span count), which the kernel reads past
+    kernels.TS_BLOCKS blocks. Returns (prog, buf, blocks): blocks the
+    same table on the host, (Bl, 4) int32, passed by value."""
+    from .. import kernels
+
     tree, conds = query
     prog = _span_program(tree, tuple(conds))
-    bufs = [prog.buffer({n: t[b] for n, t in cols.items()}, ops, _table_list(ops))
-            for b, ops in enumerate(operands)]
-    descs = torch.tensor([b.data_ptr() + prog.desc_off for b in bufs], dtype=torch.int64)
-    return prog, bufs, descs.to(bufs[0].device)
+    tables = [_table_list(ops) for ops in operands]
+    lays = [prog.layout(t) for t in tables]
+    bl, stride = len(operands), max(total for _, total in lays)
+    n = bl * stride + bl * kernels.TS_BLOCK
+    buf = torch.empty(n, dtype=torch.uint8, device=cols["span.trace_sid"].device)
+    base = buf.data_ptr()
+    host = np.zeros(n, np.uint8)
+    for b, ops in enumerate(operands):
+        prog.fill(host[b * stride:(b + 1) * stride], base + b * stride,
+                  {name: t[b] for name, t in cols.items()}, ops, tables[b], lays[b][0])
+    blocks = np.zeros((bl, 4), np.int32)
+    blocks.view(np.int64)[:, 0] = base + np.arange(bl, dtype=np.int64) * stride + prog.desc_off
+    blocks[:, 2], blocks[:, 3] = _host_i32(t0s), _host_i32(nspans)
+    host[bl * stride:] = blocks.view(np.uint8).reshape(-1)
+    buf.copy_(torch.from_numpy(host))
+    return prog, buf, blocks
 
 
 def timeseries_stacked_finish(vmin, vmax):

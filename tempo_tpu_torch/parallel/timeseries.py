@@ -5,7 +5,9 @@ is the world group itself, rank r holding the r-th slice of blocks.
 
 The multi-device twin of ops/timeseries: stacked per-block columns shard
 over the flattened mesh (each rank folds its slice of whole blocks in
-one M4 launch: the filter, the bucketing and the segmented folds), and
+one cooperative M4 launch: the filter, the bucketing and the segmented
+folds; the per-block operands, origins and span counts travel in the
+program's header, and the descriptors in one upload), and
 the (n_groups, n_buckets) partial accumulators combine with all_reduce
 SUM for counts and sums, MIN / MAX for the min / max folds. Group ids
 arrive already GLOBALIZED (db/metrics_mesh unions the per-block label
@@ -38,20 +40,22 @@ MESH_TARGETS = (T_SPAN, T_RES, T_TRACE)
 def _ts_body(mesh, static: dict, ops: dict):
     tree, conds = static["tree"], static["conds"]
     cols = {n: ops[n] for n in static["names"]}
-    bl = ops["n_spans"].shape[0]
+    bl = ops["gid"].shape[0]
     for c in conds:  # span@<res col>: K4 over each local block
         if c.target == T_RES and f"span@{c.col}" not in cols:
             cols[f"span@{c.col}"] = torch.stack([
                 res_to_span(cols[c.col][b], cols["span.res_idx"][b]) for b in range(bl)])
-    ints, floats = ops["ints"].cpu().numpy(), ops["floats"].cpu().numpy()
-    tabs = {i: ops[f"tab{i}"].cpu().numpy() for i in static["table_idxs"]}
+    # the small per-block operands came in the header: this rank's blocks
+    blk = slice(mesh.rank * bl, (mesh.rank + 1) * bl)
+    ints, floats = static["ints"][blk], static["floats"][blk]
+    tabs = {i: t[blk] for i, t in static["tabs"].items()}
     operands = [Operands(ints[b], floats[b], {i: t[b] for i, t in tabs.items()} or None)
                 for b in range(bl)]
     has_val = static["has_val"]
     outs = timeseries_stacked(
         (tree, conds), cols, operands, ops["gid"], ops["val"] if has_val else None,
-        ops["pres"] if has_val else None, ops["t0"], ops["n_spans"], static["step"],
-        static["n_buckets"], static["n_groups"])  # M4
+        ops["pres"] if has_val else None, static["t0"][blk], static["n_spans"][blk],
+        static["step"], static["n_buckets"], static["n_groups"])  # M4
     outs = [mesh.all_reduce(o, op) for o, op in zip(outs, ("sum", "sum", "sum", "min", "max"))]
     if has_val:
         outs[3], outs[4] = timeseries_stacked_finish(outs[3], outs[4])  # M4's decode
@@ -75,15 +79,16 @@ def sharded_timeseries(mesh, tree, conds, operands, cols: dict[str, np.ndarray],
     ints, floats, tabs = _stack_operands(operands, B, len(conds))
     has_val = val is not None
     shard0 = {n: cols[n] for n in names}
-    shard0.update({"ints": ints, "floats": floats,
-                   "n_spans": np.asarray(n_spans, np.int32), "t0": np.asarray(t0_rel, np.int32),
-                   "gid": np.asarray(gid, np.int32)})
-    shard0.update({f"tab{i}": t for i, t in tabs.items()})
+    shard0["gid"] = np.asarray(gid, np.int32)
     if has_val:
         shard0["val"] = np.asarray(val, np.float32)
         shard0["pres"] = np.asarray(pres, bool)
+    # the per-block operands, span counts and origins (a few bytes a
+    # block) ride in the header, so no rank reads them back from its card
     static = {"tree": tree, "conds": conds, "names": names, "has_val": has_val,
-              "table_idxs": tuple(sorted(tabs)), "step": max(1, int(step_ms)),
-              "n_buckets": int(n_buckets), "n_groups": int(n_groups)}
+              "ints": ints, "floats": floats, "tabs": tabs,
+              "n_spans": np.asarray(n_spans, np.int32), "t0": np.asarray(t0_rel, np.int32),
+              "step": max(1, int(step_ms)), "n_buckets": int(n_buckets),
+              "n_groups": int(n_groups)}
     with DISPATCH_LOCK:  # collective programs must not interleave
         return mesh.run("timeseries", static, shard0=shard0)

@@ -42,6 +42,14 @@ from tempo_tpu_torch.parallel import (
     sharded_find_rows,
 )
 from tempo_tpu_torch.util.testdata import make_traces
+from torch_tile_cases import (
+    STACKED_G,
+    STACKED_NB,
+    STACKED_SPECS,
+    STACKED_STEP,
+    STACKED_TREE,
+    stacked_case,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -224,6 +232,49 @@ def test_timeseries_stacked_matches_plain(cuda, has_val):
         np.testing.assert_array_equal(mn.cpu().numpy(), TS.ts_decode(want[3].cpu()).numpy())
         np.testing.assert_array_equal(mx.cpu().numpy(), TS.ts_decode(want[4].cpu()).numpy())
         assert torch.isnan(mn).any()
+
+
+STACKED_ROUTES = [(route, bl, has_val) for route in ("shared", "cluster", "global")
+                  for bl, has_val in ((1, True), (3, True), (10, True), (3, False), (40, True))]
+
+
+@pytest.mark.parametrize("route,bl,has_val", STACKED_ROUTES)
+def test_timeseries_stacked_routes(cuda, route, bl, has_val):
+    """M4 on each route, forced through kernels.timeseries_route, over 1,
+    3, 10 and 40 stacked blocks (40: past the TS_BLOCKS rows carried by
+    value, so the block table is read on the card) of
+    torch_tile_cases.stacked_case (span counts of 0 and S, group ids
+    negative and past the grid, start - t0 wrapping in int32, NaN, +-0
+    and +-inf values) against _timeseries_stacked_plain: one cooperative
+    __global__ a fold, counts, value counts and the encoded min / max
+    exact, the dyadic sums exact; then the finish against the plain
+    decode."""
+    case = stacked_case(20 + bl, bl, has_val=has_val)
+    conds = tuple(F.Cond(t, c, op, is_float=f) for t, c, op, f in STACKED_SPECS)
+    operands = [F.Operands.build(r) for r in case["rows"]]
+    cols = {k: torch.from_numpy(v).to(cuda) for k, v in case["cols"].items()}
+    cols["span@res.service_id"] = torch.stack([
+        ST.res_to_span(cols["res.service_id"][b], cols["span.res_idx"][b]) for b in range(bl)])
+    gid = torch.from_numpy(case["gid"]).to(cuda)
+    v = torch.from_numpy(case["val"]).to(cuda) if has_val else None
+    pres = torch.from_numpy(case["pres"]).to(cuda) if has_val else None
+    G, NB, step = STACKED_G, STACKED_NB, STACKED_STEP
+    plan = kernels.timeseries_route(route, G * NB, has_val)
+    kernels.reset_counts()
+    got = TS.timeseries_stacked((STACKED_TREE, conds), cols, operands, gid, v, pres, case["t0"],
+                                case["n_spans"], step, NB, G, plan=plan)
+    assert kernels.LAUNCHES["timeseries_stacked"] == 1
+    assert kernels.grid_launches()["timeseries_stacked"] == 1
+    want = TS._timeseries_stacked_plain(STACKED_TREE, conds, cols, operands, gid, v, pres,
+                                        case["t0"].tolist(), case["n_spans"].tolist(), step, NB, G)
+    assert len(got) == len(want) == (5 if has_val else 1) and int(want[0].sum()) > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(), err_msg=f"output {i}")
+    if has_val:
+        mn, mx = kernels.timeseries_stacked_finish(got[3].clone(), got[4].clone())
+        np.testing.assert_array_equal(mn.cpu().numpy(), TS.ts_decode(want[3].cpu()).numpy())
+        np.testing.assert_array_equal(mx.cpu().numpy(), TS.ts_decode(want[4].cpu()).numpy())
+        assert torch.isnan(mn).any() and torch.isinf(mx).any()
 
 
 def test_host_entries_on_nccl_world_1(cuda, tmp_path):

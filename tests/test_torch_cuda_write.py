@@ -17,6 +17,7 @@ import torch
 from tempo_tpu_torch.backend import MemBackend
 from tempo_tpu_torch.db import TempoDB, TempoDBConfig
 from tempo_tpu_torch.util.testdata import make_traces
+from torch_tile_cases import REMAP_SEGMENTS, remap_case
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +94,77 @@ def test_bloom_test_kernel(cuda):
     got = BO.bits_set(words, wi, bi)
     want = BO._test_plain(words.cpu(), wi.cpu(), bi.cpu())
     assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < 500
+
+
+@pytest.mark.parametrize("route", ["plan", "shared", "l2"])
+@pytest.mark.parametrize("case", sorted(REMAP_SEGMENTS))
+def test_remap_many_kernel(cuda, case, route):
+    """B9a over consecutive segments (torch_tile_cases.REMAP_SEGMENTS:
+    odd and empty segments, starts off 16-byte boundaries, more segments
+    than travel by value, a table at the shared route's limit and past
+    it) on each route against _remap_many_plain, one launch; the shared
+    route refuses a table past its limit; a view starting off a 16-byte
+    boundary takes the code-by-code path."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import blockcut as BC
+
+    lens, r = REMAP_SEGMENTS[case]
+    codes, offs, table = remap_case(len(lens) + r, lens, r)
+    c, t = torch.from_numpy(codes).to(cuda), torch.from_numpy(table).to(cuda)
+    plan = None if route == "plan" else route
+    if route == "shared" and 4 * r > kernels.REMAP_SMEM_MAX:
+        with pytest.raises(kernels.KernelError):
+            kernels.remap_many(c, offs, t, plan=plan)
+        return
+    want = BC._remap_many_plain(torch.from_numpy(codes), offs, torch.from_numpy(table))
+    kernels.reset_counts()
+    got = kernels.remap_many(c, offs, t, plan=plan)
+    assert kernels.LAUNCHES["remap"] == kernels.grid_launches()["remap"] == 1
+    assert torch.equal(got.cpu(), want)
+    if codes.shape[0] > 1:  # codes[1:]: no 16-byte aligned quad
+        tail = offs[1:] - 1
+        tail[tail < 0] = 0
+        got = kernels.remap_many(c[1:], np.concatenate([[0], tail]), t, plan=plan)
+        assert torch.equal(got.cpu(), want[1:])
+
+
+def test_cut_is_one_remap_launch(cuda):
+    """A cut's 29 code columns (span, trace, scope, event, link, the 9
+    dedicated resource columns and the 4 attr tables' key and string
+    columns) go through B9a in one launch with one upload and one
+    download, and the finalized columns equal the CPU cut's byte for
+    byte."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.block.builder import BlockBuilder
+    from tempo_tpu_torch.ops import blockcut as BC
+
+    traces = make_traces(400, seed=15, n_spans=10)
+    seen = []
+    many = BC.CutEngine.remap_many
+
+    def spy(self, cols, table):
+        seen.append(len(cols))
+        return many(self, cols, table)
+
+    fins = []
+    for dev in (cuda, "cpu"):
+        b = BlockBuilder("t", device=dev)
+        for tid, t in sorted(traces, key=lambda x: x[0]):
+            b.add_trace(tid, t)
+        kernels.reset_counts()
+        BC.CutEngine.remap_many = spy
+        try:
+            fins.append(b.finalize())
+        finally:
+            BC.CutEngine.remap_many = many
+        if dev == cuda:
+            assert kernels.LAUNCHES["remap"] == kernels.grid_launches()["remap"] == 1
+    assert seen == [29, 29]
+    (g, w) = fins
+    assert list(g.cols) == list(w.cols)
+    for name in w.cols:
+        assert g.cols[name].dtype == w.cols[name].dtype, name
+        assert g.cols[name].tobytes() == w.cols[name].tobytes(), name
 
 
 def test_tempodb_cut_card_matches_cpu(cuda):

@@ -214,3 +214,96 @@ def search_case(seed: int, S: int = 8192, nt: int = 1203, big: int = 0, hostile:
     return {"slots": slots, "span_off": off, "n_spans": np.asarray([S, S - 300], np.int32),
             "cols": cols, "ints": ints, "floats": np.zeros((bl, n_c, 2), np.float32),
             "tables": tables}
+
+
+# M4 (the sharded metrics fold over a rank's stacked blocks,
+# csrc/timeseries.cu ts_one_kernel<route, true>): one condition of each
+# axis the mesh fold takes, (target, column, op, is_float)
+STACKED_SPECS = [("span", "span.dur_us", "gt", False), ("res", "res.service_id", "eq", False),
+                 ("trace", "trace.dur_ms", "ge", False), ("span", "span.dur_us", "ge", True)]
+STACKED_TREE = ("and", ("or", ("cond", 0), ("cond", 1)), ("or", ("cond", 2), ("cond", 3)))
+STACKED_G, STACKED_NB, STACKED_STEP = 5, 7, 10_000
+
+
+def stacked_case(seed: int, bl: int, S: int = 2048, has_val: bool = True,
+                 dyadic: bool = True) -> dict:
+    """bl stacked blocks of S span rows for M4: span counts cycling
+    through S - 100, S, 0, 300 (blocks with none and full ones); start
+    times before, inside and past the 7 buckets of 10 s, and in every
+    third block near the int32 ends with an origin near the other end,
+    so that start - t0 wraps as XLA's int32 arithmetic does; group ids
+    from -3 to G + 2 (negative and past the grid); values dyadic (k / 4)
+    or lognormal with NaN, -0.0, +0.0, +inf and -inf on 3 % of the spans,
+    present on 80 %, and all four of NaN, +inf, -inf and -0.0 folded into
+    cell (0, 0) by rows 0-3 of every block with spans. Returns the numpy "cols" (span, res and trace
+    axes), "rows" (one Operands row set a block of STACKED_SPECS),
+    "n_spans", "t0", "gid", "val" and "pres" (None for a counts-only
+    fold)."""
+    rng = np.random.default_rng(seed)
+    R, NT = 256, 512
+    n_spans = np.asarray([(S - 100, S, 0, 300)[b % 4] for b in range(bl)], np.int32)
+    t0 = rng.integers(-20_000, 20_000, bl).astype(np.int32)
+    start = rng.integers(-5_000, 75_000, (bl, S)).astype(np.int64)
+    for b in range(0, bl, 3):  # the wrap: start near one end, t0 near the other
+        t0[b] = -(2**31) + 1_000 if b % 2 else 2**31 - 1_000
+        start[b] = start[b] + int(t0[b])
+    start = ((start + 2**31) % 2**32 - 2**31).astype(np.int32)
+    cols = {
+        "span.start_ms": start,
+        "span.trace_sid": np.sort(rng.integers(0, 200, (bl, S)), axis=1).astype(np.int32),
+        "span.dur_us": rng.integers(0, 40, (bl, S)).astype(np.int32),
+        "span.res_idx": rng.integers(-1, 50, (bl, S)).astype(np.int32),
+        "res.service_id": rng.integers(-1, 6, (bl, R)).astype(np.int32),
+        "trace.dur_ms": rng.integers(0, 100, (bl, NT)).astype(np.int32),
+    }
+    rows = [[(0, 20 + b % 7, 0, 0.0, 0.0), (0, b % 3, 0, 0.0, 0.0), (0, 60 - 5 * (b % 5), 0, 0.0, 0.0),
+             (0, 0, 0, 30.5 - b % 4, 0.0)] for b in range(bl)]
+    gid = rng.integers(-3, STACKED_G + 3, (bl, S)).astype(np.int32)
+    val = pres = None
+    if has_val:
+        if dyadic:
+            val = rng.integers(-8, 9, (bl, S)).astype(np.float32) * np.float32(0.25)
+        else:
+            val = rng.lognormal(0, 2, (bl, S)).astype(np.float32)
+        hit = rng.random((bl, S)) < 0.03
+        val[hit] = np.asarray([np.nan, -0.0, 0.0, np.inf, -np.inf], np.float32)[
+            rng.integers(0, 5, hit.sum())]
+        pres = rng.random((bl, S)) < 0.8
+        # rows 0-3 of every block with spans fold into cell (0, 0): NaN,
+        # +inf, -inf and -0.0, so each fold meets all four
+        for b in np.nonzero(n_spans >= 4)[0]:
+            cols["span.dur_us"][b, :4] = 39  # past leaves 0 and 3
+            cols["span.start_ms"][b, :4] = np.int32(t0[b]) + np.int32(5)
+            gid[b, :4] = 0
+            val[b, :4] = np.asarray([np.nan, np.inf, -np.inf, -0.0], np.float32)
+            pres[b, :4] = True
+    return {"cols": cols, "rows": rows, "n_spans": n_spans, "t0": t0, "gid": gid, "val": val,
+            "pres": pres}
+
+
+def remap_case(seed: int, lens: tuple, r: int) -> tuple:
+    """B9a over consecutive segments: code columns of the given lengths
+    (codes from -3 to r + 3: negatives, and codes past the table that
+    clamp to its last entry; every seventh r - 1 and every eleventh
+    INT32_MIN) end to end, their bounds and a permutation table of r
+    entries. Returns (codes, offs, table) as numpy int32 / int64."""
+    rng = np.random.default_rng(seed)
+    n = int(sum(lens))
+    codes = rng.integers(-3, r + 4, n).astype(np.int32)
+    codes[::7] = r - 1
+    codes[::11] = PAD_I32
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return codes, offs, rng.permutation(r).astype(np.int32)
+
+
+# (lengths, table size): odd lengths, starts off 16-byte boundaries,
+# empty segments first, in the middle and last, a one-code column; a
+# table at the shared route's limit (49,152 entries) and one past it
+REMAP_SEGMENTS = {
+    "cut_like": ((1021, 0, 5, 1, 4096, 33, 0, 2047, 3), 5677),
+    "one_column": ((5000,), 5677),
+    "empty_edges": ((0, 0, 17, 0), 50),
+    "smem_limit": ((3, 30_000, 7), 49_152),
+    "past_smem": ((30_001, 6), 49_153),
+    "seventy_columns": (tuple(range(70)), 300),
+}
