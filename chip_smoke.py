@@ -21,6 +21,7 @@ Phases, in order (any failure raises; no CPU fallback):
                kernels forced through the plan argument), then both routes
                on a 9,600-span chain (tiles of 16,384), a 19,200-span trace
                (past the tile: multi-launch) and group-range staging;
+               K4 on one column and on two in one call (one __global__);
                times by CUDA events (warm),
                the byte bound at 3.35 TB/s, and a one-call PyTorch
                yardstick where one exists
@@ -135,11 +136,14 @@ Phases, in order (any failure raises; no CPU fallback):
                run 1's answers, then the step at 2x2; run 1's sharded
                searches (sp = 1) take M7 and M8 in one launch
                (search_fused), run 2's (sp = 2) M7, the sum, then M8;
+               each sharded find and step one M1 launch (K3's search
+               and the election) and no K3 on rank 0;
                then M1-M8 and the fused route against their plain
-               versions at the shapes the runs gave them (M4 on each of
-               its routes, one cooperative __global__ a fold), M7 beside
-               torch.segment_reduce, and the device µs of M4, M7, M8 and
-               the fused route queued
+               versions at the shapes the runs gave them (M1 at run 1's,
+               beside K3 then the old two stages' arithmetic; M4 on each
+               of its routes, one cooperative __global__ a fold), M7
+               beside torch.segment_reduce, and the device µs of M1, M4,
+               M7, M8 and the fused route queued
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -1805,7 +1809,11 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             if not np.array_equal(rows, want_rows) or int((rows >= 0).any(axis=0).sum()) != \
                     n_present:
                 raise AssertionError("run 1: sharded_find_rows differs from K3 on one card")
+            before = dict(kernels.LAUNCHES)
             elect = PF.sharded_find(mesh, codes, q_codes)
+            if (kernels.LAUNCHES["find_elect"] - before["find_elect"],
+                    kernels.LAUNCHES["find"] - before["find"]) != (1, 0):
+                raise AssertionError("run 1: sharded_find was not one find_elect launch")
             for qi in range(len(ids64)):
                 hit = np.nonzero(want_rows[:, qi] >= 0)[0]
                 want = (hit.max(), want_rows[hit.max(), qi]) if hit.size else (-1, -1)
@@ -1914,8 +1922,12 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             step1_s, step1_hits = run_step(mesh, blocks, q_codes, K1_QUERIES[0][1], 1, elect,
                                            union.words)
             shards_seen.clear()
-            c_step = counts.take("run 1: the step", ("find", "find_elect", "bloom_union", "filter",
+            c_step = counts.take("run 1: the step", ("find_elect", "bloom_union", "filter",
                                                      "search_fused"))
+            if (c_step["find_elect"], c_step["find"]) != (1, 0):
+                raise AssertionError(f"run 1: the step's find was not one find_elect launch: "
+                                     f"{nonzero(c_step)}")
+            elect1 = cap.args["find_elect"]  # run 1's shape, for M1's row
             log(f"[mesh run 1] distributed_query_step ({len(ids64)} ids, {K1_QUERIES[0][1]}, "
                 f"{len(blocks)} blooms): {step1_s:.2f} s, {step1_hits} traces, equal to the three "
                 f"host entries; wrapper calls {nonzero(c_step)}")
@@ -2023,9 +2035,12 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             step2_s, step2_hits = run_step(mesh, blocks, q_codes, K1_QUERIES[0][1], MESH_WORLD,
                                            host_find, host_union)
             shards_seen.clear()
-            c_step2 = counts.take("run 2: the step", ("find", "find_elect", "bloom_union",
+            c_step2 = counts.take("run 2: the step", ("find_elect", "bloom_union",
                                                       "filter", "search_partial",
                                                       "search_finish"))
+            if (c_step2["find_elect"], c_step2["find"]) != (1, 0):  # run_step resets the counts
+                raise AssertionError(f"run 2: the step's find was not one find_elect launch: "
+                                     f"{nonzero(c_step2)}")
             free1 = torch.cuda.mem_get_info(dev)[0]
             smi_mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total",
                                       "--format=csv,noheader"], capture_output=True, text=True,
@@ -2084,6 +2099,7 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
     finally:
         cap.restore()
         MS.ShardSearch.partial = partial0
+    cap.args["find_elect"] = elect1
     return {"counts": counts.total, "args": cap.args, "shards": shards}
 
 
@@ -2092,8 +2108,9 @@ def phase_15_table(p15: dict, table) -> dict:
     them (M1 from run 1, M2-M4 from run 2's rank 0, M5-M8 and the fused
     route from run 1's sharded searches); times by CUDA events, the bound
     of each; M7's one-call yardstick (torch.segment_reduce), none for the
-    rest (no one call computes them). Returns M5's device-time split by
-    leaf and M7's, M8's and the fused route's (device_split's input)."""
+    rest (no one call computes them). Returns M1's device-time split (the
+    fused launch, K3 alone), M5's by leaf and M7's, M8's and the fused
+    route's (device_split's input)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import find as FD
     from tempo_tpu_torch.ops import multiquery as MQ
@@ -2106,20 +2123,39 @@ def phase_15_table(p15: dict, table) -> dict:
 
     args = p15["args"]
 
-    # M1 -- run 1's election over the 10 (12 padded) blocks' K3 rows
-    (rows, base, *_), _ = args["find_elect"]
-    best = kernels.find_elect(rows, base)
-    err = max_abs_err(best, FD._find_elect_plain(rows, base))
-    err = max(err, max_abs_err(kernels.find_elect(rows, base, best),
-                               FD._find_elect_plain(rows, base, best)))
-    if err:
-        raise AssertionError("M1 differs from its plain version")
-    bl, q = rows.shape
-    ms = cuda_ms(lambda: kernels.find_elect(rows, base))
-    pms = cuda_ms(lambda: FD._find_elect_plain(rows, base))
-    b = bound(bl * q * 4 + q * 4, bl * q)
-    log(f"[M1] Bl={bl} Q={q}: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.6f} ms")
-    row("find_elect", "find.cu", "tempo_tpu/parallel/find.py:70", err, ms, pms, b)
+    # M1 -- run 1's sharded find on its one rank: K3's search and the
+    # election in one launch, against the plain election over the plain
+    # search; beside it K3 then the old two stages' arithmetic (plain)
+    (ids, qs, nv, steps, base), _ = args["find_elect"]
+    kernels.reset_counts()
+    got = kernels.find_elect(ids, qs, nv, steps, base)
+    err = max_abs_err(got, FD._find_elect_plain(FD._bisect_plain(ids, qs, nv, steps), base))
+    bl, q = ids.shape[0], qs.shape[0]
+    if err or kernels.grid_launches()["find_elect"] != -(-bl // kernels.FIND_BLOCKS):
+        raise AssertionError("M1 differs from its plain version, or took more __global__ than "
+                             "one a 64 blocks")
+
+    def two_stage(rows):
+        gblock = base + torch.arange(bl, dtype=torch.int32, device=rows.device)[:, None]
+        blk = torch.where(rows >= 0, gblock, -1)
+        best = blk.amax(dim=0)
+        return best, torch.where(blk == best[None, :], rows, -1).amax(dim=0)
+
+    def m1():
+        return kernels.find_elect(ids, qs, nv, steps, base)
+
+    ms = cuda_ms(m1)
+    pms = cuda_ms(lambda: FD._find_elect_plain(FD._bisect_plain(ids, qs, nv, steps), base))
+    k3_two_ms = cuda_ms(lambda: two_stage(kernels.find_rows(ids, qs, nv, steps)))
+    probes = sum(int(n).bit_length() + 1 for n in nv.tolist() if n > 0)  # rows a query needs
+    b = bound(q * 16 + bl * 4 + probes * q * 16 + q * 8, probes * q * 8)
+    log(f"[M1] Bl={bl} T={ids.shape[1]} Q={q} (K3 and the election, one launch): {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, K3 then the two stages' arithmetic (plain) {k3_two_ms:.4f} ms, "
+        f"bound {b[0]:.6f} ms")
+    row("find_elect", "find.cu", "tempo_tpu/parallel/find.py:44-64", err, ms, pms, b)
+    m1_split = {f"M1, phase 15's run 1 (Bl={bl}, Q={q})": {
+        "K3 and the election, one launch": m1,
+        "K3 alone": functools.partial(kernels.find_rows, ids, qs, nv, steps)}}
 
     # M2, M3 -- run 2's last window on rank 0's row slice
     (prow, dims, span_mat, row0, span_off, n_spans), _ = args["mq_partial"]
@@ -2199,7 +2235,7 @@ def phase_15_table(p15: dict, table) -> dict:
         f"max abs err {err:.3g}")
     row("timeseries_stacked", "timeseries.cu", "tempo_tpu/parallel/timeseries.py:51-131", err, ms,
         pms, b)
-    return phase_15_search_table(p15["shards"], row)
+    return {**m1_split, **phase_15_search_table(p15["shards"], row)}
 
 
 def phase_15_search_table(shards: dict, row) -> dict:
@@ -2824,22 +2860,35 @@ def main() -> int:
                       "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": None})
 
-        # K4 -- res.service_id to span rows of block 0
+        # K4 -- res.service_id to span rows of block 0; and two columns in
+        # one call (staging's form: the second table is the first reversed)
         res, ridx = cols["res.service_id"], cols["span.res_idx"]
+        two = [res, torch.flip(res, [0])]
+        kernels.reset_counts()
         got = kernels.res_to_span(res, ridx)
         err = max_abs_err(got, ST._res_to_span_plain(res, ridx))
-        if err:
-            raise AssertionError("K4 differs from its plain version")
+        err = max(err, max_abs_err(kernels.res_to_span_many(two, ridx),
+                                   ST._res_to_span_many_plain(two, ridx)))
+        if err or kernels.grid_launches()["res_to_span"] != 2:
+            raise AssertionError("K4 differs from its plain version, or took more than one "
+                                 "__global__ a call")
         ms = cuda_ms(lambda: kernels.res_to_span(res, ridx))
         pms = cuda_ms(lambda: ST._res_to_span_plain(res, ridx))
+        ms2 = cuda_ms(lambda: kernels.res_to_span_many(two, ridx))
         ridx_c = torch.clamp(ridx, 0, res.shape[0] - 1)
         lms = cuda_ms(lambda: torch.where(ridx >= 0, torch.index_select(res, 0, ridx_c),
                                           int(PAD_I32)))
         b_ms, b_by = bound(res.shape[0] * 4 + ridx.shape[0] * 8, ridx.shape[0])
-        log(f"[K4] n_res_b={res.shape[0]} n_spans_b={ridx.shape[0]}: {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, index_select+where {lms:.4f} ms, bound {b_ms:.4f} ms")
+        log(f"[K4] n_res_b={res.shape[0]} n_spans_b={ridx.shape[0]}: {ms:.4f} ms, two "
+            f"columns in one call {ms2:.4f} ms, plain {pms:.4f} ms, "
+            f"index_select+where {lms:.4f} ms, bound {b_ms:.4f} ms (two columns "
+            f"{bound(2 * res.shape[0] * 4 + ridx.shape[0] * 12, 2 * ridx.shape[0])[0]:.4f} ms)")
+        splits["K4, phase 4's shape (one column, two in one call)"] = {
+            "one column": functools.partial(kernels.res_to_span, res, ridx),
+            "two columns": functools.partial(kernels.res_to_span_many, two, ridx)}
         table.append({"name": "res_to_span", "route": "cuda", "source": "tempo_tpu_torch/csrc/stage.cu",
-                      "replaces": "tempo_tpu/ops/stage.py:178", "launches": 0, "max_abs_err": err,
+                      "replaces": "tempo_tpu/ops/stage.py:178-182", "launches": 0,
+                      "max_abs_err": err,
                       "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lms})
 
@@ -3096,6 +3145,9 @@ def main() -> int:
         if grids_after["find"] != counts_after["find"]:
             raise AssertionError(f"K3: {grids_after['find']} __global__ for "
                                  f"{counts_after['find']} finds (one each)")
+        if grids_after["res_to_span"] != counts_after["res_to_span"]:
+            raise AssertionError(f"K4: {grids_after['res_to_span']} __global__ for "
+                                 f"{counts_after['res_to_span']} staged blocks (one each)")
         if grids_after["filter"] > K1_SEARCH_GRIDS:
             raise AssertionError(f"K1: {grids_after['filter']} __global__ launches for "
                                  f"{counts_after['filter']} program runs of the "

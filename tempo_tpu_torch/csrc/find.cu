@@ -1,4 +1,5 @@
 // K3: batched trace-ID lookup -- a warp per (block, query), 32-ary search.
+// M1: the sharded find's election, fused with K3's search (below).
 //
 // Replaces tempo_tpu/ops/find.py:68 `_lookup_blocks_kernel` (a vmap of
 // `bisect_ids` over B sorted per-block indexes) and :64 `_lookup_kernel`,
@@ -38,6 +39,7 @@
 #define FIND_BLOCKS 64    // descriptors a launch
 #define FIND_INLINE_Q 32  // queries carried in the parameter
 #define FIND_WARPS 4      // warps a CTA, a warp a (block, query)
+#define ELECT_WARPS 16    // the election: warps a CTA (a query) at most
 #define FULL_MASK 0xFFFFFFFFu
 
 struct FindDesc {
@@ -51,8 +53,10 @@ struct FindArgs {
     int4 q[FIND_INLINE_Q];  // the queries, where qdev is NULL
     const int4* qdev;       // (Q, 4) queries on the device, or NULL
     const int32_t* nv_dev;  // this chunk's n_valid on the device, or NULL
-    int32_t* out;           // this chunk's (B, Q) rows
+    int32_t* out;           // this chunk's (B, Q) rows (K3)
+    long long* keys;        // Q packed keys (the election)
     int B, Q, n_steps;
+    int gbase, fold;        // the election: this chunk's first global block; max into keys
 };
 
 __device__ __forceinline__ bool lex_less(const int4 a, const int4 q) {
@@ -125,19 +129,59 @@ __global__ void __launch_bounds__(FIND_WARPS * 32) find_kernel(const __grid_cons
     if (lane == 0) a.out[w] = r;
 }
 
+// The sharded find's election, fused with K3 (M1): one CTA a query. Its
+// warps walk this launch's blocks (warp w takes blocks w, w + nw, ...)
+// with the same search as find_kernel and keep the max of the packed key
+// (int64(gbase + b) << 32) | uint32(row), -1 for a miss; the CTA's
+// maximum is one 8-byte store a query. One max of that key elects the
+// highest global block holding the id together with that block's row:
+// what the reference's two pmax stages return
+// (tempo_tpu/parallel/find.py:44-64), and a miss stays -1, which decodes
+// to (-1, -1). A chunk after the first (fold) maxes its key into the
+// previous chunk's, launched before it on the same stream.
+__global__ void __launch_bounds__(ELECT_WARPS * 32) find_elect_kernel(const __grid_constant__ FindArgs a) {
+    __shared__ long long s_key[ELECT_WARPS];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int qi = blockIdx.x;
+    const int4 q = a.qdev ? __ldg(a.qdev + qi) : a.q[qi];
+    long long key = -1;
+    for (int b = warp; b < a.B; b += nw) {  // b rises: a later hit is a higher block
+        const FindDesc d = a.d[b];
+        const int nv = a.nv_dev ? __ldg(a.nv_dev + b) : d.n_valid;
+        const int bits = nv > 0 ? 32 - __clz(nv) : 0;
+        int r = -1;
+        if (nv < 0 || nv > d.T || a.n_steps < bits) {  // the same for the whole warp
+            if (lane == 0) r = find_lockstep(d.ids, d.T, nv, a.n_steps, q);
+        } else {
+            r = find_warp(d.ids, nv, q, lane);
+        }
+        if (r >= 0) key = ((long long)(a.gbase + b) << 32) | (unsigned)r;
+    }
+    if (lane == 0) s_key[warp] = key;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < nw; ++w) key = s_key[w] > key ? s_key[w] : key;
+        if (a.fold) key = a.keys[qi] > key ? a.keys[qi] : key;
+        a.keys[qi] = key;
+    }
+}
+
 // The blocks: desc, a host table of B rows of 3 int64 (index pointer,
 // n_valid, T); or, where desc is NULL, the B slices of a (B, T, 4) stack
 // on the device. The queries: q_host, a host (Q, 4) table, where Q <=
 // FIND_INLINE_Q; else q_dev, Q rows on the device. nv_dev: B n_valid on
-// the device (the stacked form), or NULL to take the table's. out: (B, Q)
-// on the device.
-TT_EXPORT int tt_find(const long long* desc, const int32_t* stack, int T, int B,
-                      const int32_t* q_host, const int32_t* q_dev, int Q, const int32_t* nv_dev,
-                      int n_steps, int32_t* out, void* stream) {
+// the device (the stacked form), or NULL to take the table's. K3 (keys
+// NULL) writes out, (B, Q) rows on the device, a launch a chunk of
+// FIND_BLOCKS blocks; the election (keys set) writes keys, Q packed keys
+// on the device, the chunks folding into one key a query (one launch
+// where B <= FIND_BLOCKS).
+static int find_launches(const long long* desc, const int32_t* stack, int T, int B,
+                         const int32_t* q_host, const int32_t* q_dev, int Q,
+                         const int32_t* nv_dev, int n_steps, int32_t* out, long long* keys,
+                         int base, cudaStream_t st) {
     if (B < 0 || Q < 0 || (!q_dev && (!q_host || Q > FIND_INLINE_Q)) ||
-        (!desc && (!stack || !nv_dev || T < 1 || ((uintptr_t)stack & 15))))
+        (!desc && (!stack || !nv_dev || T < 1 || ((uintptr_t)stack & 15))) || base < 0)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
     FindArgs a;
     a.qdev = (const int4*)q_dev;
     if (!q_dev)
@@ -146,6 +190,7 @@ TT_EXPORT int tt_find(const long long* desc, const int32_t* stack, int T, int B,
                                q_host[4 * i + 3]);
     a.Q = Q;
     a.n_steps = n_steps;
+    a.keys = keys;
     for (int b0 = 0; b0 < B && Q > 0; b0 += FIND_BLOCKS) {
         a.B = B - b0 < FIND_BLOCKS ? B - b0 : FIND_BLOCKS;
         for (int b = 0; b < a.B; ++b) {
@@ -158,49 +203,40 @@ TT_EXPORT int tt_find(const long long* desc, const int32_t* stack, int T, int B,
             a.d[b] = FindDesc{(const int4*)r[0], (int)r[1], (int)r[2]};
         }
         a.nv_dev = nv_dev ? nv_dev + b0 : nullptr;
-        a.out = out + (long long)b0 * Q;
-        find_kernel<<<tt_blocks((long long)a.B * Q, FIND_WARPS), FIND_WARPS * 32, 0, st>>>(a);
-        TT_LAUNCHED();
+        if (keys) {
+            a.gbase = base + b0;
+            a.fold = b0 > 0;
+            const int nw = a.B < ELECT_WARPS ? a.B : ELECT_WARPS;
+            find_elect_kernel<<<Q, nw * 32, 0, st>>>(a);
+            TT_LAUNCHED_SLOT(1);
+        } else {
+            a.out = out + (long long)b0 * Q;
+            find_kernel<<<tt_blocks((long long)a.B * Q, FIND_WARPS), FIND_WARPS * 32, 0, st>>>(a);
+            TT_LAUNCHED();
+        }
         const int err = (int)cudaGetLastError();
         if (err) return err;
     }
     return 0;
 }
 
-// M1: the election of the sharded find (parallel/find.py), run on K3's
-// local (Bl, Q) rows of this rank's blocks, whose global ids are
-// base .. base + Bl - 1. Replaces the per-shard arithmetic of
-// tempo_tpu/parallel/find.py:47-68 (`make_sharded_find`'s `local`):
-//   winner == NULL (stage 1): per query the highest global block with a
-//     hit, or -1; the caller's all_reduce MAX elects the mesh's winner;
-//   winner != NULL (stage 2): per query the row of the block equal to
-//     winner[q] (-1 where this rank does not hold it); a second
-//     all_reduce MAX hands every rank the winner's row.
-// The two stages keep block and row apart: block * T + row overflows
-// int32 (find.py:55). One thread per query walks the Bl rows.
-//
-// Bound: bytes -- the (Bl, Q) rows read once, Q words written; at the
-// find path's shapes the launch itself dominates. Launch slot 1.
-__global__ void find_elect_kernel(const int32_t* __restrict__ rows, int Bl, int Q, int base,
-                                  const int32_t* __restrict__ winner, int32_t* __restrict__ out) {
-    int q = blockIdx.x * blockDim.x + threadIdx.x;
-    if (q >= Q) return;
-    int best = -1;
-    const int w = winner ? winner[q] : 0;
-    for (int b = 0; b < Bl; ++b) {
-        const int r = rows[(long long)b * Q + q];
-        if (r < 0) continue;
-        if (!winner) best = base + b;  // b rises: the last hit is the highest
-        else if (base + b == w && r > best) best = r;
-    }
-    out[q] = best;
+TT_EXPORT int tt_find(const long long* desc, const int32_t* stack, int T, int B,
+                      const int32_t* q_host, const int32_t* q_dev, int Q, const int32_t* nv_dev,
+                      int n_steps, int32_t* out, void* stream) {
+    return find_launches(desc, stack, T, B, q_host, q_dev, Q, nv_dev, n_steps, out, nullptr, 0,
+                         (cudaStream_t)stream);
 }
 
-TT_EXPORT int tt_find_elect(const int32_t* rows, int Bl, int Q, int base, const int32_t* winner,
-                            int32_t* out, void* stream) {
-    if (Bl < 0 || Q < 1 || base < 0) return (int)cudaErrorInvalidValue;
-    find_elect_kernel<<<tt_blocks(Q, 128), 128, 0, (cudaStream_t)stream>>>(rows, Bl, Q, base,
-                                                                          winner, out);
-    TT_LAUNCHED_SLOT(1);
-    return (int)cudaGetLastError();
+// M1 with K3 (launch slot 1): keys, Q int64 on the device, for the
+// global blocks base .. base + B - 1.
+//
+// Bound: K3's chain of dependent loads and the launch; the bytes are the
+// probed rows, the queries and 8 B a query out.
+TT_EXPORT int tt_find_elect(const long long* desc, const int32_t* stack, int T, int B,
+                            const int32_t* q_host, const int32_t* q_dev, int Q,
+                            const int32_t* nv_dev, int n_steps, int base, long long* keys,
+                            void* stream) {
+    if (!keys || B < 1) return (int)cudaErrorInvalidValue;
+    return find_launches(desc, stack, T, B, q_host, q_dev, Q, nv_dev, n_steps, nullptr, keys, base,
+                         (cudaStream_t)stream);
 }

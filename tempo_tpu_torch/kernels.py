@@ -17,7 +17,10 @@ n_passes doubling + final) and a trace pass; one select_topk, and one
 mq_select over all its rows, launches a tile pass and a merge pass
 where select_plan takes the tiles, else a key pass, its bitonic passes
 and an emit; one find launches one kernel a chunk of FIND_BLOCKS
-blocks (a descriptor a block, no stack); one multiquery, one live_find,
+blocks (a descriptor a block, no stack), and one find_elect (K3's search
+and M1's election) the same; one res_to_span, over every resource column
+of a staged block or a stacked fold, one kernel a RES_COLS columns; one
+multiquery, one live_find,
 one live_patch, one edge_reduce, one span_reduce, one timeseries
 (without a res pass), one timeseries_stacked fold (its finish is a
 second call), one remap over every code column of a cut, one
@@ -38,7 +41,7 @@ never hidden behind a plain version or another route.
 | filter      | csrc/filter.cu     | tempo_tpu/ops/filter.py:286 _compiled(...).run |
 | select      | csrc/select.cu     | tempo_tpu/ops/select.py:42, :84                |
 | find        | csrc/find.cu       | tempo_tpu/ops/find.py:68 _lookup_blocks_kernel |
-| res_to_span | csrc/stage.cu      | tempo_tpu/ops/stage.py:178 _res_to_span        |
+| res_to_span | csrc/stage.cu      | tempo_tpu/ops/stage.py:178-182 _res_to_span    |
 | multiquery  | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:356 run (B5a)      |
 | mq_select   | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:461 sel (B5b)      |
 | timeseries  | csrc/timeseries.cu | tempo_tpu/ops/timeseries.py:53 run (B6)        |
@@ -53,7 +56,7 @@ never hidden behind a plain version or another route.
 | live_patch  | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:298 (B7d)           |
 | span_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:23 _reduce_kernel (B8a) |
 | edge_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:63 _edge_reduce_kernel (B8b) |
-| find_elect  | csrc/find.cu       | tempo_tpu/parallel/find.py:47-68 local (M1)    |
+| find_elect  | csrc/find.cu       | tempo_tpu/parallel/find.py:44-64 local (M1, with K3) |
 | mq_partial  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:57-100 (M2)   |
 | mq_combine  | csrc/multiquery.cu | tempo_tpu/parallel/multiquery.py:102-125 (M3)  |
 | timeseries_stacked | csrc/timeseries.cu | tempo_tpu/parallel/timeseries.py:51-131 local (M4) |
@@ -118,7 +121,7 @@ mesh; a collective between the halves):
 
 | kernel      | launches on its path                           | bound (bytes moved)                   | one PyTorch call                               |
 |-------------|------------------------------------------------|---------------------------------------|------------------------------------------------|
-| find_elect  | two per sharded_find on every rank             | 4 B x Bl x Q read, 4 B x Q written    | none: a where, then an amax                    |
+| find_elect  | one per sharded_find on every rank (K3's search and the election, one launch a 64 blocks) | the probed rows, the queries, 8 B x Q written | none: a search, then a where and an amax |
 | mq_partial  | one per mesh-batched window on every rank      | 4 B a span a column, (NG+1) x 4 B out | none: a cumsum and two gathers per group       |
 | mq_combine  | one per mesh-batched window on every rank      | (NG+1) x 4 B in, 5 B out a trace      | none: a compare, a gather and an all per query |
 | timeseries_stacked | one cooperative fold, then the finish for value folds, per stacked fold on every rank | 13 B a span + the columns | none: index_add_ and two scatter_reduce_ |
@@ -183,7 +186,7 @@ class KernelError(RuntimeError):
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "tt_res_to_span": ("stage", [_P, _I, _P, _P, _I, _P]),
+    "tt_res_to_span": ("stage", [_P, _P, _I, _P, _I, _I, _P, _P]),
     "tt_find": ("find", [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P]),
     "tt_select": ("select", [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
     "tt_select_tiled": ("select", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
@@ -214,7 +217,7 @@ _SIGNATURES = {
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
     "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P]),
     "tt_edge_reduce": ("reduce", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P]),
-    "tt_find_elect": ("find", [_P, _I, _I, _I, _P, _P, _P]),
+    "tt_find_elect": ("find", [_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P]),
     "tt_mq_partial": ("multiquery", [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P]),
     "tt_mq_combine": ("multiquery", [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
     "tt_timeseries_stacked": ("timeseries", [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I,
@@ -381,20 +384,46 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 # ------------------------------------------------------------------ K4
-def res_to_span(res: torch.Tensor, res_idx: torch.Tensor) -> torch.Tensor:
-    """K4: res[clip(res_idx)] where res_idx >= 0 else PAD_I32.
-    Bound: bytes (8 B a span row)."""
-    dev = _cuda_device(res)
-    _check(res, "res", torch.int32, dev)
+RES_COLS = 8  # columns a launch takes by value (csrc/stage.cu RS_COLS); more take a launch a chunk
+
+
+def res_to_span_many(tables: list, res_idx: torch.Tensor) -> torch.Tensor:
+    """K4 over C resource columns at once: res_idx (S,) with C tables (R_c,),
+    or res_idx (Bl, S) with C per-block tables (Bl, R_c) -> one (C, S) or
+    (C, Bl, S) int32 allocation, out[c] = table_c[clip(res_idx)] where
+    res_idx >= 0 else PAD_I32. One launch (RES_COLS columns by value, a
+    launch a chunk past that): a grid sized to the card striding over
+    quads of 4 spans, res_idx read once a quad for every column, the
+    tables read through the read-only path. Bound: bytes ((4 + 4 C) B a
+    span, the tables once)."""
+    dev = _cuda_device(res_idx)
     _check(res_idx, "res_idx", torch.int32, dev)
-    if res.dim() != 1 or res_idx.dim() != 1 or res.shape[0] == 0:
-        raise KernelError("res_to_span: 1-D res (non-empty) and res_idx expected")
-    out = torch.empty_like(res_idx)
+    if res_idx.dim() not in (1, 2) or not tables:
+        raise KernelError("res_to_span_many: res_idx (S,) or (Bl, S) and a table or more expected")
+    bl, s = (1, res_idx.shape[0]) if res_idx.dim() == 1 else tuple(res_idx.shape)
+    for t in tables:
+        _check(t, "res", torch.int32, dev)
+        if t.dim() != res_idx.dim() or t.shape[-1] == 0 or (t.dim() == 2 and t.shape[0] != bl):
+            raise KernelError(f"res_to_span_many: table {tuple(t.shape)} for res_idx "
+                              f"{tuple(res_idx.shape)}")
+    out = torch.empty((len(tables),) + tuple(res_idx.shape), dtype=torch.int32, device=dev)
+    if res_idx.numel() == 0:
+        return out
     with _on(dev):
-        _call("tt_res_to_span", res.data_ptr(), res.shape[0], res_idx.data_ptr(),
-              out.data_ptr(), res_idx.shape[0], _stream(dev))
+        for c0 in range(0, len(tables), RES_COLS):
+            chunk = tables[c0:c0 + RES_COLS]
+            ptrs = (ctypes.c_longlong * len(chunk))(*[t.data_ptr() for t in chunk])
+            n_res = (ctypes.c_int * len(chunk))(*[t.shape[-1] for t in chunk])
+            _call("tt_res_to_span", ctypes.addressof(ptrs), ctypes.addressof(n_res), len(chunk),
+                  res_idx.data_ptr(), bl, s, out[c0].data_ptr(), _stream(dev))
     _count("res_to_span")
     return out
+
+
+def res_to_span(res: torch.Tensor, res_idx: torch.Tensor) -> torch.Tensor:
+    """K4 on one column: res_to_span_many's kernel with C = 1.
+    Bound: bytes (8 B a span row, the table once)."""
+    return res_to_span_many([res], res_idx)[0]
 
 
 # ------------------------------------------------------------------ K3
@@ -1367,24 +1396,35 @@ def edge_reduce(eid: torch.Tensor, cdur: torch.Tensor, sdur: torch.Tensor, faile
 
 
 # ------------------------------------------------------------------ M1
-def find_elect(rows: torch.Tensor, base: int, winner: torch.Tensor | None = None) -> torch.Tensor:
-    """M1 on K3's local (Bl, Q) rows of the blocks base .. base + Bl - 1:
-    stage 1 (winner None) the highest global block with a hit per query,
-    stage 2 the row of the block equal to winner[q]; -1 where none.
-    Bound: bytes (the rows read once)."""
-    dev = _cuda_device(rows)
-    if rows.dim() != 2 or rows.shape[1] == 0:
-        raise KernelError("find_elect: (Bl, Q) rows with Q > 0 expected")
-    bl, q = rows.shape
-    _check(rows, "rows", torch.int32, dev)
-    if winner is not None:
-        _check(winner, "winner", torch.int32, dev, (q,))
-    out = torch.empty(q, dtype=torch.int32, device=dev)
+def find_elect(ids: torch.Tensor, queries: torch.Tensor, n_valid: torch.Tensor, n_steps: int,
+               base: int) -> torch.Tensor:
+    """M1 with K3 in one launch: over a rank's stack (B,T,4) of the global
+    blocks base .. base + B - 1, n_valid (B,) and queries (Q,4) on the
+    device -> (Q,) int64 packed keys, (block << 32) | row of the highest
+    block holding the id, -1 for a miss (ops/find.decode_keys). A CTA a
+    query, its warps searching the blocks as K3 does (a launch a chunk of
+    FIND_BLOCKS blocks, later chunks maxed into the same keys); no rows
+    written. Bound: a chain of dependent loads and the launch."""
+    dev = _cuda_device(ids)
+    _check(ids, "ids", torch.int32, dev)
+    _check(queries, "queries", torch.int32, dev)
+    _check(n_valid, "n_valid", torch.int32, dev)
+    if ids.dim() != 3 or ids.shape[2] != 4 or queries.dim() != 2 or queries.shape[1] != 4:
+        raise KernelError("find_elect: ids (B,T,4) and queries (Q,4) expected")
+    B, T, _ = ids.shape
+    if n_valid.shape != (B,) or B == 0 or T == 0 or base < 0:
+        raise KernelError("find_elect: n_valid (B,), B > 0, T > 0 and base >= 0 expected")
+    if ids.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise KernelError("find_elect: ids and queries must be 16-byte aligned")
+    Q = queries.shape[0]
+    keys = torch.empty(Q, dtype=torch.int64, device=dev)
+    if Q == 0:
+        return keys
     with _on(dev):
-        _call("tt_find_elect", rows.data_ptr(), bl, q, int(base), _ptr(winner), out.data_ptr(),
-              _stream(dev))
+        _call("tt_find_elect", None, ids.data_ptr(), T, B, None, queries.data_ptr(), Q,
+              n_valid.data_ptr(), int(n_steps), int(base), keys.data_ptr(), _stream(dev))
     _count("find_elect")
-    return out
+    return keys
 
 
 # ------------------------------------------------------------------ M2/M3

@@ -7,9 +7,11 @@ kernel K3 (csrc/find.cu): a warp per (block, query) searching 32 rows a
 step, equal to the bisection on a sorted index (the contract in the
 source); CPU tensors run `_bisect_plain`, the reference's lockstep
 bisection written in torch.
-The sharded find's election (M1, `find_elect`, in the same source) picks
-each query's highest hit block, then that block's row, on one rank's
-blocks; parallel/find.py puts an all_reduce MAX after each stage.
+The sharded find's election (M1, `find_elect`, in the same source) runs
+K3's search and elects, in the same launch, each query's highest hit
+block with its row as one packed int64 key, (block << 32) | row, -1 for
+a miss; parallel/find.py puts one all_reduce MAX after it, and
+`decode_keys` unpacks the keys.
 """
 
 from __future__ import annotations
@@ -104,24 +106,32 @@ def lookup_ids_blocks_cached(blocks: list, query_codes: np.ndarray, device) -> n
     return _bisect_plain(ids, queries, n_valid, int(T).bit_length()).numpy()
 
 
-def _find_elect_plain(rows: torch.Tensor, base: int,
-                      winner: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of M1: the per-shard arithmetic of the reference's
-    sharded find (tempo_tpu/parallel/find.py:58-66). rows (Bl, Q) are
-    K3's hits of the global blocks base .. base + Bl - 1. Stage 1
-    (winner None): per query the highest block with a hit, else -1.
-    Stage 2: per query the row of the block equal to winner, else -1."""
-    gblock = base + torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)[:, None]
-    blk = torch.where(rows >= 0, gblock, -1)
-    if winner is None:
-        return blk.amax(dim=0).to(torch.int32)
-    return torch.where(blk == winner[None, :], rows, -1).amax(dim=0).to(torch.int32)
+def _find_elect_plain(rows: torch.Tensor, base: int) -> torch.Tensor:
+    """Plain version of M1: rows (Bl, Q) are K3's hits of the global
+    blocks base .. base + Bl - 1 -> (Q,) int64, per query the max of the
+    key (block << 32) | row over the blocks with a hit, -1 where none:
+    the highest block holding the id and its row, the pair the
+    reference's two pmax stages elect (tempo_tpu/parallel/find.py:44-64)."""
+    gblock = base + torch.arange(rows.shape[0], dtype=torch.int64, device=rows.device)[:, None]
+    return torch.where(rows >= 0, (gblock << 32) | rows.to(torch.int64), -1).amax(dim=0)
 
 
-def find_elect(rows: torch.Tensor, base: int, winner: torch.Tensor | None = None) -> torch.Tensor:
-    """M1 on CUDA tensors, its plain version on CPU tensors."""
-    if rows.device.type == "cpu":
-        return _find_elect_plain(rows, base, winner)
+def find_elect(ids: torch.Tensor, queries: torch.Tensor, n_valid: torch.Tensor, n_steps: int,
+               base: int) -> torch.Tensor:
+    """K3 and M1 in one kernel launch on CUDA tensors (ids (Bl,T,4) of the
+    global blocks base .. base + Bl - 1), the plain versions on CPU
+    tensors: (Q,) int64 packed keys."""
+    if ids.device.type == "cpu":
+        return _find_elect_plain(_bisect_plain(ids, queries, n_valid, n_steps), base)
     from .. import kernels
 
-    return kernels.find_elect(rows, base, winner)
+    return kernels.find_elect(ids, queries, n_valid, n_steps, base)
+
+
+def decode_keys(keys: np.ndarray) -> np.ndarray:
+    """(Q,) int64 packed keys -> (Q, 2) int32 [block, row]: the block is
+    the high word (arithmetic shift), the row the low word as int32; a
+    miss (-1) decodes to (-1, -1)."""
+    keys = np.asarray(keys, np.int64)
+    return np.stack([(keys >> 32).astype(np.int32),
+                     (keys & 0xFFFFFFFF).astype(np.uint32).view(np.int32)], axis=-1)

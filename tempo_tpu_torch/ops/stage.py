@@ -9,9 +9,9 @@ range, device), under a global byte budget (an LRU over every block's
 entries), so repeated queries against a hot block skip IO,
 decompression and the transfer.
 
-The `span@<res col>` columns are materialized once per staged entry by
-kernel K4 (csrc/stage.cu) on CUDA tensors, `_res_to_span_plain` on CPU
-tensors.
+The `span@<res col>` columns are materialized once per staged entry, all
+of them by one call of kernel K4 (csrc/stage.cu) on CUDA tensors,
+`_res_to_span_many_plain` on CPU tensors: views of one (C, S) allocation.
 """
 
 from __future__ import annotations
@@ -102,20 +102,38 @@ def gkey_from_start_ms(meta, start_ms):
     return np.asarray(start_ms).astype(np.int64) // 1000 + base_s
 
 
+def _res_to_span_many_plain(tables: list, res_idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: each res column broadcast to span rows, PAD
+    where the span has no resource row. res_idx (S,) with tables (R_c,),
+    or (Bl, S) with per-block tables (Bl, R_c) -> (C, S) or (C, Bl, S)."""
+    idx = res_idx.long()
+    out = torch.empty((len(tables),) + tuple(res_idx.shape), dtype=torch.int32,
+                      device=res_idx.device)
+    for c, t in enumerate(tables):
+        out[c] = torch.where(res_idx >= 0, torch.gather(t, -1, torch.clamp(idx, 0, t.shape[-1] - 1)),
+                             int(PAD_I32))
+    return out
+
+
 def _res_to_span_plain(res_vals: torch.Tensor, res_idx: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: res column broadcast to span rows; PAD where
-    the span has no resource row."""
-    out = res_vals[torch.clamp(res_idx, 0, res_vals.shape[0] - 1).long()]
-    return torch.where(res_idx >= 0, out, int(PAD_I32))
+    """Plain version of K4 on one column."""
+    return _res_to_span_many_plain([res_vals], res_idx)[0]
+
+
+def res_to_span_many(tables: list, res_idx: torch.Tensor) -> torch.Tensor:
+    """K4 over every column in one call: one kernel launch on CUDA
+    tensors, its plain version on CPU tensors. Returns one (C, [Bl,] S)
+    tensor; its rows are the span@ columns."""
+    if res_idx.device.type == "cpu":
+        return _res_to_span_many_plain(tables, res_idx)
+    from .. import kernels
+
+    return kernels.res_to_span_many(tables, res_idx)
 
 
 def res_to_span(res_vals: torch.Tensor, res_idx: torch.Tensor) -> torch.Tensor:
-    """K4 on CUDA tensors, its plain version on CPU tensors."""
-    if res_vals.device.type == "cpu":
-        return _res_to_span_plain(res_vals, res_idx)
-    from .. import kernels
-
-    return kernels.res_to_span(res_vals, res_idx)
+    """K4 on one column (res_to_span_many with C = 1)."""
+    return res_to_span_many([res_vals], res_idx)[0]
 
 
 _AXIS_OF = {
@@ -347,13 +365,14 @@ def _upload(arrays: dict[str, np.ndarray], dev: torch.device) -> dict[str, torch
 def upload_stage(plan: StagePlan, staged: StagedBlock, padded: dict,
                  device) -> StagedBlock:
     """The host->device phase: one batched transfer + the query-
-    independent res->span materialization (K4)."""
+    independent res->span materialization (K4: one call for every
+    column)."""
     _upload_with_tiles(staged, padded, resolve_device(device))
-    if plan.materialize and "span.res_idx" in staged.cols:
-        for name in plan.materialize:
-            if name in staged.cols:
-                staged.cols[f"span@{name}"] = res_to_span(
-                    staged.cols[name], staged.cols["span.res_idx"])
+    names = [n for n in plan.materialize if n in staged.cols]
+    if names and "span.res_idx" in staged.cols:
+        out = res_to_span_many([staged.cols[n] for n in names], staged.cols["span.res_idx"])
+        for name, col in zip(names, out):
+            staged.cols[f"span@{name}"] = col
     return staged
 
 

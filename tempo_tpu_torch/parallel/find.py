@@ -8,21 +8,23 @@ r * Bl .. (r + 1) * Bl - 1) and runs K3's batched bisection locally.
   * `sharded_find_rows`: every block reports its own hit row; a gather
     lands the (B, Q) rows on the controller for the partial-trace
     combiner (the service path: TempoDB._device_find, the find batcher).
-  * `sharded_find`: per query the (global block, row) hit, combined in
-    two stages: M1 elects each rank's highest hit block, an all_reduce
-    MAX (over sp, then dp) elects the mesh's; M1 then takes the winner's
-    row and a second all_reduce MAX hands it to every rank. Block and
-    row stay apart: block * T + row overflows int32. Misses are
-    (-1, -1).
+  * `sharded_find`: per query the (global block, row) hit. One launch
+    on each rank (M1 fused with K3) searches its blocks and keeps, per
+    query, the max of the int64 key (block << 32) | row (-1 for a miss);
+    one all_reduce MAX over the world elects the mesh's highest block
+    holding the id together with that block's row, the pair the
+    reference's two pmax stages (over sp, then dp, twice) return. MAX is
+    associative and commutative, so one collective over every rank
+    equals the reference's sp-then-dp pair, in one round trip. Misses
+    are (-1, -1).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..ops.device import PAD_I32, bucket, pad_rows
-from ..ops.find import bisect_rows, find_elect
+from ..ops.find import bisect_rows, decode_keys, find_elect
 from .mesh import DISPATCH_LOCK, program
 
 _ID_PAD = np.int32(2**31 - 1)
@@ -59,13 +61,10 @@ def _find_rows_body(mesh, static: dict, ops: dict):
 
 @program("find")
 def _find_body(mesh, static: dict, ops: dict):
-    rows = bisect_rows(ops["ids"], ops["queries"], ops["n_valid"], static["n_steps"])  # K3
-    base = mesh.rank * rows.shape[0]
-    best = find_elect(rows, base)  # M1 stage 1
-    best = mesh.all_reduce(mesh.all_reduce(best, "max", "sp"), "max", "dp")
-    row = find_elect(rows, base, best)  # M1 stage 2
-    row = mesh.all_reduce(mesh.all_reduce(row, "max", "sp"), "max", "dp")
-    return torch.stack([best, row], dim=-1).cpu().numpy()
+    base = mesh.rank * ops["ids"].shape[0]
+    keys = find_elect(ops["ids"], ops["queries"], ops["n_valid"], static["n_steps"],
+                      base)  # K3 and M1, one launch
+    return decode_keys(mesh.all_reduce(keys, "max").cpu().numpy())
 
 
 def sharded_find_rows(mesh, id_code_arrays: list[np.ndarray],

@@ -2,7 +2,7 @@
 program (port of tempo_tpu/parallel/step.py).
 
 The read and compaction hot path as one program: the sharded trace-ID
-lookup (K3, M1 and its two MAX rounds), the sharded predicate search
+lookup (K3 and M1 in one launch, one MAX round), the sharded predicate search
 (parallel/search.py: M5-M8 around K1, one operand set for every block)
 and the bloom union (B10a and its all_gathers), one header and no host
 round trip between the three parts.

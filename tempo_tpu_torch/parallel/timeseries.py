@@ -17,18 +17,17 @@ what makes the cross-rank sum correct.
 Operands are per block (each block's dictionary yields different codes
 for the same query), carried with a leading block axis. Condition
 targets cover the span, res and trace axes; a res condition compares the
-res column at the span's resource (K4 materializes span@<col> on each
-rank, as staging does for one block). Generic attr conditions take the
+res column at the span's resource (one K4 call materializes every
+span@<col> over a rank's stacked blocks, as staging does for one block). Generic attr conditions take the
 per-block engines instead (db/metrics_exec).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..ops.filter import T_RES, T_SPAN, T_TRACE, Operands
-from ..ops.stage import res_to_span
+from ..ops.stage import res_to_span_many
 from ..ops.timeseries import timeseries_stacked, timeseries_stacked_finish
 from .mesh import DISPATCH_LOCK, program
 from .search import _stack_operands
@@ -41,10 +40,11 @@ def _ts_body(mesh, static: dict, ops: dict):
     tree, conds = static["tree"], static["conds"]
     cols = {n: ops[n] for n in static["names"]}
     bl = ops["gid"].shape[0]
-    for c in conds:  # span@<res col>: K4 over each local block
-        if c.target == T_RES and f"span@{c.col}" not in cols:
-            cols[f"span@{c.col}"] = torch.stack([
-                res_to_span(cols[c.col][b], cols["span.res_idx"][b]) for b in range(bl)])
+    res = [n for n in dict.fromkeys(c.col for c in conds if c.target == T_RES)
+           if f"span@{n}" not in cols]
+    if res:  # span@<res col>: one K4 call over the local blocks, (C, Bl, S)
+        for n, col in zip(res, res_to_span_many([cols[n] for n in res], cols["span.res_idx"])):
+            cols[f"span@{n}"] = col
     # the small per-block operands came in the header: this rank's blocks
     blk = slice(mesh.rank * bl, (mesh.rank + 1) * bl)
     ints, floats = static["ints"][blk], static["floats"][blk]

@@ -1,7 +1,8 @@
 """Kernel-vs-plain tests of the port's CUDA kernels (K1-K4, B5a, B5b, B6)
 on the card; K1 by both of its routes (the trace tiles and the
 multi-launch kernels); K3 on its stacked form and on the blocks' own
-indexes (one launch a chunk of blocks, queries inline or uploaded).
+indexes (one launch a chunk of blocks, queries inline or uploaded); K4
+over many columns, one launch a staged block.
 
 Marked `cuda`; the fixture below skips them where no card exists. Run
 on a machine with one H100:
@@ -33,6 +34,7 @@ from tempo_tpu_torch.ops import stage as ST
 from tempo_tpu_torch.ops.device import bucket, pad_rows
 from tempo_tpu_torch.traceql.plan import plan_search_request
 from tempo_tpu_torch.util.testdata import make_traces
+from torch_tile_cases import RES_SHAPES, res_case
 
 pytestmark = pytest.mark.cuda
 
@@ -73,11 +75,56 @@ def block():
 
 
 def test_res_to_span_kernel(cuda):
+    """K4 on one column: res_to_span is res_to_span_many's kernel with
+    C = 1, one __global__."""
+    from tempo_tpu_torch import kernels
+
     rng = np.random.default_rng(0)
     res = torch.from_numpy(rng.integers(-5, 1000, 777).astype(np.int32)).to(cuda)
     idx = torch.from_numpy(rng.integers(-3, 900, 4096).astype(np.int32)).to(cuda)
+    kernels.reset_counts()
     got = ST.res_to_span(res, idx)
+    assert kernels.LAUNCHES["res_to_span"] == 1 and kernels.grid_launches()["res_to_span"] == 1
     assert torch.equal(got, ST._res_to_span_plain(res, idx))
+    assert torch.equal(kernels.res_to_span_many([res], idx)[0], got)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+@pytest.mark.parametrize("shape", list(RES_SHAPES))
+def test_res_to_span_many_kernel(cuda, shape, seed):
+    """K4 over C columns in one call (torch_tile_cases.RES_SHAPES: phase
+    4's and M4's shapes, S off a multiple of 4, quads cut by a block's
+    row, a table of 20,000 entries, more columns than a launch carries)
+    against the plain version: one wrapper call, a __global__ a RES_COLS
+    columns."""
+    from tempo_tpu_torch import kernels
+
+    bl, S, n_res, C = RES_SHAPES[shape]
+    tabs_np, idx_np = res_case(seed, bl, S, n_res, C)
+    tabs = [torch.from_numpy(t).to(cuda) for t in tabs_np]
+    idx = torch.from_numpy(idx_np).to(cuda)
+    kernels.reset_counts()
+    got = kernels.res_to_span_many(tabs, idx)
+    assert kernels.LAUNCHES["res_to_span"] == 1
+    assert kernels.grid_launches()["res_to_span"] == -(-C // kernels.RES_COLS)
+    assert got.shape == (C,) + idx.shape
+    assert torch.equal(got, ST._res_to_span_many_plain(tabs, idx))
+
+
+def test_staging_two_columns_is_one_k4_launch(cuda, block):
+    """A staged block with two span@ columns: one K4 call and one
+    __global__, the columns equal to the CPU staging's."""
+    from tempo_tpu_torch import kernels
+
+    blk = block[0]
+    needed = ["span.res_idx", "res.service_id", "res.namespace_id", "span@res.service_id",
+              "span@res.namespace_id"]
+    kernels.reset_counts()
+    got = ST.stage_block(blk, needed, cache=False, device=cuda)
+    assert kernels.LAUNCHES["res_to_span"] == 1 and kernels.grid_launches()["res_to_span"] == 1
+    want = ST.stage_block(blk, needed, cache=False, device="cpu")
+    for name in ("span@res.service_id", "span@res.namespace_id"):
+        assert torch.equal(got.cols[name].cpu(), want.cols[name]), name
 
 
 def test_find_kernel(cuda):

@@ -1,6 +1,6 @@
-"""The mesh programs' CUDA kernels on the card (M1 find_elect, M2
-mq_partial, M3 mq_combine, M4 timeseries_stacked) against their plain
-versions, the five host entries on an NCCL mesh of one rank against the
+"""The mesh programs' CUDA kernels on the card (M1 find_elect, fused
+with K3, M2 mq_partial, M3 mq_combine, M4 timeseries_stacked, and K4's
+one launch in M4's mesh body) against their plain versions, the five host entries on an NCCL mesh of one rank against the
 single-card routes, and a gloo 2x2 mesh whose four ranks share the card,
 under a TempoDB on the card against one on the CPU.
 
@@ -41,6 +41,7 @@ from tempo_tpu_torch.parallel import (
     sharded_find,
     sharded_find_rows,
 )
+from tempo_tpu_torch.parallel.mesh import Mesh
 from tempo_tpu_torch.util.testdata import make_traces
 from torch_tile_cases import (
     STACKED_G,
@@ -48,6 +49,7 @@ from torch_tile_cases import (
     STACKED_SPECS,
     STACKED_STEP,
     STACKED_TREE,
+    elect_case,
     stacked_case,
 )
 
@@ -85,17 +87,65 @@ def _db(backend, device):
     return db
 
 
-def test_find_elect_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(1)
-    for bl, q, base in ((1, 1, 0), (3, 64, 9), (12, 1024, 0)):
-        rows = np.where(rng.random((bl, q)) < 0.3, rng.integers(0, 1 << 20, (bl, q)), -1)
-        rows = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+@pytest.mark.parametrize("bl,q,short", [(1, 4, False), (3, 40, False), (12, 64, False),
+                                         (12, 40, True), (130, 40, False)])
+def test_find_elect_kernel_matches_plain(cuda, bl, q, short):
+    """M1 fused with K3 (one CTA a query, a warp a block) over a rank's
+    stack of bl blocks (torch_tile_cases.elect_case: n_valid from 0 to T,
+    an id in block 0 and the last block, block 0's row 0, misses) against
+    the plain election over the plain search: the packed keys equal,
+    one wrapper call, a __global__ a 64 blocks (130: three, the later two
+    folding into the first's keys). `short`: n_steps below
+    bit_length(n_valid), the lockstep route; and a stack of misses only."""
+    case = elect_case(3 + bl, bl, q=q)
+    ids, nv, qs = (torch.from_numpy(case[k]).to(cuda) for k in ("ids", "n_valid", "queries"))
+    steps = 3 if short else ids.shape[1].bit_length()
+    kernels.reset_counts()
+    got = kernels.find_elect(ids, qs, nv, steps, case["base"])
+    assert kernels.LAUNCHES["find_elect"] == 1 and kernels.LAUNCHES["find"] == 0
+    assert kernels.grid_launches()["find_elect"] == -(-bl // kernels.FIND_BLOCKS)
+    want = FD._find_elect_plain(FD._bisect_plain(ids, qs, nv, steps), case["base"])
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    if not short:
+        assert (got >= 0).sum() >= q - q // 4
+        if bl > 1:  # the id in block 0 and the last block: the last wins
+            assert int(got[1]) >> 32 == case["base"] + bl - 1
+    miss = elect_case(3 + bl, bl, q=q, misses_only=True)
+    qm = torch.from_numpy(miss["queries"]).to(cuda)
+    assert (kernels.find_elect(ids, qm, nv, steps, case["base"]) == -1).all()
+
+
+def test_ts_body_one_k4_launch(cuda):
+    """M4's mesh body with two resource conditions over 3 stacked blocks
+    (a 1x1 mesh on the card): one K4 call and one __global__ for both
+    span@ columns, no torch.stack; the fold equals the CPU port's."""
+    from tempo_tpu_torch.parallel.timeseries import sharded_timeseries
+
+    rng = np.random.default_rng(16)
+    cols, n_spans, _ = _stacked(rng, B=3)
+    cols["res.namespace_id"] = rng.integers(-1, 4, cols["res.service_id"].shape).astype(np.int32)
+    conds = (F.Cond("res", "res.service_id", "eq"), F.Cond("res", "res.namespace_id", "eq"),
+             F.Cond("res", "res.service_id", "ne"))
+    tree = ("or", ("and", ("cond", 0), ("cond", 1)), ("cond", 2))
+    operands = [F.Operands.build([(0, b % 3, 0, 0.0, 0.0), (0, 1, 0, 0.0, 0.0),
+                                  (0, 4, 0, 0.0, 0.0)]) for b in range(3)]
+    gid = rng.integers(-1, 5, (3, cols["span.start_ms"].shape[1])).astype(np.int32)
+    args = (tree, conds, operands, cols, n_spans, np.zeros(3, np.int32), gid, None, None, 10_000,
+            7, 5)
+    stack = torch.stack
+    calls = []
+    try:
+        torch.stack = lambda *a, **k: calls.append(1) or stack(*a, **k)
         kernels.reset_counts()
-        best = kernels.find_elect(rows, base)
-        assert torch.equal(best, FD._find_elect_plain(rows, base))
-        row = kernels.find_elect(rows, base, best)
-        assert torch.equal(row, FD._find_elect_plain(rows, base, best))
-        assert kernels.LAUNCHES["find_elect"] == 2
+        got = sharded_timeseries(Mesh(1, 1, cuda), *args)
+    finally:
+        torch.stack = stack
+    assert kernels.LAUNCHES["res_to_span"] == 1 and kernels.grid_launches()["res_to_span"] == 1
+    assert not calls
+    want = sharded_timeseries(Mesh(1, 1, "cpu"), *args)
+    assert int(want[0].sum()) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_mq_partial_combine_match_plain_and_b5a(cuda):
@@ -283,15 +333,20 @@ def test_host_entries_on_nccl_world_1(cuda, tmp_path):
     backend, traces = _store(3)
     db = _db(backend, cuda)
     blocks = [db.open_block(m) for m in db.metas(TENANT)]
+    ids = [tid for batch in traces for tid, _ in batch[::9]] + [b"\x05" * 16]
+    q = np.asarray([S.trace_id_to_codes(t) for t in ids], np.int32)
+    codes = [b.trace_index["trace.id_codes"] for b in blocks]
+    want_elect = sharded_find(Mesh(1, 1, "cpu"), codes, q)  # the CPU port, no group
     mesh = launch.init_controller(1, f"file://{tmp_path}/pg", "nccl", cuda, timeout_s=60)
     try:
         assert mesh.backend == "nccl" and db.mesh is mesh and db._batch_mesh() is None
-        ids = [tid for batch in traces for tid, _ in batch[::9]] + [b"\x05" * 16]
-        q = np.asarray([S.trace_id_to_codes(t) for t in ids], np.int32)
-        codes = [b.trace_index["trace.id_codes"] for b in blocks]
         want_rows = FD.lookup_ids_blocks_cached(blocks, q, cuda)
         np.testing.assert_array_equal(sharded_find_rows(mesh, codes, q), want_rows)
+        kernels.reset_counts()
         elect = sharded_find(mesh, codes, q)
+        assert kernels.LAUNCHES["find_elect"] == 1 and kernels.LAUNCHES["find"] == 0
+        assert kernels.grid_launches()["find_elect"] == 1
+        np.testing.assert_array_equal(elect, want_elect)
         hit = (want_rows >= 0).any(axis=0)
         assert (elect[~hit] == -1).all() and hit.sum() == len(ids) - 1
         for qi in np.nonzero(hit)[0]:
@@ -363,9 +418,17 @@ def test_gloo_2x2_on_one_card(cuda, tmp_path):
                   for x in METRICS]
         routes = {k: v - r0.get(k, 0) for k, v in BX.routing_counts().items()
                   if v != r0.get(k, 0)}
+        id_codes = [db.open_block(m).trace_index["trace.id_codes"] for m in db.metas(TENANT)]
+        q = np.asarray([S.trace_id_to_codes(t) for t in ids], np.int32)
+        kernels.reset_counts()
+        elect = sharded_find(mesh, id_codes, q)  # rank 0's launches: one fused M1
+        elect_launches = (kernels.LAUNCHES["find_elect"], kernels.LAUNCHES["find"])
     finally:
         codes = launch.shutdown(mesh, procs, join_timeout_s=60)
     assert codes == [0, 0, 0]
+    assert elect_launches == (1, 0)
+    np.testing.assert_array_equal(elect, sharded_find(Mesh(1, 1, "cpu"), id_codes, q))
+    assert (elect[:, 0] >= 0).sum() == len(ids) - 2  # the absent id, twice
     # the CPU answers, without a mesh (the group is gone)
     cpu = _db(backend, "cpu")
     want = cpu.find_in_blocks_multi([(TENANT, t, cpu.metas(TENANT)) for t in ids])

@@ -3,8 +3,8 @@
 CPU, against the reference's shard_map programs on a mesh of the same
 (dp, sp): block counts that do not split over the mesh, an id held by
 two blocks (the higher wins the elected form), misses and empty inputs,
-bit for bit; M1's plain version against the reference's per-shard
-arithmetic; and the port's TempoDB, whose finds take the sharded route
+bit for bit; M1's plain version (the packed key) against the
+reference's per-shard arithmetic; and the port's TempoDB, whose finds take the sharded route
 on a mesh as the reference's do."""
 
 import dataclasses
@@ -24,7 +24,7 @@ from tempo_tpu.parallel.find import sharded_find_rows as r_find_rows
 from tempo_tpu.util.testdata import make_traces as r_make_traces
 from tempo_tpu_torch.block.bloom import ShardedBloom
 from tempo_tpu_torch.db import TempoDB, TempoDBConfig
-from tempo_tpu_torch.ops.find import _find_elect_plain
+from tempo_tpu_torch.ops.find import _find_elect_plain, decode_keys
 from tempo_tpu_torch.parallel import sharded_bloom_union, sharded_find, sharded_find_rows
 
 TENANT = "mesh-find"
@@ -134,22 +134,29 @@ def test_tempodb_finds_take_the_sharded_route(meshes, tmp_path):
 
 
 def test_find_elect_plain_matches_reference_arithmetic():
-    """M1's plain version against tempo_tpu/parallel/find.py:58-66 run in
-    jnp on one shard's rows (no collective: the shard is the mesh)."""
+    """M1's plain version (the packed key a query, decoded) against
+    tempo_tpu/parallel/find.py:44-64 run in jnp on one shard's rows (no
+    collective: the shard is the mesh); and two shards' keys maxed (the
+    all_reduce) against the reference's arithmetic over both shards'
+    rows."""
     rng = np.random.default_rng(4)
-    for bl, q, base in ((1, 5, 0), (3, 8, 6), (4, 16, 12)):
-        sids = np.where(rng.random((bl, q)) < 0.4, rng.integers(0, 500, (bl, q)), -1)
-        sids = sids.astype(np.int32)
-        gblock = base + jnp.arange(bl, dtype=jnp.int32)[:, None]
+
+    def reference(sids, base):
+        gblock = base + jnp.arange(sids.shape[0], dtype=jnp.int32)[:, None]
         blk = jnp.where(sids >= 0, gblock, -1)
         best = jnp.max(blk, axis=0)
         row = jnp.max(jnp.where(blk == best[None, :], sids, -1), axis=0)
-        rows = torch.from_numpy(sids)
-        got_best = _find_elect_plain(rows, base)
-        np.testing.assert_array_equal(got_best.numpy(), np.asarray(best))
-        got_row = _find_elect_plain(rows, base, got_best)
-        np.testing.assert_array_equal(got_row.numpy(), np.asarray(row))
-        # a winner held elsewhere gives -1 here
-        other = torch.full((q,), base + bl + 3, dtype=torch.int32)
-        assert (_find_elect_plain(rows, base, other) == -1).all()
+        return np.stack([np.asarray(best), np.asarray(row)], axis=-1)
 
+    for bl, q, base in ((1, 5, 0), (3, 8, 6), (4, 16, 12)):
+        sids = np.where(rng.random((bl, q)) < 0.4, rng.integers(0, 500, (bl, q)), -1)
+        sids = sids.astype(np.int32)
+        keys = _find_elect_plain(torch.from_numpy(sids), base)
+        assert keys.dtype == torch.int64
+        np.testing.assert_array_equal(decode_keys(keys.numpy()), reference(sids, base))
+        # a second shard of blocks base + bl ..: its higher blocks win the max
+        other = np.where(rng.random((2, q)) < 0.3, rng.integers(0, 500, (2, q)), -1)
+        other = other.astype(np.int32)
+        both = torch.maximum(keys, _find_elect_plain(torch.from_numpy(other), base + bl))
+        np.testing.assert_array_equal(decode_keys(both.numpy()),
+                                      reference(np.concatenate([sids, other]), base))

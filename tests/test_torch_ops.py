@@ -153,11 +153,17 @@ def test_stage_every_column_matches_reference(ref_block, groups):
 
 
 def test_res_to_span_matches_reference():
+    """K4 on one column, and as one row of the many-column call (the form
+    staging and the mesh fold take)."""
     rng = np.random.default_rng(8)
     res = rng.integers(-5, 1000, 1024).astype(np.int32)
     idx = rng.integers(-3, 1100, 4096).astype(np.int32)  # past the end: clamped
+    want = np.asarray(RST._res_to_span(res, idx))
     got = ST.res_to_span(torch.from_numpy(res), torch.from_numpy(idx))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(RST._res_to_span(res, idx)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    many = ST.res_to_span_many([torch.from_numpy(res)], torch.from_numpy(idx))
+    assert many.shape == (1, 4096)
+    np.testing.assert_array_equal(many[0].numpy(), want)
 
 
 def test_staged_from_numpy_round_trip():

@@ -307,3 +307,58 @@ REMAP_SEGMENTS = {
     "past_smem": ((30_001, 6), 49_153),
     "seventy_columns": (tuple(range(70)), 300),
 }
+
+
+# K4's shapes (csrc/stage.cu): (Bl or None for one (S,) row, S, n_res, C).
+# "phase4": chip_smoke's phase 4 (a table of 1,024, 2^20 spans); "m4":
+# M4's stacked fold; "odd": S off a multiple of 4 (spans one at a time);
+# "odd_stacked": quads cut by a block's row; "big_table": a table of
+# 20,000 entries; "chunked": more columns than a launch carries
+# (RES_COLS = 8)
+RES_SHAPES = {"phase4": (None, 1 << 20, 1024, 1), "phase4_two": (None, 1 << 20, 1024, 2),
+              "m4": (3, 1 << 20, 1024, 1), "small": (None, 4096, 777, 3),
+              "odd": (None, 4097, 777, 3), "odd_stacked": (4, 4097, 300, 2),
+              "big_table": (None, 65536, 20000, 1), "chunked": (2, 8192, 100, 10)}
+
+
+def res_case(seed: int, bl, S: int, n_res: int, C: int) -> tuple:
+    """C resource tables of n_res codes (PAD_I32 and -1 among them), one a
+    block where bl is set ((bl, n_res) each), and res_idx (S,) or (bl, S)
+    in [-3, n_res + 50): negative (no resource) and past the table
+    (clamped)."""
+    rng = np.random.default_rng(seed)
+    shape = (n_res,) if bl is None else (bl, n_res)
+    tables = [rng.integers(-1, 1 << 20, shape).astype(np.int32) for _ in range(C)]
+    for t in tables:
+        t.reshape(-1)[:: 97] = PAD_I32
+    idx = rng.integers(-3, n_res + 50, (S,) if bl is None else (bl, S)).astype(np.int32)
+    return tables, idx
+
+
+def elect_case(seed: int, bl: int, T: int = 256, q: int = 40, misses_only: bool = False) -> dict:
+    """A rank's stack of bl sorted (T, 4) indexes of the global blocks
+    base .. base + bl - 1 (n_valid from 0 to T, pad rows past it), queries
+    of their rows (one of them held by the first and the last block, so
+    the higher must win; block 0's row 0) and misses; or misses only."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((bl, T, 4), 2**31 - 1, np.int32)
+    nv = rng.integers(0, T + 1, bl).astype(np.int32)
+    nv[0] = T
+    for b in range(bl):
+        a = np.unique(rng.integers(-(2**31), 2**31 - 1, (int(nv[b]), 4), dtype=np.int64)
+                      .astype(np.int32), axis=0)
+        nv[b] = a.shape[0]
+        ids[b, : nv[b]] = a
+    if bl > 1 and nv[-1] > 0:  # the last block's first row also in block 0
+        one = np.concatenate([ids[0, : nv[0] - 1], ids[-1, :1]])
+        ids[0, : nv[0]] = one[np.lexsort(one.T[::-1])]
+    misses = rng.integers(-(2**31), 2**31 - 1, (q // 4, 4), dtype=np.int64).astype(np.int32)
+    if misses_only:
+        queries = misses
+    else:
+        full = [b for b in range(bl) if nv[b] > 0]
+        blocks = rng.choice(full, q - q // 4 - 2)
+        rows = [rng.integers(0, nv[b]) for b in blocks]
+        queries = np.concatenate([ids[0, :1], ids[-1, :1], ids[blocks, rows], misses])
+    return {"ids": ids, "n_valid": nv, "queries": queries.astype(np.int32),
+            "base": int(seed % 5) * bl}
