@@ -135,15 +135,19 @@ Phases, in order (any failure raises; no CPU fallback):
                (routing counted by reason) and equal phases 5, 8 and 10 and
                run 1's answers, then the step at 2x2; run 1's sharded
                searches (sp = 1) take M7 and M8 in one launch
-               (search_fused), run 2's (sp = 2) M7, the sum, then M8;
-               each sharded find and step one M1 launch (K3's search
-               and the election) and no K3 on rank 0;
-               then M1-M8 and the fused route against their plain
+               (search_fused) and no M6 (no pack, no gather), run 2's
+               (sp = 2) M7, the sum, then M8, and a pack and a packed
+               struct read a struct node; each sharded find and step one
+               M1 launch (K3's search and the election) and no K3 on
+               rank 0; then M1-M8 and the fused route against their plain
                versions at the shapes the runs gave them (M1 at run 1's,
                beside K3 then the old two stages' arithmetic; M4 on each
-               of its routes, one cooperative __global__ a fold), M7
-               beside torch.segment_reduce, and the device µs of M1, M4,
-               M7, M8 and the fused route queued
+               of its routes, one cooperative __global__ a fold; M6's
+               pack and K1's struct pass over the packed mask on run 1's
+               `>` node, split as run 2's two sp shards and whole), M7
+               beside torch.segment_reduce,
+               and the device µs of M1, M4, M6, M7, M8 and the fused
+               route queued
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -1888,8 +1892,7 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             search1_s = time.perf_counter() - t0
             del groups, want_k1
             c_search = counts.take("run 1: 8 sharded searches",
-                                   ("filter", "attr_partial", "mask_pack", "mask_unpack",
-                                    "search_fused"))
+                                   ("filter", "attr_partial", "search_fused"))
             if c_search["search_fused"] != len(K1_QUERIES) or c_search["search_partial"] or \
                     c_search["search_finish"]:
                 raise AssertionError(f"run 1 (sp = 1): M7 and M8 not fused {nonzero(c_search)}")
@@ -1909,6 +1912,10 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                 stacked1.append(got)
             stacked1_s = time.perf_counter() - t0
             c_stacked = counts.take("run 1: search_blocks_device", ("filter", "search_fused"))
+            for what, c in (("8 sharded searches", c_search), ("stacked searches", c_stacked)):
+                if c["mask_pack"] or c["struct_packed"]:  # sp = 1 gathers nothing
+                    raise AssertionError(f"run 1 (sp = 1): M6 launched in the {what} "
+                                         f"{nonzero(c)}")
             log(f"[mesh run 1] search_blocks_device of the 10 searches: {stacked1_s:.2f} s, "
                 f"equal to phase 6; wrapper calls {nonzero(c_stacked)}")
             # the per-block route's answers for the queries run 2 refuses
@@ -2021,8 +2028,11 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             want_routed = [label not in MESH_SEARCH_FALLBACK
                            for label, _ in K1_QUERIES + [("", "")] * 2]
             c_search2 = counts.take("run 2: 10 searches through TempoDB",
-                                    ("filter", "attr_partial", "mask_pack", "mask_unpack",
+                                    ("filter", "attr_partial", "mask_pack", "struct_packed",
                                      "search_partial", "search_finish"))
+            if c_search2["mask_pack"] != c_search2["struct_packed"]:
+                raise AssertionError(f"run 2 (sp = {MESH_SP}): a pack a struct node and its "
+                                     f"packed struct read expected {nonzero(c_search2)}")
             if c_search2["search_fused"]:
                 raise AssertionError(f"run 2 (sp = {MESH_SP}): the fused route launched "
                                      f"{nonzero(c_search2)}")
@@ -2242,10 +2252,13 @@ def phase_15_search_table(shards: dict, row) -> dict:
     """M5-M8 against their plain versions on the shards of run 1's
     sharded searches (10 blocks at full width, one rank): M5 on the
     `span.attr` query (and an `any` leaf of its key on the same rows),
-    M6 on the `>` query's lhs slot, M7 and M8 on the span query, then
-    the fused route of both on it. No one PyTorch call computes any of
-    them but M7 (torch.segment_reduce a slot). Returns M5's calls by leaf
-    and M7's, M8's and the fused route's calls."""
+    M6's pack of the `>` query's lhs slot and K1's struct pass reading
+    it packed (on the slot's two sp = 2 halves, as run 2 runs them, and
+    whole), M7 and M8 on the span query, then the fused
+    route of both on it. No one PyTorch call computes any of them but M7
+    (torch.segment_reduce a slot). Returns M5's calls by leaf, M6's (and
+    the struct pass over the byte mask beside the packed one) and M7's,
+    M8's and the fused route's calls."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import filter as F
     from tempo_tpu_torch.ops import meshsearch as MS
@@ -2282,7 +2295,7 @@ def phase_15_search_table(shards: dict, row) -> dict:
               rows_real + n_key * 2)
     log(f"[M5] {bl} blocks, {rows_real} attr rows ({n_key} of the leaf's key) into {n_seg} "
         f"owners: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
-    row("attr_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    row("attr_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:122-170", err, ms, pms, b)
     # the sweep: an `any` leaf of the same key over the same shard rows
     # (each key row a hit: no vtype or value read)
     anyc = F.Cond("sattr", "any", "exists")
@@ -2302,24 +2315,76 @@ def phase_15_search_table(shards: dict, row) -> dict:
     m5_splits = {f"M5 by leaf, phase 15's shard ({bl} x {n_seg} owners, {rows_real} rows)": {
         c.col: functools.partial(m5_call, s_, j) for c, s_, j in ((c, sh, i), (anyc, sh_any, 0))}}
 
-    # M6 -- the `>` node's lhs mask, as the struct step packs it
+    # M6 -- the `>` node's lhs mask packed, then K1's shard struct pass
+    # reading the packed row (M6's unpack), each against its plain version
+    # (the struct step over the unpacked row): at run 2's shape (sp = 2:
+    # each shard's half-width slot view, the two packed halves joined as
+    # the all_gather joins them, each shard's pass from its row0), then
+    # at run 1's (the whole block's slot view, row0 0), which is timed.
+    # Every output slot is filled with 7 first: a pass that leaves rows
+    # unwritten fails the check
     sh = shards["child"]
-    lslot = next(st[2] for st in sh.prog.steps if st[0] == "struct")
+    _, op, lslot, rslot, oslot = next(st for st in sh.prog.steps if st[0] == "struct")
+    pidx = sh.cols["span.parent_idx"]
+    half = sh.sl // 2
+    halves = [sh.slots[:, :, k * half:(k + 1) * half].clone() for k in (0, 1)]
+    parts = []
+    for k, sl_k in enumerate(halves):
+        m_k = sl_k[:, lslot]
+        parts.append(kernels.mask_pack(m_k))
+        check(parts[-1], MS._mask_pack_plain(m_k), f"M6 pack, sp = 2 shard {k}")
+    pk_g = torch.cat(parts, dim=1)
+    for k, sl_k in enumerate(halves):
+        pidx_k = pidx if op != ">" else pidx[:, k * half:(k + 1) * half].contiguous()
+        sl_k[:, oslot].fill_(7)
+        kernels.filter_struct_shard(op, pk_g, sl_k, rslot, oslot, pidx_k, sh.n_spans, k * half,
+                                    packed=True)
+        want = F._struct_step_plain(op, MS._mask_unpack_plain(pk_g), sl_k[:, rslot] != 0, pidx_k,
+                                    sh.n_spans_t, k * half)
+        check(sl_k[:, oslot] != 0, want, f"K1's packed struct pass, sp = 2 shard {k}")
+        check(want, sh.slot(oslot)[:, k * half:(k + 1) * half] != 0,
+              f"the sp = 2 shard {k}'s `{op}` against run 1's answer")
+        if not want.any():
+            raise AssertionError(f"the `{op}` node matched nothing on sp = 2 shard {k}; the "
+                                 "packed read's check is vacuous")
     m = sh.slot(lslot)
     pk = kernels.mask_pack(m)
-    err = check(pk, MS._mask_pack_plain(m), "M6 pack")
-    err = check(kernels.mask_unpack(pk), MS._mask_unpack_plain(pk), "M6 unpack")
-    check(kernels.mask_unpack(pk), m != 0, "M6's round trip")
+    err = check(pk, MS._mask_pack_plain(m), "M6 pack") + check(pk, pk_g, "M6 pack of the halves")
+    m6_split = {"mask_pack": functools.partial(kernels.mask_pack, m)}
+    ms, pms = cuda_ms(m6_split["mask_pack"]), cuda_ms(lambda: MS._mask_pack_plain(m))
     nrow = m.shape[0] * m.shape[1]
     b = bound(nrow + nrow // 8, nrow)
-    for name, fn, plain in (("mask_pack", lambda: kernels.mask_pack(m),
-                             lambda: MS._mask_pack_plain(m)),
-                            ("mask_unpack", lambda: kernels.mask_unpack(pk),
-                             lambda: MS._mask_unpack_plain(pk))):
-        ms, pms = cuda_ms(fn), cuda_ms(plain)
-        log(f"[M6 {name}] {tuple(m.shape)}: {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{b[0]:.5f} ms")
-        row(name, "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    row("mask_pack", "meshsearch.cu", "tempo_tpu/parallel/search.py:175-189", err, ms, pms, b)
+    work = sh.slots.clone()
+
+    def packed_pass():
+        kernels.filter_struct_shard(op, pk, work, rslot, oslot, pidx, sh.n_spans, 0, packed=True)
+
+    def plain_pass():
+        return F._struct_step_plain(op, MS._mask_unpack_plain(pk), work[:, rslot] != 0, pidx,
+                                    sh.n_spans_t, 0)
+
+    want = plain_pass()
+    work[:, oslot].fill_(7)
+    packed_pass()
+    err = check(work[:, oslot] != 0, want, "K1's struct pass over the packed lhs mask")
+    if not want.any():
+        raise AssertionError("the `>` node matched nothing; the packed read's check is vacuous")
+    ms_s, pms_s = cuda_ms(packed_pass), cuda_ms(plain_pass, reps=3, warm=1)
+    # bytes: the packed row, the rhs and output rows, the parent rows
+    b_s = bound(nrow // 8 + nrow * 2 + pidx.numel() * 4, nrow)
+    row("struct_packed", "filter.cu", "tempo_tpu/parallel/search.py:175-189", err, ms_s, pms_s,
+        b_s)
+    m6_split["struct_packed"] = packed_pass
+    m6_split["struct pass over the byte mask"] = functools.partial(
+        kernels.filter_struct_shard, op, m, work, rslot, oslot, pidx, sh.n_spans, 0)
+    smi_m6 = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    log(f"[M6] {tuple(m.shape)} (row stride {m.stride(0)}), `{op}` node, {smi_m6}: pack "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms (both equal on run 2's two "
+        f"sp = 2 shards); the packed struct pass {ms_s:.4f} ms, plain (unpack, then the "
+        f"struct step) {pms_s:.4f} ms, bound {b_s[0]:.5f} ms")
+    m5_splits[f"M6, phase 15's `{op}` node ({tuple(m.shape)}; {smi_m6})"] = m6_split
 
     # M7, M8 -- the span query's partial counts, then its trace program;
     # then both in one launch, as a one-rank sp axis runs them
@@ -2356,7 +2421,8 @@ def phase_15_search_table(shards: dict, row) -> dict:
               spans * max(n_tr, 1))
     log(f"[M7] {bl} blocks, {spans} spans, {n_tr} tracify slots: {ms:.4f} ms, plain {pms:.4f} ms, "
         f"segment_reduce x {len(segs)} {lms:.4f} ms, bound {b[0]:.5f} ms")
-    row("search_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b, lms)
+    row("search_partial", "meshsearch.cu", "tempo_tpu/parallel/search.py:272-290", err, ms, pms, b,
+        lms)
     code = sh.prog.code(sh.prog.trace_off)
 
     def m8():
@@ -2373,7 +2439,7 @@ def phase_15_search_table(shards: dict, row) -> dict:
     ms, pms = cuda_ms(m8), cuda_ms(m8_plain)
     b = bound(counts.numel() * 4 + got[0].numel() * 5, counts.numel())
     log(f"[M8] {bl} x {sh.nt} traces: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
-    row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    row("search_finish", "meshsearch.cu", "tempo_tpu/parallel/search.py:292-322", err, ms, pms, b)
 
     def fused():
         return kernels.search_fused(sh.prog, sh.bufs[0], sh.descs, sh.slots, span_off,
@@ -2391,7 +2457,7 @@ def phase_15_search_table(shards: dict, row) -> dict:
               spans * max(n_tr, 1))
     log(f"[M7+M8 fused] {bl} blocks, {spans} spans into {bl} x {sh.nt} traces: {ms:.4f} ms, "
         f"plain {pms:.4f} ms, bound {b[0]:.5f} ms")
-    row("search_fused", "meshsearch.cu", "tempo_tpu/parallel/search.py:333", err, ms, pms, b)
+    row("search_fused", "meshsearch.cu", "tempo_tpu/parallel/search.py:272-322", err, ms, pms, b)
     # each call holds sh: descs are the addresses of its descriptor tables
     m5_splits[f"M7, M8 and the fused route, phase 15's shard ({bl} x {sh.nt} traces, {spans} "
               f"spans)"] = {"search_partial": m7, "search_finish": m8, "search_fused": fused}
@@ -2498,6 +2564,7 @@ def k2_split(mask, key, counts, k_search: int) -> None:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
               file=sys.stderr)
@@ -3386,7 +3453,7 @@ def main() -> int:
         del splits
         del p15["args"], p15["shards"]
         for name in ("find_elect", "mq_partial", "mq_combine", "timeseries_stacked",
-                     "attr_partial", "mask_pack", "mask_unpack", "search_partial",
+                     "attr_partial", "mask_pack", "struct_packed", "search_partial",
                      "search_finish", "search_fused"):
             launches[name] = p15["counts"][name]
         for row in table:
@@ -3406,6 +3473,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    log(f"[smoke] {time.perf_counter() - t_main:.1f} s from start to the kernel line")
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

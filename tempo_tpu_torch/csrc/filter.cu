@@ -25,6 +25,11 @@
 // and resource leaves arrive as mask slots (meshsearch.cu, M5), and the
 // struct kernels read the lhs mask (and, for `>>` and `~`, the parent
 // table) gathered over the sp axis, writing the shard's rows from row0.
+// Where the lhs mask crossed the sp axis bit-packed (M6's pack before the
+// all_gather), tt_filter_struct_packed runs the same kernels reading bit
+// p of the packed row (lhs_at<true>) where tt_filter_struct reads byte
+// lm[p]: no (Bl, S) byte mask is unpacked between the collective and the
+// struct pass (tempo_tpu/parallel/search.py:175-189's unpackbits).
 // The trace pass is meshsearch.cu's M7 and M8, split at a collective.
 //   trace pass  one thread per trace over [span_off[t], span_off[t+1]):
 //               the trace program (a tracify leaf asks whether any span
@@ -90,8 +95,17 @@ __global__ void span_pass_kernel(const int32_t* __restrict__ prog, int len,
     out[s] = st & 1;
 }
 
+// the lhs mask at row p (0 <= p < nb): byte lm[p], or, PACKED, bit p of
+// the row packed 8 to a byte, row 8j at bit 7 of byte j (np.packbits)
+template <bool PACKED>
+__device__ __forceinline__ bool lhs_at(const uint8_t* __restrict__ lm, int p) {
+    if (PACKED) return (__ldg(lm + (p >> 3)) >> (7 - (p & 7))) & 1;
+    return lm[p] != 0;
+}
+
 // rm, pidx and out hold the n_out rows from global row row0; lm all nb
 // (one block: row0 0 and n_out nb; a shard: lm gathered over the mesh)
+template <bool PACKED>
 __global__ void struct_child_kernel(const uint8_t* __restrict__ lm, const uint8_t* __restrict__ rm,
                                     const int32_t* __restrict__ pidx, uint8_t* __restrict__ out,
                                     int nb, int n_spans, int row0, int n_out) {
@@ -99,9 +113,10 @@ __global__ void struct_child_kernel(const uint8_t* __restrict__ lm, const uint8_
     if (s >= n_out) return;
     int p = pidx[s];
     bool has_p = p >= 0 && row0 + s < n_spans;
-    out[s] = rm[s] && has_p && lm[tt_clamp(p, 0, nb - 1)];
+    out[s] = rm[s] && has_p && lhs_at<PACKED>(lm, tt_clamp(p, 0, nb - 1));
 }
 
+template <bool PACKED>
 __global__ void desc_init_kernel(const uint8_t* __restrict__ lm, const int32_t* __restrict__ pidx,
                                  uint8_t* __restrict__ acc, int32_t* __restrict__ ptr,
                                  int nb, int n_spans) {
@@ -110,7 +125,7 @@ __global__ void desc_init_kernel(const uint8_t* __restrict__ lm, const int32_t* 
     int p = pidx[s];
     bool has_p = p >= 0 && s < n_spans;
     int safe = tt_clamp(p, 0, nb - 1);
-    acc[s] = has_p && lm[safe];
+    acc[s] = has_p && lhs_at<PACKED>(lm, safe);
     ptr[s] = has_p ? safe : -1;
 }
 
@@ -134,17 +149,19 @@ __global__ void desc_final_kernel(const uint8_t* __restrict__ rm, const uint8_t*
     out[s] = rm[s] && acc[row0 + s];
 }
 
+template <bool PACKED>
 __global__ void sib_count_kernel(const uint8_t* __restrict__ lm, const int32_t* __restrict__ pidx,
                                  int32_t* __restrict__ cnt, int32_t* __restrict__ orphan_flag,
                                  int nb, int n_spans) {
     int s = blockIdx.x * blockDim.x + threadIdx.x;
     if (s >= nb) return;
-    if (!lm[s] || s >= n_spans) return;
+    if (!lhs_at<PACKED>(lm, s) || s >= n_spans) return;
     int p = pidx[s];
     if (p >= 0) atomicAdd(&cnt[tt_clamp(p, 0, nb - 1)], 1);
     if (p == -2) *orphan_flag = 1;
 }
 
+template <bool PACKED>
 __global__ void sib_final_kernel(const uint8_t* __restrict__ lm, const uint8_t* __restrict__ rm,
                                  const int32_t* __restrict__ pidx, const int32_t* __restrict__ cnt,
                                  const int32_t* __restrict__ orphan_flag, uint8_t* __restrict__ out,
@@ -155,7 +172,7 @@ __global__ void sib_final_kernel(const uint8_t* __restrict__ lm, const uint8_t* 
     int p = pidx[g];
     bool valid = g < n_spans;
     bool has_p = p >= 0 && valid;
-    bool l = lm[g] != 0, r = rm[s] != 0;
+    bool l = lhs_at<PACKED>(lm, g), r = rm[s] != 0;
     int sibs = cnt[tt_clamp(p, 0, nb - 1)] - (int)(l && has_p);
     bool orphan = p == -2 && valid;
     out[s] = (r && has_p && sibs > 0) || (r && orphan && *orphan_flag);
@@ -524,37 +541,60 @@ TT_EXPORT int tt_filter_span_pass(const int32_t* prog, int len, const long long*
 // '>') hold n_out rows from global row row0 -- a mesh shard's rows
 // against the masks and parent table gathered over its sp axis
 // (tempo_tpu/parallel/search.py:203-256). One block: row0 0, n_out nb.
+// PACKED: lm is nb / 8 bytes, the mask packed 8 rows to a byte; its
+// launches count in slot 1 (kernels.py "struct_packed").
+template <bool PACKED>
+static int filter_struct(int op, const uint8_t* lm, const uint8_t* rm, uint8_t* out,
+                         const int32_t* pidx, int nb, int n_spans, int n_passes,
+                         int32_t* scratch_i32, uint8_t* scratch_u8, int row0, int n_out,
+                         cudaStream_t st) {
+    const int slot = PACKED ? 1 : 0;
+    int g = tt_blocks(nb, 256), go = tt_blocks(n_out, 256);
+    if (op == 0) {
+        struct_child_kernel<PACKED><<<go, 256, 0, st>>>(lm, rm, pidx, out, nb, n_spans, row0,
+                                                        n_out);
+        TT_LAUNCHED_SLOT(slot);
+    } else if (op == 1) {
+        uint8_t* acc[2] = {scratch_u8, scratch_u8 + nb};
+        int32_t* ptr[2] = {scratch_i32, scratch_i32 + nb};
+        desc_init_kernel<PACKED><<<g, 256, 0, st>>>(lm, pidx, acc[0], ptr[0], nb, n_spans);
+        TT_LAUNCHED_SLOT(slot);
+        for (int i = 0; i < n_passes; ++i) {
+            desc_step_kernel<<<g, 256, 0, st>>>(acc[i & 1], ptr[i & 1], acc[(i + 1) & 1],
+                                                ptr[(i + 1) & 1], nb);
+            TT_LAUNCHED_SLOT(slot);
+        }
+        desc_final_kernel<<<go, 256, 0, st>>>(rm, acc[n_passes & 1], out, row0, n_out);
+        TT_LAUNCHED_SLOT(slot);
+    } else {
+        cudaError_t e = cudaMemsetAsync(scratch_i32, 0, (size_t)(nb + 1) * sizeof(int32_t), st);
+        if (e != cudaSuccess) return (int)e;
+        sib_count_kernel<PACKED><<<g, 256, 0, st>>>(lm, pidx, scratch_i32, scratch_i32 + nb, nb,
+                                                    n_spans);
+        TT_LAUNCHED_SLOT(slot);
+        sib_final_kernel<PACKED><<<go, 256, 0, st>>>(lm, rm, pidx, scratch_i32, scratch_i32 + nb,
+                                                     out, nb, n_spans, row0, n_out);
+        TT_LAUNCHED_SLOT(slot);
+    }
+    return (int)cudaGetLastError();
+}
+
 TT_EXPORT int tt_filter_struct(int op, const uint8_t* lm, const uint8_t* rm, uint8_t* out,
                                const int32_t* pidx, int nb, int n_spans, int n_passes,
                                int32_t* scratch_i32, uint8_t* scratch_u8, int row0, int n_out,
                                void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    int g = tt_blocks(nb, 256), go = tt_blocks(n_out, 256);
-    if (op == 0) {
-        struct_child_kernel<<<go, 256, 0, st>>>(lm, rm, pidx, out, nb, n_spans, row0, n_out);
-        TT_LAUNCHED();
-    } else if (op == 1) {
-        uint8_t* acc[2] = {scratch_u8, scratch_u8 + nb};
-        int32_t* ptr[2] = {scratch_i32, scratch_i32 + nb};
-        desc_init_kernel<<<g, 256, 0, st>>>(lm, pidx, acc[0], ptr[0], nb, n_spans);
-        TT_LAUNCHED();
-        for (int i = 0; i < n_passes; ++i) {
-            desc_step_kernel<<<g, 256, 0, st>>>(acc[i & 1], ptr[i & 1], acc[(i + 1) & 1],
-                                                ptr[(i + 1) & 1], nb);
-            TT_LAUNCHED();
-        }
-        desc_final_kernel<<<go, 256, 0, st>>>(rm, acc[n_passes & 1], out, row0, n_out);
-        TT_LAUNCHED();
-    } else {
-        cudaError_t e = cudaMemsetAsync(scratch_i32, 0, (size_t)(nb + 1) * sizeof(int32_t), st);
-        if (e != cudaSuccess) return (int)e;
-        sib_count_kernel<<<g, 256, 0, st>>>(lm, pidx, scratch_i32, scratch_i32 + nb, nb, n_spans);
-        TT_LAUNCHED();
-        sib_final_kernel<<<go, 256, 0, st>>>(lm, rm, pidx, scratch_i32, scratch_i32 + nb, out, nb,
-                                             n_spans, row0, n_out);
-        TT_LAUNCHED();
-    }
-    return (int)cudaGetLastError();
+    return filter_struct<false>(op, lm, rm, out, pidx, nb, n_spans, n_passes, scratch_i32,
+                                scratch_u8, row0, n_out, (cudaStream_t)stream);
+}
+
+// the same struct pass over an lhs mask packed 8 rows to a byte (nb % 8 == 0)
+TT_EXPORT int tt_filter_struct_packed(int op, const uint8_t* pk, const uint8_t* rm, uint8_t* out,
+                                      const int32_t* pidx, int nb, int n_spans, int n_passes,
+                                      int32_t* scratch_i32, uint8_t* scratch_u8, int row0,
+                                      int n_out, void* stream) {
+    if (nb % 8) return (int)cudaErrorInvalidValue;
+    return filter_struct<true>(op, pk, rm, out, pidx, nb, n_spans, n_passes, scratch_i32,
+                               scratch_u8, row0, n_out, (cudaStream_t)stream);
 }
 
 TT_EXPORT int tt_filter_trace_pass(const int32_t* prog, int len, const long long* desc,

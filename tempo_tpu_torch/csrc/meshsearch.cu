@@ -18,33 +18,42 @@
 //        turns the summed counts into the leaf's span mask slot: > 0 at
 //        the span, or at its clamped span.res_idx, and only for valid
 //        rows. K1 reads that slot as a C_MASK leaf.
-//   M6 mask_pack (slot 1), mask_unpack (slot 2)  the bool lhs mask of a
-//        struct node 8 rows to a byte before the sp all_gather and back
-//        after, in jnp.packbits' big-endian order: bit 7 of byte j is
-//        row 8j (`gather_mask`, search.py:175-189).
-//   M7 search_partial (slot 3)  per (block, trace): the shard's matched
+//   M6 mask_pack (slot 1)  the lhs mask of a struct node 8 rows to a byte
+//        before the sp all_gather, in jnp.packbits' big-endian order:
+//        bit 7 of byte j is row 8j, any nonzero byte a 1 (`gather_mask`,
+//        search.py:175-189). Its unpack is read inside K1's shard struct
+//        pass (filter.cu tt_filter_struct_packed): no byte mask is
+//        written after the collective. An sp axis of one rank gathers
+//        nothing, so it packs nothing (parallel/search.py).
+//   M7 search_partial (slot 2)  per (block, trace): the shard's matched
 //        spans of each tracify slot and of their union (every valid row
 //        when the tree has none), over the trace's offsets clipped to
 //        the shard, or without trace.span_off by atomicAdd at the clamped
 //        span.trace_sid (`seg_reduce`, search.py:272-290). Exact int32,
 //        so any split sums (all_reduce SUM over sp) to the whole block's
 //        counts.
-//   M8 search_finish (slot 4)  the trace program over the summed counts:
+//   M8 search_finish (slot 3)  the trace program over the summed counts:
 //        a tracify leaf is count > 0, a trace condition compares its
 //        block's trace column with that block's operands; trace_mask and
 //        where(trace_mask, union count, 0) (`ev_trace`, search.py:
 //        292-322).
-//   M7 + M8 search_fused (slot 5)  both in one launch where the sp axis
+//   M7 + M8 search_fused (slot 4)  both in one launch where the sp axis
 //        is one rank (nothing to sum between them): M7's tile, then M8's
 //        program on the tile's counts, which never reach device memory.
 //
 // Bound: bytes for all of them. M5 reads each attr row's key once (4 B),
 // the vtype and value only of the rows whose key matches, each owner
-// offset once and writes each count once; M6 moves 9 B a row; M7 reads
+// offset once and writes each count once; M6 moves 9/8 B a row; M7 reads
 // each slot byte once (and the offsets or trace_sid) and writes the
 // counts; M8 reads the counts and the trace columns once; the fused route
-// reads what M7 reads and writes what M8 writes. M6 and M7's trace_sid
-// route are a thread a byte or a span row, as first ported.
+// reads what M7 reads and writes what M8 writes. M7's trace_sid route is
+// a thread a span row, as first ported.
+//
+// M6's pack (mask_pack_kernel) is one launch over a grid sized to the
+// card, a row of CTAs a mask row, a thread an output byte from one 8-byte
+// read-only load folded by a multiply (pack8). A row of Sl % 8 == 0 bytes
+// at a base and stride that are multiples of 8 (a mask slot's view, or a
+// contiguous row) is always so aligned.
 //
 // M7's count (search_tile_kernel, its contract bit for bit
 // `_search_partial_plain`, ops/meshsearch.py, for every row0, shard cut
@@ -299,25 +308,27 @@ __global__ void attr_mask_kernel(const int32_t* __restrict__ cnt, int n_own,
     out[b * out_stride + s] = v && s < n_spans[b] - row0;
 }
 
-__global__ void mask_pack_kernel(const uint8_t* __restrict__ in, long long stride, int bl,
-                                 int nbytes, uint8_t* __restrict__ out) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)bl * nbytes) return;
-    int b = (int)(t / nbytes), j = (int)(t % nbytes);
-    const uint8_t* p = in + b * stride + 8LL * j;
-    unsigned v = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v |= (unsigned)(p[k] != 0) << (7 - k);
-    out[t] = (uint8_t)v;
+// the 8 bytes of x (byte k the row 8j + k) to one byte, row 8j + k at bit
+// 7 - k, any nonzero byte a 1: bit 7 of a byte is set where the byte is
+// nonzero (the low 7 bits plus 0x7F carry into bit 7, never out of the
+// byte), shifted to bit 0; the multiply by 0x8040201008040201 moves byte
+// k's bit to bit 63 - k, where no two of the 64 partial products meet
+__device__ __forceinline__ unsigned pack8(unsigned long long x) {
+    x = (((x & 0x7F7F7F7F7F7F7F7FULL) + 0x7F7F7F7F7F7F7F7FULL) | x) >> 7;
+    x &= 0x0101010101010101ULL;
+    return (unsigned)((x * 0x8040201008040201ULL) >> 56);
 }
 
-__global__ void mask_unpack_kernel(const uint8_t* __restrict__ in, int bl, int nbytes,
-                                   uint8_t* __restrict__ out) {
-    long long n = 8LL * nbytes;
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)bl * n) return;
-    long long b = t / n, s = t % n;
-    out[t] = (in[b * nbytes + s / 8] >> (7 - (int)(s % 8))) & 1;
+// the CTAs of grid row blockIdx.y walk mask row blockIdx.y, a thread a
+// packed byte from one 8-byte read-only load
+__global__ void mask_pack_kernel(const uint8_t* __restrict__ in, long long stride, int nbytes,
+                                 uint8_t* __restrict__ out) {
+    const uint2* row = reinterpret_cast<const uint2*>(in + blockIdx.y * stride);
+    uint8_t* o = out + (long long)blockIdx.y * nbytes;
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < nbytes; j += gridDim.x * blockDim.x) {
+        const uint2 v = __ldg(row + j);
+        o[j] = (uint8_t)pack8(((unsigned long long)v.y << 32) | v.x);
+    }
 }
 
 // the union of the tracify slots at row s (every valid row without one)
@@ -792,18 +803,30 @@ TT_EXPORT int tt_attr_mask(const int32_t* cnt, int n_own, const int32_t* res_idx
     return (int)cudaGetLastError();
 }
 
+#define MP_THREADS 256
+static int mp_ctas = 0;  // the card-sized grid: resident CTAs a SM x SMs
+
+// in and stride multiples of 8 (kernels.mask_pack checks, this checks
+// again): every row's 8-byte loads aligned
 TT_EXPORT int tt_mask_pack(const uint8_t* in, long long stride, int bl, int nbytes, uint8_t* out,
                            void* stream) {
-    mask_pack_kernel<<<tt_blocks((long long)bl * nbytes, 256), 256, 0, (cudaStream_t)stream>>>(
-        in, stride, bl, nbytes, out);
+    if (bl < 1 || bl > 65535 || nbytes < 1 || (((uintptr_t)in) & 7) || (stride & 7))
+        return (int)cudaErrorInvalidValue;
+    if (!mp_ctas) {
+        int dev, sms, per_sm;
+        cudaError_t e;
+        if ((e = cudaGetDevice(&dev)) ||
+            (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mask_pack_kernel,
+                                                               MP_THREADS, 0)))
+            return (int)e;
+        mp_ctas = (per_sm > 1 ? per_sm : 1) * sms;
+    }
+    const int want = (nbytes + MP_THREADS - 1) / MP_THREADS;
+    const int cap = mp_ctas / bl > 1 ? mp_ctas / bl : 1;  // the card's CTAs over the rows
+    mask_pack_kernel<<<dim3(want < cap ? want : cap, bl), MP_THREADS, 0, (cudaStream_t)stream>>>(
+        in, stride, nbytes, out);
     TT_LAUNCHED_SLOT(1);
-    return (int)cudaGetLastError();
-}
-
-TT_EXPORT int tt_mask_unpack(const uint8_t* in, int bl, int nbytes, uint8_t* out, void* stream) {
-    mask_unpack_kernel<<<tt_blocks(8LL * bl * nbytes, 256), 256, 0, (cudaStream_t)stream>>>(
-        in, bl, nbytes, out);
-    TT_LAUNCHED_SLOT(2);
     return (int)cudaGetLastError();
 }
 
@@ -905,7 +928,7 @@ TT_EXPORT int tt_search_partial(const uint8_t* slots, int n_slots, const int32_t
         search_partial_sid_kernel<<<tt_blocks((long long)bl * sl, 256), 256, 0, st>>>(
             slots, n_slots, tslots, n_tr, tsid, n_spans, bl, sl, row0, nt, out);
     }
-    TT_LAUNCHED_SLOT(3);
+    TT_LAUNCHED_SLOT(2);
     return (int)cudaGetLastError();
 }
 
@@ -934,7 +957,7 @@ TT_EXPORT int tt_search_finish(const int32_t* prog, const int32_t* prog_host, in
     unsigned x = tail_tiles(nt), cap = (unsigned)(8 * st_sms / bl > 1 ? 8 * st_sms / bl : 1);
     search_finish_kernel<<<dim3(x < cap ? x : cap, (unsigned)bl), ST_THREADS, dyn,
                            (cudaStream_t)stream>>>(a);
-    TT_LAUNCHED_SLOT(4);
+    TT_LAUNCHED_SLOT(3);
     return (int)cudaGetLastError();
 }
 
@@ -960,6 +983,6 @@ TT_EXPORT int tt_search_fused(const uint8_t* slots, int n_slots, const int32_t* 
         default: e = tail_fused<-1>(a, grid, dyn, st);
     }
     if (e) return e;
-    TT_LAUNCHED_SLOT(5);
+    TT_LAUNCHED_SLOT(4);
     return (int)cudaGetLastError();
 }

@@ -62,7 +62,7 @@ never hidden behind a plain version or another route.
 | timeseries_stacked | csrc/timeseries.cu | tempo_tpu/parallel/timeseries.py:51-131 local (M4) |
 | attr_partial | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:122-170 (M5)      |
 | mask_pack   | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:175-189 (M6)      |
-| mask_unpack | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:175-189 (M6)      |
+| struct_packed | csrc/filter.cu   | tempo_tpu/parallel/search.py:175-189 (M6's unpack, read in K1's shard struct pass) |
 | search_partial | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:272-290 (M7)   |
 | search_finish | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:292-322 (M8)    |
 | search_fused | csrc/meshsearch.cu | tempo_tpu/parallel/search.py:272-322 (M7, M8 at sp = 1) |
@@ -126,8 +126,8 @@ mesh; a collective between the halves):
 | mq_combine  | one per mesh-batched window on every rank      | (NG+1) x 4 B in, 5 B out a trace      | none: a compare, a gather and an all per query |
 | timeseries_stacked | one cooperative fold, then the finish for value folds, per stacked fold on every rank | 13 B a span + the columns | none: index_add_ and two scatter_reduce_ |
 | attr_partial | count (a CTA a tile of owners), then mask, per attr or res leaf of a sharded search on every rank | 4 B an attr row, 8 B a row of the leaf's key, the offsets and counts; 5 B a span row for the mask | none: a compare, a cumsum and two gathers per leaf |
-| mask_pack   | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a sum over a reshaped view   |
-| mask_unpack | one per struct node of a sharded search (bit-packing on) | 9 B a span row                    | none: a shift and a mask over a broadcast view |
+| mask_pack   | one per struct node of a sharded search on an sp axis of 2 or more (bit-packing on) | 9/8 B a span row | none: a shift and a sum over a reshaped view |
+| struct_packed | one per struct node of a sharded search on an sp axis of 2 or more (bit-packing on), K1's struct kernels reading the packed lhs mask | the packed mask, the rhs, parent and output rows once a pass | none: an unpack, then K1's struct gathers |
 | search_partial | one per sharded search on every rank of an sp axis of 2 or more | 1 B a span row a tracify slot + the offsets + the counts | torch.segment_reduce a slot (sum over the clipped offsets); or index_add_ |
 | search_finish | one per sharded search on every rank of an sp axis of 2 or more | the counts and trace columns read, 5 B a trace out | none: the trace program's compares and folds |
 | search_fused | one per sharded search on every rank where sp = 1 (both halves, no counts in device memory) | 1 B a span row a tracify slot + the offsets + 5 B a trace out | none: the two rows above |
@@ -135,7 +135,7 @@ mesh; a collective between the halves):
 K1 on a mesh shard (parallel/search.py) runs its span and struct passes
 through filter_span_shard and filter_struct_shard: each call runs one
 step of the program on every block of the shard and counts one filter
-launch.
+launch, or one struct_packed launch where the lhs mask arrives packed.
 """
 
 from __future__ import annotations
@@ -167,18 +167,18 @@ LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
             "rowgroup": 0, "bloom_union": 0, "bloom_test": 0, "live_filter": 0,
             "live_find": 0, "live_append": 0, "live_patch": 0, "span_reduce": 0,
             "edge_reduce": 0, "find_elect": 0, "mq_partial": 0, "mq_combine": 0,
-            "timeseries_stacked": 0, "attr_partial": 0, "mask_pack": 0, "mask_unpack": 0,
+            "timeseries_stacked": 0, "attr_partial": 0, "mask_pack": 0, "struct_packed": 0,
             "search_partial": 0, "search_finish": 0, "search_fused": 0}
 # source -> its kernels, in the library's launch-counter slot order
-_KERNEL_OF = {"filter": ("filter",), "select": ("select",), "find": ("find", "find_elect"),
-              "stage": ("res_to_span",),
+_KERNEL_OF = {"filter": ("filter", "struct_packed"), "select": ("select",),
+              "find": ("find", "find_elect"), "stage": ("res_to_span",),
               "multiquery": ("multiquery", "mq_select", "mq_partial", "mq_combine"),
               "timeseries": ("timeseries", "timeseries_stacked"), "blockcut": ("remap", "bloom_bits", "rowgroup"),
               "bloom": ("bloom_union", "bloom_test"),
               "livestage": ("live_filter", "live_find", "live_append", "live_patch"),
               "reduce": ("span_reduce", "edge_reduce"),
-              "meshsearch": ("attr_partial", "mask_pack", "mask_unpack", "search_partial",
-                             "search_finish", "search_fused")}
+              "meshsearch": ("attr_partial", "mask_pack", "search_partial", "search_finish",
+                             "search_fused")}
 
 
 class KernelError(RuntimeError):
@@ -193,6 +193,7 @@ _SIGNATURES = {
     "tt_filter_res_pass": ("filter", [_P, _P, _I, _I, _P, _P]),
     "tt_filter_span_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P]),
     "tt_filter_struct": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
+    "tt_filter_struct_packed": ("filter", [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
     "tt_filter_trace_pass": ("filter", [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P]),
     "tt_filter_span_epilogue": ("filter", [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
     "tt_filter_tiles": ("filter", [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
@@ -226,7 +227,6 @@ _SIGNATURES = {
     "tt_attr_partial": ("meshsearch", [_P, _I, _I, _I, _I, _I, _P, _P]),
     "tt_attr_mask": ("meshsearch", [_P, _I, _P, _P, _I, _I, _I, _P, _L, _P]),
     "tt_mask_pack": ("meshsearch", [_P, _L, _I, _I, _P, _P]),
-    "tt_mask_unpack": ("meshsearch", [_P, _I, _I, _P, _P]),
     "tt_search_partial": ("meshsearch", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                                          _P]),
     "tt_search_finish": ("meshsearch", [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
@@ -1584,21 +1584,28 @@ def filter_span_shard(prog, bufs: list, step: tuple, slots: torch.Tensor, n_loca
 
 
 def filter_struct_shard(op: str, lm_g: torch.Tensor, slots: torch.Tensor, rslot: int,
-                        out_slot: int, pidx: torch.Tensor, n_spans: list, row0: int) -> None:
+                        out_slot: int, pidx: torch.Tensor, n_spans: list, row0: int,
+                        packed: bool = False) -> None:
     """K1's struct kernels for one struct node on every block of a mesh
-    shard: lm_g (Bl, S) the lhs mask gathered over sp (bool or uint8),
-    the rhs and output slots of slots (Bl, n_slots, Sl), pidx the shard's
-    parent rows (Bl, Sl) for '>' or the gathered table (Bl, S) for '>>'
-    and '~'; n_spans the blocks' span counts, row0 the shard's first row.
-    Writes the output slot in place. Bound: bytes (the mask and parent
-    table read once a pass)."""
+    shard: lm_g the lhs mask gathered over sp, (Bl, S) bool or uint8, or
+    with packed (Bl, S / 8) uint8, 8 rows to a byte as mask_pack writes
+    them, which the kernels read bit by bit (csrc/filter.cu
+    tt_filter_struct_packed, counted as struct_packed); rows of unit
+    stride, the row stride free (a mask slot's view). The rhs and output
+    slots of slots (Bl, n_slots, Sl), pidx the shard's parent rows (Bl,
+    Sl) for '>' or the gathered table (Bl, S) for '>>' and '~'; n_spans
+    the blocks' span counts, row0 the shard's first row. Writes the
+    output slot in place. Bound: bytes (the mask and parent table read
+    once a pass)."""
     dev = _cuda_device(slots)
     _check(slots, "slots", torch.uint8, dev)
-    if lm_g.dtype not in (torch.bool, torch.uint8):
-        raise KernelError(f"filter_struct_shard: lhs mask dtype {lm_g.dtype}")
-    _check(lm_g, "lm_g", lm_g.dtype, dev)
+    want = (torch.uint8,) if packed else (torch.bool, torch.uint8)
+    if lm_g.device != dev or lm_g.dtype not in want or lm_g.dim() != 2 or lm_g.stride(1) != 1:
+        raise KernelError(f"filter_struct_shard: lhs mask {lm_g.dtype} {tuple(lm_g.shape)} "
+                          f"on {lm_g.device}, {'packed ' if packed else ''}rows of unit stride "
+                          "expected")
     bl, _, sl = slots.shape
-    S = lm_g.shape[1]
+    S = lm_g.shape[1] * (8 if packed else 1)
     _check(pidx, "pidx", torch.int32, dev, (bl, sl if op == ">" else S))
     if lm_g.shape[0] != bl or len(n_spans) != bl or not 0 <= row0 <= S - sl:
         raise KernelError(f"filter_struct_shard: {bl} blocks of {sl} rows at {row0} in {S}")
@@ -1609,13 +1616,14 @@ def filter_struct_shard(op: str, lm_g: torch.Tensor, slots: torch.Tensor, rslot:
     elif op == "~":
         scratch_i = torch.empty(S + 1, dtype=torch.int32, device=dev)
     n_passes = max(1, (S - 1).bit_length())
+    fn = "tt_filter_struct_packed" if packed else "tt_filter_struct"
     with _on(dev):
         for b in range(bl):
-            _call("tt_filter_struct", {">": 0, ">>": 1, "~": 2}[op], lm_g[b].data_ptr(),
+            _call(fn, {">": 0, ">>": 1, "~": 2}[op], lm_g[b].data_ptr(),
                   slots[b, rslot].data_ptr(), slots[b, out_slot].data_ptr(), pidx[b].data_ptr(), S,
                   int(n_spans[b]), n_passes, _ptr(scratch_i), _ptr(scratch_u), int(row0), sl,
                   _stream(dev))
-    _count("filter")
+    _count("struct_packed" if packed else "filter")
 
 
 # ------------------------------------------------------------------ M5-M8
@@ -1667,34 +1675,24 @@ def attr_mask(cnt: torch.Tensor, res_idx: torch.Tensor | None, n_spans: torch.Te
 
 
 def mask_pack(m: torch.Tensor) -> torch.Tensor:
-    """M6: (Bl, Sl) 0/1 bytes (rows may be strided, Sl % 8 == 0) -> (Bl,
-    Sl / 8) uint8, bit 7 of byte j the row 8j (np.packbits). Bound:
-    bytes (9 B a row)."""
+    """M6: (Bl, Sl) mask bytes (bool or uint8, any nonzero byte a 1; rows
+    of unit stride, Sl % 8 == 0, the base and row stride multiples of 8,
+    as a mask slot's view is) -> (Bl, Sl / 8) uint8, bit 7 of byte j the
+    row 8j (np.packbits). One launch, a grid sized to the card, a thread
+    a packed byte from one 8-byte load. Bound: bytes (9/8 B a row)."""
     dev = _cuda_device(m)
     if m.dtype not in (torch.bool, torch.uint8) or m.dim() != 2 or m.stride(1) != 1:
         raise KernelError("mask_pack: (Bl, Sl) bool or uint8 rows of unit stride expected")
     bl, sl = m.shape
-    if sl % 8:
-        raise KernelError(f"mask_pack: {sl} rows do not pack 8 to a byte")
+    if sl % 8 or sl < 8 or not 1 <= bl <= 65535:
+        raise KernelError(f"mask_pack: {bl} rows of {sl} do not pack 8 to a byte")
+    if m.stride(0) % 8 or m.data_ptr() % 8:
+        raise KernelError(f"mask_pack: rows at stride {m.stride(0)} from address "
+                          f"{m.data_ptr():#x}: 8-byte aligned rows expected")
     out = torch.empty((bl, sl // 8), dtype=torch.uint8, device=dev)
     with _on(dev):
         _call("tt_mask_pack", m.data_ptr(), m.stride(0), bl, sl // 8, out.data_ptr(), _stream(dev))
     _count("mask_pack")
-    return out
-
-
-def mask_unpack(pk: torch.Tensor) -> torch.Tensor:
-    """M6: (Bl, n) uint8 -> (Bl, 8n) bool (np.unpackbits). Bound: bytes
-    (9 B a row)."""
-    dev = _cuda_device(pk)
-    _check(pk, "pk", torch.uint8, dev)
-    if pk.dim() != 2:
-        raise KernelError("mask_unpack: (Bl, n) bytes expected")
-    bl, n = pk.shape
-    out = torch.empty((bl, 8 * n), dtype=torch.bool, device=dev)
-    with _on(dev):
-        _call("tt_mask_unpack", pk.data_ptr(), bl, n, out.data_ptr(), _stream(dev))
-    _count("mask_unpack")
     return out
 
 

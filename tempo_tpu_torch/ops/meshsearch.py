@@ -17,9 +17,9 @@ parallel/search.py runs its steps between the collectives:
                     writes the leaf's span mask slot
   K1                the span pass and the struct passes (filter.cu) a
                     block at a time, `>` against the gathered lhs mask,
-                    `>>` and `~` against the gathered parent table too
-  M6 mask_pack / mask_unpack   the lhs mask 8 rows to a byte around the
-                    sp all_gather
+                    `>>` and `~` against the gathered parent table too;
+                    a packed lhs mask read bit by bit (M6's unpack)
+  M6 mask_pack      the lhs mask 8 rows to a byte before the sp all_gather
   M7 search_partial per-trace partial counts of every tracify slot and
                     their union; an all_reduce SUM over sp follows
   M8 search_finish  the trace program over the summed counts
@@ -91,14 +91,15 @@ def _attr_mask_plain(cnt, res_idx, n_spans, row0: int, sl: int):
 
 
 def _mask_pack_plain(m):
-    """M6, plain: np.packbits along axis 1."""
+    """M6, plain: np.packbits of m != 0 along axis 1."""
     bl, sl = m.shape
     w = torch.tensor(_BITS, dtype=torch.int32, device=m.device)
     return ((m != 0).to(torch.int32).reshape(bl, sl // 8, 8) * w).sum(dim=2).to(torch.uint8)
 
 
 def _mask_unpack_plain(pk):
-    """M6, plain: np.unpackbits along axis 1, as bool."""
+    """M6's unpack, plain: np.unpackbits along axis 1, as bool. On the
+    card K1's shard struct pass reads the packed bits in its place."""
     w = torch.tensor(_BITS, dtype=torch.int32, device=pk.device)
     return ((pk.to(torch.int32)[:, :, None] & w) != 0).reshape(pk.shape[0], -1)
 
@@ -160,15 +161,6 @@ def mask_pack(m: torch.Tensor) -> torch.Tensor:
     from .. import kernels
 
     return kernels.mask_pack(m)
-
-
-def mask_unpack(pk: torch.Tensor) -> torch.Tensor:
-    """M6: (Bl, n) uint8 -> (Bl, 8n) bool."""
-    if pk.device.type == "cpu":
-        return _mask_unpack_plain(pk)
-    from .. import kernels
-
-    return kernels.mask_unpack(pk)
 
 
 class ShardSearch:
@@ -252,19 +244,23 @@ class ShardSearch:
         n_local = [min(max(n - self.row0, 0), self.sl) for n in self.n_spans]
         kernels.filter_span_shard(self.prog, self.bufs, step, self.slots, n_local)
 
-    def struct_step(self, step: tuple, lm_g: torch.Tensor, pidx: torch.Tensor) -> None:
+    def struct_step(self, step: tuple, lm_g: torch.Tensor, pidx: torch.Tensor,
+                    packed: bool = False) -> None:
         """One struct step ("struct", op, lslot, rslot, out_slot) against
-        the gathered lhs mask lm_g (Bl, S): pidx is the shard's parent
-        rows for '>', the gathered parent table for '>>' and '~'."""
+        the gathered lhs mask lm_g: (Bl, S), or with packed (Bl, S / 8)
+        uint8 as M6 packs it, which K1's struct pass reads bit by bit
+        (here: unpacked by the plain version first). pidx is the shard's
+        parent rows for '>', the gathered parent table for '>>' and '~'."""
         _, op, _, r, out = step
         if not self.on_card:
-            self.slots[:, out] = _struct_step_plain(op, lm_g, self.slots[:, r] != 0, pidx,
+            lm = _mask_unpack_plain(lm_g) if packed else lm_g
+            self.slots[:, out] = _struct_step_plain(op, lm, self.slots[:, r] != 0, pidx,
                                                     self.n_spans_t, self.row0)
             return
         from .. import kernels
 
-        kernels.filter_struct_shard(op, lm_g.contiguous(), self.slots, r, out, pidx.contiguous(),
-                                    self.n_spans, self.row0)
+        kernels.filter_struct_shard(op, lm_g, self.slots, r, out, pidx.contiguous(), self.n_spans,
+                                    self.row0, packed)
 
     # -- M7, M8
     def partial(self) -> torch.Tensor:

@@ -8,11 +8,14 @@ rows; their per-owner counts stitch across the cut with a
 reduce-scatter over sp (span attrs: each rank receives exactly its own
 span slice) or an all_reduce over sp (resource attrs, to the small
 replicated resource axis). Struct nodes (`>`, `>>`, `~`) gather their
-lhs mask over sp, bit-packed 8 rows to a byte (M6), and `>>` and `~`
-gather the parent table once per launch. Per-trace partial counts
-(M7) add up over sp with one all_reduce SUM, and the trace program
-(M8) runs on the sums; with one sp rank there is nothing to sum, and
-both run in one launch. The per-shard steps are ops/meshsearch.py.
+lhs mask over sp, bit-packed 8 rows to a byte (M6) and read packed by
+K1's struct pass, and `>>` and `~` gather the parent table once per
+launch; an sp axis of one rank gathers nothing (the all_gather is the
+identity there), so its struct nodes read the shard's own slot and
+parent rows. Per-trace partial counts (M7) add up over sp with one
+all_reduce SUM, and the trace program (M8) runs on the sums; with one
+sp rank there is nothing to sum, and both run in one launch. The
+per-shard steps are ops/meshsearch.py.
 
 Operands are per block: every block resolves strings through its own
 dictionary, so ops_i / ops_f / tables carry a leading block axis split
@@ -32,7 +35,7 @@ import torch
 
 from ..ops.device import bucket
 from ..ops.filter import T_RATTR, T_SATTR, Operands, normalize_tree
-from ..ops.meshsearch import ShardSearch, mask_pack, mask_unpack
+from ..ops.meshsearch import ShardSearch, mask_pack
 from .mesh import DISPATCH_LOCK, program
 
 
@@ -95,11 +98,17 @@ def search_local(mesh, static: dict, ops: dict):
         elif conds[i].target == T_RATTR:
             cnt = mesh.all_reduce(cnt, "sum", "sp")  # (Bl, R), replicated
         sh.attr_mask(i, cnt)
-    pack = static["pack"] and sh.sl % 8 == 0
+    one = mesh.sp == 1  # an all_gather over one rank is the identity
+    pack = not one and static["pack"] and sh.sl % 8 == 0
 
     def gather_mask(m):
+        """The lhs mask over the block's rows: the slot itself on one sp
+        rank; else gathered, packed (read packed by the struct pass) or,
+        with TEMPO_STRUCT_PACK=0, as bytes."""
+        if one:
+            return m
         if pack:
-            return mask_unpack(mesh.all_gather(mask_pack(m), "sp", dim=1))
+            return mesh.all_gather(mask_pack(m), "sp", dim=1)
         return mesh.all_gather(m.contiguous(), "sp", dim=1)
 
     pid_g = None
@@ -110,15 +119,15 @@ def search_local(mesh, static: dict, ops: dict):
         op, lslot = step[1], step[2]
         lm_g = gather_mask(sh.slot(lslot))
         pidx = cols["span.parent_idx"]
-        if op != ">":
+        if op != ">" and not one:
             # '>>' and '~' walk the gathered parent table; its validity is
             # the block's first n_spans rows, which K1's struct kernels test
             # (the reference gathers the valid mask beside it)
             if pid_g is None or not static["pack"]:
                 pid_g = mesh.all_gather(pidx, "sp", dim=1)
             pidx = pid_g
-        sh.struct_step(step, lm_g, pidx)
-    if mesh.sp == 1:  # nothing to sum: M7 and M8 in one launch
+        sh.struct_step(step, lm_g, pidx, packed=pack)
+    if one:  # nothing to sum: M7 and M8 in one launch
         return sh.partial_finish()
     counts = mesh.all_reduce(sh.partial(), "sum", "sp")  # M7, then ONE sum over sp
     return sh.finish(counts)  # M8

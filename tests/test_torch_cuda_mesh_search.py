@@ -1,5 +1,6 @@
 """The sharded search's CUDA kernels on the card against their plain
-versions: M5 attr_partial (and its mask), M6 mask_pack / mask_unpack, M7
+versions: M5 attr_partial (and its mask), M6 mask_pack on both routes and
+K1's struct pass reading the packed mask (M6's unpack), M7
 search_partial, M8 search_finish, and K1's span pass and struct kernels
 on a shard (the `>` offset by the shard's first row), stage by stage on
 the second of two sp shards of every case of tests/test_torch_mesh_search.py;
@@ -102,6 +103,10 @@ def test_shard_kernels_match_plain(cuda, case):
             sh.struct_step(("struct", kind, step[2], r, out), lm_g, pidx.contiguous())
             want = F._struct_step_plain(kind, lm_g, sh.slot(r) != 0, pidx, sh.n_spans_t, sh.row0)
             _eq(sh.slot(out) != 0, want, f"struct {kind}")
+            sh.slot(out).fill_(7)  # the packed read must write every row again
+            sh.struct_step(("struct", kind, step[2], r, out), kernels.mask_pack(lm_g),
+                           pidx.contiguous(), packed=True)
+            _eq(sh.slot(out) != 0, want, f"struct {kind}, lhs packed")
     parts = sh.partial()  # M7
     span_off = sh.cols.get("trace.span_off")
     tsid = None if span_off is not None else sh.cols["span.trace_sid"]
@@ -183,15 +188,52 @@ def test_attr_tiles_at_scale(cuda, big, n_own, A, hostile):
         _attr_check(_attr_search(case, sp, k, cuda), f"big={big} sp={sp} k={k}")
 
 
-@pytest.mark.parametrize("sl", [8, 4096])
-def test_mask_pack_kernels_match_plain(cuda, sl):
+@pytest.mark.parametrize("layout", ["contiguous", "slot_view"])
+@pytest.mark.parametrize("sl", [8, 16, 4096, 1 << 16])
+def test_mask_pack_kernels_match_plain(cuda, sl, layout):
+    """M6's pack of each of two shards' lhs slot (Sl rows, as a strided
+    slot view or a contiguous copy) over mask bytes that are not only 0
+    and 1, one __global__ a call; rows off the 8-byte grid refused. Then
+    K1's struct pass on the second shard, for each op, reading the two
+    packed rows as the all_gather joins them, against the plain struct
+    step over the unpacked mask, bit for bit."""
     rng = np.random.default_rng(sl)
-    slots = torch.from_numpy(rng.integers(0, 2, (3, 4, sl)).astype(np.uint8)).to(cuda)
-    m = slots[:, 1]
-    pk = kernels.mask_pack(m)
-    _eq(pk, MS._mask_pack_plain(m), "pack")
-    _eq(kernels.mask_unpack(pk), MS._mask_unpack_plain(pk), "unpack")
-    _eq(kernels.mask_unpack(pk), m != 0, "round trip")
+    bl, n_slots = 3, 4
+    raw = np.where(rng.random((bl, n_slots, 2 * sl)) < 0.5, 0,
+                   rng.integers(1, 256, (bl, n_slots, 2 * sl))).astype(np.uint8)
+    parts = []
+    for k in range(2):
+        slots = torch.from_numpy(np.ascontiguousarray(raw[:, :, k * sl:(k + 1) * sl])).to(cuda)
+        m = slots[:, 1].contiguous() if layout == "contiguous" else slots[:, 1]
+        pk = _launched(lambda: kernels.mask_pack(m), "mask_pack")
+        _eq(pk, MS._mask_pack_plain(m), "pack")
+        np.testing.assert_array_equal(pk.cpu().numpy(),
+                                      np.packbits(raw[:, 1, k * sl:(k + 1) * sl] != 0, axis=1))
+        parts.append(pk)
+        shard = slots
+    flat = shard.view(-1)
+    for bad in (flat[1:1 + bl * sl].view(bl, sl),  # a base off the 8-byte grid
+                flat.as_strided((bl, sl), (sl + 4, 1))):  # a stride off it
+        with pytest.raises(kernels.KernelError):
+            kernels.mask_pack(bad)
+    pk = torch.cat(parts, dim=1)  # the all_gather over two sp ranks
+    S, row0 = 2 * sl, sl  # the gathered row of two shards; this shard the second
+    n_spans = [S, S - 5, S // 2 + 3]
+    n_spans_t = torch.tensor(n_spans, dtype=torch.int32, device=cuda)
+    table = rng.integers(-2, S, (bl, S)).astype(np.int32)
+    for op in (">", ">>", "~"):
+        p = table[:, row0:] if op == ">" else table
+        pidx = torch.from_numpy(np.ascontiguousarray(p)).to(cuda)
+        shard[:, 3].fill_(9)
+        kernels.reset_counts()
+        kernels.filter_struct_shard(op, pk, shard, 2, 3, pidx, n_spans, row0, packed=True)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["struct_packed"] == 1 and kernels.LAUNCHES["filter"] == 0
+        assert kernels.grid_launches()["struct_packed"] >= 1
+        want = F._struct_step_plain(op, MS._mask_unpack_plain(pk), shard[:, 2] != 0, pidx,
+                                    n_spans_t, row0)
+        _eq(shard[:, 3] != 0, want, f"packed struct pass {op}")
+        assert want.any(), op
 
 
 @pytest.mark.parametrize("case", list(CASES))
