@@ -1774,6 +1774,7 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
     cap.patch(PF, "find_elect")
     cap.patch(PMQ, "mq_partial")
     cap.patch(PMQ, "mq_combine")
+    cap.patch(PMQ, "mesh_eval_multiquery")  # run 2's block, for M2 on every rank's slice
     cap.patch(PTS, "timeseries_stacked")
     shards_seen: list = []  # the ShardSearch of each sharded search, for the kernel rows
     partial0, fused0 = MS.ShardSearch.partial, MS.ShardSearch.partial_finish
@@ -2167,14 +2168,29 @@ def phase_15_table(p15: dict, table) -> dict:
         "K3 and the election, one launch": m1,
         "K3 alone": functools.partial(kernels.find_rows, ids, qs, nv, steps)}}
 
-    # M2, M3 -- run 2's last window on rank 0's row slice
+    # M2, M3 -- run 2's last window on rank 0's row slice (timed); M2
+    # also on the other ranks' slices of the same block, where traces are
+    # cut at the slice's start
     (prow, dims, span_mat, row0, span_off, n_spans), _ = args["mq_partial"]
+    (_, lowered, staged, _), _ = args["mesh_eval_multiquery"]
     tables = MQ.program_tables(prow, dims)
-    got = kernels.mq_partial(prow, dims, span_mat, row0, span_off, n_spans)
-    err = max_abs_err(got, MQ._mq_partial_plain(span_mat, span_off, tables, row0, n_spans))
+    q_b, sl = prow.shape[0], span_mat.shape[1]
+    names = lowered[0].shape.span_cols
+    whole = (torch.stack([staged.cols[c] for c in names]) if names else
+             torch.zeros((1, staged.n_spans_b), dtype=torch.int32, device=span_mat.device))
+    if row0 != 0 or not torch.equal(whole[:, :sl], span_mat):
+        raise AssertionError("M2: the captured slice is not rank 0's of the captured block")
+    err = 0
+    for r0 in range(0, whole.shape[1], sl):
+        sm = span_mat if r0 == 0 else whole[:, r0:r0 + sl].contiguous()
+        got_r = kernels.mq_partial(prow, dims, sm, r0, span_off, n_spans)
+        err = max(err, max_abs_err(got_r, MQ._mq_partial_plain(sm, span_off, tables, r0,
+                                                               n_spans)))
+        if r0 == 0:
+            got = got_r
     if err:
         raise AssertionError("M2 differs from its plain version")
-    q_b, sl = prow.shape[0], span_mat.shape[1]
+    del whole
     n_conds = int((tables["cond_op"] >= 0).sum(dim=1).max().item())
     ms = cuda_ms(lambda: kernels.mq_partial(prow, dims, span_mat, row0, span_off, n_spans))
     m2_us = device_ms(lambda: kernels.mq_partial(prow, dims, span_mat, row0, span_off,
@@ -2183,7 +2199,8 @@ def phase_15_table(p15: dict, table) -> dict:
                   reps=3, warm=1)
     b = bound(span_mat.numel() * 4 + span_off.numel() * 4 + got.numel() * 4,
               q_b * sl * max(1, n_conds))
-    log(f"[M2] Q={q_b} slice {sl} rows at {row0}, {span_mat.shape[0]} columns: {ms:.4f} ms, "
+    log(f"[M2] Q={q_b} slice {sl} rows at {row0} (equal to the plain version on all "
+        f"{staged.n_spans_b // sl} slices), {span_mat.shape[0]} columns: {ms:.4f} ms, "
         f"device {m2_us:.2f} µs (queued), plain {pms:.4f} ms, bound {b[0]:.5f} ms")
     row("mq_partial", "multiquery.cu", "tempo_tpu/parallel/multiquery.py:130", err, ms, pms, b)
     (crow, cdims, counts, trace_mat, n_traces), _ = args["mq_combine"]
@@ -2194,9 +2211,12 @@ def phase_15_table(p15: dict, table) -> dict:
         raise AssertionError("M3 differs from its plain version")
     nt_b = counts.shape[2]
     ms = cuda_ms(lambda: kernels.mq_combine(crow, cdims, counts, trace_mat, n_traces))
+    m3_us = device_ms(lambda: kernels.mq_combine(crow, cdims, counts, trace_mat,
+                                                 n_traces)) * 1e3
     pms = cuda_ms(lambda: MQ._mq_combine_plain(counts, trace_mat, ctables, n_traces))
     b = bound(counts.numel() * 4 + trace_mat.numel() * 4 + q_b * nt_b * 5, q_b * nt_b)
-    log(f"[M3] Q={q_b} x {nt_b} traces: {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.5f} ms")
+    log(f"[M3] Q={q_b} x {nt_b} traces: {ms:.4f} ms, device {m3_us:.2f} µs (queued; M2 "
+        f"{m2_us:.2f}), plain {pms:.4f} ms, bound {b[0]:.5f} ms")
     row("mq_combine", "multiquery.cu", "tempo_tpu/parallel/multiquery.py:130", err, ms, pms, b)
 
     # M4 -- run 2's last stacked fold on rank 0's blocks

@@ -59,39 +59,40 @@
 // `_search_partial_plain`, ops/meshsearch.py, for every row0, shard cut
 // and offset row) is a CTA a tile of ST_TILE consecutive traces of one
 // block, M5's pattern over slot bytes: the tile's offsets clipped to the
-// shard (in 64 bits), a CTA-wide vote on their monotony, then the
-// window [c[0], c[n]) read once, a chunk of ST_CHUNK rows at a time, 16
-// bytes a load (a byte a row at an unaligned head or tail), every slot's
-// bytes turned into a bit a row (their OR the union's) and a CTA-wide
-// popcount prefix a stream; a trace's count is the prefix at its two
-// offsets' difference. The slot list comes by value (the first ST_TR),
-// and the slot count is a template argument (0-3; a tree of more walks
-// each trace), so a tile keeps only its streams' registers. A tile whose
-// offsets fall (no writer produces them) walks each trace's rows signed,
-// as the first port did. M8 (search_finish_kernel) takes 4 consecutive
-// traces a thread, counts loaded and tm / cnt stored 4 at once, the
-// program's operations and its trace conditions' indexes by value and
-// those conditions' descriptor rows copied to shared memory once a CTA
-// (a program of more than ST_PROG operations or ST_TC conditions copied
-// whole to shared memory instead, its conditions read from the block's
-// table), the grid at most 8 CTAs an SM. What bounds them on the card:
-// M7's chain of two round trips a tile (the offsets, then the window),
-// one wave of ST_MIN_CTAS CTAs an SM at phase 15's 640 tiles (4.30 µs of
-// bytes, 6.6-6.8 µs measured); M8's launch and its one round trip
-// (3.2-3.4 µs); the fused route drops M8's launch and the counts' 2.6 MB
-// (7.0-7.2 µs against 9.8-10.1 for the two; NVIDIA H100 80GB HBM3, 700 W;
-// PERF.md).
+// shard (the int32 difference, as M5's), a CTA-wide vote on their
+// monotony, then the window [c[0], c[n]) read once, a chunk of ST_CHUNK
+// rows at a time, 16 bytes a load (a byte a row at an unaligned head or
+// tail), every slot's bytes turned into a bit a row (their OR the
+// union's) and a CTA-wide popcount prefix a stream; a trace's count is
+// the prefix at its two offsets' difference. The slot list comes by value
+// (the first ST_TR), and the slot count is a template argument (0-3; a
+// tree of more walks each trace), so a tile keeps only its streams'
+// registers. A tile whose offsets fall (no writer produces them) walks
+// each trace's rows signed, as the first port did. M8
+// (search_finish_kernel) takes 4 consecutive traces a thread, counts
+// loaded and tm / cnt stored 4 at once, the program's operations and its
+// trace conditions' indexes by value and those conditions' descriptor
+// rows copied to shared memory once a CTA (a program of more than ST_PROG
+// operations or ST_TC conditions copied whole to shared memory instead,
+// its conditions read from the block's table), the grid at most 8 CTAs an
+// SM. What bounds them on the card: M7's chain of two round trips a tile
+// (the offsets, then the window), one wave of ST_MIN_CTAS CTAs an SM at
+// phase 15's 640 tiles (4.30 µs of bytes, 6.6-6.8 µs measured); M8's
+// launch and its one round trip (3.2-3.4 µs); the fused route drops M8's
+// launch and the counts' 2.6 MB (7.0-7.2 µs against 9.8-10.1 for the two;
+// NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // M5's count (attr_tile_kernel) is a CTA a tile of AP_TILE consecutive
 // owners of one block. Its contract: out[b, o] = E(hi) - E(lo) with lo =
 // clamp(off[o] - arow0, 0, al), hi = clamp(off[o + 1] - arow0, 0, al)
-// (in 64 bits) and E(x) the shard's matching rows below x -- the
-// reference's ecs[hi] - ecs[lo], negative on a falling offset, bit for
-// bit `_attr_partial_plain` (ops/meshsearch.py) for every arow0, shard
-// cut, leaf op and offset row. The CTA reads the block's descriptor once
-// into shared memory and the tile's n + 1 offsets coalesced (scalar
-// loads: block b's offset row starts 4 b (n_seg + 1) bytes into the
-// column, not 16-byte aligned), clipped. A CTA-wide vote asks whether
+// (the int32 difference, which wraps, as the reference's) and E(x) the
+// shard's matching rows below x -- the reference's ecs[hi] - ecs[lo],
+// negative on a falling offset, bit for bit `_attr_partial_plain`
+// (ops/meshsearch.py) for every arow0, shard cut, leaf op and offset row.
+// The CTA reads the block's descriptor once into shared memory and the
+// tile's n + 1 offsets coalesced (scalar loads: block b's offset row
+// starts 4 b (n_seg + 1) bytes into the column, not 16-byte aligned),
+// clipped. A CTA-wide vote asks whether
 // the clipped offsets c[0..n] are monotone. If they are, the tile's rows
 // are one window [c[0], c[n]), walked in chunks of AP_CHUNK rows: the
 // chunk's keys are copied to shared memory (cp.async, AP_ROWS 4-byte
@@ -138,9 +139,10 @@ __device__ __forceinline__ int attr_count(const long long* d, int lo, int hi) {
     return c;
 }
 
+// clamp(off - arow0, 0, al) of the reference's int32 difference, which wraps
 __device__ __forceinline__ int clip_off(int32_t off, int arow0, int al) {
-    long long x = (long long)off - arow0;
-    return (int)(x < 0 ? 0 : (x > al ? al : x));
+    const int x = (int)((unsigned)off - (unsigned)arow0);
+    return x < 0 ? 0 : (x > al ? al : x);
 }
 
 // the keys of the chunk's rows [base, w1) into s_key (row base + r at r),

@@ -57,8 +57,10 @@
 //
 // M2 (mq_partial, slot 2) and M3 (mq_combine, slot 3) split B5a at the
 // mesh's all_reduce: the span-level half over one rank's row slice, then
-// the trace-level half over the summed counts (below). B5a shares
-// mq_span_bits with M2 and mq_trace_ok with M3.
+// the trace-level half over the summed counts (below). M2 runs B5a's
+// compiled chunk (mq_compile, mq_cond_bits, mq_group_word, mq_union_word;
+// mq_span_bits elsewhere) and counts where B5a ORs; M3 shares
+// mq_trace_ok with B5a.
 #include <mutex>
 
 #include "select.cuh"
@@ -141,7 +143,7 @@ __device__ __forceinline__ bool cmp_code(int op, int x, int v0, int v1) {
 // clause holds on every span, a group
 // with an empty clause on none (gdesc: a group's head bit, or 32 for
 // always, 33 for never; cu: the programs whose union always holds).
-// Other chunks, and M2, run each program's row as it stands
+// Other chunks, of B5a and of M2, run each program's row as it stands
 // (mq_span_bits).
 #define MQ_HASH 64  // hash slots: twice the conditions a chunk holds
 #define MQ_EMPTY (~0ull)  // an empty hash slot (no column is 2^32 - 1)
@@ -224,13 +226,12 @@ __device__ void mq_compile(const int32_t* pg, int nq, int P, int NC, int NG, int
         pr->n_other = 0;
     }
     __syncthreads();
-    const int per = MQ_P + MQ_NC + MQ_NG;
+    const int per = P + NC + NG;  // a program's conditions, clauses and groups
     for (int i = threadIdx.x; i < nq * per; i += blockDim.x) {
         const int q = i / per, j = i - q * per, base = q * P;
         const int32_t* r = pg + q * MQ_W;
         unsigned* run = pr->run + q * MQ_RUNS;
-        if (j < MQ_P) {  // condition j: to the hash or to other[]
-            if (j >= P) continue;
+        if (j < P) {  // condition j: to the hash or to other[]
             const int4 e = mq_cond(r, j, n_sc);
             const int col = e.x & 0xFF, m3 = (e.x >> 8) & 7, bit = base + j;
             if (m3 == 0) continue;  // never holds
@@ -248,9 +249,8 @@ __device__ void mq_compile(const int32_t* pg, int nq, int P, int NC, int NG, int
             } else {
                 pr->other[atomicAdd(&pr->n_other, 1)] = make_int4(e.x | (bit << 16), e.y, e.z, e.w);
             }
-        } else if (j < MQ_P + MQ_NC) {  // clause c
-            const int c = j - MQ_P;
-            if (c >= NC) continue;
+        } else if (j < P + NC) {  // clause c
+            const int c = j - P;
             const int ra = r[O_CLAUSE_OFF + c], rb = r[O_CLAUSE_OFF + c + 1];
             if (ra < 0 || rb > P || ra > rb) {
                 atomicOr(pr->bad + q, 1);
@@ -259,8 +259,7 @@ __device__ void mq_compile(const int32_t* pg, int nq, int P, int NC, int NG, int
                 atomicOr(run + 10, 1u << (base + ra));
             }
         } else {  // group g
-            const int g = j - MQ_P - MQ_NC;
-            if (g >= NG) continue;
+            const int g = j - P - NC;
             const int ra = r[O_GROUP_OFF + g], rb = r[O_GROUP_OFF + g + 1];
             const int ng = r[O_N_GROUPS];
             if (g == 0 && ng <= 0) atomicOr(run + 13, 1u << base);  // no group: every span
@@ -412,11 +411,19 @@ __device__ __forceinline__ unsigned mq_union_word(const MqWords& w, unsigned gw)
     return (gw & w.lhg) | w.cu;
 }
 
+// trace condition j of a program row for trace t of the trace columns
+// tcol (n_tc of them)
+__device__ __forceinline__ bool mq_tcond(const int32_t* pg, int j, const int32_t* const* tcol,
+                                         int n_tc, int t) {
+    const int x = n_tc > 0 ? tcol[tt_clamp(pg[O_TCOND_COL + j], 0, n_tc - 1)][t] : 0;
+    return cmp_code(pg[O_TCOND_OP + j], x, pg[O_TCOND_V0 + j], pg[O_TCOND_V1 + j]);
+}
+
 // The trace-level half, shared by B5a and M3: the trace clauses over the
-// group hits gany (bit g) and trace t's trace columns; clauses at index
-// >= n_tclauses count as true.
-__device__ __forceinline__ bool mq_trace_ok(const int32_t* pg, unsigned gany,
-                                            const int32_t* const* tcol, int n_tc, int t, int NG,
+// group hits gany (bit g) and the trace conditions, cond(j) for condition
+// j; clauses at index >= n_tclauses count as true.
+template <class Cond>
+__device__ __forceinline__ bool mq_trace_ok(const int32_t* pg, unsigned gany, Cond cond, int NG,
                                             int PT, int NA, int TC) {
     bool tm = true;
     for (int c = 0; c < TC && tm; ++c) {
@@ -425,21 +432,14 @@ __device__ __forceinline__ bool mq_trace_ok(const int32_t* pg, unsigned gany,
         const int a1 = mq_jidx(pg[O_TCLAUSE_OFF + c + 1], NA + 1);
         for (int a = a0; a < a1 && !cl; ++a) {
             const int kind = pg[O_ATOM_KIND + a], idx = pg[O_ATOM_IDX + a];
-            bool v;
-            if (kind == 0) {
-                v = (gany >> tt_clamp(idx, 0, NG - 1)) & 1u;
-            } else {
-                const int j = tt_clamp(idx, 0, PT - 1);
-                const int x = n_tc > 0 ? tcol[tt_clamp(pg[O_TCOND_COL + j], 0, n_tc - 1)][t] : 0;
-                v = cmp_code(pg[O_TCOND_OP + j], x, pg[O_TCOND_V0 + j], pg[O_TCOND_V1 + j]);
-            }
+            const bool v = kind == 0 ? (gany >> tt_clamp(idx, 0, NG - 1)) & 1u
+                                     : cond(tt_clamp(idx, 0, PT - 1));
             cl = v && kind >= 0;
         }
         tm = cl;
     }
     return tm;
 }
-
 
 // B5a's dynamic shared memory for a chunk of qc programs: the compiled
 // chunk and its program rows, the warps' span stages, a tile's staged
@@ -572,8 +572,11 @@ mq_eval_kernel(const int32_t* __restrict__ progs, int q_b, int qc, int P, int NC
                 }
             }
             if (lane < nq) {
-                const bool tm = t < n_traces &&
-                                mq_trace_ok(pg + lane * MQ_W, gq, tcol, n_tc, t, NG, PT, NA, TC);
+                const int32_t* r = pg + lane * MQ_W;
+                const bool tm =
+                    t < n_traces &&
+                    mq_trace_ok(r, gq, [&](int j) { return mq_tcond(r, j, tcol, n_tc, t); }, NG,
+                                PT, NA, TC);
                 tm_s[lane * (MQ_TT + 1) + i] = tm;
                 cnt_s[lane * (MQ_TT + 1) + i] = tm ? cq : 0;
             }
@@ -589,34 +592,39 @@ mq_eval_kernel(const int32_t* __restrict__ progs, int q_b, int qc, int P, int NC
     }
 }
 
-// B5a's grid: CTAs a query chunk, at most the CTAs resident at once over
-// the chunks (the occupancy of one chunk's shared memory, cached per
-// device and size), at least one, at most a tile each
-static int mq_grid_x(int n_tiles, int n_chunks, size_t smem, int* err) {
-    static std::mutex mu;
-    static int c_dev = -1;
-    static size_t c_smem = 0;
-    static int c_ctas = 0;
+// A kernel's grid, shared by B5a, M2 and M3: CTAs a query chunk, at most
+// the CTAs resident at once over the chunks (the occupancy of one chunk's
+// shared memory, cached per kernel, device and size), at least one, at
+// most a tile each
+struct MqOcc {
+    std::mutex mu;
+    int dev = -1;
+    size_t smem = 0;
+    int ctas = 0;
+};
+
+template <class F>
+static int mq_grid_x(F kernel, MqOcc& oc, size_t smem_max, int threads, int n_tiles,
+                     int n_chunks, size_t smem, int* err) {
     int dev, ctas = 1;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) {
-        std::lock_guard<std::mutex> lock(mu);
-        if (dev == c_dev && smem == c_smem) {
-            ctas = c_ctas;
+        std::lock_guard<std::mutex> lock(oc.mu);
+        if (dev == oc.dev && smem == oc.smem) {
+            ctas = oc.ctas;
         } else {
             int sms = 0, per = 0;
             e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+            if (e == cudaSuccess && smem_max > 0)
+                e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_max);
             if (e == cudaSuccess)
-                e = cudaFuncSetAttribute(mq_eval_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, MQ_SMEM_MAX);
-            if (e == cudaSuccess)
-                e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, mq_eval_kernel,
-                                                                  MQ_WARPS * 32, smem);
+                e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, smem);
             ctas = sms * (per > 0 ? per : 1);
             if (e == cudaSuccess) {
-                c_dev = dev;
-                c_smem = smem;
-                c_ctas = ctas;
+                oc.dev = dev;
+                oc.smem = smem;
+                oc.ctas = ctas;
             }
         }
     }
@@ -641,7 +649,9 @@ TT_EXPORT int tt_multiquery(const int32_t* progs, int q_b, int P, int NC, int NG
     const int n_chunks = (q_b + qc - 1) / qc;
     const size_t smem = mq_smem(qc, n_sc);
     int err;
-    const int gx = mq_grid_x((n_traces_b + MQ_TT - 1) / MQ_TT, n_chunks, smem, &err);
+    static MqOcc occ;
+    const int gx = mq_grid_x(mq_eval_kernel, occ, MQ_SMEM_MAX, MQ_WARPS * 32,
+                             (n_traces_b + MQ_TT - 1) / MQ_TT, n_chunks, smem, &err);
     if (err) return err;
     mq_eval_kernel<<<dim3(gx, n_chunks), MQ_WARPS * 32, smem, (cudaStream_t)stream>>>(
         progs, q_b, qc, P, NC, NG, PT, NA, TC, span_cols, n_sc, trace_cols, n_tc, span_off,
@@ -666,103 +676,355 @@ TT_EXPORT int tt_mq_select_tiled(const uint8_t* tm, const int32_t* key, const in
                                 out, (cudaStream_t)stream, 1);
 }
 
-// M2: the span-level half of B5a on this rank's row slice
-// [row0, row0 + Sl) of a row-sharded block (parallel/multiquery.py).
-// Replaces the per-shard fold of tempo_tpu/parallel/multiquery.py:57-100
-// (`fold_rows` + `seg_partial`): per (query, trace) the PARTIAL counts
-// of the trace's spans inside the slice for which each group holds
-// (rows 0 .. NG - 1) and for which the union of live groups holds (row
-// NG; every valid span when the program has no group), out
-// (q_b, NG + 1, n_traces_b) int32. The trace's global range
-// span_off[t] .. span_off[t + 1] is clipped to the slice, and a span
-// counts only when row0 + s < n_spans; a trace with no rows here counts
-// 0. The caller's all_reduce SUM stitches the partials exactly.
+// M2 (mq_partial, slot 2): the span-level half of B5a on this rank's
+// row slice [row0, row0 + Sl) of a row-sharded block
+// (parallel/multiquery.py). Replaces the per-shard fold of
+// tempo_tpu/parallel/multiquery.py:57-100 (`fold_rows` + `seg_partial`):
+// per (query, trace) the PARTIAL counts of the trace's spans inside the
+// slice for which each group holds (rows 0 .. NG - 1) and for which the
+// union of live groups holds (row NG; every valid span when the program
+// has no group), out (q_b, NG + 1, n_traces_b) int32. A trace's range is
+// the reference's clip of its global offsets to the slice,
+// clip(span_off[t] - row0, 0, Sl) .. clip(span_off[t + 1] - row0, 0, Sl)
+// (no index wrap; the int32 difference wraps, as the reference's does),
+// its counts negated where that runs backwards, and a span counts only
+// where row0 + s < n_spans. The caller's all_reduce SUM stitches the
+// partials exactly.
 //
-// Design: one CTA a (tile of MQ_WARPS traces, query), the program row in
-// shared memory; a warp walks one trace with mq_span_bits on each lane's
-// span (a trace whose offsets run backwards: its counts negated, as the
-// reference's signed differences); each group's count is the popcount of
-// its ballot, held by lane g (the union's by lane NG): the counts take one
-// register, and the kernel 32 registers a thread, so 8 CTAs of 8 warps fit
-// an SM (an array of counts a thread took 40 registers and 0.112 ms of
-// device time at scripts/batched_search_ab.py's M2 shape, NVIDIA H100 80GB
-// HBM3, 700 W). Launch slot 2.
-// Bound: bytes -- the slice's named span columns (4 B a span) once per
-// query, span_off read and (NG + 1) x 4 B written per (query, trace).
+// Design: B5a's compiled chunk over the slice. A grid sized to the card
+// walks tiles of MQ2_TT traces, gridDim.y the chunks of 32 / P programs;
+// each CTA copies the span half of its chunk's rows (mq_span_word, 5 P +
+// NC + NG + 3 words a program) and compiles it once (mq_compile), its
+// first tile's span offsets in flight meanwhile (then always a tile
+// ahead). A tile's threads clip its ranges and vote: a tile with nothing
+// to count in the slice (on a rank of an n-rank mesh, all but about 1 / n
+// of the tiles) writes its zeros as 16-byte stores and walks nothing.
+// Elsewhere a warp walks one trace, 32 spans a step, each lane's column
+// words staged by cp.async as in B5a. In a regular chunk a span gives one
+// condition word, the group word gw and the union word u, and the warp
+// sums columns: lane l counts the spans whose gw has bit l set (mq_colsum:
+// 8 __reduce_add_sync a word), and the valid spans; at the trace's end
+// each of the chunk's K = nq (NG + 1) counters takes one column by a
+// shuffle (csrc: a group's head bit, every valid span, or none; a
+// program's union the one live head it has, and only where it has two or
+// more a column of its own, lane l then also counting the spans for which
+// program l's union holds). Other chunks run each program's row
+// (mq_span_bits) and count by ballots, lane k % 32 owning counter k. A
+// tile's K rows go out as 16-byte stores (n_traces_b a multiple of 4:
+// kernels.mq_partial refuses other input).
+// Bound: bytes -- the slice's named span columns (4 B a span) once,
+// span_off, and (NG + 1) x 4 B written per (query, trace).
+#define MQ2_TT 16  // traces a tile of M2: 2 a warp
+
+// word j of the span half of a program row: its P conditions' five
+// fields, clause offsets c <= NC, group offsets g <= NG, n_groups
+// (5 P + NC + NG + 3 words)
+__device__ __forceinline__ int mq_span_word(int j, int P, int NC, int NG) {
+    if (j < 5 * P) {
+        const int f = j / P;
+        return f * MQ_P + j - f * P;
+    }
+    j -= 5 * P;
+    if (j <= NC) return O_CLAUSE_OFF + j;
+    j -= NC + 1;
+    return j <= NG ? O_GROUP_OFF + j : O_N_GROUPS;
+}
+
+// M2's dynamic shared memory for a chunk of qc programs: the compiled
+// chunk and its rows, the warps' span stages, a tile's ranges, the
+// counters' column sums and a tile's counts
+__host__ __device__ __forceinline__ size_t mq2_smem(int qc, int NG, int n_sc) {
+    const int n_stage = n_sc > 0 ? n_sc : 1, k = qc * (NG + 1);
+    return sizeof(MqProg) + (size_t)qc * MQ_W * 4 + (size_t)MQ_WARPS * n_stage * 32 * 4 +
+           MQ2_TT * 16 + (size_t)k * 4 + (size_t)k * (MQ2_TT + 1) * 4;
+}
+#define MQ2_VALID 64  // a counter's column: every valid span
+#define MQ2_NONE 65  // none
+#define MQ2_SMEM_MAX mq2_smem(MQ_QC, MQ_NG, MQ_SC)
+
+// lane l of a warp: the lanes whose word x has bit l set, four bits to one
+// __reduce_add_sync (bits 4 j .. 4 j + 3 spread to the four bytes by one
+// multiply: no two partial products meet; a byte counts at most 32)
+__device__ __forceinline__ unsigned mq_colsum(unsigned x, int lane) {
+    unsigned mine = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const unsigned s =
+            __reduce_add_sync(0xFFFFFFFFu, (((x >> (4 * j)) & 0xFu) * 0x204081u) & 0x01010101u);
+        if ((lane >> 2) == j) mine = (s >> (8 * (lane & 3))) & 0xFFu;
+    }
+    return mine;
+}
+
 __global__ void __launch_bounds__(MQ_WARPS * 32)
-mq_partial_kernel(const int32_t* __restrict__ progs, int P, int NC, int NG,
+mq_partial_kernel(const int32_t* __restrict__ progs, int q_b, int qc, int P, int NC, int NG,
                   const int32_t* __restrict__ span_mat, int n_sc, int Sl, int row0,
                   const int32_t* __restrict__ span_off, int n_spans, int n_traces_b,
                   int32_t* __restrict__ out) {
-    __shared__ int32_t pg[MQ_W];
+    extern __shared__ __align__(16) unsigned char mq_dyn[];
     __shared__ const int32_t* scol[MQ_SC];
-    const int q = blockIdx.y;
-    for (int i = threadIdx.x; i < MQ_W; i += blockDim.x) pg[i] = progs[(long long)q * MQ_W + i];
-    for (int i = threadIdx.x; i < n_sc; i += blockDim.x) scol[i] = span_mat + (long long)i * Sl;
-    __syncthreads();
-    const int lane = threadIdx.x & 31;
-    const int t = blockIdx.x * MQ_WARPS + (threadIdx.x >> 5);
-    if (t >= n_traces_b) return;  // whole warps leave together
-    const int lo = tt_clamp(span_off[t] - row0, 0, Sl);
-    const int hi = tt_clamp(span_off[t + 1] - row0, 0, Sl);
-    const bool neg = hi < lo;  // backwards: the counts negated
-    const int a = neg ? hi : lo, b = neg ? lo : hi;
-    const int ng = pg[O_N_GROUPS];
-    const unsigned live = mq_live(pg);
-    int cnt = 0;  // lane g < NG: group g's count; lane NG: the union's
-    for (int base = a; base < b; base += 32) {
-        const int s = base + lane;
-        unsigned bits = 0;
-        bool u = false;
-        if (s < b && row0 + s < n_spans) {
-            bits = mq_span_bits(pg, [&](int j) { return scol[j][s]; }, n_sc, P, NC, NG);
-            u = ng > 0 ? (bits & live) != 0 : true;
+    __shared__ int32_t zero;
+    const int q0 = blockIdx.y * qc, nq = min(qc, q_b - q0);
+    const int n_stage = n_sc > 0 ? n_sc : 1;
+    const int K = nq * (NG + 1);
+    MqProg* pr = (MqProg*)mq_dyn;
+    int32_t* pg = (int32_t*)(pr + 1);
+    int32_t* stage = pg + nq * MQ_W;
+    int4* rng_s = (int4*)(stage + MQ_WARPS * n_stage * 32);  // trace i: walk [x, y), z backwards
+    int32_t* csrc = (int32_t*)(rng_s + MQ2_TT);  // counter k's column sum (below)
+    int32_t* cnt_s = csrc + K;  // counter k of trace i: [k * (MQ2_TT + 1) + i]
+    // thread i < MQ2_TT: trace i's offsets of the CTA's next tile, read a
+    // tile ahead (the first while the chunk compiles)
+    const int n_tiles = (n_traces_b + MQ2_TT - 1) / MQ2_TT;
+    int o0 = 0, o1 = 0;
+    auto next_offsets = [&](int x) {
+        const int t = x * MQ2_TT + threadIdx.x;
+        if (x < n_tiles && threadIdx.x < MQ2_TT && t < n_traces_b) {
+            o0 = span_off[t];
+            o1 = span_off[t + 1];
         }
-#pragma unroll
-        for (int g = 0; g < MQ_NG; ++g)
-            if (g < NG) {
-                const int c = __popc(__ballot_sync(0xFFFFFFFFu, (bits >> g) & 1u));
-                cnt += lane == g ? c : 0;
-            }
-        const int c = __popc(__ballot_sync(0xFFFFFFFFu, u));
-        cnt += lane == NG ? c : 0;
+    };
+    next_offsets(blockIdx.x);
+    const int nw = 5 * P + NC + NG + 3;  // only the words the span half reads
+    for (int i = threadIdx.x; i < nq * nw; i += blockDim.x) {
+        const int q = i / nw, o = q * MQ_W + mq_span_word(i - q * nw, P, NC, NG);
+        tt_copy4(pg + o, progs + (long long)q0 * MQ_W + o);
     }
-    if (lane <= NG) out[((long long)q * (NG + 1) + lane) * n_traces_b + t] = neg ? -cnt : cnt;
+    tt_copy_wait();
+    for (int i = threadIdx.x; i < n_sc; i += blockDim.x) scol[i] = span_mat + (long long)i * Sl;
+    if (threadIdx.x == 0) zero = 0;
+    __syncthreads();
+    mq_compile(pg, nq, P, NC, NG, n_sc, pr);
+    const bool regular = pr->regular;  // the chunk runs as word operations
+    // in a regular chunk, counter k = q (NG + 1) + g reads one column sum:
+    // bit d of the group word (group g's head), MQ2_VALID every valid span
+    // (a group with no clause), MQ2_NONE none. Program q's union is the
+    // valid spans where it always holds (cu), its one live head's column
+    // where it has one, none where it has none, else 32 + q: the union
+    // column, summed only where some program needs it
+    bool union_col = false;
+    for (int k = threadIdx.x; k < K && regular; k += blockDim.x) {
+        const int q = k / (NG + 1), g = k - q * (NG + 1);
+        int src;
+        if (g < NG) {
+            const int e = pr->gdesc[q * MQ_NG + g];
+            src = e < 32 ? e : e == MQ_ALWAYS ? MQ2_VALID : MQ2_NONE;
+        } else {
+            const unsigned heads = pr->lhg & mq_range_bits(q * P, q * P + P);
+            src = (pr->cu >> (q * P)) & 1u ? MQ2_VALID
+                  : heads == 0u             ? MQ2_NONE
+                  : (heads & (heads - 1u)) == 0u ? __ffs(heads) - 1
+                                            : 32 + q;
+            union_col = union_col || src == 32 + q;
+        }
+        csrc[k] = src;
+    }
+    union_col = __syncthreads_or(union_col);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int32_t* my = stage + warp * n_stage * 32 + lane;  // this lane's value of column j: my[32 j]
+    const int32_t* vals = n_sc > 0 ? my : &zero;
+    const long long vs = n_sc > 0 ? 32 : 0;
+    const unsigned pm = mq_range_bits(0, P);  // a program's bits, from bit 0
+    MqWords w;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+        w.sc[i] = pr->sc[i];
+        w.sg[i] = pr->sg[i];
+    }
+    w.hc = pr->hc;
+    w.hg = pr->hg;
+    w.lhg = pr->lhg;
+    w.cu = pr->cu;
+    const int vend = tt_clamp(n_spans - row0, 0, Sl);  // spans past n_spans count nowhere
+    const long long r0 = (long long)q0 * (NG + 1);  // the chunk's first output row
+    for (int x = blockIdx.x; x < n_tiles; x += gridDim.x) {
+        const int t0 = x * MQ2_TT, nt = min(MQ2_TT, n_traces_b - t0);
+        bool walk = false;
+        if (threadIdx.x < nt) {  // the reference's clip of its int32 difference, which wraps
+            const int lo = tt_clamp((int)((unsigned)o0 - (unsigned)row0), 0, Sl);
+            const int hi = tt_clamp((int)((unsigned)o1 - (unsigned)row0), 0, Sl);
+            const int a = min(lo, hi), e = max(a, min(max(lo, hi), vend));
+            rng_s[threadIdx.x] = make_int4(a, e, hi < lo, 0);
+            walk = e > a;
+        }
+        next_offsets(x + gridDim.x);
+        const bool any = __syncthreads_or(walk);  // else the tile's rows are zeros
+        for (int i = warp; any && i < nt; i += MQ_WARPS) {  // whole warps take each trace
+            const int4 rg = rng_s[i];
+            int32_t* ci = cnt_s + i;  // counter k at ci[k * (MQ2_TT + 1)]
+            // regular: lane l's column sums over the trace -- spans whose
+            // group word has bit l set, whose program l's union holds -- and
+            // the valid spans; else lane k % 32 owns counter k in ci
+            unsigned gsum = 0, usum = 0, vsum = 0;
+            for (int k = lane; k < K && !regular; k += 32) ci[k * (MQ2_TT + 1)] = 0;
+            for (int base = rg.x; base < rg.y; base += 32) {
+                const int s = base + lane;
+                const bool in = s < rg.y;
+                if (in) {  // the span's column words, all in flight at once
+                    for (int j = 0; j < n_sc; ++j) tt_copy4(my + 32 * j, scol[j] + s);
+                    tt_copy_wait();
+                }
+                if (regular) {
+                    const unsigned gw = in ? mq_group_word(w, mq_cond_bits(*pr, vals, vs)) : 0u;
+                    gsum += mq_colsum(gw, lane);
+                    vsum += __popc(__ballot_sync(0xFFFFFFFFu, in));
+                    if (union_col) {
+                        const unsigned u = in ? mq_union_word(w, gw) : 0u;
+                        unsigned uq = 0;  // bit q: program q's union holds
+                        for (int q = 0; q < nq; ++q)
+                            uq |= (unsigned)((u >> (q * P)) & pm ? 1 : 0) << q;
+                        usum += mq_colsum(uq, lane);
+                    }
+                    continue;
+                }
+                for (int q = 0; q < nq; ++q) {  // each program's row as it stands
+                    const int32_t* r = pg + q * MQ_W;
+                    unsigned bits = 0;  // its groups, then its union at bit NG
+                    if (in) {
+                        bits = mq_span_bits(r, [&](int j) { return vals[j * vs]; }, n_sc, P, NC,
+                                            NG);
+                        bits |= (unsigned)(r[O_N_GROUPS] > 0 ? (bits & mq_live(r)) != 0 : true)
+                                << NG;
+                    }
+                    for (int g = 0; g <= NG; ++g) {
+                        const int n = __popc(__ballot_sync(0xFFFFFFFFu, (bits >> g) & 1u));
+                        const int k = q * (NG + 1) + g;
+                        if (lane == (k & 31)) ci[k * (MQ2_TT + 1)] += n;
+                    }
+                }
+            }
+            if (regular) {
+                for (int k0 = 0; k0 < K; k0 += 32) {  // whole warps: the shuffles
+                    const int k = k0 + lane, src = k < K ? csrc[k] : MQ2_NONE;
+                    const unsigned gs = __shfl_sync(0xFFFFFFFFu, gsum, src & 31);
+                    const unsigned us = __shfl_sync(0xFFFFFFFFu, usum, src & 31);
+                    const int c =
+                        (int)(src < 32 ? gs : src < 64 ? us : src == MQ2_VALID ? vsum : 0u);
+                    if (k < K) ci[k * (MQ2_TT + 1)] = rg.z ? -c : c;
+                }
+            } else if (rg.z) {  // backwards: negated, as the reference's signed differences
+                for (int k = lane; k < K; k += 32) ci[k * (MQ2_TT + 1)] = -ci[k * (MQ2_TT + 1)];
+            }
+        }
+        if (any) __syncthreads();
+        const int n4 = nt >> 2;  // 16 bytes a store: n_traces_b and so nt a multiple of 4
+        for (int e = threadIdx.x; e < K * n4; e += blockDim.x) {
+            const int k = e / n4, c = (e - k * n4) * 4;
+            int4 v = make_int4(0, 0, 0, 0);
+            if (any) {
+                const int32_t* r = cnt_s + k * (MQ2_TT + 1) + c;
+                v = make_int4(r[0], r[1], r[2], r[3]);
+            }
+            *(int4*)(out + (r0 + k) * n_traces_b + t0 + c) = v;
+        }
+        __syncthreads();  // the next tile reuses the ranges and the counts
+    }
 }
 
-// M3: the trace-level half on the summed counts (q_b, NG + 1,
-// n_traces_b) of M2 (tempo_tpu/parallel/multiquery.py:102-125
-// `combine`): group g holds for trace t when its count is > 0; the
-// trace clauses over those hits and the trace columns; tm & valid
-// trace; the union count where tm holds, else 0. M2 then M3 equal B5a
-// bit for bit on any row split.
+// M3 (mq_combine, slot 3): the trace-level half on the summed counts
+// (q_b, NG + 1, n_traces_b) of M2 (tempo_tpu/parallel/multiquery.py:102-125
+// `combine`): group g holds for trace t when its count is > 0; the trace
+// clauses over those hits and the trace columns; tm & valid trace; the
+// union count where tm holds, else 0. M2 then M3 equal B5a bit for bit on
+// any row split.
 //
-// Design: one thread per (trace, query), the program row and the trace
-// column pointers in shared memory, mq_trace_ok. Launch slot 3.
+// Design: a grid sized to the card (at most the CTAs resident at once,
+// over the queries on gridDim.y), each CTA copying the trace half of its
+// program row (mq_trace_word) once. A thread takes 4 consecutive traces:
+// the NG + 1 counts (its first step's in flight while the CTA reads the
+// program row) and each trace condition's column as 16-byte loads,
+// the conditions into one 64-bit word (bit 4 j + r: condition j for
+// trace t + r), mq_trace_ok four times, one 4-byte tm store and one
+// 16-byte cnt store (tm and cnt are the two halves of one allocation:
+// one download). n_traces_b is a multiple of 4 and every base 16-byte
+// aligned (kernels.mq_combine_packed refuses other input).
 // Bound: bytes -- (NG + 1) x 4 B of counts and the named trace columns
 // read, 5 B written per (query, trace).
-__global__ void mq_combine_kernel(const int32_t* __restrict__ progs, int NG, int PT, int NA,
-                                  int TC, const int32_t* __restrict__ counts,
-                                  const int32_t* __restrict__ trace_mat, int n_tc, int n_traces,
-                                  int n_traces_b, uint8_t* __restrict__ tm_out,
-                                  int32_t* __restrict__ cnt_out) {
+#define MQ3_THREADS 256
+
+// the words of a program row the trace half reads: its PT trace
+// conditions, NA atoms, trace clause offsets c <= TC, n_tclauses
+__device__ __forceinline__ bool mq_trace_word(int j, int PT, int NA, int TC) {
+    if (j < O_TCOND_COL) return false;
+    if (j < O_ATOM_KIND) return (j - O_TCOND_COL) % MQ_PT < PT;
+    if (j < O_TCLAUSE_OFF) return (j - O_ATOM_KIND) % MQ_NA < NA;
+    if (j < O_N_GROUPS) return j - O_TCLAUSE_OFF <= TC;
+    return j == O_N_TCLAUSES;
+}
+
+// traces t .. t + 3 of a row, 16 bytes at once
+__device__ __forceinline__ int4 mq_load4(const int32_t* p) { return __ldg((const int4*)p); }
+
+__device__ __forceinline__ int mq_lane4(int4 v, int r) {
+    return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(MQ3_THREADS)
+mq_combine_kernel(const int32_t* __restrict__ progs, int NG, int PT, int NA, int TC,
+                  const int32_t* __restrict__ counts, const int32_t* __restrict__ trace_mat,
+                  int n_tc, int n_traces, int n_traces_b, uint8_t* __restrict__ tm_out,
+                  int32_t* __restrict__ cnt_out) {
     __shared__ int32_t pg[MQ_W];
-    __shared__ const int32_t* tcol[MQ_TCOLS];
     const int q = blockIdx.y;
-    for (int i = threadIdx.x; i < MQ_W; i += blockDim.x) pg[i] = progs[(long long)q * MQ_W + i];
-    for (int i = threadIdx.x; i < n_tc; i += blockDim.x)
-        tcol[i] = trace_mat + (long long)i * n_traces_b;
+    const long long nb = n_traces_b;
+    const int32_t* cq = counts + (long long)q * (NG + 1) * nb;
+    const int n4 = n_traces_b >> 2, step = gridDim.x * blockDim.x;
+    // the group bits (bit 8 r + g: group g's count for trace t + r is above
+    // zero) and union counts of a step, the first step's read before the
+    // program row arrives
+    auto counts4 = [&](int x, unsigned& gp, int4& un) {
+        const int t = 4 * x;
+        gp = 0;
+        for (int g = 0; g < NG; ++g) {
+            const int4 v = mq_load4(cq + g * nb + t);
+            gp |= (unsigned)(v.x > 0) << g | (unsigned)(v.y > 0) << (8 + g) |
+                  (unsigned)(v.z > 0) << (16 + g) | (unsigned)(v.w > 0) << (24 + g);
+        }
+        un = mq_load4(cq + NG * nb + t);
+    };
+    const int x0 = blockIdx.x * blockDim.x + threadIdx.x;
+    unsigned gp = 0;
+    int4 un = make_int4(0, 0, 0, 0);
+    if (x0 < n4) counts4(x0, gp, un);
+    for (int i = threadIdx.x; i < MQ_W; i += blockDim.x)
+        if (mq_trace_word(i, PT, NA, TC)) pg[i] = progs[(long long)q * MQ_W + i];
     __syncthreads();
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n_traces_b) return;
-    const int32_t* c = counts + (long long)q * (NG + 1) * n_traces_b + t;
-    unsigned gany = 0;
-    for (int g = 0; g < NG; ++g)
-        if (c[(long long)g * n_traces_b] > 0) gany |= 1u << g;
-    const bool tm = t < n_traces && mq_trace_ok(pg, gany, tcol, n_tc, t, NG, PT, NA, TC);
-    const long long o = (long long)q * n_traces_b + t;
-    tm_out[o] = tm;
-    cnt_out[o] = tm ? c[(long long)NG * n_traces_b] : 0;
+    for (int x = x0; x < n4; x += step) {
+        const int t = 4 * x;
+        if (x != x0) counts4(x, gp, un);
+        unsigned long long tb = 0;  // bit 4 j + r: trace condition j holds for trace t + r
+        for (int j = 0; j < PT; ++j) {
+            const int op = pg[O_TCOND_OP + j];
+            if ((unsigned)op > 7u) continue;  // no such compare: never holds
+            const int4 v =
+                n_tc > 0 ? mq_load4(trace_mat + tt_clamp(pg[O_TCOND_COL + j], 0, n_tc - 1) * nb + t)
+                         : make_int4(0, 0, 0, 0);
+            const int v0 = pg[O_TCOND_V0 + j], v1 = pg[O_TCOND_V1 + j];
+            const unsigned b = (unsigned)cmp_code(op, v.x, v0, v1) |
+                               (unsigned)cmp_code(op, v.y, v0, v1) << 1 |
+                               (unsigned)cmp_code(op, v.z, v0, v1) << 2 |
+                               (unsigned)cmp_code(op, v.w, v0, v1) << 3;
+            tb |= (unsigned long long)b << (4 * j);
+        }
+        unsigned tm4 = 0;
+        int4 c4;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const bool ok = t + r < n_traces &&
+                            mq_trace_ok(pg, (gp >> (8 * r)) & 0xFFu,
+                                        [&](int j) { return ((tb >> (4 * j + r)) & 1ull) != 0; },
+                                        NG, PT, NA, TC);
+            tm4 |= (unsigned)ok << (8 * r);
+            const int c = ok ? mq_lane4(un, r) : 0;
+            if (r == 0) c4.x = c;
+            if (r == 1) c4.y = c;
+            if (r == 2) c4.z = c;
+            if (r == 3) c4.w = c;
+        }
+        const long long o = (long long)q * nb + t;
+        *(unsigned*)(tm_out + o) = tm4;
+        *(int4*)(cnt_out + o) = c4;
+    }
 }
 
 static int mq_dims_bad(int P, int NC, int NG, int PT, int NA, int TC, int q_b) {
@@ -777,11 +1039,18 @@ TT_EXPORT int tt_mq_partial(const int32_t* progs, int q_b, int P, int NC, int NG
                             const int32_t* span_off, int n_spans, int n_traces_b, int32_t* out,
                             void* stream) {
     if (mq_dims_bad(P, NC, NG, 1, 1, 1, q_b) || n_sc < 0 || n_sc > MQ_SC || Sl < 0 ||
-        row0 < 0 || n_traces_b < 1)
+        row0 < 0 || n_traces_b < 1 || n_traces_b % 4)
         return (int)cudaErrorInvalidValue;
-    dim3 grid((n_traces_b + MQ_WARPS - 1) / MQ_WARPS, q_b);
-    mq_partial_kernel<<<grid, MQ_WARPS * 32, 0, (cudaStream_t)stream>>>(
-        progs, P, NC, NG, span_mat, n_sc, Sl, row0, span_off, n_spans, n_traces_b, out);
+    const int qc = q_b < MQ_QC / P ? q_b : MQ_QC / P;  // the chunk's conditions fill one word
+    const int n_chunks = (q_b + qc - 1) / qc;
+    const size_t smem = mq2_smem(qc, NG, n_sc);
+    static MqOcc occ;
+    int err;
+    int gx = mq_grid_x(mq_partial_kernel, occ, MQ2_SMEM_MAX, MQ_WARPS * 32,
+                             (n_traces_b + MQ2_TT - 1) / MQ2_TT, n_chunks, smem, &err);
+    if (err) return err;
+    mq_partial_kernel<<<dim3(gx, n_chunks), MQ_WARPS * 32, smem, (cudaStream_t)stream>>>(
+        progs, q_b, qc, P, NC, NG, span_mat, n_sc, Sl, row0, span_off, n_spans, n_traces_b, out);
     TT_LAUNCHED_SLOT(2);
     return (int)cudaGetLastError();
 }
@@ -792,10 +1061,16 @@ TT_EXPORT int tt_mq_combine(const int32_t* progs, int q_b, int NG, int PT, int N
                             const int32_t* counts, const int32_t* trace_mat, int n_tc,
                             int n_traces, int n_traces_b, uint8_t* tm, int32_t* cnt,
                             void* stream) {
-    if (mq_dims_bad(1, 1, NG, PT, NA, TC, q_b) || n_tc < 0 || n_tc > MQ_TCOLS || n_traces_b < 1)
+    if (mq_dims_bad(1, 1, NG, PT, NA, TC, q_b) || n_tc < 0 || n_tc > MQ_TCOLS || n_traces_b < 1 ||
+        n_traces_b % 4)
         return (int)cudaErrorInvalidValue;
-    dim3 grid((n_traces_b + 255) / 256, q_b);
-    mq_combine_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+    const int n4 = n_traces_b / 4;
+    static MqOcc occ;
+    int err;
+    const int gx = mq_grid_x(mq_combine_kernel, occ, 0, MQ3_THREADS,
+                             (n4 + MQ3_THREADS - 1) / MQ3_THREADS, q_b, 0, &err);
+    if (err) return err;
+    mq_combine_kernel<<<dim3(gx, q_b), MQ3_THREADS, 0, (cudaStream_t)stream>>>(
         progs, NG, PT, NA, TC, counts, trace_mat, n_tc, n_traces, n_traces_b, tm, cnt);
     TT_LAUNCHED_SLOT(3);
     return (int)cudaGetLastError();

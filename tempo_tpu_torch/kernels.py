@@ -1432,8 +1432,12 @@ def mq_partial(progs: torch.Tensor, dims: tuple, span_mat: torch.Tensor, row0: i
                span_off: torch.Tensor, n_spans: int) -> torch.Tensor:
     """M2: B5a's span-level half of q_b packed programs over the row slice
     span_mat (n_sc, Sl) starting at global row row0 -> partial counts
-    (q_b, NG + 1, n_traces_b) int32. Bound: bytes (the slice's columns
-    once per query)."""
+    (q_b, NG + 1, n_traces_b) int32, n_traces_b a multiple of 4 (16
+    bytes a store; other counts raise). One launch: B5a's compiled chunks
+    of 32 / P programs over a grid sized to the card, each span column
+    word of the slice read once a chunk; a tile of traces with nothing
+    in the slice writes zeros and walks nothing. Bound: bytes (the
+    slice's columns once, span_off, the counts)."""
     dev = _cuda_device(progs)
     q_b = progs.shape[0]
     _check(progs, "progs", torch.int32, dev, (q_b, MQ_W))
@@ -1446,6 +1450,8 @@ def mq_partial(progs: torch.Tensor, dims: tuple, span_mat: torch.Tensor, row0: i
     P, NC, NG = (int(d) for d in dims[:3])
     n_sc, sl = span_mat.shape
     nt_b = span_off.shape[0] - 1
+    if nt_b % 4:
+        raise KernelError(f"mq_partial: {nt_b} trace rows, not a multiple of 4")
     out = torch.empty((q_b, NG + 1, nt_b), dtype=torch.int32, device=dev)
     with _on(dev):
         _call("tt_mq_partial", progs.data_ptr(), q_b, P, NC, NG, span_mat.data_ptr(), n_sc, sl,
@@ -1454,12 +1460,24 @@ def mq_partial(progs: torch.Tensor, dims: tuple, span_mat: torch.Tensor, row0: i
     return out
 
 
-def mq_combine(progs: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat: torch.Tensor,
-               n_traces: int):
+def mq_views(packed: torch.Tensor, q_b: int, n_traces_b: int):
+    """(tm bool, counts int32), each (q_b, n_traces_b): the two halves of
+    one packed M3 output, counts first (on the card or after its one
+    download)."""
+    n = q_b * n_traces_b
+    return (packed[4 * n:].view(torch.bool).view(q_b, n_traces_b),
+            packed[:4 * n].view(torch.int32).view(q_b, n_traces_b))
+
+
+def mq_combine_packed(progs: torch.Tensor, dims: tuple, counts: torch.Tensor,
+                      trace_mat: torch.Tensor, n_traces: int) -> torch.Tensor:
     """M3: the trace-level half over the summed (q_b, NG + 1, n_traces_b)
-    counts and trace_mat (n_tc, n_traces_b) -> (tm bool, counts int32),
-    each (q_b, n_traces_b). Bound: bytes (the counts and the trace
-    columns read once)."""
+    counts and trace_mat (n_tc, n_traces_b) into one uint8 allocation of
+    5 q_b n_traces_b bytes: the int32 counts, then tm (mq_views). One
+    launch: a grid sized to the card, the query on its y axis, 4 traces
+    a thread by 16-byte loads and stores (n_traces_b a multiple of 4,
+    counts and trace_mat 16-byte aligned; other input raises). Bound:
+    bytes (the counts and the trace columns read once, the outputs)."""
     dev = _cuda_device(progs)
     q_b = progs.shape[0]
     _check(progs, "progs", torch.int32, dev, (q_b, MQ_W))
@@ -1471,14 +1489,25 @@ def mq_combine(progs: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat
     nt_b = counts.shape[2]
     _check(counts, "counts", torch.int32, dev, (q_b, NG + 1, nt_b))
     _check(trace_mat, "trace_mat", torch.int32, dev, (trace_mat.shape[0], nt_b))
-    tm = torch.empty((q_b, nt_b), dtype=torch.bool, device=dev)
-    cnt = torch.empty((q_b, nt_b), dtype=torch.int32, device=dev)
+    if nt_b % 4 or counts.data_ptr() % 16 or (trace_mat.numel() and trace_mat.data_ptr() % 16):
+        raise KernelError("mq_combine: trace rows a multiple of 4 and counts and trace_mat "
+                          "16-byte aligned expected")
+    packed = torch.empty(5 * q_b * nt_b, dtype=torch.uint8, device=dev)
+    p = packed.data_ptr()
     with _on(dev):
         _call("tt_mq_combine", progs.data_ptr(), q_b, NG, PT, NA, TC, counts.data_ptr(),
-              trace_mat.data_ptr(), trace_mat.shape[0], int(n_traces), nt_b, tm.data_ptr(),
-              cnt.data_ptr(), _stream(dev))
+              trace_mat.data_ptr(), trace_mat.shape[0], int(n_traces), nt_b,
+              p + 4 * q_b * nt_b, p, _stream(dev))
     _count("mq_combine")
-    return tm, cnt
+    return packed
+
+
+def mq_combine(progs: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat: torch.Tensor,
+               n_traces: int):
+    """M3 -> (tm bool, counts int32), each (q_b, n_traces_b): views of
+    mq_combine_packed's one allocation."""
+    return mq_views(mq_combine_packed(progs, dims, counts, trace_mat, n_traces),
+                    progs.shape[0], counts.shape[2])
 
 
 # ------------------------------------------------------------------ M4

@@ -60,6 +60,11 @@ _BITS = (128, 64, 32, 16, 8, 4, 2, 1)
 # ------------------------------------------------------------ plain versions
 
 
+def _wrap_diff(off, row0: int):
+    """off - row0 as the reference's int32 difference, which wraps (int64)."""
+    return (off.long() - int(row0) + 2**31) % 2**32 - 2**31
+
+
 def _attr_partial_plain(c, cols: dict, ops_i, ops_f, i: int, table, arow0: int):
     """M5, plain (the reference's `owner_counts` over `attr_mask`'s row
     hits): (Bl, n_seg) int32 partial counts of leaf i."""
@@ -74,9 +79,9 @@ def _attr_partial_plain(c, cols: dict, ops_i, ops_f, i: int, table, arow0: int):
     al = row_hit.shape[1]
     ecs = torch.cat([torch.zeros((row_hit.shape[0], 1), dtype=torch.int64, device=row_hit.device),
                      torch.cumsum(row_hit.to(torch.int64), dim=1)], dim=1)
-    off = cols[f"{pre}.off"].long()
-    lo = torch.clamp(off[:, :-1] - arow0, 0, al)
-    hi = torch.clamp(off[:, 1:] - arow0, 0, al)
+    off = _wrap_diff(cols[f"{pre}.off"], arow0)
+    lo = torch.clamp(off[:, :-1], 0, al)
+    hi = torch.clamp(off[:, 1:], 0, al)
     return (torch.gather(ecs, 1, hi) - torch.gather(ecs, 1, lo)).to(torch.int32)
 
 
@@ -120,9 +125,9 @@ def _search_partial_plain(slots, tslots: list, span_off, tsid, n_spans, row0: in
         if span_off is not None:
             ecs = torch.cat([torch.zeros((bl, 1), dtype=torch.int64, device=m.device),
                              torch.cumsum(m.to(torch.int64), dim=1)], dim=1)
-            off = span_off.long()
-            lo = torch.clamp(off[:, :-1] - row0, 0, sl)
-            hi = torch.clamp(off[:, 1:] - row0, 0, sl)
+            off = _wrap_diff(span_off, row0)
+            lo = torch.clamp(off[:, :-1], 0, sl)
+            hi = torch.clamp(off[:, 1:], 0, sl)
             out.append(torch.gather(ecs, 1, hi) - torch.gather(ecs, 1, lo))
         else:
             sid = torch.clamp(torch.where(m, tsid, nt), 0, nt).long()

@@ -585,9 +585,9 @@ def _mq_partial_plain(span_mat: torch.Tensor, span_off: torch.Tensor, progs: dic
     dev = span_off.device
     sl = span_mat.shape[1]
     valid_span = (torch.arange(sl, device=dev) + int(row0)) < int(n_spans)
-    off = span_off.long()
-    lo = torch.clamp(off[:-1] - int(row0), 0, sl)
-    hi = torch.clamp(off[1:] - int(row0), 0, sl)
+    off = (span_off.long() - int(row0) + 2**31) % 2**32 - 2**31  # the reference's int32 difference
+    lo = torch.clamp(off[:-1], 0, sl)
+    hi = torch.clamp(off[1:], 0, sl)
     out = []
     for q in range(progs["cond_op"].shape[0]):
         p = {k: v[q] for k, v in progs.items()}
@@ -649,10 +649,12 @@ def mq_partial(rows: torch.Tensor, dims: tuple, span_mat: torch.Tensor, row0: in
 
 
 def mq_combine(rows: torch.Tensor, dims: tuple, counts: torch.Tensor, trace_mat: torch.Tensor,
-               n_traces: int):
-    """M3 on CUDA tensors, its plain version on CPU tensors."""
+               n_traces: int) -> torch.Tensor:
+    """M3 on CUDA tensors, its plain version on CPU tensors -> one uint8
+    buffer of the int32 counts, then tm (kernels.mq_views reads the two)."""
     if rows.device.type == "cpu":
-        return _mq_combine_plain(counts, trace_mat, program_tables(rows, dims), n_traces)
+        tm, cnt = _mq_combine_plain(counts, trace_mat, program_tables(rows, dims), n_traces)
+        return torch.cat([cnt.reshape(-1).view(torch.uint8), tm.reshape(-1).view(torch.uint8)])
     from .. import kernels
 
-    return kernels.mq_combine(rows, dims, counts, trace_mat, n_traces)
+    return kernels.mq_combine_packed(rows, dims, counts, trace_mat, n_traces)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import mq_views
 from ..ops.multiquery import _program_rows, mq_combine, mq_partial
 from .mesh import DISPATCH_LOCK, program
 
@@ -25,8 +26,11 @@ def _mq_body(mesh, static: dict, ops: dict):
     row0 = mesh.rank * span_mat.shape[1]
     parts = mq_partial(rows, dims, span_mat, row0, ops["span_off"], static["n_spans"])  # M2
     parts = mesh.all_reduce(parts, "sum")  # ONE collective per window
-    tm, counts = mq_combine(rows, dims, parts, ops["trace_mat"], static["n_traces"])  # M3
-    return (tm.cpu().numpy(), counts.cpu().numpy()) if mesh.rank == 0 else None
+    packed = mq_combine(rows, dims, parts, ops["trace_mat"], static["n_traces"])  # M3
+    if mesh.rank != 0:
+        return None
+    tm, counts = mq_views(packed.cpu(), rows.shape[0], parts.shape[2])  # rank 0: one download
+    return tm.numpy(), counts.numpy()
 
 
 def mesh_batch_eligible(mesh, staged) -> bool:

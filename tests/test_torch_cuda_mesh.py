@@ -44,12 +44,15 @@ from tempo_tpu_torch.parallel import (
 from tempo_tpu_torch.parallel.mesh import Mesh
 from tempo_tpu_torch.util.testdata import make_traces
 from torch_tile_cases import (
+    MQ_BOUNDS,
+    MQ_CASES,
     STACKED_G,
     STACKED_NB,
     STACKED_SPECS,
     STACKED_STEP,
     STACKED_TREE,
     elect_case,
+    mq_split_case,
     stacked_case,
 )
 
@@ -222,6 +225,92 @@ def test_mq_partial_combine_hostile_offsets(cuda, kind):
         assert torch.equal(tm, ptm) and torch.equal(cnt, pcnt), w
         assert torch.equal(tm, tm1) and torch.equal(cnt, c1), w
     assert (np.diff(cols["trace.span_off"][:TC.N_TRACES + 1]) < 0).any()
+
+
+@pytest.mark.parametrize("case", MQ_CASES + ("short_tile", "ragged", "wrap"))
+def test_mq_split_routes(cuda, case):
+    """M2 and M3 on the routes of their redesign (tests/torch_tile_cases
+    mq_split_case: chunks on the word operations and on the program rows,
+    several chunks, NG = 8, P = 3, no span column; "short_tile": 1,012
+    trace rows, M2's last tile of 4; "wrap": span offsets within row0 of
+    INT_MIN, whose int32 difference wraps), one __global__ a call each: M2
+    on every slice of 1-4 row slices that cut traces and on a slice past
+    the spans (every tile empty: zeros), M3 into its packed output
+    (counts, then tm), each against its plain version; summed, equal to
+    B5a (but for "short_tile" and "wrap"). "ragged": 1,022 trace rows, or
+    counts off a 16-byte boundary, which both wrappers refuse."""
+    arrays, cols, q = mq_split_case(case if case in MQ_CASES else "regular", 700 + len(case))
+    if case == "wrap":
+        cols["trace.span_off"][[5, 9, 40]] = [-(2**31), -(2**31) + 700, -(2**31) + 1200]
+    lqs = [MQ.LoweredQuery.from_arrays(a) for a in arrays]
+    shape = lqs[0].shape
+    progs = MQ.pack_queries(lqs, MQ._p2(q, lo=1))
+    rows = torch.from_numpy(MQ._program_rows(progs)).to(cuda)
+    q_b = rows.shape[0]
+    dims = (shape.n_conds_b, shape.n_clauses_b, shape.n_groups_b, shape.n_tconds_b,
+            shape.n_atoms_b, shape.n_tclauses_b)
+    span_mat = torch.from_numpy(np.stack([cols[n] for n in shape.span_cols]) if shape.span_cols
+                                else np.zeros((0, TC.N_SPANS_B), np.int32)).to(cuda)
+    plain_mat = span_mat if shape.span_cols else torch.zeros((1, TC.N_SPANS_B),
+                                                             dtype=torch.int32, device=cuda)
+    trace_mat = torch.from_numpy(np.stack([cols[n] for n in shape.trace_cols])).to(cuda)
+    span_off = torch.from_numpy(cols["trace.span_off"]).to(cuda)
+    ntb = {"short_tile": 1012, "ragged": 1022}.get(case, TC.N_TRACES_B)
+    span_off, trace_mat = span_off[:ntb + 1].contiguous(), trace_mat[:, :ntb].contiguous()
+    tables = MQ.program_tables(rows, dims)
+    if case == "ragged":
+        kernels.reset_counts()
+        with pytest.raises(kernels.KernelError):
+            kernels.mq_partial(rows, dims, span_mat, 0, span_off, TC.N_SPANS)
+        counts = torch.zeros((q_b, dims[2] + 1, ntb), dtype=torch.int32, device=cuda)
+        with pytest.raises(kernels.KernelError):
+            kernels.mq_combine_packed(rows, dims, counts, trace_mat, TC.N_TRACES)
+
+        def off16(*shape):  # a view 4 bytes past a 16-byte boundary
+            n = int(np.prod(shape))
+            return torch.zeros(n + 1, dtype=torch.int32, device=cuda)[1:].view(*shape)
+
+        n_tc, full = trace_mat.shape[0], (q_b, dims[2] + 1, TC.N_TRACES_B)
+        with pytest.raises(kernels.KernelError):
+            kernels.mq_combine_packed(rows, dims, off16(*full), torch.zeros(
+                (n_tc, TC.N_TRACES_B), dtype=torch.int32, device=cuda), TC.N_TRACES)
+        with pytest.raises(kernels.KernelError):
+            kernels.mq_combine_packed(rows, dims, torch.zeros(full, dtype=torch.int32, device=cuda),
+                                      off16(n_tc, TC.N_TRACES_B), TC.N_TRACES)
+        assert not any(kernels.grid_launches().values())
+        return
+
+    def m2(r0, r1):
+        kernels.reset_counts()
+        got = kernels.mq_partial(rows, dims, span_mat[:, r0:r1].contiguous(), r0, span_off,
+                                 TC.N_SPANS)
+        assert kernels.grid_launches()["mq_partial"] == 1
+        want = MQ._mq_partial_plain(plain_mat[:, r0:r1], span_off, tables, r0, TC.N_SPANS)
+        assert torch.equal(got, want), (case, r0, r1)
+        return got
+
+    assert not m2(1536, TC.N_SPANS_B).any()
+    b5a = case not in ("short_tile", "wrap")
+    if b5a:
+        staged = ST.staged_from_numpy(cols, TC.N_SPANS, TC.N_TRACES, TC.N_RES, cuda)
+        tm1, c1 = MQ.eval_multiquery(lqs, staged, progs)
+        assert tm1.any()
+    for w, bounds in MQ_BOUNDS.items():
+        total = torch.stack([m2(r0, r1) for r0, r1 in zip(bounds, bounds[1:])]).sum(
+            dim=0, dtype=torch.int32)
+        kernels.reset_counts()
+        packed = kernels.mq_combine_packed(rows, dims, total, trace_mat, TC.N_TRACES)
+        assert kernels.grid_launches()["mq_combine"] == 1
+        assert packed.dtype == torch.uint8 and packed.numel() == 5 * q_b * ntb
+        tm, cnt = kernels.mq_views(packed, q_b, ntb)
+        assert cnt.data_ptr() == packed.data_ptr()
+        assert tm.data_ptr() == packed.data_ptr() + 4 * q_b * ntb
+        ptm, pcnt = MQ._mq_combine_plain(total, trace_mat, tables, TC.N_TRACES)
+        assert torch.equal(tm, ptm) and torch.equal(cnt, pcnt), (case, w)
+        htm, hcnt = kernels.mq_views(packed.cpu(), q_b, ntb)  # one download
+        assert torch.equal(htm, ptm.cpu()) and torch.equal(hcnt, pcnt.cpu())
+        if b5a:
+            assert torch.equal(tm, tm1) and torch.equal(cnt, c1), (case, w)
 
 
 def _stacked(rng, B=4, S=4096, R=1024, NT=1024):

@@ -35,6 +35,7 @@ from tempo_tpu_torch.parallel import make_mesh, sharded_search
 from tempo_tpu_torch.parallel.search import _stack_operands
 
 pytestmark = pytest.mark.cuda
+INT_MIN = -(2**31)
 
 
 @pytest.fixture
@@ -147,13 +148,18 @@ def _attr_check(sh, what):
                                         sh.tables.get(i), arow0), f"{what} leaf {i}")
 
 
-@pytest.mark.parametrize("shape", ["plain", "hostile", "no_rows", "ragged_tile", "past_shard"])
+@pytest.mark.parametrize("shape", ["plain", "hostile", "no_rows", "ragged_tile", "past_shard",
+                                   "wrap"])
 def test_attr_tiles_match_plain(cuda, shape):
     """M5's tiled count over the CPU model's cases (tests/test_torch_attr_
     tiles.py) on every shard of sp = 1, 2 and 4 (arow0 > 0 past the
-    first), each leaf: any, string, int, float and table."""
-    if shape == "hostile":
+    first), each leaf: any, string, int, float and table; "wrap": offsets
+    within a shard's arow0 of INT_MIN, whose int32 difference wraps."""
+    if shape in ("hostile", "wrap"):
         case = attr_case(7, hostile=True)
+        if shape == "wrap":
+            case["cols"]["sattr.off"][1, [1150, 1250, 2200]] = [INT_MIN, INT_MIN + 5000,
+                                                                 INT_MIN + 9000]
     elif shape == "no_rows":
         case = attr_case(3, big=0)
         case["cols"]["sattr.off"][:] = 0
@@ -319,7 +325,7 @@ def _tail_check(sh: MS.ShardSearch, what: str) -> None:
 
 
 @pytest.mark.parametrize("shape", ["grouped", "hostile", "ragged_tile", "empty_tile", "unaligned",
-                                   "long_trace"])
+                                   "long_trace", "wrap"])
 def test_search_tail_matches_plain(cuda, shape):
     """M7, M8 and the fused route over search_case's shapes on every shard
     of sp = 1, 2 and 4 (row0 > 0 past the first): n_tr 0, 1 and 3, trace
@@ -327,11 +333,15 @@ def test_search_tail_matches_plain(cuda, shape):
     trace conditions, 34 tracify slots (M7 walks, M8 reads its program
     from the buffer, the fused route refuses it); falling, negative and
     past-the-shard offsets; a last tile of one trace; a tile of empty
-    traces; shard rows not 16-byte aligned; a trace of 100,000 rows."""
+    traces; shard rows not 16-byte aligned; a trace of 100,000 rows;
+    offsets within a shard's row0 of INT_MIN, whose int32 difference
+    wraps."""
     trees = dict(SEARCH_TREES, many_slots=MANY_SLOTS)
     sps = (1, 2, 4)
-    if shape == "hostile":
+    if shape in ("hostile", "wrap"):
         case = search_case(7, hostile=True)
+        if shape == "wrap":
+            case["span_off"][1, [150, 250, 400]] = [INT_MIN, INT_MIN + 3000, INT_MIN + 5000]
     elif shape == "ragged_tile":
         case = search_case(8, nt=513)
     elif shape == "empty_tile":

@@ -17,6 +17,7 @@ from tempo_tpu_torch.ops import filter as F
 from tempo_tpu_torch.ops import meshsearch as MS
 
 SPS = [1, 2, 4]
+INT_MIN = -(2**31)
 
 
 def _owner_counts_ref(row_hit, off, arow0):
@@ -239,3 +240,54 @@ def test_struct_step_plain_on_shards(sp, op):
                                         torch.tensor([n], dtype=torch.int32), k * sl)[0].numpy())
     np.testing.assert_array_equal(np.concatenate(got), want)
     assert want.any()
+
+
+@pytest.mark.parametrize("kind", ["attr", "span"])
+def test_partial_plain_offsets_that_wrap(kind):
+    """Offsets within a shard's first row of INT_MIN: the reference takes
+    off - row0 in int32, which wraps, so such a range clips to the
+    shard's end, not its start. M5's and M7's plain versions on every
+    shard of sp = 4 equal its arithmetic, and on some shard the wrap
+    gives another count than a 64-bit difference would."""
+    rng = np.random.default_rng(40)
+    sp = 4
+    if kind == "attr":
+        cols = _attr_block(rng)
+        mask = cols["sattr.key_id"] == 1
+        off = cols["sattr.off"]
+    else:
+        bl, S, nt = 2, 64, 8
+        sid = np.sort(rng.integers(0, nt, (bl, S)), axis=1).astype(np.int32)
+        off = np.zeros((bl, nt + 1), np.int32)
+        for b in range(bl):
+            off[b, 1:] = np.cumsum(np.bincount(sid[b], minlength=nt))
+        slots = (rng.random((bl, 1, S)) < 0.5).astype(np.uint8)
+        mask = slots[:, 0] != 0
+    off[0, [2, 5]] = [INT_MIN, INT_MIN + 30]
+    off[1, 6] = INT_MIN + 40
+    bl, n = mask.shape
+    sl = n // sp
+    differs = False
+    for k in range(sp):
+        cut, r0 = slice(k * sl, (k + 1) * sl), k * sl
+        if kind == "attr":
+            part = {c: torch.from_numpy(np.ascontiguousarray(a[:, cut]))
+                    for c, a in cols.items() if c != "sattr.off"}
+            part["sattr.off"] = torch.from_numpy(off)
+            ops_i = torch.from_numpy(np.asarray([[[1, 0, 0]]] * bl, np.int32))
+            got = MS._attr_partial_plain(F.Cond("sattr", "any", "exists"), part, ops_i,
+                                         torch.zeros((bl, 1, 2)), 0, None, r0).numpy()
+            want = _owner_counts_ref(mask[:, cut], off, r0)
+        else:
+            got = MS._search_partial_plain(
+                torch.from_numpy(np.ascontiguousarray(slots[:, :, cut])), [0], torch.from_numpy(off),
+                None, torch.from_numpy(np.asarray([S, S], np.int32)), r0, nt).numpy()[:, 0]
+            want = _seg_ref(mask[:, cut], off, None, r0, nt)
+        np.testing.assert_array_equal(got, want, err_msg=f"shard {k}")
+        ecs = np.concatenate([np.zeros((bl, 1), np.int64), np.cumsum(mask[:, cut], axis=1)], 1)
+        lo, hi = (np.clip(off.astype(np.int64)[:, i] - r0, 0, sl) for i in (slice(0, -1),
+                                                                              slice(1, None)))
+        wide = np.take_along_axis(ecs, hi, 1) - np.take_along_axis(ecs, lo, 1)
+        differs = differs or not np.array_equal(want, wide)
+    assert differs
+

@@ -2,9 +2,11 @@
 one-launch filter (test_torch_attr_tiles.py, test_torch_live_filter_one.py,
 which hold numpy models of the kernels against the JAX package) and by
 their card tests (test_torch_cuda_mesh_search.py, test_torch_cuda_ingest.py,
-which import no JAX). Plain numpy; not a test module."""
+which import no JAX); likewise for the later kernels' models below. Plain
+numpy; not a test module."""
 
 import numpy as np
+import test_torch_cases as TC
 
 PAD_I32 = -(2**31)
 TILE, CHUNK = 2048, 8192  # M5's owners a CTA and rows a chunk (csrc/meshsearch.cu)
@@ -362,3 +364,46 @@ def elect_case(seed: int, bl: int, T: int = 256, q: int = 40, misses_only: bool 
         queries = np.concatenate([ids[0, :1], ids[-1, :1], ids[blocks, rows], misses])
     return {"ids": ids, "n_valid": nv, "queries": queries.astype(np.int32),
             "base": int(seed % 5) * bl}
+
+
+# ------------------------------------------- M2 and M3 (the mesh-batched search)
+
+# row slices over the 2,048 padded span rows of TC.mq_cols, by slice
+# count; the last slices lie past n_spans (1,500)
+MQ_BOUNDS = {1: [0, 2048], 2: [0, 777, 2048], 3: [0, 517, 1203, 2048],
+             4: [0, 333, 1001, 1499, 2048]}
+MQ_CASES = ("regular", "hostile1", "hostile2", "ng8", "odd_p", "no_span_cols")
+
+
+def mq_split_case(case: str, seed: int) -> tuple:
+    """(program arrays, columns, q) of one M2 / M3 case over TC.mq_cols:
+    "regular" 16 well-formed programs (4 chunks of 4 at P = 8); "hostile1"
+    and "hostile2" 8 programs, programs 5 and 7 with TC.hostile_program's
+    offsets (chunk 0 runs the word operations, chunk 1 the rows), over
+    TC.hostile_cols with no offset below zero (the single-device run wraps
+    one where the mesh clips it); "ng8" 5 programs of 8 groups (2 a
+    chunk); "odd_p" 12 programs of 3 conditions (10 a chunk); "no_span_cols"
+    8 programs that name no span column. Every fifth program has no group."""
+    rng = np.random.default_rng(seed)
+    dims = {"ng8": dict(TC.MQ_DIMS, n_conds_b=16, n_clauses_b=8, n_groups_b=8),
+            "odd_p": dict(TC.MQ_DIMS, n_conds_b=3, n_clauses_b=1, n_groups_b=1)}.get(case)
+    q = {"regular": 16, "ng8": 5, "odd_p": 12}.get(case, 8)
+    arrays = [TC.random_program(rng, n_groups=0 if i % 5 == 4 else None, dims=dims)
+              for i in range(q)]
+    cols = TC.mq_cols(seed % 1000)
+    if case.startswith("hostile"):
+        kind = int(case[-1])
+        arrays = [TC.hostile_program(p, rng, kind) if i in (5, 7) else p
+                  for i, p in enumerate(arrays)]
+        cols = TC.hostile_cols(kind)
+        cols["trace.span_off"] = np.maximum(cols["trace.span_off"], 0)
+    if case == "no_span_cols":
+        for p in arrays:
+            p["span_cols"] = ()
+    return arrays, cols, q
+
+
+def mq_cut_traces(span_off: np.ndarray, bounds: list) -> int:
+    """The slice bounds that fall strictly inside a trace's span range."""
+    lo, hi = span_off[:-1], span_off[1:]
+    return sum(bool(((lo < b) & (b < hi)).any()) for b in bounds[1:-1])
