@@ -61,18 +61,19 @@ Phases, in order (any failure raises; no CPU fallback):
                a call), series equal to TempoDB(device="cpu")
   4c. (in phase 4) B9a's one-column form over block 0's span.name_id
                with a seeded permutation of its dictionary (both of its
-               routes), B9b of block 0's 32,768 ids
-               (equal to its stored bloom), B9c of its 16 row groups (equal
+               routes), B9b of block 0's 32,768 ids, ids -> words on the
+               card (equal to its stored bloom), B9c of its 16 row groups (equal
                to its stored stats), B10a over blocks 0-3's blooms and 4
                seeded 12-shard blooms, B10b of 48 own and 16 absent ids,
                each against its plain version, bit for bit
   11. cut      every trace of block 0 materialized and cut by
                TempoDB.write_block on the card (B9a once for all 29 code
-               columns, B9b, B9c; B9a's row in the kernel line is this
+               columns, B9b once with no host hashing, B9c; B9a's row in the kernel line is this
                cut's codes in one call) and
                by a CPU TempoDB into another store: equal blocks; 48
                finds in the new tenant equal the materialized traces; 2
-               searches card vs CPU; the cut's host/kernel split
+               searches card vs CPU; the cut's host/kernel split, the
+               bloom step apart from the row-group step
   12. compact  compact_once over the 10 corpus blocks on the card and on
                a CPU copy of the store: equal outputs; phase 5's 64 finds
                unchanged; 2 searches card vs CPU; then 4 blocks of 8
@@ -87,14 +88,16 @@ Phases, in order (any failure raises; no CPU fallback):
                1-6 windows later), every live trace cut after window 32;
                a live search and a WAL feature checkpoint every 8 windows,
                each refresh's route logged and its device columns held
-               against the host tails; 10 live searches equal to the CPU
+               against the host tails, one B7c call and __global__ a delta
+               refresh that appends rows; 10 live searches equal to the CPU
                ingester and the index walk; 48 present + 16 absent finds
                on the map and the device route (one B7b __global__ a
                device find); rate() over the live head
                card vs CPU; the flush (B9a-B9c) after a copy of the WAL,
                and a replay of that copy into a new Ingester; then B7a-B7d
                against their plain versions on the staged 16,384-slot head
-               (B7b at every cluster size, and find_slot_device's call)
+               (B7b at every cluster size, and find_slot_device's call;
+               B7c on the first delta refresh's columns in one call)
   14. generator the metrics-generator behind the distributor's streaming
                tap: block 0's traces 16,384-32,767 (524,288 spans) pushed
                in 64 windows of 256 (the first 8 as OTLP bytes through
@@ -429,32 +432,48 @@ def phase_4c(blocks, metas, absent, dev, table) -> None:
     log(f"[B9a] one column, {n} codes, table of {r} ({kernels.remap_plan(r)} route): {ms:.4f} ms, "
         f"device {us:.2f} µs (queued), bound {b[0]:.5f} ms")
 
-    # B9b -- block 0's ids into its own geometry, from zero words: the
-    # result is block 0's stored bloom
+    # B9b -- the whole function at phase 11's shape: block 0's ids into
+    # its own geometry from zero words (ids -> words on the card); the
+    # result is block 0's stored bloom. Beside it the host hashing it
+    # replaced (bloom_scatter) and, as a yardstick, the old route's
+    # index_put_ over the reference's pairs; no one PyTorch call hashes
+    # and scatters, so the row's library_ms is null
     n_shards, bits = meta0.bloom_shards, meta0.bloom_shard_bits
+    ids_d = torch.from_numpy(np.ascontiguousarray(ids0, dtype=np.uint8)).to(dev)
+    zeros = torch.zeros((n_shards, bits // 32), dtype=torch.int32, device=dev)
+    kernels.reset_counts()
+    got = kernels.bloom_bits(zeros.clone(), ids_d, bits, BC._K)
+    if kernels.grid_launches()["bloom_bits"] != 1:
+        raise AssertionError("B9b: not one __global__ a call")
+    err = max_abs_err(got, BC._bloom_bits_plain(zeros.clone(), ids_d, bits))
+    stored = np.stack([blk0.bloom_shard(i) for i in range(n_shards)]).view(np.int32)
     t0 = time.perf_counter()
     word_idx, onehot, _ = BC.bloom_scatter([bytes(x) for x in ids0], n_shards, bits)
     hash_s = time.perf_counter() - t0
-    wi = torch.from_numpy(word_idx).to(dev)
+    wi64 = torch.from_numpy(word_idx).to(dev).long()
     bt = torch.from_numpy(onehot.view(np.int32)).to(dev)
-    zeros = torch.zeros((n_shards, bits // 32), dtype=torch.int32, device=dev)
-    got = kernels.bloom_bits(zeros, wi, bt)
-    err = max_abs_err(got, BC._bloom_bits_plain(zeros, wi, bt))
-    stored = np.stack([blk0.bloom_shard(i) for i in range(n_shards)]).view(np.int32)
-    wi64, lib_out = wi.long(), torch.zeros(zeros.numel(), dtype=torch.int32, device=dev)
-    lib_out.index_put_((wi64,), bt, accumulate=True)
+    old = torch.zeros(zeros.numel(), dtype=torch.int32, device=dev)
+    old.index_put_((wi64,), bt, accumulate=True)
     if err or not np.array_equal(got.cpu().numpy(), stored) or \
-            not np.array_equal(lib_out.view(zeros.shape).cpu().numpy(), stored):
-        raise AssertionError("B9b differs from its plain version, index_put_ or block 0's bloom")
-    m = wi.shape[0]
-    ms = cuda_ms(lambda: kernels.bloom_bits(zeros, wi, bt))
-    pms = cuda_ms(lambda: BC._bloom_bits_plain(zeros, wi, bt), reps=5, warm=1)
-    lms = cuda_ms(lambda: lib_out.index_put_((wi64,), bt, accumulate=True))
-    b = bound(zeros.numel() * 8 + m * 8, m)
-    log(f"[B9b] {len(ids0)} ids -> {m} distinct bits in {n_shards} x {bits} bits (host hashing "
-        f"{hash_s:.2f} s): {ms:.4f} ms, plain {pms:.4f} ms, index_put_ {lms:.4f} ms, bound "
-        f"{b[0]:.5f} ms; equal to block 0's stored bloom")
-    row("bloom_bits", "blockcut.cu", "tempo_tpu/ops/blockcut.py:104-112", err, ms, pms, b, lms)
+            not np.array_equal(old.view(zeros.shape).cpu().numpy(), stored):
+        raise AssertionError("B9b differs from its plain version, the old route or block 0's "
+                             "bloom")
+    w = zeros.clone()  # the calls OR into w again: the same bits
+    ms = cuda_ms(lambda: kernels.bloom_bits(w, ids_d, bits, BC._K))
+    us = device_ms(lambda: kernels.bloom_bits(w, ids_d, bits, BC._K)) * 1e3
+    pms = cuda_ms(lambda: BC._bloom_bits_plain(w, ids_d, bits), reps=5, warm=1)
+    old_ms = cuda_ms(lambda: old.index_put_((wi64,), bt, accumulate=True))
+    t, m = ids_d.shape[0], wi64.shape[0]
+    # bytes: 16 B an id, the words read and written; operations: about
+    # 110 integer operations an id (two FNV-1a passes over 16 bytes,
+    # splitmix64, 7 positions and their atomics)
+    b = bound(t * 16 + zeros.numel() * 8, t * 110)
+    log(f"[B9b] {t} ids -> {m} distinct bits in {n_shards} x {bits} bits, ids -> words on the "
+        f"card: {ms:.4f} ms, device {us:.2f} µs (queued), plain {pms:.4f} ms, bound {b[0]:.5f} "
+        f"ms ({b[1]}); equal to block 0's stored bloom; the host hashing it replaces "
+        f"(bloom_scatter) {hash_s:.3f} s, and the old route's index_put_ over its pairs "
+        f"{old_ms:.4f} ms (yardstick)")
+    row("bloom_bits", "blockcut.cu", "tempo_tpu/ops/blockcut.py:89-134", err, ms, pms, b, None)
 
     # B9c -- block 0's row groups of 65,536 spans
     rgs = S.DEFAULT_ROW_GROUP_SPANS
@@ -553,17 +572,20 @@ def phase_11(db, blk0, dev, tmp) -> tuple[dict, list, tuple]:
     times.patch(BB.BlockBuilder, "add_trace", "add_trace")
     times.patch(BB, "write_block", "write objects")
     times.patch(BC.CutEngine, "remap_many", "remap steps (one upload, launch, download)")
-    for name in ("bloom_bits", "rowgroup_minmax"):
-        times.patch(BC.CutEngine, name, "bloom and row-group steps (upload, kernel, download)")
-    times.patch(BC, "bloom_scatter", "bloom hashing (host)")
-    cut_args = []
-    many = kernels.remap_many
+    times.patch(BC.CutEngine, "bloom_bits", "bloom step (one upload, launch, download)")
+    times.patch(BC.CutEngine, "rowgroup_minmax", "row-group step (upload, kernel, download)")
+    cut_args, hashed = [], []
+    many, scatter = kernels.remap_many, BC.bloom_scatter
 
     def keep_many(codes, offs, remap, plan=None):  # the cut's codes, for B9a's row
         cut_args.append((codes, list(offs), remap))
         return many(codes, offs, remap, plan)
 
-    kernels.remap_many = keep_many
+    def host_hashing(*a, **k):  # the card cut must not hash on the host
+        hashed.append(len(a[0]))
+        return scatter(*a, **k)
+
+    kernels.remap_many, BC.bloom_scatter = keep_many, host_hashing
     for name in ("remap_many", "bloom_bits", "rowgroup_minmax"):
         times.patch(kernels, name, "kernels (synchronized)", sync=True)
     kernels.reset_counts()
@@ -573,14 +595,17 @@ def phase_11(db, blk0, dev, tmp) -> tuple[dict, list, tuple]:
         card_s = time.perf_counter() - t0
     finally:
         times.restore()
-        kernels.remap_many = many
+        kernels.remap_many, BC.bloom_scatter = many, scatter
     counts, grids = dict(kernels.LAUNCHES), kernels.grid_launches()
     log(f"[cut] {n} traces, {meta.total_spans} spans materialized from block 0 in {mat_s:.1f} s; "
         f"card cut {card_s:.2f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.s.items())
         + f"; wrapper calls {counts}; __global__ launches {grids}")
     if counts["remap"] != 1 or grids["remap"] != 1 or len(cut_args) != 1 \
-            or counts["bloom_bits"] != 1 or counts["rowgroup"] != 1:
-        raise AssertionError(f"cut: not one B9a launch a cut, or B9b/B9c not launched: {counts}")
+            or counts["bloom_bits"] != 1 or grids["bloom_bits"] != 1 or counts["rowgroup"] != 1:
+        raise AssertionError(f"cut: not one B9a and one B9b launch a cut, or B9c not launched: "
+                             f"{counts}, {grids}")
+    if hashed:
+        raise AssertionError(f"cut: bloom_scatter hashed {hashed} ids on the host")
     codes, offs, remap = cut_args[0]
     lens = np.diff(offs).tolist()
     log(f"[cut] B9a: {len(lens)} code columns, {codes.shape[0]} codes in one launch "
@@ -862,10 +887,21 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
             if not np.array_equal(snap.dev[name][:k].cpu().numpy(), getattr(snap, name)):
                 raise AssertionError(f"device column {name} differs from the host tail")
 
+    # the delta refreshes' B7c calls (dsts, src, segs, starts): the first
+    # is the B7c row's input (phase_13_table)
+    appends = []
+    many = kernels.live_append_many
+
+    def keep_many(dsts, src, segs, starts):
+        appends.append((list(dsts), src, list(segs), list(starts)))
+        return many(dsts, src, segs, starts)
+
+    kernels.live_append_many = keep_many
     times = CallTimes()
-    times.patch(kernels, "live_append", "B7c", sync=True)
+    times.patch(kernels, "live_append_many", "B7c", sync=True)
     times.patch(kernels, "live_patch", "B7d", sync=True)
     push_s, refreshes = [], []
+    app0 = st.stats["append_calls"]
     kernels.reset_counts()
     try:
         for w, batch in enumerate(windows):
@@ -898,11 +934,21 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
                     f"{feats[0]} features checkpointed")
     finally:
         times.restore()
+        kernels.live_append_many = many
     push_counts, push_grids = dict(kernels.LAUNCHES), kernels.grid_launches()
+    n_app = st.stats["append_calls"] - app0  # delta refreshes that appended rows
     if not any(u is not None and not u["full"] for u in refreshes):
         raise AssertionError(f"no delta refresh among {refreshes}")
     if dev.type == "cuda" and (push_counts["live_append"] < 1 or push_counts["live_patch"] < 1):
         raise AssertionError(f"no delta refresh launched B7c and B7d: {push_counts}")
+    if dev.type == "cuda" and not (push_counts["live_append"] == push_grids["live_append"]
+                                   == len(appends) == n_app):
+        raise AssertionError(f"B7c: {push_counts['live_append']} calls, "
+                             f"{push_grids['live_append']} __global__ for {n_app} delta "
+                             f"refreshes with new rows (one each expected)")
+    log(f"[ingest] B7c: {n_app} delta refreshes appended rows, one call and one __global__ "
+        f"each, columns a call {[len(a[0]) for a in appends]}, rows appended "
+        f"{[[m for _, m in a[2]] for a in appends]}")
     if dev.type == "cuda" and push_grids["live_patch"] != push_counts["live_patch"]:
         raise AssertionError(f"B7d: {push_grids['live_patch']} __global__ launches in "
                              f"{push_counts['live_patch']} calls (one a call expected)")
@@ -1057,14 +1103,17 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
         f"features seeded, {rinst.columnar.decodes} decoded); wrapper calls "
         f"{nonzero(kernels.LAUNCHES)}; 48 finds equal the materialized traces")
     return {"counts": {k: push_counts[k] + search_counts[k] + find_counts[k]
-                       for k in push_counts}, "snap": full_snap}
+                       for k in push_counts}, "snap": full_snap,
+            "append": appends[0] if appends else None}
 
 
-def phase_13_table(snap, table) -> dict:
+def phase_13_table(snap, table, append_call) -> dict:
     """B7a-B7d against their plain versions on the staged live head at
-    full width; times by CUDA events, the byte bound, yardsticks.
-    Returns B7a's device-time split by route and code count and B7b's by
-    cluster size (device_split's input)."""
+    full width (B7c at phase 13's first delta refresh with new rows,
+    `append_call`: its columns, upload and segments); times by CUDA
+    events, the byte bound, yardsticks. Returns B7a's device-time split
+    by route and code count, B7b's by cluster size and B7c's one call
+    against a call a column (device_split's input)."""
     from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import livestage as L
 
@@ -1176,25 +1225,43 @@ def phase_13_table(snap, table) -> dict:
             kernels.live_find, d["id_codes"], d["alive"], codes, n_c)
         for n_c in (2048, 2049, 8192, 16384) if n_c <= sb}
 
-    # B7c -- one refresh's delta of kv rows (2,048 traces x about 70
-    # rows, bucket 2^18) into the staged kv code column
-    dst, start = d["kv_code"], snap.n_kv // 2
-    m = min(1 << 18, dst.shape[0] // 4)
-    src = torch.arange(m, dtype=torch.int32, device=dev)
-    got = kernels.live_append(dst, src, start)
-    err = max_abs_err(got, L._append_plain(dst, src, start))
-    s = min(start, dst.shape[0] - m)
-    lib = torch.slice_scatter(dst, src, 0, s, s + m)
-    if err or not torch.equal(lib, got):
-        raise AssertionError("B7c differs from its plain version or torch.slice_scatter")
-    ms = cuda_ms(lambda: kernels.live_append(dst, src, start))
-    pms = cuda_ms(lambda: L._append_plain(dst, src, start))
-    lms = cuda_ms(lambda: torch.slice_scatter(dst, src, 0, s, s + m))
-    # dst read outside the window, src read, out written
-    b = bound(dst.numel() * 8, 0)
-    log(f"[B7c] {m} rows into {dst.shape[0]}: {ms:.4f} ms, plain {pms:.4f} ms, slice_scatter "
-        f"{lms:.4f} ms, bound {b[0]:.5f} ms")
-    row("live_append", "tempo_tpu/ops/livestage.py:290", err, ms, pms, b, lms)
+    # B7c -- phase 13's first delta refresh with new rows as the stager
+    # made it: its columns (kv owner and code, name owner and code) from
+    # one upload in one call; the yardstick a torch.slice_scatter a column
+    if append_call is None:
+        raise AssertionError("B7c: phase 13 made no delta append")
+    dsts, src, segs, starts = append_call
+    kernels.reset_counts()
+    got = kernels.live_append_many(dsts, src, segs, starts)
+    err = max(max_abs_err(g, w) for g, w in
+              zip(got, L._append_many_plain(dsts, src, segs, starts)))
+    windows = []
+    for dst, (o, m), st in zip(dsts, segs, starts):
+        s = kernels.append_start(st, dst.shape[0], m)
+        windows.append((dst, src[o:o + m], s, s + m))
+
+    def slice_scatters():
+        return [torch.slice_scatter(dst, x, 0, a, e) for dst, x, a, e in windows]
+
+    if err or kernels.grid_launches()["live_append"] != 1 or \
+            not all(torch.equal(x, g) for x, g in zip(slice_scatters(), got)):
+        raise AssertionError("B7c differs from its plain version or torch.slice_scatter, or "
+                             "was not one __global__")
+    ms = cuda_ms(lambda: kernels.live_append_many(dsts, src, segs, starts))
+    us = device_ms(lambda: kernels.live_append_many(dsts, src, segs, starts)) * 1e3
+    pms = cuda_ms(lambda: L._append_many_plain(dsts, src, segs, starts))
+    lms = cuda_ms(slice_scatters)
+    # each column written once, dst read outside its window, src inside
+    rows = sum(dst.shape[0] for dst in dsts)
+    b = bound(rows * 8, 0)
+    log(f"[B7c] phase 13's delta refresh, {len(dsts)} columns of "
+        f"{[dst.shape[0] for dst in dsts]} rows, {[m for _, m in segs]} appended at {starts}, "
+        f"one call: {ms:.4f} ms, device {us:.2f} µs (queued), plain {pms:.4f} ms, "
+        f"{len(dsts)} slice_scatter {lms:.4f} ms, bound {b[0]:.5f} ms")
+    row("live_append", "tempo_tpu/ops/livestage.py:289-294", err, ms, pms, b, lms)
+    splits[f"B7c, phase 13's delta refresh ({len(dsts)} columns, {rows} rows)"] = {
+        "one call": lambda: kernels.live_append_many(dsts, src, segs, starts),
+        "a call a column": lambda: [kernels.live_append(dst, x, a) for dst, x, a, _ in windows]}
 
     # B7d -- one refresh's dirty slots (2,048) into the (slot_b, 4) id codes
     g = torch.Generator().manual_seed(41)
@@ -3444,7 +3511,7 @@ def main() -> int:
         t0 = time.perf_counter()
         p13 = phase_13(db, dev, pairs, ingest_queries, span_s, tmp)
         log(f"[ingest] phase 13 took {time.perf_counter() - t0:.1f} s")
-        splits.update(phase_13_table(p13["snap"], table))
+        splits.update(phase_13_table(p13["snap"], table, p13["append"]))
 
         # ---- 14. the metrics-generator behind the distributor's tap
         t0 = time.perf_counter()

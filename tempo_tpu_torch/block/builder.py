@@ -432,7 +432,7 @@ class BlockBuilder:
             else:
                 bloom = ShardedBloom.for_estimated_items(max(n_traces, 1))
             if self.tr_ids:
-                bloom.words = cut.bloom_bits(bloom.words, self.tr_ids, bloom.shard_bits)
+                bloom.words = cut.bloom_bits(bloom.words, cols["trace.id"], bloom.shard_bits)
         m.bloom_shards = bloom.n_shards
         m.bloom_shard_bits = bloom.shard_bits
 

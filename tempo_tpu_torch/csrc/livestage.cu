@@ -10,7 +10,8 @@
 //                                          codes equal the query's, or -1
 //                                          (one launch, below)
 //   B7c :290 _append_rows_device           dynamic_update_slice of a row
-//                                          column (the delta append)
+//                                          column (the delta append; every
+//                                          column of a refresh in one launch)
 //   B7d :298 _patch_slots_device           dst.at[idx].set(vals) of dirty
 //                                          slots, 1-D or (slot_b, 4)
 // All four are bound by bytes. B7c and B7d write a NEW tensor (the
@@ -303,23 +304,133 @@ TT_EXPORT int tt_live_find(const int32_t* id_codes, const int32_t* alive, int sl
     return (int)cudaGetLastError();
 }
 
-// B7c: out[i] = src[i - s] inside the window [s, s + m), dst[i] outside.
-// As jax.lax.dynamic_update_slice does, a negative start counts from the
-// end (start + n) and s is that start clamped to [0, n - m].
-__global__ void live_append_kernel(const int32_t* __restrict__ dst, int n,
-                                   const int32_t* __restrict__ src, int m, int s,
-                                   int32_t* __restrict__ out) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    out[i] = (i >= s && i - s < m) ? src[i - s] : dst[i];
+// B7c: a delta refresh's appends, every row column that takes new rows
+// in ONE launch (kernels.live_append_many; kernels.live_append is the
+// same kernel with one segment). Column c becomes out[c], a new tensor:
+// out[c][i] = src[off[c] + i - s[c]] inside the window [s[c], s[c] +
+// m[c]), dst[c][i] outside it. The wrapper clamps each start as
+// jax.lax.dynamic_update_slice does (a negative start counts from the
+// end, then [0, n - m]). The segments arrive end to end in one buffer
+// (one pinned upload a refresh; before, a pageable upload and a launch a
+// column, four a refresh).
+//
+// Bound: bytes -- each output written once, dst read outside the window,
+// src read inside it: 8 B a row of every column (about 25 MB, 7.5 us at
+// 3.35 TB/s, for a refresh's 2 x 2^20 kv and 2 x 2^19 name rows). A
+// thread takes a quad (4 rows from a multiple of 4 of its column) and
+// LA_UNROLL of them in flight over a grid sized to the card: one 16 B
+// load from src or dst and one 16 B store where the quad lies wholly on
+// one side of the window; element by element where the window's edge or
+// the column's end cuts it. The stager places each segment so that its
+// offset minus its start is a multiple of 4 (kernels.append_plan): then a
+// quad inside the window reads src 16 B aligned too; a segment placed
+// otherwise (a caller's own src) reads its quads 4 B at a time.
+#define LA_COLS 4          // kernels.py APPEND_COLS
+#define LA_THREADS 256
+#define LA_UNROLL 2
+#define LA_QUADS_CTA (LA_THREADS * LA_UNROLL)
+
+struct AppendArgs {
+    const int32_t* src;            // the segments, end to end
+    const int32_t* dst[LA_COLS];
+    int32_t* out[LA_COLS];         // 16 B aligned (the wrapper's allocation)
+    int n[LA_COLS];                // column lengths
+    int s[LA_COLS];                // clamped starts
+    int e[LA_COLS];                // window ends, s + m
+    int off[LA_COLS];              // segment offsets in src
+    int vec[LA_COLS];              // bit 0: dst 16 B aligned; bit 1: src quads 16 B aligned
+    int quad[LA_COLS + 1];         // quads before column c
+    int n_col;
+};
+
+__device__ __forceinline__ int4 la_load4(const int32_t* p, bool vec) {
+    return vec ? *(const int4*)p : make_int4(p[0], p[1], p[2], p[3]);
 }
 
-TT_EXPORT int tt_live_append(const int32_t* dst, int n, const int32_t* src, int m, int start,
-                             int32_t* out, void* stream) {
-    int s = start < 0 ? start + n : start;
-    s = s < 0 ? 0 : (s > n - m ? n - m : s);
-    live_append_kernel<<<tt_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(dst, n, src, m, s,
-                                                                           out);
+__global__ void __launch_bounds__(LA_THREADS) live_append_kernel(const __grid_constant__ AppendArgs a) {
+    const int nq = a.quad[a.n_col], stride = gridDim.x * LA_THREADS;
+    for (int q0 = blockIdx.x * LA_THREADS + threadIdx.x; q0 < nq; q0 += LA_UNROLL * stride) {
+        int4 x[LA_UNROLL];
+        int col[LA_UNROLL], e0[LA_UNROLL];
+        bool whole[LA_UNROLL];
+#pragma unroll
+        for (int u = 0; u < LA_UNROLL; ++u) {  // every whole quad's load issued first
+            const int q = q0 + u * stride;
+            whole[u] = false;
+            col[u] = e0[u] = 0;
+            if (q >= nq) continue;
+            int c = 0;
+#pragma unroll
+            for (int j = 1; j < LA_COLS; ++j) c += j < a.n_col && a.quad[j] <= q;
+            const int i = 4 * (q - a.quad[c]), s = a.s[c], e = a.e[c];
+            col[u] = c;
+            e0[u] = i;
+            if (i + 4 > a.n[c]) continue;  // the column's ragged end
+            if (i >= s && i + 4 <= e) {
+                whole[u] = true;
+                x[u] = la_load4(a.src + a.off[c] + (i - s), a.vec[c] & 2);
+            } else if (i + 4 <= s || i >= e) {
+                whole[u] = true;
+                x[u] = la_load4(a.dst[c] + i, a.vec[c] & 1);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < LA_UNROLL; ++u) {
+            if (q0 + u * stride >= nq) continue;
+            const int c = col[u], i0 = e0[u];
+            int32_t* out = a.out[c];
+            if (whole[u]) {
+                *(int4*)(out + i0) = x[u];
+                continue;
+            }
+            const int s = a.s[c], e = a.e[c], top = min(i0 + 4, a.n[c]);
+            for (int i = i0; i < top; ++i)
+                out[i] = (i >= s && i < e) ? a.src[a.off[c] + (i - s)] : a.dst[c][i];
+        }
+    }
+}
+
+static int la_sms = 0, la_per_sm = 0;
+
+// geom: n_col rows of (n, s, m, off), s already clamped to [0, n - m];
+// dst, out: n_col device addresses each (host arrays).
+TT_EXPORT int tt_live_append_many(const int32_t* src, const long long* dst, const long long* out,
+                                  const int* geom, int n_col, void* stream) {
+    if (n_col < 1 || n_col > LA_COLS) return (int)cudaErrorInvalidValue;
+    AppendArgs a{};
+    a.src = src;
+    a.n_col = n_col;
+    long long nq = 0;
+    for (int c = 0; c < n_col; ++c) {
+        const int n = geom[4 * c], s = geom[4 * c + 1], m = geom[4 * c + 2], off = geom[4 * c + 3];
+        if (n < 1 || m < 0 || m > n || s < 0 || s > n - m || off < 0 || (out[c] & 15))
+            return (int)cudaErrorInvalidValue;
+        a.dst[c] = (const int32_t*)dst[c];
+        a.out[c] = (int32_t*)out[c];
+        a.n[c] = n;
+        a.s[c] = s;
+        a.e[c] = s + m;
+        a.off[c] = off;
+        a.vec[c] = ((dst[c] & 15) == 0) |
+                   ((((uintptr_t)src + 4LL * ((long long)off - s)) & 15) == 0 ? 2 : 0);
+        a.quad[c] = (int)nq;
+        nq += (n + 3) / 4;
+    }
+    if (nq > 0x7FFFFFF0LL / 4) return (int)cudaErrorInvalidValue;
+    a.quad[n_col] = (int)nq;
+    cudaError_t e = cudaSuccess;
+    if (!la_sms) {
+        int dev;
+        if ((e = cudaGetDevice(&dev)) ||
+            (e = cudaDeviceGetAttribute(&la_sms, cudaDevAttrMultiProcessorCount, dev)) ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&la_per_sm, live_append_kernel,
+                                                               LA_THREADS, 0)))
+            return (int)e;
+    }
+    const long long want = (nq + LA_QUADS_CTA - 1) / LA_QUADS_CTA;
+    const long long card = (long long)(la_per_sm > 1 ? la_per_sm : 1) * la_sms;
+    const int ctas = (int)(want < 1 ? 1 : want < card ? want : card);
+    live_append_kernel<<<ctas, LA_THREADS, 0, (cudaStream_t)stream>>>(a);
     TT_LAUNCHED_SLOT(2);
     return (int)cudaGetLastError();
 }

@@ -20,12 +20,12 @@ and an emit; one find launches one kernel a chunk of FIND_BLOCKS
 blocks (a descriptor a block, no stack), and one find_elect (K3's search
 and M1's election) the same; one res_to_span, over every resource column
 of a staged block or a stacked fold, one kernel a RES_COLS columns; one
-multiquery, one live_find,
-one live_patch, one edge_reduce, one span_reduce, one timeseries
-(without a res pass), one timeseries_stacked fold (its finish is a
-second call), one remap over every code column of a cut, one
-search_partial over span_off, one search_finish and one search_fused
-launch one kernel.
+multiquery, one live_find, one live_append over every column of a
+refresh, one bloom_bits over every id of a cut, one live_patch, one
+edge_reduce, one span_reduce, one timeseries (without a res pass), one
+timeseries_stacked fold (its finish is a second call), one remap over
+every code column of a cut, one search_partial over span_off, one
+search_finish and one search_fused launch one kernel.
 grid_launches() reads the __global__ launches each library counts
 itself, per kernel. There is no CPU path
 here: the ops modules send CPU tensors to their plain PyTorch versions
@@ -46,13 +46,13 @@ never hidden behind a plain version or another route.
 | mq_select   | csrc/multiquery.cu | tempo_tpu/ops/multiquery.py:461 sel (B5b)      |
 | timeseries  | csrc/timeseries.cu | tempo_tpu/ops/timeseries.py:53 run (B6)        |
 | remap       | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:54-58 (B9a)          |
-| bloom_bits  | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:104-112 (B9b)        |
+| bloom_bits  | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:89-134 (B9b)         |
 | rowgroup    | csrc/blockcut.cu   | tempo_tpu/ops/blockcut.py:149-158 (B9c)        |
 | bloom_union | csrc/bloom.cu      | tempo_tpu/ops/bloom_ops.py:20 _union_kernel    |
 | bloom_test  | csrc/bloom.cu      | tempo_tpu/ops/bloom_ops.py:48 _test_kernel     |
 | live_filter | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:147 run (B7a)       |
 | live_find   | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:243 run (B7b)       |
-| live_append | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:290 (B7c)           |
+| live_append | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:289-294 (B7c)       |
 | live_patch  | csrc/livestage.cu  | tempo_tpu/ops/livestage.py:298 (B7d)           |
 | span_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:23 _reduce_kernel (B8a) |
 | edge_reduce | csrc/reduce.cu     | tempo_tpu/ops/reduce.py:63 _edge_reduce_kernel (B8b) |
@@ -74,7 +74,7 @@ chip_smoke.py times; the port calls none):
 | kernel      | launches on its path                     | bound (bytes moved)                 | one PyTorch call                                   |
 |-------------|------------------------------------------|-------------------------------------|----------------------------------------------------|
 | remap       | one per cut, every code column (29 segments) | 8 B a code + the table          | none: a clamp, a gather and a select               |
-| bloom_bits  | one per cut without a given bloom        | words read and written, 8 B a pair  | index_put_(accumulate=True) on zeroed words        |
+| bloom_bits  | one per cut without a given bloom        | 16 B an id, the words read and written | none: a hash of each id and a scatter-OR        |
 | rowgroup    | one per cut with spans                   | 8 B a span + 12 B a group           | torch.segment_reduce (max of [-start, start, dur]) |
 | bloom_union | one per compaction job whose union fits  | K + 1 words per output word         | none: no bitwise-OR reduction over a dimension     |
 | bloom_test  | none (no caller, as in the JAX package)  | K words and K index triples a query | none: a gather, a shift and an all                 |
@@ -86,7 +86,7 @@ live/cut/flushing traces):
 |-------------|-------------------------------------------|-------------------------------------|----------------------------------------------------|
 | live_filter | one per live search on the device route   | 17 B a slot, 4 B a real row, 4 B a hit | none: a membership test per code over owner rows |
 | live_find   | one per live find, TEMPO_LIVE_FIND_DEVICE | 20 B a slot                         | none: an all over 4 lanes, then a first-true index |
-| live_append | two per row kind per delta refresh        | the column read and written once    | torch.slice_scatter                                |
+| live_append | one per delta refresh that appends rows   | 8 B a row of every column           | torch.slice_scatter, one a column                  |
 | live_patch  | six per delta refresh with dirty slots    | the column read and written once    | torch.index_put (out of place)                     |
 
 live_filter is one cooperative launch a chunk of 32 codes (the codes by
@@ -207,14 +207,14 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "tt_timeseries_ctas": ("timeseries", [_I, _I, _I, _I, _P]),
     "tt_remap_many": ("blockcut", [_P, _P, _I, _P, _I, _I, _P, _P]),
-    "tt_bloom_bits": ("blockcut", [_P, _L, _P, _P, _I, _P, _P]),
+    "tt_bloom_bits": ("blockcut", [_P, _L, _P, _I, _I, _L, _I, _P]),
     "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _P, _I, _P]),
     "tt_bloom_union": ("bloom", [_P, _I, _L, _P, _P]),
     "tt_bloom_test": ("bloom", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
     "tt_live_filter": ("livestage", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "tt_live_find": ("livestage", [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
-    "tt_live_append": ("livestage", [_P, _I, _P, _I, _I, _P, _P]),
+    "tt_live_append_many": ("livestage", [_P, _P, _P, _P, _I, _P]),
     "tt_live_patch": ("livestage", [_P, _I, _I, _P, _P, _I, _P, _P]),
     "tt_span_reduce": ("reduce", [_P, _P, _I, _P, _I, _I, _P, _P]),
     "tt_edge_reduce": ("reduce", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P]),
@@ -1062,21 +1062,36 @@ def remap_codes(col: torch.Tensor, remap: torch.Tensor, plan: str | None = None)
 
 
 # ------------------------------------------------------------------ B9b
-def bloom_bits(words: torch.Tensor, word_idx: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """B9b: a copy of words (any shape, uint32 bit patterns in int32)
-    with bits[i] ORed into flat word word_idx[i]. Bound: bytes (the
-    words read and written once, 8 B a pair)."""
+def bloom_bits(words: torch.Tensor, ids: torch.Tensor, shard_bits: int, k: int) -> torch.Tensor:
+    """B9b: every id's k bloom bits ORed into words IN PLACE; returns
+    words. words: (n_shards, W) uint32 bit patterns in int32; ids: (T, 16)
+    uint8, 16-byte aligned; shard_bits a power of two. An id's shard is
+    FNV-1a 32 of its bytes % n_shards, its bits (h1 + i h2) & (shard_bits -
+    1) for i < k (h1 FNV-1a 64, h2 splitmix64(h1) | 1), each in flat word
+    (shard shard_bits + pos) / 32 (dropped past the words). One launch, a
+    thread an id, atomicOr into the words. Bound: bytes (16 B an id, the
+    words read and written)."""
     dev = _cuda_device(words)
     _check(words, "words", torch.int32, dev)
-    m = word_idx.shape[0]
-    _check(word_idx, "word_idx", torch.int32, dev, (m,))
-    _check(bits, "bits", torch.int32, dev, (m,))
-    out = torch.empty_like(words)
+    _check(ids, "ids", torch.uint8, dev)
+    if words.dim() != 2 or words.numel() == 0:
+        raise KernelError("bloom_bits: non-empty (n_shards, W) words expected")
+    if ids.dim() != 2 or ids.shape[1] != 16:
+        raise KernelError(f"bloom_bits: ids {tuple(ids.shape)}, expected (T, 16) uint8")
+    shard_bits = int(shard_bits)
+    if shard_bits < 1 or shard_bits & (shard_bits - 1) or shard_bits > 2**40:
+        raise KernelError(f"bloom_bits: shard_bits {shard_bits} is not a power of two")
+    if not 1 <= int(k) <= 64 or ids.shape[0] > 2**31 - 1:
+        raise KernelError(f"bloom_bits: {ids.shape[0]} ids, k = {k}")
+    if ids.shape[0] == 0:
+        return words
+    if ids.data_ptr() % 16:
+        raise KernelError("bloom_bits: ids not 16-byte aligned")
     with _on(dev):
-        _call("tt_bloom_bits", words.data_ptr(), words.numel(), word_idx.data_ptr(),
-              bits.data_ptr(), m, out.data_ptr(), _stream(dev))
+        _call("tt_bloom_bits", words.data_ptr(), words.numel(), ids.data_ptr(), ids.shape[0],
+              words.shape[0], shard_bits, int(k), _stream(dev))
     _count("bloom_bits")
-    return out
+    return words
 
 
 # ------------------------------------------------------------------ B9c
@@ -1234,23 +1249,86 @@ def live_find(id_codes: torch.Tensor, alive: torch.Tensor, codes, n_slots: int) 
 
 
 # ------------------------------------------------------------------ B7c
-def live_append(dst: torch.Tensor, src: torch.Tensor, start: int) -> torch.Tensor:
-    """B7c: a new column equal to dst with src written at start; a
-    negative start counts from the end, and the start is clamped to
-    [0, len(dst) - len(src)] (dynamic_update_slice). Bound: bytes (dst
-    read, src read, the column written)."""
-    dev = _cuda_device(dst)
-    n, m = dst.shape[0], src.shape[0]
-    _check(dst, "dst", torch.int32, dev, (n,))
-    _check(src, "src", torch.int32, dev, (m,))
-    if m > n or n == 0:
-        raise KernelError(f"live_append: {m} rows into a column of {n}")
-    out = torch.empty_like(dst)
+APPEND_COLS = 4  # columns a launch takes by value (csrc/livestage.cu LA_COLS)
+
+
+def append_start(start: int, n: int, m: int) -> int:
+    """dynamic_update_slice's start for m rows into n: a negative start
+    counts from the end, then it is clamped to [0, n - m]."""
+    start = int(start)
+    return min(max(start + n if start < 0 else start, 0), n - m)
+
+
+def append_plan(ns, ms, starts) -> tuple[list[int], int]:
+    """Where one B7c launch's segments go in its upload: segment c (ms[c]
+    rows into a column of ns[c] at starts[c]) at the first offset past
+    the one before whose distance to the clamped start is a multiple of 4,
+    so that the kernel's src quads are 16-byte aligned (up to 3 rows of
+    gap between segments, never read). Returns (offsets, buffer length)."""
+    offs, at = [], 0
+    for n, m, st in zip(ns, ms, starts):
+        at += (append_start(st, n, m) - at) % 4
+        offs.append(at)
+        at += m
+    return offs, at
+
+
+def live_append_many(dsts: list, src: torch.Tensor, segs, starts) -> list:
+    """B7c over up to APPEND_COLS int32 columns in one launch: column c
+    becomes a NEW tensor equal to dsts[c] with src[o:o + m] (segs[c] =
+    (o, m)) written at append_start(starts[c], n, m). The outputs are
+    views of one allocation, each at a 16-byte boundary. A grid sized to
+    the card walks the quads (4 rows) of every output, 16 bytes a load
+    and a store; a quad that a window edge or a column end cuts goes row
+    by row (src quads 16-byte aligned where the segments follow
+    append_plan). Bound: bytes (8 B a row of every column)."""
+    dev = _cuda_device(src)
+    _check(src, "src", torch.int32, dev)
+    k = len(dsts)
+    if src.dim() != 1 or not 1 <= k <= APPEND_COLS or len(segs) != k or len(starts) != k:
+        raise KernelError(f"live_append_many: {k} columns (1 to {APPEND_COLS}) and a 1-D src "
+                          f"expected")
+    geom, sizes = [], []
+    for c in range(k):
+        d, (o, m) = dsts[c], segs[c]
+        _check(d, "dst", torch.int32, dev)
+        n, o, m = (d.shape[0] if d.dim() == 1 else 0), int(o), int(m)
+        if n == 0 or not 0 <= m <= n or o < 0 or o + m > src.shape[0]:
+            raise KernelError(f"live_append_many: segment {c} ({o}, {m}) of {src.shape[0]} "
+                              f"rows into a column of {tuple(d.shape)}")
+        geom += (n, append_start(starts[c], n, m), m, o)
+        sizes.append(-(-n // 4) * 4)
+    total = sum(sizes)
+    if total > 2**31 - 16:
+        raise KernelError(f"live_append_many: {total} rows in one launch")
+    out = torch.empty(total, dtype=torch.int32, device=dev)
+    # dst then out addresses by value; each output starts at a multiple of 4 rows
+    at, base, outs = 0, out.data_ptr(), []
+    for size in sizes:
+        outs.append(base + 4 * at)
+        at += size
+    # both arrays held here until the call returns (the C side reads them)
+    ptrs = (ctypes.c_longlong * (2 * k))(*[d.data_ptr() for d in dsts], *outs)
+    dims = (ctypes.c_int * (4 * k))(*geom)
     with _on(dev):
-        _call("tt_live_append", dst.data_ptr(), n, src.data_ptr(), m, int(start),
-              out.data_ptr(), _stream(dev))
+        _call("tt_live_append_many", src.data_ptr(), ctypes.addressof(ptrs),
+              ctypes.addressof(ptrs) + 8 * k, ctypes.addressof(dims), k, _stream(dev))
     _count("live_append")
-    return out
+    views = torch.split_with_sizes(out, sizes)
+    return [v if v.shape[0] == geom[4 * c] else v[:geom[4 * c]] for c, v in enumerate(views)]
+
+
+def live_append(dst: torch.Tensor, src: torch.Tensor, start: int) -> torch.Tensor:
+    """B7c over one column: live_append_many's kernel with one segment (a
+    new column equal to dst with src written at append_start(start)).
+    Bound: bytes (dst read, src read, the column written)."""
+    dev = _cuda_device(dst)
+    _check(dst, "dst", torch.int32, dev)
+    _check(src, "src", torch.int32, dev)
+    if dst.dim() != 1 or src.dim() != 1 or src.shape[0] > dst.shape[0] or dst.shape[0] == 0:
+        raise KernelError(f"live_append: {tuple(src.shape)} rows into a column of "
+                          f"{tuple(dst.shape)}")
+    return live_append_many([dst], src, [(0, src.shape[0])], [start])[0]
 
 
 # ------------------------------------------------------------------ B7d

@@ -6,15 +6,18 @@ sort permutation (B9a), the bloom's K = 7 bits per trace id (B9b) and
 the per-row-group pruning stats (B9c). Each op sends CUDA tensors to its
 kernel (csrc/blockcut.cu through kernels.py) and CPU tensors to its
 plain PyTorch version below; every output is an integer, so the two
-agree exactly. The hashing of ids to (word, bit) pairs stays on the
-host, as in the JAX package (`bloom_scatter`).
+agree exactly. The bloom's hashing runs with its scatter: the whole
+function, (words, trace ids, shard_bits) -> words, is one op (on the
+host in the JAX package, `bloom_scatter`, which the port keeps as a
+yardstick).
 
 The JAX package picks its engine by its backend and an env override
 (TEMPO_CUT_ENGINE); the port picks by the device of the tensors, so a
 cut on a card always runs these kernels. `CutEngine` is the builder's
 numpy-facing side: it uploads, launches and downloads; a cut's code
 columns go through it together (`CutEngine.remap_many`: one upload, one
-launch, one download).
+launch, one download), and so do its bloom's words and ids
+(`CutEngine.bloom_bits`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from .. import kernels
 from ..block.bloom import _K, WORD_BITS, shard_for_trace_id
+from ..util import hashing as H
 from ..util.hashing import bloom_hashes
 
 
@@ -80,28 +84,64 @@ def bloom_scatter(trace_ids: list[bytes], n_shards: int, shard_bits: int):
     return word_idx, bits, n_shards * n_words_per_shard
 
 
-def bloom_bits(words: torch.Tensor, word_idx: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """words (uint32 bit patterns in int32 storage, any shape) with
-    bits[i] ORed into flat word word_idx[i]; pairs past the words drop."""
+def bloom_bits(words: torch.Tensor, ids: torch.Tensor, shard_bits: int) -> torch.Tensor:
+    """Every id's K bloom bits ORed into words IN PLACE (returned):
+    words (n_shards, W) uint32 bit patterns in int32 storage, ids (T, 16)
+    uint8, shard_bits a power of two. The same bits as ShardedBloom.add and
+    the JAX package's bloom_bits_device: shard = FNV-1a 32 % n_shards,
+    positions (h1 + i h2) & (shard_bits - 1), flat word (shard shard_bits +
+    pos) / 32, dropped past the words. One B9b launch on a card."""
     if words.device.type == "cuda":
-        return kernels.bloom_bits(words, word_idx, bits)
-    return _bloom_bits_plain(words, word_idx, bits)
+        return kernels.bloom_bits(words, ids, shard_bits, _K)
+    return _bloom_bits_plain(words, ids, shard_bits)
 
 
-def _bloom_bits_plain(words: torch.Tensor, word_idx: torch.Tensor,
-                      bits: torch.Tensor) -> torch.Tensor:
-    flat = words.reshape(-1).long() & 0xFFFFFFFF
-    keep = (word_idx >= 0) & (word_idx < flat.shape[0])
-    idx = word_idx[keep].long()
-    b = bits[keep].long() & 0xFFFFFFFF
-    # OR as a sum: split every pair into its set bits, keep each distinct
-    # (word, bit) once, and add -- distinct bits of a word add without carries
-    shift = torch.arange(WORD_BITS, device=words.device)
-    rows, cols = (((b[:, None] >> shift) & 1) == 1).nonzero(as_tuple=True)
-    key = torch.unique(idx[rows] * WORD_BITS + cols)
-    acc = torch.zeros_like(flat).index_add_(0, key // WORD_BITS,
-                                            torch.ones_like(key) << (key % WORD_BITS))
-    return (flat | acc).to(torch.int32).reshape(words.shape)
+def _u64(x: int) -> int:
+    """A uint64 constant as the int64 of the same bits."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def _srl(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A logical right shift of int64 bits (>> on int64 is arithmetic)."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _id_hashes(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(T, 16) uint8 ids -> FNV-1a 32 (in [0, 2^32)), FNV-1a 64 and
+    splitmix64(FNV-1a 64) | 1, each (T,) int64 (the 64-bit ones as the
+    int64 of their bits: products and sums wrap modulo 2^64)."""
+    b = ids.to(torch.int64)
+    t = b.shape[0]
+    h32 = torch.full((t,), H._FNV32_OFFSET, dtype=torch.int64, device=ids.device)
+    h1 = torch.full((t,), _u64(H._FNV64_OFFSET), dtype=torch.int64, device=ids.device)
+    for j in range(b.shape[1]):
+        h32 = ((h32 ^ b[:, j]) * H._FNV32_PRIME) & H._MASK32
+        h1 = (h1 ^ b[:, j]) * H._FNV64_PRIME
+    z = h1 + _u64(0x9E3779B97F4A7C15)
+    z = (z ^ _srl(z, 30)) * _u64(0xBF58476D1CE4E5B9)
+    z = (z ^ _srl(z, 27)) * _u64(0x94D049BB133111EB)
+    return h32, h1, (z ^ _srl(z, 31)) | 1
+
+
+def _bloom_bits_plain(words: torch.Tensor, ids: torch.Tensor, shard_bits: int) -> torch.Tensor:
+    shard_bits = int(shard_bits)
+    if shard_bits < 1 or shard_bits & (shard_bits - 1):
+        raise ValueError(f"bloom_bits: shard_bits {shard_bits} is not a power of two")
+    if ids.dim() != 2 or ids.shape[1] != 16:
+        raise ValueError(f"bloom_bits: ids {tuple(ids.shape)}, expected (T, 16) uint8")
+    flat = words.view(-1)  # in place: a non-contiguous words raises here
+    h32, h1, h2 = _id_hashes(ids)
+    i = torch.arange(_K, dtype=torch.int64, device=ids.device)
+    pos = (h1[:, None] + i * h2[:, None]) & (shard_bits - 1)
+    bit = ((h32 % words.shape[0]) * shard_bits)[:, None] + pos
+    # OR as a sum: each distinct set bit once (distinct bits of a word add
+    # without carries); bits past the words drop
+    key = torch.unique(bit[bit < flat.shape[0] * WORD_BITS])
+    acc = torch.zeros(flat.shape[0], dtype=torch.int64, device=words.device)
+    acc.index_add_(0, key // WORD_BITS, torch.ones_like(key) << (key % WORD_BITS))
+    v = (flat.to(torch.int64) & 0xFFFFFFFF) | acc
+    flat.copy_(torch.where(v >= 2**31, v - 2**32, v))
+    return words
 
 
 # ---------------------------------------------------------------- B9c
@@ -174,13 +214,33 @@ class CutEngine:
         o = out.numpy()
         return [o[a:b] for a, b in zip(offs[:-1], offs[1:])]
 
-    def bloom_bits(self, words: np.ndarray, trace_ids: list[bytes], shard_bits: int) -> np.ndarray:
+    def bloom_bits(self, words: np.ndarray, ids: np.ndarray, shard_bits: int) -> np.ndarray:
         """Every trace id's K bits set in a copy of the (n_shards, W)
-        uint32 words."""
-        word_idx, bits, _ = bloom_scatter(trace_ids, words.shape[0], shard_bits)
-        out = bloom_bits(self._t(words.view(np.int32)), self._t(word_idx),
-                         self._t(bits.view(np.int32)))
-        return out.cpu().numpy().view(np.uint32)
+        uint32 words; ids a (T, 16) uint8 array (a block's trace.id rows).
+        On a card: the words and the ids in one pinned buffer, one upload
+        (the words land in the output), one B9b launch, one pinned
+        download and one synchronize; no hashing on the host."""
+        ids = np.ascontiguousarray(ids, dtype=np.uint8)
+        if ids.ndim != 2 or ids.shape[1] != 16:
+            raise ValueError(f"bloom_bits: ids {ids.shape}, expected (T, 16) uint8")
+        words = np.ascontiguousarray(words, dtype=np.uint32)
+        if self.device.type != "cuda":
+            out = bloom_bits(torch.from_numpy(words.view(np.int32).copy()),
+                             torch.from_numpy(ids.copy()), shard_bits)
+            return out.numpy().view(np.uint32)
+        wb = words.nbytes
+        ib = -(-wb // 16) * 16  # the ids 16-byte aligned after the words
+        host = torch.empty(ib + ids.nbytes, dtype=torch.uint8, pin_memory=True)
+        h = host.numpy()
+        h[:wb] = words.view(np.uint8).reshape(-1)
+        h[ib:] = ids.reshape(-1)
+        buf = host.to(self.device, non_blocking=True)
+        w = buf[:wb].view(torch.int32).view(words.shape)
+        bloom_bits(w, buf[ib:].view(-1, 16), shard_bits)
+        back = torch.empty(wb, dtype=torch.uint8, pin_memory=True)
+        back.copy_(buf[:wb], non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return back.numpy().view(np.uint32).reshape(words.shape)
 
     def rowgroup_minmax(self, start_ms: np.ndarray, dur_us: np.ndarray,
                         group: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

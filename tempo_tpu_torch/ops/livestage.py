@@ -307,6 +307,40 @@ def _append_plain(dst: torch.Tensor, src: torch.Tensor, start: int) -> torch.Ten
     return out
 
 
+def append_rows_many(dsts: list, src: torch.Tensor, segs, starts) -> list:
+    """append_rows over several columns at once: column c becomes a NEW
+    column equal to dsts[c] with src[o:o + m] (segs[c] = (o, m)) written at
+    starts[c]. One B7c launch on a card (at most kernels.APPEND_COLS
+    columns, a refresh's four)."""
+    if dsts[0].device.type == "cuda":
+        return kernels.live_append_many(dsts, src, segs, starts)
+    return _append_many_plain(dsts, src, segs, starts)
+
+
+def _append_many_plain(dsts: list, src: torch.Tensor, segs, starts) -> list:
+    """Plain version of append_rows_many: _append_plain a column."""
+    return [_append_plain(d, src[int(o):int(o) + int(m)], st)
+            for d, (o, m), st in zip(dsts, segs, starts)]
+
+
+def upload_deltas(deltas: list, ns: list, starts: list, device) -> tuple[torch.Tensor, list]:
+    """A refresh's padded deltas in one host buffer (pinned on a card) and
+    one non-blocking upload. deltas: (rows, padded length, fill) a
+    column, the rows written at kernels.append_plan's offsets and the rest
+    of each segment filled. Returns (src, segs) for append_rows_many."""
+    ms = [int(m) for _, m, _ in deltas]
+    offs, total = kernels.append_plan(ns, ms, starts)
+    card = device.type == "cuda"
+    host = torch.empty(total, dtype=torch.int32, pin_memory=card)
+    h = host.numpy()
+    for (rows, m, fill), o in zip(deltas, offs):
+        k = len(rows)
+        h[o:o + k] = rows
+        h[o + k:o + m] = fill
+    # the buffer is this call's own: on the CPU it is the src as it is
+    return (host.to(device, non_blocking=True) if card else host), list(zip(offs, ms))
+
+
 # ------------------------------------------------------------ B7d
 def patch_slots(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Dirty-slot patch: a NEW column ((n,) or (n, 4)) equal to dst with
@@ -375,8 +409,8 @@ class LiveStager:
         self._snap: LiveSnapshot | None = None
         # what the refreshes moved: uploads by kind, bytes and rows sent,
         # host seconds in the delta encode and in the upload
-        self.stats = {"full_uploads": 0, "delta_uploads": 0, "bytes": 0, "rows": 0,
-                      "encode_s": 0.0, "upload_s": 0.0}
+        self.stats = {"full_uploads": 0, "delta_uploads": 0, "append_calls": 0, "bytes": 0,
+                      "rows": 0, "encode_s": 0.0, "upload_s": 0.0}
         self.last_upload: dict | None = None
 
     # ------------------------------------------------------ host tails
@@ -635,6 +669,10 @@ class LiveStager:
                     sent += int(src.nbytes)
                 sent += int(idx.nbytes)
                 rows_sent += len(dirty)
+            # row columns: every kind whose padded delta fits its bucket
+            # appends in ONE call (one upload, one B7c launch); a kind
+            # whose delta would clip re-uploads its two columns whole
+            appends = []  # (column, new rows, padded length, fill, start)
             for owner_name, code_name, n_new, n_old in (
                 ("kv_owner", "kv_code", self.n_kv, prev[1]),
                 ("name_owner", "name_code", self.n_name, prev[2]),
@@ -644,19 +682,24 @@ class LiveStager:
                 delta = n_new - n_old
                 db = _delta_bucket(delta)
                 bkt = dev[owner_name].shape[0]
-                owner_src = getattr(self, owner_name)[n_old:n_new]
-                code_src = getattr(self, code_name)[n_old:n_new]
                 if n_old + db <= bkt:
-                    owner_p = pad_rows(owner_src, db, np.int32(0))
-                    code_p = pad_rows(code_src, db, PAD_I32)
-                    dev[owner_name] = append_rows(dev[owner_name], _upload(owner_p, dev_t), n_old)
-                    dev[code_name] = append_rows(dev[code_name], _upload(code_p, dev_t), n_old)
+                    for col, fill in ((owner_name, 0), (code_name, PAD_I32)):
+                        appends.append((col, getattr(self, col)[n_old:n_new], db, fill, n_old))
+                    sent += 2 * db * 4
                 else:  # padded delta would clip: full column re-upload
                     owner_p = pad_rows(getattr(self, owner_name)[:n_new], bkt, np.int32(0))
                     code_p = pad_rows(getattr(self, code_name)[:n_new], bkt, PAD_I32)
                     dev[owner_name], dev[code_name] = _upload(owner_p, dev_t), _upload(code_p, dev_t)
-                sent += int(owner_p.nbytes + code_p.nbytes)
+                    sent += int(owner_p.nbytes + code_p.nbytes)
                 rows_sent += delta
+            if appends:
+                dsts = [dev[a[0]] for a in appends]
+                starts = [a[4] for a in appends]
+                src, segs = upload_deltas([a[1:4] for a in appends], [d.shape[0] for d in dsts],
+                                          starts, dev_t)
+                for a, col in zip(appends, append_rows_many(dsts, src, segs, starts)):
+                    dev[a[0]] = col
+                self.stats["append_calls"] += 1
         self._dev = dev
         self._dev_rows = (n, self.n_kv, self.n_name)
         self._dirty_slots.clear()

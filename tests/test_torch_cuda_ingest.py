@@ -227,7 +227,62 @@ def test_live_append_kernel(cuda, n):
         got = L.append_rows(dst_c, src.to(cuda), start)
         assert torch.equal(got.cpu(), L._append_plain(dst, src, start))
         assert torch.equal(dst_c.cpu(), dst)  # out of place
-    assert kernels.LAUNCHES["live_append"] == 8
+    assert kernels.LAUNCHES["live_append"] == kernels.grid_launches()["live_append"] == 8
+
+
+@pytest.mark.parametrize("start_mod", [0, 1, 2, 3])
+def test_live_append_many_kernel(cuda, start_mod):
+    """B7c's one launch over a refresh's columns against its plain
+    version: both bucket sizes in one call, windows at every start mod 4
+    and every length mod 4 (cutting a quad at either edge), a ragged
+    column, segments placed off append_plan and dsts off a 16-byte
+    boundary (read 4 B at a time), the refresh's shape (2 x 2^20 kv and 2 x 2^19 name rows); one wrapper call
+    and one __global__ a call, the dsts unchanged."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.ops import livestage as L
+
+    rng = np.random.default_rng(start_mod)
+    calls = [[(1 << 12, 400 + start_mod, 64 + m), (1 << 12, 400 + start_mod, 64 + m),
+              (1 << 10, 8 + start_mod, 13 + m), (1 << 10, 1021 - m, 3 + m)] for m in range(4)]
+    calls += [[(4099, 4000 + start_mod, 99), (1030, start_mod, 5)],
+              [(1 << 20, 710_897 + start_mod, 262_144)] * 2
+              + [(1 << 19, 317_120 + start_mod, 65_536)] * 2]
+    for case in calls:
+        dsts = [torch.from_numpy(rng.integers(-99, 99, n).astype(np.int32)) for n, _, _ in case]
+        deltas = [rng.integers(1000, 2000, m).astype(np.int32) for _, _, m in case]
+        starts = [s for _, s, _ in case]
+        src, segs = L.upload_deltas([(d, d.shape[0], 0) for d in deltas], [n for n, _, _ in case],
+                                    starts, cuda)
+        want = L._append_many_plain(dsts, src.cpu(), segs, starts)
+        dsts_c = [d.to(cuda) for d in dsts]
+        for off in (0, 1):  # off 1: every segment one row later, off the plan,
+            if off:         # and every dst a view one row into its storage
+                src = torch.cat([src[:1], src])
+                segs = [(o + 1, m) for o, m in segs]
+                dsts_c = [torch.cat([d[:1], d]).to(cuda)[1:] for d in dsts]
+            kernels.reset_counts()
+            got = L.append_rows_many(dsts_c, src, segs, starts)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["live_append"] == kernels.grid_launches()["live_append"] == 1
+            for g, w, d, dc in zip(got, want, dsts, dsts_c):
+                assert g.data_ptr() % 16 == 0
+                assert torch.equal(g.cpu(), w), (case, off)
+                assert torch.equal(dc.cpu(), d)  # out of place
+
+
+def test_live_append_many_refuses(cuda):
+    """More columns than a launch takes, a segment past src, a CPU dst
+    and a 2-D column raise KernelError; nothing launches."""
+    from tempo_tpu_torch import kernels
+
+    d = torch.zeros(64, dtype=torch.int32, device=cuda)
+    x = torch.ones(8, dtype=torch.int32, device=cuda)
+    kernels.reset_counts()
+    for dsts, segs in (([d] * 5, [(0, 1)] * 5), ([d], [(4, 8)]), ([d.cpu()], [(0, 1)]),
+                       ([d.view(8, 8)], [(0, 1)]), ([d[:4]], [(0, 8)])):
+        with pytest.raises(kernels.KernelError):
+            kernels.live_append_many(dsts, x, segs, [0] * len(dsts))
+    assert kernels.LAUNCHES["live_append"] == 0
 
 
 @pytest.mark.parametrize("width", [1, 4])

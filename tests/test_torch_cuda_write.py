@@ -51,17 +51,48 @@ def test_remap_kernel(cuda, n, r):
     assert torch.equal(got.cpu(), BC._remap_plain(c.cpu(), m.cpu()))
 
 
-@pytest.mark.parametrize("shards,words,m", [(1, 16384, 229_000), (12, 32768, 5000), (2, 32, 0)])
-def test_bloom_bits_kernel(cuda, shards, words, m):
+@pytest.mark.parametrize("shards,shard_bits,n_ids", [(1, 1 << 19, 32_768), (12, 1 << 20, 5000),
+                                                     (12, 1024, 700), (2, 1024, 1),
+                                                     (3, 32, 40)])
+def test_bloom_bits_kernel(cuda, shards, shard_bits, n_ids):
+    """B9b, ids -> words in place, against its plain version: preset
+    words (the OR keeps them), the all-0x00 and all-0xFF ids, a shard of
+    one word, a short last shard (words past the end dropped); one
+    wrapper call and one __global__ a call; and CutEngine.bloom_bits
+    (one pinned upload, the launch, one download) equal to the CPU's."""
+    from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import blockcut as BC
 
-    rng = np.random.default_rng(shards + m)
-    w = torch.from_numpy(_rand_i32(rng, (shards, words)) & 0x0F0F0F0F).to(cuda)
-    idx = rng.integers(-2, shards * words + 3, size=m).astype(np.int32)  # dropped past the ends
-    bits = (np.uint32(1) << rng.integers(0, 32, size=m).astype(np.uint32)).view(np.int32)
-    i, b = torch.from_numpy(idx).to(cuda), torch.from_numpy(bits).to(cuda)
-    got = BC.bloom_bits(w, i, b)
-    assert torch.equal(got.cpu(), BC._bloom_bits_plain(w.cpu(), i.cpu(), b.cpu()))
+    rng = np.random.default_rng(shards + n_ids)
+    ids = rng.integers(0, 256, (n_ids, 16), dtype=np.uint8)
+    ids[0], ids[-1] = 0, 255
+    for w_len in (shard_bits // 32, max(1, shard_bits // 64)):  # the second: a short shard
+        w = torch.from_numpy(_rand_i32(rng, (shards, w_len)) & 0x0F0F0F0F)
+        want = BC._bloom_bits_plain(w.clone(), torch.from_numpy(ids), shard_bits)
+        wc, ic = w.to(cuda), torch.from_numpy(ids).to(cuda)
+        kernels.reset_counts()
+        assert BC.bloom_bits(wc, ic, shard_bits) is wc
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["bloom_bits"] == kernels.grid_launches()["bloom_bits"] == 1
+        assert torch.equal(wc.cpu(), want)
+    words = (_rand_i32(rng, (shards, shard_bits // 32)) & 0x0F0F0F0F).view(np.uint32)
+    card = BC.CutEngine(cuda).bloom_bits(words, ids, shard_bits)
+    assert np.array_equal(card, BC.CutEngine("cpu").bloom_bits(words, ids, shard_bits))
+
+
+def test_bloom_bits_kernel_refuses(cuda):
+    """shard_bits not a power of two, ids not (T, 16) uint8, ids off a
+    16-byte boundary: KernelError, nothing launched, the words kept."""
+    from tempo_tpu_torch import kernels
+
+    w = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    ids = torch.zeros((5, 16), dtype=torch.uint8, device=cuda)
+    kernels.reset_counts()
+    for args in ((w, ids, 3), (w, ids, 1536), (w, ids.view(10, 8), 1024), (w, ids[:, :15], 1024),
+                 (w, ids.view(-1)[1:65].view(4, 16), 1024), (w, ids.int(), 1024)):
+        with pytest.raises(kernels.KernelError):
+            kernels.bloom_bits(*args, 7)
+    assert kernels.LAUNCHES["bloom_bits"] == 0 and not w.any()
 
 
 @pytest.mark.parametrize("n,group", [(1, 1), (1000, 333), (70_000, 65_536), (1 << 20, 65_536)])
