@@ -63,8 +63,9 @@ Phases, in order (any failure raises; no CPU fallback):
                with a seeded permutation of its dictionary (both of its
                routes), B9b of block 0's 32,768 ids, ids -> words on the
                card (equal to its stored bloom), B9c of its 16 row groups (equal
-               to its stored stats), B10a over blocks 0-3's blooms and 4
-               seeded 12-shard blooms, B10b of 48 own and 16 absent ids,
+               to its stored stats; rowgroup_plan's grid of clusters), B10a
+               over blocks 0-3's blooms and 4 seeded 12-shard blooms (a
+               thread a quad), B10b of 48 own and 16 absent ids,
                each against its plain version, bit for bit
   11. cut      every trace of block 0 materialized and cut by
                TempoDB.write_block on the card (B9a once for all 29 code
@@ -77,7 +78,8 @@ Phases, in order (any failure raises; no CPU fallback):
   12. compact  compact_once over the 10 corpus blocks on the card and on
                a CPU copy of the store: equal outputs; phase 5's 64 finds
                unchanged; 2 searches card vs CPU; then 4 blocks of 8
-               traces merged on the union route (one B10a, no bloom
+               traces merged on the union route (one B10a call and
+               __global__ from one pinned upload, no bloom
                rebuilt, every id tests present through B10b), the same 4
                blocks on the default concat route (parts readable by
                find); retention_once on each tenant
@@ -121,7 +123,8 @@ Phases, in order (any failure raises; no CPU fallback):
                on an NCCL mesh of one rank calls the host entries directly
                (TempoDB takes no mesh route at one rank, as the reference):
                sharded_find_rows and sharded_find of phase 5's 64 ids over
-               the 10 blocks, sharded_bloom_union of their blooms,
+               the 10 blocks, sharded_bloom_union of their blooms (one
+               B10a and no all_gather at one rank; run 2 three a rank),
                mesh_eval_multiquery of phase 4b's 16 programs on block 0
                and the stacked fold (try_metrics_mesh) of
                `rate() by (resource.service.name)`, each equal to the
@@ -498,12 +501,20 @@ def phase_4c(blocks, metas, absent, dev, table) -> None:
     lib = torch.segment_reduce(seg, "max", lengths=lengths, axis=0)
     if not torch.equal(lib.to(torch.int64).T, torch.stack([-got[0], got[1], got[2]]).to(torch.int64)):
         raise AssertionError("B9c differs from torch.segment_reduce")
+    kernels.reset_counts()
+    kernels.rowgroup_minmax(sm, du, rgs)
+    if kernels.grid_launches()["rowgroup"] != 1:
+        raise AssertionError("B9c: not one __global__ a call")
+    plan = kernels.rowgroup_plan(n, rgs)
     ms = cuda_ms(lambda: kernels.rowgroup_minmax(sm, du, rgs))
+    us = device_ms(lambda: kernels.rowgroup_minmax(sm, du, rgs)) * 1e3
     pms = cuda_ms(lambda: BC._rowgroup_plain(sm, du, rgs))
     lms = cuda_ms(lambda: torch.segment_reduce(seg, "max", lengths=lengths, axis=0))
     b = bound(n * 8 + G * 12, 3 * n)
-    log(f"[B9c] {n} spans in {G} groups: {ms:.4f} ms, plain {pms:.4f} ms, segment_reduce "
-        f"({seg_kind}) {lms:.4f} ms, bound {b[0]:.5f} ms; equal to block 0's row groups")
+    log(f"[B9c] {n} spans in {G} groups: {ms:.4f} ms, device {us:.2f} µs (queued), plan "
+        f"C = {plan.clusters} CTAs a group, a grid of {plan.ctas}; plain {pms:.4f} ms, "
+        f"segment_reduce ({seg_kind}) {lms:.4f} ms, bound {b[0]:.5f} ms; equal to block 0's "
+        f"row groups")
     row("rowgroup", "blockcut.cu", "tempo_tpu/ops/blockcut.py:149-158", err, ms, pms, b, lms)
 
     # B10a -- the blooms of blocks 0-3, then 4 seeded 12-shard blooms
@@ -517,11 +528,17 @@ def phase_4c(blocks, metas, absent, dev, table) -> None:
         host = np.bitwise_or.reduce(x.cpu().numpy(), axis=0)
         if err or not np.array_equal(got.cpu().numpy(), host):
             raise AssertionError(f"B10a {label} differs from its plain version")
+        kernels.reset_counts()
+        kernels.bloom_union(x)
+        if kernels.grid_launches()["bloom_union"] != 1:
+            raise AssertionError("B10a: not one __global__ a call")
         ms = cuda_ms(lambda: kernels.bloom_union(x))
+        us = device_ms(lambda: kernels.bloom_union(x)) * 1e3
         pms = cuda_ms(lambda: BO._union_plain(x))
         b = bound(x.numel() * 4 + got.numel() * 4, x.numel())
-        log(f"[B10a {label}] {tuple(x.shape)}: {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {b[0]:.5f} ms")
+        route = "quads" if got.numel() % 4 == 0 else "words"
+        log(f"[B10a {label}] {tuple(x.shape)}: {ms:.4f} ms, device {us:.2f} µs (queued), "
+            f"a thread a quad of {route}; plain {pms:.4f} ms, bound {b[0]:.5f} ms")
         if x is stacked:
             row("bloom_union", "bloom.cu", "tempo_tpu/ops/bloom_ops.py:20", err, ms, pms, b, None)
 
@@ -573,7 +590,7 @@ def phase_11(db, blk0, dev, tmp) -> tuple[dict, list, tuple]:
     times.patch(BB, "write_block", "write objects")
     times.patch(BC.CutEngine, "remap_many", "remap steps (one upload, launch, download)")
     times.patch(BC.CutEngine, "bloom_bits", "bloom step (one upload, launch, download)")
-    times.patch(BC.CutEngine, "rowgroup_minmax", "row-group step (upload, kernel, download)")
+    times.patch(BC.CutEngine, "rowgroup_minmax", "row-group step (one upload, launch, download)")
     cut_args, hashed = [], []
     many, scatter = kernels.remap_many, BC.bloom_scatter
 
@@ -601,8 +618,9 @@ def phase_11(db, blk0, dev, tmp) -> tuple[dict, list, tuple]:
         f"card cut {card_s:.2f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.s.items())
         + f"; wrapper calls {counts}; __global__ launches {grids}")
     if counts["remap"] != 1 or grids["remap"] != 1 or len(cut_args) != 1 \
-            or counts["bloom_bits"] != 1 or grids["bloom_bits"] != 1 or counts["rowgroup"] != 1:
-        raise AssertionError(f"cut: not one B9a and one B9b launch a cut, or B9c not launched: "
+            or counts["bloom_bits"] != 1 or grids["bloom_bits"] != 1 or counts["rowgroup"] != 1 \
+            or grids["rowgroup"] != 1:
+        raise AssertionError(f"cut: not one B9a, one B9b and one B9c launch a cut: "
                              f"{counts}, {grids}")
     if hashed:
         raise AssertionError(f"cut: bloom_scatter hashed {hashed} ids on the host")
@@ -754,11 +772,14 @@ def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
         cfg.concat_small_input_bytes = concat0
-    union_counts = dict(kernels.LAUNCHES)
-    if len(sres) != 1 or union_counts["bloom_union"] != len(sres) or not hits.all():
+    union_counts, union_grids = dict(kernels.LAUNCHES), kernels.grid_launches()
+    if len(sres) != 1 or union_counts["bloom_union"] != len(sres) or not hits.all() \
+            or union_grids["bloom_union"] != len(sres):
         raise AssertionError(f"union route: {len(sres)} jobs, wrapper calls {union_counts}, "
+                             f"__global__ {union_grids['bloom_union']} B10a, "
                              f"{int(hits.sum())} of 32 ids test present")
-    log(f"[compact union] 4 blocks of 8 traces: {len(sres)} job, wrapper calls {union_counts}; "
+    log(f"[compact union] 4 blocks of 8 traces: {len(sres)} job, one B10a __global__, "
+        f"wrapper calls {union_counts}; "
         f"bloom {out.bloom_shards} x {out.bloom_shard_bits} bits unioned, all 32 ids test "
         f"present on the card")
     cres2 = db.compact_once(CONCAT_TENANT)
@@ -1071,8 +1092,10 @@ def phase_13(db, dev, pairs, queries, span_s, tmp, n_live=N_LIVE, window=WINDOW,
     flush_s = time.perf_counter() - t0
     flush_counts = dict(kernels.LAUNCHES)
     if dev.type == "cuda" and (flush_counts["remap"] < 1 or flush_counts["bloom_bits"] != 1
-                               or flush_counts["rowgroup"] != 1):
-        raise AssertionError(f"flush: B9a-B9c not all launched: {flush_counts}")
+                               or flush_counts["rowgroup"] != 1
+                               or kernels.grid_launches()["rowgroup"] != 1):
+        raise AssertionError(f"flush: B9a-B9c not all launched, or not one B9c __global__: "
+                             f"{flush_counts}")
     if meta.total_traces != n_live:
         raise AssertionError(f"flush wrote {meta.total_traces} traces of {n_live}")
     for i in pick:
@@ -1893,9 +1916,17 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                     raise AssertionError(f"run 1: sharded_find of {ids64[qi].hex()}: "
                                          f"{tuple(elect[qi])} != {want}")
             blooms = blooms_of(blocks)
+            before, gathers = dict(kernels.LAUNCHES), mesh.calls["all_gather"]
             union = sharded_bloom_union(mesh, blooms)
+            u_b10a = kernels.LAUNCHES["bloom_union"] - before["bloom_union"]
+            u_gathers = mesh.calls["all_gather"] - gathers
+            if (u_b10a, u_gathers) != (1, 0):  # an axis of one rank gathers nothing
+                raise AssertionError(f"run 1: sharded_bloom_union made {u_b10a} B10a and "
+                                     f"{u_gathers} all_gather (1 and 0 expected)")
             if not np.array_equal(union.words, BO.union_blooms(blooms, dev).words):
                 raise AssertionError("run 1: sharded_bloom_union differs from B10a on one card")
+            log(f"[mesh run 1] sharded_bloom_union of {len(blooms)} blooms: {u_b10a} B10a, "
+                f"{u_gathers} all_gather; equal to B10a on one card")
             blk0 = blocks[0]
             bplans = [plan_search_request(blk0.dictionary, {}, query=q) for q in batch_q]
             lowered = [MQ.lower_plan(p) for p in bplans]
@@ -1994,14 +2025,19 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
                              for label, q in K1_QUERIES if label in MESH_SEARCH_FALLBACK}
             finally:
                 SM._DEVICE_SEARCH_MAX_BYTES = budget
+            gathers = mesh.calls["all_gather"]
             step1_s, step1_hits = run_step(mesh, blocks, q_codes, K1_QUERIES[0][1], 1, elect,
                                            union.words)
+            step1_gathers = mesh.calls["all_gather"] - gathers
             shards_seen.clear()
             c_step = counts.take("run 1: the step", ("find_elect", "bloom_union", "filter",
                                                      "search_fused"))
             if (c_step["find_elect"], c_step["find"]) != (1, 0):
                 raise AssertionError(f"run 1: the step's find was not one find_elect launch: "
                                      f"{nonzero(c_step)}")
+            if (c_step["bloom_union"], step1_gathers) != (1, 0):
+                raise AssertionError(f"run 1: the step's union made {c_step['bloom_union']} "
+                                     f"B10a and {step1_gathers} all_gather (1 and 0 expected)")
             elect1 = cap.args["find_elect"]  # run 1's shape, for M1's row
             log(f"[mesh run 1] distributed_query_step ({len(ids64)} ids, {K1_QUERIES[0][1]}, "
                 f"{len(blocks)} blooms): {step1_s:.2f} s, {step1_hits} traces, equal to the three "
@@ -2109,7 +2145,13 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             blocks = [db.open_block(m) for m in metas]
             host_find = PF.sharded_find(mesh, [b.trace_index["trace.id_codes"] for b in blocks],
                                         q_codes)
+            before, gathers = dict(kernels.LAUNCHES), mesh.calls["all_gather"]
             host_union = sharded_bloom_union(mesh, blooms_of(blocks)).words
+            u2_b10a = kernels.LAUNCHES["bloom_union"] - before["bloom_union"]
+            u2_gathers = mesh.calls["all_gather"] - gathers
+            if (u2_b10a, u2_gathers) != (3, 2):  # this rank's, the sp and the dp partials
+                raise AssertionError(f"run 2: sharded_bloom_union made {u2_b10a} B10a and "
+                                     f"{u2_gathers} all_gather on rank 0 (3 and 2 expected)")
             step2_s, step2_hits = run_step(mesh, blocks, q_codes, K1_QUERIES[0][1], MESH_WORLD,
                                            host_find, host_union)
             shards_seen.clear()
@@ -2119,6 +2161,9 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
             if (c_step2["find_elect"], c_step2["find"]) != (1, 0):  # run_step resets the counts
                 raise AssertionError(f"run 2: the step's find was not one find_elect launch: "
                                      f"{nonzero(c_step2)}")
+            if c_step2["bloom_union"] != 3:
+                raise AssertionError(f"run 2: the step's union made {c_step2['bloom_union']} "
+                                     f"B10a on rank 0 (3 expected)")
             free1 = torch.cuda.mem_get_info(dev)[0]
             smi_mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total",
                                       "--format=csv,noheader"], capture_output=True, text=True,
@@ -2131,7 +2176,8 @@ def phase_15(store, dev, tmp, ids64, seq_found, batch_q, block0_id, want16, metr
         log(f"[mesh run 2] 10 searches through TempoDB: {search2_s:.2f} s, stacked route "
             f"{routed} (predicted {want_routed}), answers equal run 1's route; wrapper calls "
             f"{nonzero(c_search2)}; step {step2_s:.2f} s, {step2_hits} traces, equal to the "
-            f"three host entries, wrapper calls {nonzero(c_step2)}")
+            f"three host entries, wrapper calls {nonzero(c_step2)}; sharded_bloom_union "
+            f"{u2_b10a} B10a and {u2_gathers} all_gather on rank 0")
         log(f"[mesh run 2] gloo {MESH_DP}x{MESH_SP} on {dev}: up in {up_s:.1f} s; "
             f"{len(got)} finds {find_s:.2f} s in {n_sharded} sharded finds "
             f"({cap.calls.get('lookup_ids_blocks_cached', 0)} single-card K3 lookups); burst "

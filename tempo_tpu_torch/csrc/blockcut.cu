@@ -11,7 +11,11 @@
 // The XLA programs pad to power-of-two buckets; these kernels take the
 // true lengths and produce the same values. All three are bound by bytes:
 // each reads its inputs once and writes its outputs once.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 // B9a: every code column of a cut through one table in ONE launch
 // (kernels.remap_many; kernels.remap_codes is the same kernel with one
@@ -219,11 +223,37 @@ TT_EXPORT int tt_bloom_bits(uint32_t* words, long long n_words, const void* ids,
     return (int)cudaGetLastError();
 }
 
-// B9c: one block per row group. Groups are the contiguous ranges
-// [g * group, min((g + 1) * group, n)), every one non-empty, so no group
-// id array and no trash segment exist. Each thread folds a strided slice,
-// then warps fold by shuffles and the block through shared memory.
+// B9c: a cut's row-group stats in ONE launch over a card-wide grid
+// (kernels.rowgroup_minmax; CutEngine.rowgroup_minmax sends start_ms and
+// dur_us end to end in one pinned upload). Groups are the contiguous
+// ranges [g * group, min((g + 1) * group, n)), every one non-empty, so no
+// group id array and no trash segment exist. Group g is C CTAs (blockIdx
+// g * C .. g * C + C - 1), one thread-block cluster of C where C > 1; C
+// comes from kernels.rowgroup_plan (1, 2, 4 or 8), so a cut's 16 groups
+// of 65,536 spans run as 128 CTAs, not 16.
+//
+// Bound: bytes -- 8 B a span read once, 12 B a group written (8.4 MB,
+// 2.5 us at 3.35 TB/s, for a cut's 1,048,576 spans). A CTA's slice of
+// its group is cut at a multiple of 4 rows; its threads take the aligned
+// quads of the slice (a 16-byte load of start_ms and one of dur_us a
+// quad, RG_UNROLL quads a thread in flight) and the rows a slice end or
+// a group edge cuts off a quad one at a time, as they take every row
+// where the two columns' 16-byte phases differ (sh < 0). The loads keep
+// the default caching: a cut's columns were just uploaded and may still
+// be in L2; evict-first loads measured 0-5 % slower warm at 2^20 spans
+// and 6-43 % at 2^22, for 0.4-0.5 us less cold
+// (scripts/rowgroup_union_ab.py --split). The edge rows load beside the
+// quads. Each thread folds its rows, warps fold by __reduce_*_sync and
+// the CTA through
+// shared memory; every rank then stores its (lo, hi, du) into rank 0's
+// shared memory (distributed shared memory), and after the cluster
+// barrier rank 0 folds the C partials and writes column g. Rank 0 reads
+// only its own shared memory after that barrier, so no CTA exits while
+// another reads its memory. No memset, no global atomic, no second pass.
+// C == 1 is a plain launch of the kernel without its cluster steps.
 #define RG_THREADS 512
+#define RG_UNROLL 4
+#define RG_CLUSTER_MAX 8  // kernels.py ROWGROUP_CLUSTER_MAX
 
 __device__ __forceinline__ void rg_fold(int& lo, int& hi, int& du, int lo2, int hi2, int du2) {
     lo = min(lo, lo2);
@@ -231,50 +261,149 @@ __device__ __forceinline__ void rg_fold(int& lo, int& hi, int& du, int lo2, int 
     du = max(du, du2);
 }
 
-__global__ void rowgroup_kernel(const int32_t* __restrict__ start_ms,
-                                const int32_t* __restrict__ dur_us, int n, int group,
-                                int32_t* __restrict__ out, int n_groups) {
-    __shared__ int s_lo[RG_THREADS / 32], s_hi[RG_THREADS / 32], s_du[RG_THREADS / 32];
-    int g = blockIdx.x;
-    long long a = (long long)g * group;
-    long long b = a + group < n ? a + group : n;
-    int lo = INT32_MAXV, hi = PAD_I32, du = PAD_I32;
-    for (long long i = a + threadIdx.x; i < b; i += blockDim.x) {
-        int s = start_ms[i];
-        rg_fold(lo, hi, du, s, s, dur_us[i]);
+// sh: the rows before start_ms's first 16-byte boundary (dur_us's the
+// same), or -1: every row one at a time. CLUSTER: C > 1 CTAs a group,
+// launched as clusters of C; without it a CTA is a group and writes its
+// column itself (the cluster steps cost about 0.6 us a launch at C = 1,
+// scripts/rowgroup_union_ab.py at 1,000 rows in groups of 333).
+template <bool CLUSTER>
+__global__ void __launch_bounds__(RG_THREADS)
+    rowgroup_kernel(const int32_t* __restrict__ start_ms, const int32_t* __restrict__ dur_us,
+                    long long n, long long group, int sh, int32_t* __restrict__ out,
+                    int n_groups) {
+    __shared__ int s_warp[3][RG_THREADS / 32];
+    __shared__ int s_part[3 * RG_CLUSTER_MAX];  // rank 0's holds the cluster's partials
+    int C = 1, r = 0;
+    if constexpr (CLUSTER) {
+        C = (int)cg::this_cluster().num_blocks();
+        r = (int)cg::this_cluster().block_rank();
+        asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");  // this CTA has started
     }
-    for (int off = 16; off > 0; off >>= 1)
-        rg_fold(lo, hi, du, __shfl_down_sync(0xffffffffu, lo, off),
-                __shfl_down_sync(0xffffffffu, hi, off), __shfl_down_sync(0xffffffffu, du, off));
-    int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int tid = threadIdx.x, g = blockIdx.x / C;
+    const long long a = (long long)g * group, b = a + group < n ? a + group : n;
+    const long long sl = ((b - a + C - 1) / C + 3) & ~3LL;  // a multiple of 4 rows
+    const long long lo_r = a + r * sl < b ? a + r * sl : b;
+    const long long hi_r = lo_r + sl < b ? lo_r + sl : b;
+    int lo = INT32_MAXV, hi = PAD_I32, du = PAD_I32;
+    long long qa = hi_r, qb = hi_r;  // the slice's aligned quads: rows [qa, qb)
+    if (sh >= 0) {
+        qa = lo_r + ((sh - lo_r) & 3);
+        qb = hi_r - ((hi_r - sh) & 3);
+        if (qb <= qa) qa = qb = hi_r;
+    }
+    const long long nq = (qb - qa) >> 2;
+    // beside the quads at most 3 rows before qa and 3 from qb: threads 0-5
+    // load one each before the quads' loads, so that the edges cost no
+    // round trip of their own
+    int es = 0, ed = 0;
+    bool edge = false;
+    if (nq > 0 && tid < 6) {
+        const long long e = tid < 3 ? qa - 3 + tid : qb + tid - 3;
+        edge = tid < 3 ? e >= lo_r : e < hi_r;
+        if (edge) {
+            es = start_ms[e];
+            ed = dur_us[e];
+        }
+    }
+    const int4* s4 = (const int4*)(start_ms + qa);
+    const int4* d4 = (const int4*)(dur_us + qa);
+    for (long long q0 = tid; q0 < nq; q0 += RG_UNROLL * RG_THREADS) {
+        int4 x[RG_UNROLL], y[RG_UNROLL];
+#pragma unroll
+        for (int u = 0; u < RG_UNROLL; ++u) {  // every load issued before the folds
+            const long long q = q0 + u * RG_THREADS;
+            if (q < nq) {
+                x[u] = __ldg(s4 + q);
+                y[u] = __ldg(d4 + q);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < RG_UNROLL; ++u) {
+            if (q0 + u * RG_THREADS < nq) {
+                lo = min(lo, min(min(x[u].x, x[u].y), min(x[u].z, x[u].w)));
+                hi = max(hi, max(max(x[u].x, x[u].y), max(x[u].z, x[u].w)));
+                du = max(du, max(max(y[u].x, y[u].y), max(y[u].z, y[u].w)));
+            }
+        }
+    }
+    if (edge) rg_fold(lo, hi, du, es, es, ed);
+    if (nq == 0)  // no quad (sh < 0, or a slice within one): the slice row by row
+        for (long long i = lo_r + tid; i < hi_r; i += RG_THREADS) {
+            const int s = start_ms[i];
+            rg_fold(lo, hi, du, s, s, dur_us[i]);
+        }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    du = __reduce_max_sync(0xffffffffu, du);
+    const int warp = tid >> 5, lane = tid & 31;
     if (lane == 0) {
-        s_lo[warp] = lo;
-        s_hi[warp] = hi;
-        s_du[warp] = du;
+        s_warp[0][warp] = lo;
+        s_warp[1][warp] = hi;
+        s_warp[2][warp] = du;
     }
     __syncthreads();
     if (warp == 0) {
-        int nw = blockDim.x >> 5;
-        lo = lane < nw ? s_lo[lane] : INT32_MAXV;
-        hi = lane < nw ? s_hi[lane] : PAD_I32;
-        du = lane < nw ? s_du[lane] : PAD_I32;
-        for (int off = 16; off > 0; off >>= 1)
-            rg_fold(lo, hi, du, __shfl_down_sync(0xffffffffu, lo, off),
-                    __shfl_down_sync(0xffffffffu, hi, off),
-                    __shfl_down_sync(0xffffffffu, du, off));
-        if (lane == 0) {
-            out[g] = lo;
-            out[n_groups + g] = hi;
-            out[2 * n_groups + g] = du;
+        const bool w = lane < RG_THREADS / 32;
+        lo = __reduce_min_sync(0xffffffffu, w ? s_warp[0][lane] : INT32_MAXV);
+        hi = __reduce_max_sync(0xffffffffu, w ? s_warp[1][lane] : PAD_I32);
+        du = __reduce_max_sync(0xffffffffu, w ? s_warp[2][lane] : PAD_I32);
+    }
+    if constexpr (CLUSTER) {
+        cg::cluster_group cl = cg::this_cluster();
+        asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
+        if (tid == 0) {
+            int* p = cl.map_shared_rank(s_part, 0);
+            p[3 * r] = lo;
+            p[3 * r + 1] = hi;
+            p[3 * r + 2] = du;
         }
+        cl.sync();  // every partial landed in rank 0's shared memory
+        if (r == 0 && warp == 0) {
+            const bool w = lane < C;
+            lo = __reduce_min_sync(0xffffffffu, w ? s_part[3 * lane] : INT32_MAXV);
+            hi = __reduce_max_sync(0xffffffffu, w ? s_part[3 * lane + 1] : PAD_I32);
+            du = __reduce_max_sync(0xffffffffu, w ? s_part[3 * lane + 2] : PAD_I32);
+        }
+    }
+    if (r == 0 && tid == 0) {
+        out[g] = lo;
+        out[n_groups + g] = hi;
+        out[2 * n_groups + g] = du;
     }
 }
 
-// out: (3, n_groups) int32 rows [start_ms min | start_ms max | dur_us max]
+// out: (3, n_groups) int32 rows [start_ms min | start_ms max | dur_us
+// max]; C CTAs a group (1, 2, 4 or 8), a cluster where C > 1.
 TT_EXPORT int tt_rowgroup(const int32_t* start_ms, const int32_t* dur_us, int n, int group,
-                          int32_t* out, int n_groups, void* stream) {
-    rowgroup_kernel<<<n_groups, RG_THREADS, 0, (cudaStream_t)stream>>>(start_ms, dur_us, n, group,
-                                                                       out, n_groups);
+                          int C, int32_t* out, int n_groups, void* stream) {
+    if (n < 1 || group < 1 || n_groups != (int)(((long long)n + group - 1) / group) ||
+        (C != 1 && C != 2 && C != 4 && C != 8) || (long long)n_groups * C > 0x7FFFFFFFLL ||
+        (((uintptr_t)start_ms) & 3) || (((uintptr_t)dur_us) & 3))
+        return (int)cudaErrorInvalidValue;
+    const int ps = (int)((((uintptr_t)start_ms) >> 2) & 3);
+    const int pd = (int)((((uintptr_t)dur_us) >> 2) & 3);
+    const int sh = ps == pd ? (4 - ps) & 3 : -1;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (C == 1) {
+        rowgroup_kernel<false><<<n_groups, RG_THREADS, 0, st>>>(start_ms, dur_us, (long long)n,
+                                                              (long long)group, sh, out, n_groups);
+        TT_LAUNCHED_SLOT(2);
+        return (int)cudaGetLastError();
+    }
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute at[1];
+    cfg.gridDim = dim3((unsigned)(n_groups * C));
+    cfg.blockDim = dim3(RG_THREADS);
+    cfg.stream = st;
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = (unsigned)C;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, rowgroup_kernel<true>, start_ms, dur_us,
+                                             (long long)n, (long long)group, sh, out, n_groups);
+    if (e != cudaSuccess) return (int)e;
     TT_LAUNCHED_SLOT(2);
     return (int)cudaGetLastError();
 }

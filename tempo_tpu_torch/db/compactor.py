@@ -25,15 +25,13 @@ import math
 import time
 from dataclasses import dataclass, field
 
-import numpy as np
-
 from ..backend.base import RawBackend
 from ..block.bloom import DEFAULT_FP_RATE, ShardedBloom
 from ..block.builder import BlockBuilder, write_block
 from ..block.meta import BlockMeta
 from ..block.reader import BackendBlock
 from ..block.versioned import open_block_versioned
-from ..ops.bloom_ops import union_blooms
+from ..ops.bloom_ops import union_planes
 from ..ops.device import resolve_device
 from ..wire.combine import combine_traces
 
@@ -157,12 +155,8 @@ def _union_input_blooms(blocks: list[BackendBlock], device) -> ShardedBloom | No
     if need_bits > have_bits:
         return None
     n_shards, bits = blocks[0].meta.bloom_shards, blocks[0].meta.bloom_shard_bits
-    sbs = []
-    for b in blocks:
-        sb = ShardedBloom(n_shards, bits)
-        sb.words = np.stack([b.bloom_shard(i) for i in range(n_shards)])
-        sbs.append(sb)
-    return union_blooms(sbs, device)
+    return union_planes([[b.bloom_shard(i) for i in range(n_shards)] for b in blocks],
+                        n_shards, bits, device)
 
 
 def concat_eligible(job: CompactionJob, cfg: CompactorConfig) -> bool:

@@ -75,8 +75,8 @@ chip_smoke.py times; the port calls none):
 |-------------|------------------------------------------|-------------------------------------|----------------------------------------------------|
 | remap       | one per cut, every code column (29 segments) | 8 B a code + the table          | none: a clamp, a gather and a select               |
 | bloom_bits  | one per cut without a given bloom        | 16 B an id, the words read and written | none: a hash of each id and a scatter-OR        |
-| rowgroup    | one per cut with spans                   | 8 B a span + 12 B a group           | torch.segment_reduce (max of [-start, start, dur]) |
-| bloom_union | one per compaction job whose union fits  | K + 1 words per output word         | none: no bitwise-OR reduction over a dimension     |
+| rowgroup    | one per cut with spans (G x C CTAs, rowgroup_plan) | 8 B a span + 12 B a group | torch.segment_reduce (max of [-start, start, dur]) |
+| bloom_union | one per compaction job whose union fits; a mesh union 1 (1 x 1) or 3 a rank | K + 1 words per output word | none: no bitwise-OR reduction over a dimension |
 | bloom_test  | none (no caller, as in the JAX package)  | K words and K index triples a query | none: a gather, a shift and an all                 |
 
 The live head's kernels (ops/livestage.py, the ingester's staged
@@ -160,6 +160,8 @@ SOURCES = ("filter", "select", "find", "stage", "multiquery", "timeseries", "blo
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+CARD_SMS = 132  # SMs of an H100 SXM: B8b's tiles and B9c's clusters spread over them
+
 # launches per kernel, counted where each wrapper launches (under a
 # lock: the batchers launch from several threads)
 LAUNCHES = {"filter": 0, "select": 0, "find": 0, "res_to_span": 0,
@@ -208,7 +210,7 @@ _SIGNATURES = {
     "tt_timeseries_ctas": ("timeseries", [_I, _I, _I, _I, _P]),
     "tt_remap_many": ("blockcut", [_P, _P, _I, _P, _I, _I, _P, _P]),
     "tt_bloom_bits": ("blockcut", [_P, _L, _P, _I, _I, _L, _I, _P]),
-    "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _P, _I, _P]),
+    "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _I, _P, _I, _P]),
     "tt_bloom_union": ("bloom", [_P, _I, _L, _P, _P]),
     "tt_bloom_test": ("bloom", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
     "tt_live_filter": ("livestage", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P,
@@ -1095,21 +1097,51 @@ def bloom_bits(words: torch.Tensor, ids: torch.Tensor, shard_bits: int, k: int) 
 
 
 # ------------------------------------------------------------------ B9c
+ROWGROUP_CLUSTER_MAX = 8  # csrc/blockcut.cu RG_CLUSTER_MAX
+ROWGROUP_SLICE_MIN = 4096  # rows a CTA takes at least before a group splits
+
+
+class RowgroupPlan(NamedTuple):
+    clusters: int  # C: CTAs a row group, one thread-block cluster where C > 1
+    groups: int  # G
+    ctas: int  # the grid, G x C
+
+
+def rowgroup_plan(n: int, group: int) -> RowgroupPlan:
+    """B9c's grid for n rows in groups of `group`: C doubles from 1 (to
+    ROWGROUP_CLUSTER_MAX) while the G x C CTAs do not fill the card's
+    CARD_SMS and each CTA keeps at least ROWGROUP_SLICE_MIN rows of the
+    largest group; C = 1 launches without a cluster. A pure function of
+    its arguments: a cut's 16 groups of 65,536 spans get 16 x 8 = 128
+    CTAs, 1,000 rows in groups of 333 one CTA a group."""
+    n, group = int(n), int(group)
+    if n < 1 or group < 1:
+        raise KernelError(f"rowgroup_plan: {n} rows in groups of {group}")
+    g = -(-n // group)
+    rows = min(group, n)
+    c = 1
+    while c < ROWGROUP_CLUSTER_MAX and g * c < CARD_SMS and rows // (2 * c) >= ROWGROUP_SLICE_MIN:
+        c *= 2
+    return RowgroupPlan(c, g, g * c)
+
+
 def rowgroup_minmax(start_ms: torch.Tensor, dur_us: torch.Tensor, group: int) -> torch.Tensor:
     """B9c: (3, G) int32 rows [min start_ms | max start_ms | max dur_us]
-    of the contiguous groups of `group` rows (the last one partial).
+    of the contiguous groups of `group` rows (the last one partial). One
+    launch of G x C CTAs, C from rowgroup_plan; 16-byte loads where
+    start_ms and dur_us share their 16-byte phase, else row by row.
     Bound: bytes (8 B a span)."""
     dev = _cuda_device(start_ms)
     n = start_ms.shape[0]
     _check(start_ms, "start_ms", torch.int32, dev, (n,))
     _check(dur_us, "dur_us", torch.int32, dev, (n,))
-    if n == 0 or group < 1:
+    if n == 0 or group < 1 or n > 2**31 - 1:
         raise KernelError(f"rowgroup_minmax: {n} rows in groups of {group}")
-    n_groups = -(-n // group)
-    out = torch.empty((3, n_groups), dtype=torch.int32, device=dev)
+    plan = rowgroup_plan(n, group)
+    out = torch.empty((3, plan.groups), dtype=torch.int32, device=dev)
     with _on(dev):
-        _call("tt_rowgroup", start_ms.data_ptr(), dur_us.data_ptr(), n, int(group),
-              out.data_ptr(), n_groups, _stream(dev))
+        _call("tt_rowgroup", start_ms.data_ptr(), dur_us.data_ptr(), n, int(group), plan.clusters,
+              out.data_ptr(), plan.groups, _stream(dev))
     _count("rowgroup")
     return out
 
@@ -1117,12 +1149,17 @@ def rowgroup_minmax(start_ms: torch.Tensor, dur_us: torch.Tensor, group: int) ->
 # ------------------------------------------------------------------ B10a
 def bloom_union(stacked: torch.Tensor) -> torch.Tensor:
     """B10a: OR-reduce of (K, S, W) uint32 blooms (int32 storage) ->
-    (S, W). Bound: bytes (K + 1 words moved per output word)."""
+    (S, W). One launch, a grid sized to the card: a thread a quad of 4
+    output words from K 16-byte loads, or a word at a time where S x W is
+    not a multiple of 4 or a pointer is off 16 bytes. Bound: bytes (K + 1
+    words moved per output word)."""
     dev = _cuda_device(stacked)
     _check(stacked, "stacked", torch.int32, dev)
     if stacked.dim() != 3 or stacked.shape[0] == 0:
         raise KernelError("bloom_union: (K, S, W) with K > 0 expected")
     out = torch.empty(stacked.shape[1:], dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
     with _on(dev):
         _call("tt_bloom_union", stacked.data_ptr(), stacked.shape[0], out.numel(),
               out.data_ptr(), _stream(dev))
@@ -1404,7 +1441,6 @@ def span_reduce(sid: torch.Tensor, dur: torch.Tensor, n_valid: int, edges: torch
 
 
 REDUCE_SMEM = 48 * 1024  # shared memory of a B8b tile CTA at most (no opt-in needed)
-REDUCE_CTAS = 132  # SMs of an H100 SXM: the tile route spreads small tables over them
 # CTAs x rows at most on the tile route: chip_smoke.py's sweep (the tile
 # route won at 1,490,944 id reads and lost at 8,388,608)
 EDGE_TILE_READS = 1 << 21
@@ -1426,7 +1462,7 @@ def edge_plan(n_valid: int, n_ids: int, nb: int) -> EdgePlan:
     little (CTAs x n_valid <= EDGE_TILE_READS); the atomic route past it."""
     words = 4 + 2 * nb
     cap = max(1, (REDUCE_SMEM - 4 * (nb - 1)) // (4 * words))
-    per = max(1, min(cap, -(-n_ids // REDUCE_CTAS)))
+    per = max(1, min(cap, -(-n_ids // CARD_SMS)))  # small tables spread over the SMs
     ctas = -(-n_ids // per)
     return EdgePlan(ctas * n_valid <= EDGE_TILE_READS, per, ctas, 4 * (per * words + nb - 1))
 

@@ -40,10 +40,33 @@ def union_blooms(blooms: list[ShardedBloom], device) -> ShardedBloom:
     for b in blooms[1:]:
         if b.n_shards != first.n_shards or b.shard_bits != first.shard_bits:
             raise ValueError("bloom geometry mismatch")
-    stacked = torch.from_numpy(np.stack([b.words for b in blooms]).view(np.int32))
-    out = ShardedBloom(first.n_shards, first.shard_bits)
-    out.words = union(stacked.to(device)).cpu().numpy().view(np.uint32)
-    return out
+    return union_planes([b.words for b in blooms], first.n_shards, first.shard_bits, device)
+
+
+def union_planes(blooms, n_shards: int, shard_bits: int, device) -> ShardedBloom:
+    """The OR of K blooms given shard by shard (blooms[k][s] the (W,)
+    uint32 words of bloom k's shard s; a (S, W) array serves as well),
+    on `device`. Each shard is written once, straight into one (K, S, W)
+    host buffer; on a card that buffer is pinned: one upload, one B10a
+    launch, one pinned download and one synchronize."""
+    device = torch.device(device)
+    card = device.type == "cuda"
+    sb = ShardedBloom(n_shards, shard_bits)
+    host = torch.empty((len(blooms),) + sb.words.shape, dtype=torch.int32, pin_memory=card)
+    h = host.numpy().view(np.uint32)
+    for k, shards in enumerate(blooms):
+        if len(shards) != n_shards:
+            raise ValueError(f"bloom {k}: {len(shards)} shards, expected {n_shards}")
+        for i, words in enumerate(shards):
+            h[k, i] = words
+    out = union(host.to(device, non_blocking=True))
+    if card:
+        back = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+        back.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+        out = back
+    sb.words = out.numpy().view(np.uint32)
+    return sb
 
 
 def bits_set(words: torch.Tensor, word_idx: torch.Tensor, bit_idx: torch.Tensor) -> torch.Tensor:

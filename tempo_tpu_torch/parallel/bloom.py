@@ -6,6 +6,8 @@ Compacting K blocks unions K same-geometry sharded blooms. The stacked
 its K / n blooms with B10a, an all_gather over sp then over dp brings
 every rank's partial (NCCL has no bitwise-OR reduction, so no
 all_reduce), and B10a over the partials gives the union on every rank.
+An axis of one rank takes neither its all_gather nor its B10a: a mesh of
+one rank makes one B10a a union and no collective.
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ from .mesh import DISPATCH_LOCK, program
 @program("bloom_union")
 def _union_body(mesh, static: dict, ops: dict):
     acc = union(ops["stacked"])  # B10a over this rank's blooms
-    acc = union(mesh.all_gather(acc, "sp"))  # B10a over the sp partials
-    acc = union(mesh.all_gather(acc, "dp"))  # and over the dp partials
+    # over an axis of one rank the gather holds this rank's partial alone,
+    # whose union is itself: no all_gather, no B10a
+    if mesh.sp > 1:
+        acc = union(mesh.all_gather(acc, "sp"))  # B10a over the sp partials
+    if mesh.dp > 1:
+        acc = union(mesh.all_gather(acc, "dp"))  # and over the dp partials
     return acc.cpu().numpy()
 
 

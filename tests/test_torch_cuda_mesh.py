@@ -446,8 +446,13 @@ def test_host_entries_on_nccl_world_1(cuda, tmp_path):
             bl = ShardedBloom(blk.meta.bloom_shards, blk.meta.bloom_shard_bits)
             bl.words = np.stack([blk.bloom_shard(i) for i in range(blk.meta.bloom_shards)])
             blooms.append(bl)
-        np.testing.assert_array_equal(sharded_bloom_union(mesh, blooms).words,
-                                      BO.union_blooms(blooms, cuda).words)
+        kernels.reset_counts()
+        gathers = mesh.calls.get("all_gather", 0)
+        union = sharded_bloom_union(mesh, blooms).words
+        # one rank: one B10a over its blooms, no all_gather, no union of one partial
+        assert kernels.LAUNCHES["bloom_union"] == kernels.grid_launches()["bloom_union"] == 1
+        assert mesh.calls.get("all_gather", 0) == gathers
+        np.testing.assert_array_equal(union, BO.union_blooms(blooms, cuda).words)
         blk = blocks[0]
         plans = [_plan_for_block(blk, SearchRequest(query=x)) for x in BURST]
         lqs = [MQ.lower_plan(p) for p in plans]

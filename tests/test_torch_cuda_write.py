@@ -95,24 +95,75 @@ def test_bloom_bits_kernel_refuses(cuda):
     assert kernels.LAUNCHES["bloom_bits"] == 0 and not w.any()
 
 
-@pytest.mark.parametrize("n,group", [(1, 1), (1000, 333), (70_000, 65_536), (1 << 20, 65_536)])
-def test_rowgroup_kernel(cuda, n, group):
+@pytest.mark.parametrize("n,group,c", [(1, 1, 1), (1000, 333, 1), (50_001, 4093, 1),
+                                       (16_384, 8192, 2), (24_577, 12_289, 2),
+                                       (40_001, 20_001, 4), (1 << 22, 65_536, 4),
+                                       (70_000, 65_533, 8), (70_000, 65_536, 8),
+                                       (1 << 20, 65_536, 8),
+                                       (3 * 65_536 + 1, 65_536, 8)])
+def test_rowgroup_kernel(cuda, n, group, c):
+    """B9c at every C of rowgroup_plan (1, 2, 4 and 8 CTAs a group; group
+    % 4 != 0 at each; a last group of one row), on columns at a
+    16-byte boundary, on views at offset 1 (the same phase: 16-byte loads
+    from row 3) and on columns of two phases (row by row), against its
+    plain version: one wrapper call and one __global__ a call.
+    CutEngine.rowgroup_minmax (one pinned round trip) equals the CPU's."""
+    from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import blockcut as BC
 
+    plan = kernels.rowgroup_plan(n, group)
+    assert plan.clusters == c
     rng = np.random.default_rng(n)
-    sm = rng.integers(-(2**31), 2**31, size=n, dtype=np.int64).astype(np.int32)
-    du = rng.integers(-(2**31), 2**31, size=n, dtype=np.int64).astype(np.int32)
+    sm = rng.integers(-(2**31), 2**31, size=n + 2, dtype=np.int64).astype(np.int32)
+    du = rng.integers(-(2**31), 2**31, size=n + 2, dtype=np.int64).astype(np.int32)
+    sm[5::7], du[3::11] = -(2**31), 2**31 - 1
     s, d = torch.from_numpy(sm).to(cuda), torch.from_numpy(du).to(cuda)
-    got = BC.rowgroup_minmax(s, d, group)
-    assert torch.equal(got.cpu(), BC._rowgroup_plain(s.cpu(), d.cpu(), group))
+    views = {"aligned": (s[:n], d[:n]), "offset 1": (s[1:n + 1], d[1:n + 1]),
+             "two phases": (s[1:n + 1], d[2:])}
+    for label, (a, b) in views.items():
+        kernels.reset_counts()
+        got = BC.rowgroup_minmax(a, b, group)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["rowgroup"] == kernels.grid_launches()["rowgroup"] == 1
+        assert got.shape == (3, plan.groups)
+        assert torch.equal(got.cpu(), BC._rowgroup_plain(a.cpu(), b.cpu(), group)), label
+    got = BC.CutEngine(cuda).rowgroup_minmax(sm[:n], du[:n], group)
+    for g, w in zip(got, BC.CutEngine("cpu").rowgroup_minmax(sm[:n], du[:n], group)):
+        np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("shape", [(4, 12, 32768), (1, 1, 32), (3, 2, 100)])
+@pytest.mark.parametrize("shape", [(4, 12, 32768), (1, 1, 32), (3, 2, 100), (4, 1, 16384),
+                                   (9, 3, 7), (10, 1, 33), (17, 2, 1029), (2, 1, 1)])
 def test_bloom_union_kernel(cuda, shape):
+    """B10a against its plain version and np.bitwise_or.reduce: S x W
+    a multiple of 4 (the quad route) and not (word by word), K past the
+    8 loads of one chunk, and a view off 16 bytes (word by word); one
+    __global__ a call. union_blooms on the card (one pinned round trip)
+    equals the CPU's."""
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.block.bloom import ShardedBloom
     from tempo_tpu_torch.ops import bloom_ops as BO
 
-    x = torch.from_numpy(_rand_i32(np.random.default_rng(sum(shape)), shape)).to(cuda)
-    assert torch.equal(BO.union(x).cpu(), BO._union_plain(x.cpu()))
+    rng = np.random.default_rng(sum(shape))
+    host = _rand_i32(rng, (int(np.prod(shape)) + 1,))
+    flat = torch.from_numpy(host).to(cuda)
+    for label, x in (("aligned", flat[:-1].view(shape)), ("off 16 bytes", flat[1:].view(shape))):
+        want = np.bitwise_or.reduce(x.cpu().numpy(), axis=0)
+        kernels.reset_counts()
+        got = BO.union(x)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["bloom_union"] == kernels.grid_launches()["bloom_union"] == 1
+        assert torch.equal(got.cpu(), BO._union_plain(x.cpu())), label
+        np.testing.assert_array_equal(got.cpu().numpy(), want, err_msg=label)
+    blooms = []
+    for k in range(shape[0]):
+        b = ShardedBloom(shape[1], 32 * shape[2])
+        if b.words.shape == shape[1:]:
+            b.words = _rand_i32(rng, shape[1:]).view(np.uint32)
+            blooms.append(b)
+    if blooms:
+        np.testing.assert_array_equal(BO.union_blooms(blooms, cuda).words,
+                                      BO.union_blooms(blooms, "cpu").words)
 
 
 def test_bloom_test_kernel(cuda):
@@ -210,6 +261,7 @@ def test_tempodb_cut_card_matches_cpu(cuda):
     dm = dev_db.write_block("t", traces)
     assert kernels.LAUNCHES["remap"] > 0
     assert kernels.LAUNCHES["bloom_bits"] == kernels.LAUNCHES["rowgroup"] == 1
+    assert kernels.grid_launches()["rowgroup"] == 1
     cm = cpu_db.write_block("t", traces)
     assert len(dm.row_groups) > 1
     for name in ["data.vtpu", "dict.vtpu"] + [f"bloom-{i}" for i in range(dm.bloom_shards)]:
@@ -241,9 +293,9 @@ def test_tempodb_compaction_card_matches_cpu(cuda, route):
         dbs.append(db)
     kernels.reset_counts()
     got = dbs[0].compact_once("t")
-    counts = dict(kernels.LAUNCHES)
+    counts, grids = dict(kernels.LAUNCHES), kernels.grid_launches()
     want = dbs[1].compact_once("t")
-    assert counts["bloom_union"] == (0 if route == "columnar" else 1)
+    assert counts["bloom_union"] == grids["bloom_union"] == (0 if route == "columnar" else 1)
     if route == "wire":
         assert counts["remap"] > 0 and counts["rowgroup"] == 1 and counts["bloom_bits"] == 0
     assert len(got) == len(want) == 1
