@@ -65,8 +65,9 @@ Phases, in order (any failure raises; no CPU fallback):
                card (equal to its stored bloom), B9c of its 16 row groups (equal
                to its stored stats; rowgroup_plan's grid of clusters), B10a
                over blocks 0-3's blooms and 4 seeded 12-shard blooms (a
-               thread a quad), B10b of 48 own and 16 absent ids,
-               each against its plain version, bit for bit
+               thread a quad), B10b (the ids hashed on the card) of 48
+               own and 16 absent ids and of all 32,768 ids (the kernel
+               line's row), each against its plain version, bit for bit
   11. cut      every trace of block 0 materialized and cut by
                TempoDB.write_block on the card (B9a once for all 29 code
                columns, B9b once with no host hashing, B9c; B9a's row in the kernel line is this
@@ -75,9 +76,15 @@ Phases, in order (any failure raises; no CPU fallback):
                finds in the new tenant equal the materialized traces; 2
                searches card vs CPU; the cut's host/kernel split, the
                bloom step apart from the row-group step
-  12. compact  compact_once over the 10 corpus blocks on the card and on
-               a CPU copy of the store: equal outputs; phase 5's 64 finds
-               unchanged; 2 searches card vs CPU; then 4 blocks of 8
+  12. compact  the 10 corpus blocks through the compactor service on the
+               card (Compactor.run_once at concurrency 2: compact_tenants,
+               the pipelined sweep) and compact_once on a CPU copy of the
+               store: equal outputs, the pipeline's stage walls, overlap
+               and prefetch logged; phase 5's 64 finds unchanged; 2
+               searches card vs CPU; tag discovery (search_tags, the
+               values of service.name, name and a span attribute) and
+               find_candidates of phase 5's ids equal on the card and the
+               CPU copy, before and after; then 4 blocks of 8
                traces merged on the union route (one B10a call and
                __global__ from one pinned upload, no bloom
                rebuilt, every id tests present through B10b), the same 4
@@ -542,27 +549,58 @@ def phase_4c(blocks, metas, absent, dev, table) -> None:
         if x is stacked:
             row("bloom_union", "bloom.cu", "tempo_tpu/ops/bloom_ops.py:20", err, ms, pms, b, None)
 
-    # B10b -- 48 of block 0's own ids (all present) and phase 5's 16
-    # absent ids against block 0's bloom
+    # B10b -- the id route: the ids hashed on the card. 48 of block 0's
+    # own ids (all present) and phase 5's 16 absent ids, then all 32,768
+    # of its ids (all present), against block 0's bloom; each held bit for
+    # bit against the plain id route, against _test_plain over the host's
+    # positions() and against the host's bloom_test
     own = [bytes(ids0[i]) for i in rng.choice(len(ids0), 48, replace=False)]
-    q_ids = own + absent
-    word_idx, bit_idx = BO.positions(q_ids, n_shards, bits)
-    words = torch.from_numpy(np.stack([blk0.bloom_shard(i) for i in range(n_shards)])
-                             .view(np.int32)).to(dev)
-    wq, bq = torch.from_numpy(word_idx).to(dev), torch.from_numpy(bit_idx).to(dev)
-    got = kernels.bloom_test(words, wq, bq)
-    err = max_abs_err(got, BO._test_plain(words, wq, bq))
-    hits = got.cpu().numpy()
-    host = [blk0.bloom_test(t) for t in q_ids]
-    if err or not hits[:48].all() or hits.tolist() != host:
-        raise AssertionError("B10b differs from its plain version or the host bloom test")
-    ms = cuda_ms(lambda: kernels.bloom_test(words, wq, bq))
-    pms = cuda_ms(lambda: BO._test_plain(words, wq, bq))
-    q, k = bit_idx.shape
-    b = bound(q * k * 16 + q, q * k)
-    log(f"[B10b] {q} ids x {k} bits: 48 of 48 present ids test present, "
-        f"{int(hits[48:].sum())} of 16 absent ids pass (false positives); {ms:.4f} ms, "
-        f"plain {pms:.4f} ms, bound {b[0]:.6f} ms")
+    words_np = np.stack([blk0.bloom_shard(i) for i in range(n_shards)])
+    words = torch.from_numpy(words_np.view(np.int32)).to(dev)
+    for q_ids in (own + absent, [bytes(r) for r in ids0]):
+        q = len(q_ids)
+        slots, lens = np.empty((q, 16), np.uint8), np.empty(q, np.uint8)
+        BO.pack_ids(q_ids, slots, lens)
+        s_d, l_d = torch.from_numpy(slots).to(dev), torch.from_numpy(lens).to(dev)
+        got = kernels.bloom_test(words, s_d, l_d, n_shards, bits, BC._K)
+        plain = BO._test_ids_plain(words.cpu(), torch.from_numpy(slots), torch.from_numpy(lens),
+                                   n_shards, bits)
+        word_idx, bit_idx = BO.positions(q_ids, n_shards, bits)
+        wq, bq = torch.from_numpy(word_idx).to(dev), torch.from_numpy(bit_idx).to(dev)
+        err = max_abs_err(got, plain.to(dev))
+        hits = got.cpu().numpy()
+        host = [blk0.bloom_test(t) for t in q_ids]
+        path = BO.batch_test(words_np, bits, n_shards, q_ids, dev)
+        path_card = BO.batch_test(words, bits, n_shards, q_ids)
+        if err or hits.tolist() != BO._test_plain(words, wq, bq).cpu().tolist() \
+                or hits.tolist() != host or not hits[:48].all() \
+                or not np.array_equal(path, hits) or not np.array_equal(path_card, hits):
+            raise AssertionError(f"B10b at {q} ids differs from its plain id route, "
+                                 "_test_plain over positions() or the host bloom test")
+        kernels.reset_counts()
+        BO.batch_test(words_np, bits, n_shards, q_ids, dev)
+        if kernels.LAUNCHES["bloom_test"] != 1 or kernels.grid_launches()["bloom_test"] != 1:
+            raise AssertionError("B10b: batch_test is not one launch")
+        ms = cuda_ms(lambda: kernels.bloom_test(words, s_d, l_d, n_shards, bits, BC._K))
+        us = device_ms(lambda: kernels.bloom_test(words, s_d, l_d, n_shards, bits, BC._K)) * 1e3
+        pms = host_ms(lambda: BO._test_ids_plain(words.cpu(), torch.from_numpy(slots),
+                                                 torch.from_numpy(lens), n_shards, bits),
+                      reps=5, rounds=3, warm=1)
+        path_ms = host_ms(lambda: BO.batch_test(words_np, bits, n_shards, q_ids, dev),
+                          reps=5, rounds=5, warm=2)
+        card_ms = host_ms(lambda: BO.batch_test(words, bits, n_shards, q_ids),
+                          reps=5, rounds=5, warm=2)
+        # bytes: 16 B of id, 1 B of length and 1 B out an id, and the
+        # words read once -- a 32-byte sector of each of the K words an id
+        # tests, never more than the whole bloom (at 32,768 ids its 64 KB
+        # stay in L2); operations: about 110 integer operations an id
+        b = bound(min(q * BC._K * 32, words.numel() * 4) + 18 * q, q * 110)
+        absent_hits = f", {int(hits[48:].sum())} of 16 absent pass" if q == 64 else ""
+        log(f"[B10b] {q} ids x {BC._K} bits: every present id tests present{absent_hits}; "
+            f"kernel {ms:.4f} ms, device "
+            f"{us:.2f} µs (queued); batch_test from numpy words {path_ms:.3f} ms, from card words "
+            f"{card_ms:.3f} ms (host clock); plain id route {pms:.3f} ms (numpy), bound "
+            f"{b[0]:.6f} ms")
     row("bloom_test", "bloom.cu", "tempo_tpu/ops/bloom_ops.py:48", err, ms, pms, b, None)
 
 
@@ -688,6 +726,41 @@ def phase_11_table(cut, table) -> dict:
         "l2 route": lambda: kernels.remap_many(codes, offs, remap, "l2")}}
 
 
+DISCOVERY_TAGS = ("service.name", "name", "attr.key007")  # a resource, the intrinsic, a span attr
+
+
+def tag_discovery(db, cpu, ids, when: str) -> dict:
+    """search_tags and search_tag_values of DISCOVERY_TAGS on the card's
+    TempoDB and the CPU copy (equal, none empty), and find_candidates of
+    `ids` on both (the same blocks by level, trace count and time range:
+    compaction outputs get new ids). Returns the card's answers."""
+    t0 = time.perf_counter()
+    answers = []
+    for d in (db, cpu):
+        a = {"tags": d.search_tags(TENANT)}
+        for tag in DISCOVERY_TAGS:
+            a[tag] = d.search_tag_values(TENANT, tag)
+        answers.append(a)
+    if answers[0] != answers[1] or not all(answers[0].values()):
+        raise AssertionError(f"tag discovery {when}: card and CPU differ")
+
+    def key(metas):
+        return sorted((m.compaction_level, m.total_traces, m.start_time_unix_nano,
+                       m.end_time_unix_nano) for m in metas)
+
+    n = 0
+    for tid in ids:
+        got = db.find_candidates(TENANT, tid)
+        if key(got) != key(cpu.find_candidates(TENANT, tid)):
+            raise AssertionError(f"find_candidates {tid.hex()} {when}: card and CPU differ")
+        n += len(got)
+    log(f"[discovery] {when}: {len(answers[0]['tags'])} tags, "
+        + ", ".join(f"{t} {len(answers[0][t])} values" for t in DISCOVERY_TAGS)
+        + f", equal on the card and the CPU copy; find_candidates of {len(ids)} ids "
+        f"({n} candidates) equal; {time.perf_counter() - t0:.2f} s")
+    return answers[0]
+
+
 def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
     """Compaction last: the 10 corpus blocks on the card and on a CPU
     copy of the store; the union route on small blocks; the concat route;
@@ -697,6 +770,7 @@ def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
     from tempo_tpu_torch.block.bloom import ShardedBloom
     from tempo_tpu_torch.db import SearchRequest, TempoDB, TempoDBConfig
     from tempo_tpu_torch.db import compactor as comp
+    from tempo_tpu_torch.services.compactor import Compactor
     from tempo_tpu_torch.ops import blockcut as BC
     from tempo_tpu_torch.ops import bloom_ops as BO
     from tempo_tpu_torch.util.testdata import make_traces
@@ -711,15 +785,35 @@ def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
         log(f"[compact] job {job.hash}: {len(job.blocks)} blocks, route "
             f"{comp.route(job, cfg)}, union needs {need:.0f} bits for {ids_n} ids of "
             f"{have} -> {'fits' if need <= have else 'rebuild'}")
+    discovery_before = tag_discovery(db, cpu, present + absent, "before compaction")
+    # the card through the compactor service's pipelined sweep (2 workers
+    # under an 8 GiB admission budget: the reference's 1 GiB default sizes
+    # a 1-2 core compactor box, and two of these jobs' estimates pass it;
+    # retention held off here, it runs below), the CPU copy through the
+    # sequential compact_once, the oracle
+    cfg.concurrency, retention0, cfg.retention_s = 2, cfg.retention_s, 10**10
+    cfg.pipeline_mem_budget_bytes = 8 << 30
+    svc, sweeps = Compactor(db), []
+    sweep = db.compact_tenants
+    db.compact_tenants = lambda *a, **k: sweeps.append(sweep(*a, **k)) or sweeps[-1]
     kernels.reset_counts()
     t0 = time.perf_counter()
-    res = db.compact_once(TENANT)
-    card_s = time.perf_counter() - t0
+    try:
+        svc.run_once()
+    finally:
+        card_s = time.perf_counter() - t0
+        cfg.concurrency, cfg.retention_s, cfg.pipeline_mem_budget_bytes = None, retention0, None
+        del db.compact_tenants
     counts = dict(kernels.LAUNCHES)
+    if svc.stats.errors or len(sweeps) != 1:
+        raise AssertionError(f"compactor: {len(sweeps)} pipelined sweeps, errors "
+                             f"{svc.stats.errors!r}")
     t0 = time.perf_counter()
     cres = cpu.compact_once(TENANT)
     cpu_s = time.perf_counter() - t0
-    if len(res) != len(cres) or not res:
+    res = [oc.result for oc in sweeps[0] if oc.tenant == TENANT]
+    if len(res) != len(cres) or not res or len(res) != len(sweeps[0]) or \
+            svc.stats.blocks_compacted != sum(len(c.compacted_ids) for c in cres):
         raise AssertionError(f"compaction: {len(res)} card jobs, {len(cres)} CPU jobs")
     for r, c in zip(res, cres):
         if sorted(r.compacted_ids) != sorted(c.compacted_ids) or \
@@ -727,9 +821,16 @@ def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
             raise AssertionError("compaction: card and CPU jobs differ")
         for m, cm in zip(r.new_blocks, c.new_blocks):
             same_block(db.backend, m, cpu.backend, cm, f"compaction output {m.block_id}")
+    st = db.compaction_stats.snapshot()
     log(f"[compact] {len(res)} jobs ({[len(r.compacted_ids) for r in res]} blocks in, "
-        f"{[len(r.new_blocks) for r in res]} out) card {card_s:.1f} s, CPU {cpu_s:.1f} s; "
+        f"{[len(r.new_blocks) for r in res]} out) card {card_s:.1f} s through "
+        f"Compactor.run_once (compact_tenants, 2 workers), CPU compact_once {cpu_s:.1f} s; "
         f"outputs equal; wrapper calls {counts}")
+    log("[compact pipeline] stage s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(st["stage_seconds"].items()))
+        + f"; run wall {st['wall_seconds']:.2f} s, overlap ratio {st['overlap_ratio']:.2f}, "
+        f"prefetch {st['prefetch']}, jobs in flight at most {st['max_jobs_inflight']}, "
+        f"est. bytes in flight at most {st['max_bytes_inflight']}")
     t0 = time.perf_counter()
     for tid in present + absent:
         got = db.find_trace_by_id(TENANT, tid)
@@ -744,6 +845,8 @@ def phase_12(db, store, tmp, dev, present, absent, seq_found) -> dict:
         r = db.search(TENANT, req)
         if not r.traces or not same_response(r, cpu.search(TENANT, req)):
             raise AssertionError(f"search {q} after compaction: card and CPU differ")
+    if tag_discovery(db, cpu, present + absent, "after compaction") != discovery_before:
+        raise AssertionError("tag discovery after compaction differs from before")
 
     # the union route: 4 blocks of 8 traces cut on the card, merged with
     # the concat route off; one B10a call, no bloom rebuilt

@@ -545,11 +545,16 @@ def _column_level(name: str):
 
 
 def write_block(backend: RawBackend, fin: FinalizedBlock, level: int = 3,
-                codec: str = "zstd") -> BlockMeta:
+                codec: str = "zstd", defer_meta: bool = False) -> BlockMeta:
     """Write all block objects; meta.json last so pollers never see a
     partial block (reference writes meta last for the same reason).
     codec selects the chunk compression (colio codec matrix); readers
-    dispatch per chunk, so mixed-codec backends are fine."""
+    dispatch per chunk, so mixed-codec backends are fine.
+
+    defer_meta=True holds back the meta.json write: the block stays
+    invisible to pollers until publish_block_meta. The compaction
+    pipeline commits a multi-output job this way, every output's data
+    durable before the first meta appears."""
     from .versioned import CURRENT_VERSION
 
     m = fin.meta
@@ -568,8 +573,15 @@ def write_block(backend: RawBackend, fin: FinalizedBlock, level: int = 3,
     for i in range(fin.bloom.n_shards):
         backend.write(m.tenant_id, m.block_id, f"{BLOOM_PREFIX}{i}", fin.bloom.shard_bytes(i))
     m.size_bytes = app.bytes_written
-    backend.write(m.tenant_id, m.block_id, "meta.json", m.to_json())
+    if not defer_meta:
+        publish_block_meta(backend, m)
     return m
+
+
+def publish_block_meta(backend: RawBackend, meta: BlockMeta) -> None:
+    """Commit a block written with defer_meta=True: the meta.json write
+    is the visibility point for pollers."""
+    backend.write(meta.tenant_id, meta.block_id, "meta.json", meta.to_json())
 
 
 def build_block_from_traces(

@@ -13,6 +13,7 @@
 // each reads its inputs once and writes its outputs once.
 #include <cooperative_groups.h>
 
+#include "bloomhash.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -165,9 +166,10 @@ TT_EXPORT int tt_remap_many(const int32_t* codes, const int* offs, int n_seg,
 // B9b: the bloom of a cut in ONE launch, the hashing on the card
 // (kernels.bloom_bits; CutEngine.bloom_bits uploads the words and the
 // ids in one pinned buffer, the words straight into the output, and
-// downloads the words once). One thread an id: FNV-1a 32 of its 16 bytes
-// picks the shard (% n_shards, any count), FNV-1a 64 is h1, splitmix64(h1)
-// | 1 is h2, and bit i (i < k) is (h1 + i h2) & (shard_bits - 1) of that
+// downloads the words once). One thread an id, hashed over its 16 bytes
+// by tt_bloom_hash (bloomhash.cuh, shared with B10b): FNV-1a 32 picks the
+// shard (% n_shards, any count), FNV-1a 64 is h1, splitmix64(h1) | 1 is
+// h2, and bit i (i < k) is (h1 + i h2) & (shard_bits - 1) of that
 // shard (tempo_tpu_torch/util/hashing.py, block/bloom.py; shard_bits is
 // a power of two, so the modulo is a mask). Each bit is atomicOr'ed into
 // flat word (shard shard_bits + pos) / 32 of the words in place; a word
@@ -187,24 +189,11 @@ __global__ void __launch_bounds__(256) bloom_ids_kernel(const uint4* __restrict_
                                                         unsigned long long n_words) {
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= n_ids) return;
-    const uint4 v = __ldg(ids + t);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t h32 = 0x811C9DC5u;
-    unsigned long long h1 = 0xCBF29CE484222325ull;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {  // byte j of the id (little-endian words)
-        const uint32_t b = (w[j >> 2] >> (8 * (j & 3))) & 0xFFu;
-        h32 = (h32 ^ b) * 0x01000193u;
-        h1 = (h1 ^ b) * 0x00000100000001B3ull;
-    }
-    unsigned long long z = h1 + 0x9E3779B97F4A7C15ull;
-    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
-    z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
-    const unsigned long long h2 = (z ^ (z >> 31)) | 1ull;
-    const unsigned long long base = (unsigned long long)(h32 % n_shards) * shard_bits;
+    const TtBloomHash h = tt_bloom_hash(__ldg(ids + t), 16);
+    const unsigned long long base = (unsigned long long)(h.h32 % n_shards) * shard_bits;
     const unsigned long long mask = shard_bits - 1;
     for (int i = 0; i < k; ++i) {
-        const unsigned long long bit = base + ((h1 + (unsigned long long)i * h2) & mask);
+        const unsigned long long bit = base + ((h.h1 + (unsigned long long)i * h.h2) & mask);
         if ((bit >> 5) < n_words) atomicOr(words + (bit >> 5), 1u << (unsigned)(bit & 31));
     }
 }

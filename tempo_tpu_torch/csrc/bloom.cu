@@ -3,10 +3,11 @@
 // Replaces the two jitted programs of tempo_tpu/ops/bloom_ops.py:
 //   B10a :20 _union_kernel  OR-reduce of K stacked (S, W) uint32 blooms
 //   B10b :48 _test_kernel   per query, K word gathers, a bit test each,
-//                           AND over the K bits
+//                           AND over the K bits (the positions hashed
+//                           on the host there; here on the card)
 // Both are bound by bytes: the union reads K words and writes one per
-// output word; the test reads K words and K (shard, word, bit) triples a
-// query and writes one bool.
+// output word; the test reads an id and K words and writes one byte.
+#include "bloomhash.cuh"
 #include "common.cuh"
 
 // B10a: the OR of K planes of n_words words (a (K, S, W) stack, S x W =
@@ -90,33 +91,79 @@ TT_EXPORT int tt_bloom_union(const uint32_t* stacked, int k, long long n_words, 
     return (int)cudaGetLastError();
 }
 
-// B10b: one thread per query. word_idx is (q, k, 2) [shard, word], bit_idx
-// (q, k). Indices clamp into the words as XLA's gather clamps them; a bit
-// index outside [0, 32) tests 0, as XLA's logical shift by >= 32 gives 0.
-__global__ void test_kernel(const uint32_t* __restrict__ words, int n_shards, int n_words,
-                            const int32_t* __restrict__ word_idx,
-                            const int32_t* __restrict__ bit_idx, int q, int k,
-                            uint8_t* __restrict__ out) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= q) return;
-    bool all = true;
-    for (int j = 0; j < k; ++j) {
-        long long e = (long long)i * k + j;
-        int s = tt_clamp(word_idx[2 * e], 0, n_shards - 1);
-        int w = tt_clamp(word_idx[2 * e + 1], 0, n_words - 1);
-        unsigned b = (unsigned)bit_idx[e];
-        uint32_t word = words[(long long)s * n_words + w];
-        all = all && b < 32u && ((word >> b) & 1u);
+// B10b: many trace ids tested against a block's full bloom in ONE launch,
+// the hashing on the card (kernels.bloom_test; ops/bloom_ops.batch_test
+// sends the words and the ids end to end in one pinned buffer, or the ids
+// alone where the words already lie on the card, and downloads one byte
+// an id). One thread an id: one 16-byte load of its zero-padded slot and
+// one of its length (0..16), tt_bloom_hash (bloomhash.cuh, B9b's hash)
+// over that length; the shard is FNV-1a 32 % n_shards, bit i (i < k) is
+// (h1 + i h2) mod shard_bits -- a mask where shard_bits is a power of
+// two, a 64-bit % otherwise (util/hashing.bloom_hashes takes any m_bits).
+// The k word loads are issued together, then ANDed; one byte is stored.
+// The shard row and the word clamp into the words as XLA's gather clamps
+// them (the reference's _test_kernel over the host's positions).
+//
+// Bound: bytes -- 16 B of id, 1 B of length and 1 B out an id, and the
+// words read once: a 32-byte sector of each of the k words an id tests,
+// never more than the whole bloom (0.66 MB, 0.2 us at 3.35 TB/s, for
+// 32,768 ids at k = 7 in one shard of 2^19 bits, whose 64 KB stay in
+// L2); the integer work, about 110 operations an id, is about 0.05 us.
+// The old kernel took the host's (shard, word) pairs and bit indexes,
+// 2 k index loads and k word loads an id one after another.
+#define BT_THREADS 256
+#define BT_KMAX 8
+
+template <bool POW2>
+__global__ void __launch_bounds__(BT_THREADS)
+    test_ids_kernel(const uint32_t* __restrict__ words, unsigned n_rows,
+                    unsigned long long n_words, const uint4* __restrict__ ids,
+                    const uint8_t* __restrict__ lens, int q, unsigned n_shards,
+                    unsigned long long shard_bits, int k, uint8_t* __restrict__ out) {
+    const int t = blockIdx.x * BT_THREADS + threadIdx.x;
+    if (t >= q) return;
+    const TtBloomHash h = tt_bloom_hash(__ldg(ids + t), __ldg(lens + t));
+    unsigned s = h.h32 % n_shards;
+    if (s >= n_rows) s = n_rows - 1;
+    const uint32_t* row = words + (unsigned long long)s * n_words;
+    uint32_t w[BT_KMAX];
+    unsigned b[BT_KMAX];
+#pragma unroll
+    for (int i = 0; i < BT_KMAX; ++i) {  // every word's load issued first
+        w[i] = 0xFFFFFFFFu;
+        b[i] = 0;
+        if (i < k) {
+            const unsigned long long x = h.h1 + (unsigned long long)i * h.h2;
+            const unsigned long long pos = POW2 ? (x & (shard_bits - 1)) : x % shard_bits;
+            const unsigned long long wi = pos >> 5;
+            b[i] = (unsigned)(pos & 31);
+            w[i] = __ldg(row + (wi < n_words ? wi : n_words - 1));
+        }
     }
-    out[i] = all ? 1 : 0;
+    uint32_t all = 1u;
+#pragma unroll
+    for (int i = 0; i < BT_KMAX; ++i) all &= w[i] >> b[i];
+    out[t] = (uint8_t)(all & 1u);
 }
 
-TT_EXPORT int tt_bloom_test(const uint32_t* words, int n_shards, int n_words,
-                            const int32_t* word_idx, const int32_t* bit_idx, int q, int k,
-                            uint8_t* out, void* stream) {
-    test_kernel<<<tt_blocks(q, 256), 256, 0, (cudaStream_t)stream>>>(words, n_shards, n_words,
-                                                                      word_idx, bit_idx, q, k,
-                                                                      out);
+// words: n_rows x n_words uint32; ids: q 16-byte slots, 16 B aligned;
+// lens: q bytes, each at most 16; out: q bytes (0 or 1).
+TT_EXPORT int tt_bloom_test_ids(const uint32_t* words, int n_rows, long long n_words,
+                                const void* ids, const uint8_t* lens, int q, int n_shards,
+                                long long shard_bits, int k, uint8_t* out, void* stream) {
+    if (q < 1 || n_rows < 1 || n_words < 1 || n_shards < 1 || shard_bits < 1 || k < 1 ||
+        k > BT_KMAX || (((uintptr_t)ids) & 15))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(tt_blocks(q, BT_THREADS));
+    cudaStream_t st = (cudaStream_t)stream;
+    if ((shard_bits & (shard_bits - 1)) == 0)
+        test_ids_kernel<true><<<grid, BT_THREADS, 0, st>>>(
+            words, (unsigned)n_rows, (unsigned long long)n_words, (const uint4*)ids, lens, q,
+            (unsigned)n_shards, (unsigned long long)shard_bits, k, out);
+    else
+        test_ids_kernel<false><<<grid, BT_THREADS, 0, st>>>(
+            words, (unsigned)n_rows, (unsigned long long)n_words, (const uint4*)ids, lens, q,
+            (unsigned)n_shards, (unsigned long long)shard_bits, k, out);
     TT_LAUNCHED_SLOT(1);
     return (int)cudaGetLastError();
 }

@@ -3,12 +3,13 @@
 Port of tempo_tpu/db/blocklist.py (the reference's blocklist/poller,
 tempodb/blocklist/list.go:29-123, poller.go:122-180): readers and
 compactors consult this list, refreshed by a poll, instead of listing
-the backend on every query. A poll writes each tenant's
-`index.json.gz`, which a reader that does not list the backend (the JAX
-package's poller with build_index=False) reads instead. Updates that
-arrive while a poll is in flight are patched into the fresh results
-(ApplyPollResults semantics). Compound blocks (db/concat_compact.py)
-expand into their parts.
+the backend on every query. A poller that builds the index lists the
+backend and writes each tenant's `index.json.gz`; one that does not
+(build_index=False), or a poller that does not own the tenant
+(`owns_tenant`), reads that index instead -- either package's, the
+document is the same. Updates that arrive while a poll is in flight are
+patched into the fresh results (ApplyPollResults semantics). Compound
+blocks (db/concat_compact.py) expand into their parts.
 """
 
 from __future__ import annotations
@@ -54,6 +55,14 @@ class Blocklist:
     def compacted_metas(self, tenant: str) -> list[BlockMeta]:
         with self._lock:
             return list(self._compacted.get(tenant, []))
+
+    def metas_by_id(self, tenant: str, block_ids: list[str]) -> list[BlockMeta]:
+        """Resolve block ids to metas (job payloads ship ids; a worker
+        resolves them against its own polled list). Missing ids are
+        skipped: poll lag is the caller's retry condition."""
+        with self._lock:
+            by_id = {m.block_id: m for m in self._metas.get(tenant, [])}
+        return [by_id[b] for b in block_ids if b in by_id]
 
     def update(
         self,
@@ -109,21 +118,39 @@ class Blocklist:
 
 
 class Poller:
-    """Lists the backend into poll results and writes each tenant's index."""
+    """Lists the backend (or reads tenant indexes) into poll results; with
+    `build_index` it also writes each tenant's index. A stale index (older
+    than stale_index_max_age_s, when set) reads as none."""
 
-    def __init__(self, backend: RawBackend):
+    def __init__(self, backend: RawBackend, build_index: bool = True,
+                 stale_index_max_age_s: float = 0.0):
         self.backend = backend
+        self.build_index = build_index
+        self.stale_max = stale_index_max_age_s
+        # ring-sharded polling hook: where this instance does not own a
+        # tenant, it reads the owner's index instead of listing the
+        # backend. Default: own every tenant (a solo poller).
+        self.owns_tenant = lambda tenant: True
 
     def poll(self) -> tuple[dict[str, list[BlockMeta]], dict[str, list[BlockMeta]]]:
         metas: dict[str, list[BlockMeta]] = {}
         compacted: dict[str, list[BlockMeta]] = {}
         for tenant in self.backend.tenants():
-            metas[tenant], compacted[tenant] = self.poll_tenant(tenant)
+            metas[tenant], compacted[tenant] = self.poll_tenant(
+                tenant, owned=self.owns_tenant(tenant))
         return metas, compacted
 
-    def poll_tenant(self, tenant: str) -> tuple[list[BlockMeta], list[BlockMeta]]:
+    def poll_tenant(self, tenant: str,
+                    owned: bool = True) -> tuple[list[BlockMeta], list[BlockMeta]]:
+        if not owned or not self.build_index:
+            # the index IS the blocklist; list the backend only where no
+            # index has been written yet (a cold start)
+            got = self._read_index(tenant)
+            if got is not None:
+                return got
         metas, compacted = self._list_tenant(tenant)
-        self._write_index(tenant, metas, compacted)
+        if self.build_index and owned:
+            self._write_index(tenant, metas, compacted)
         return metas, compacted
 
     # ---- raw listing
@@ -189,3 +216,17 @@ class Poller:
         }
         self.backend.write_tenant_object(tenant, TENANT_INDEX_NAME,
                                          gzip.compress(json.dumps(doc).encode("utf-8")))
+
+    def _read_index(self, tenant) -> tuple[list[BlockMeta], list[BlockMeta]] | None:
+        try:
+            raw = self.backend.read_tenant_object(tenant, TENANT_INDEX_NAME)
+        except DoesNotExist:
+            return None
+        doc = json.loads(gzip.decompress(raw))
+        if self.stale_max and time.time() - doc.get("created_at", 0) > self.stale_max:
+            return None
+
+        def to_meta(d):
+            return BlockMeta.from_json(json.dumps(d).encode())
+
+        return [to_meta(d) for d in doc["meta"]], [to_meta(d) for d in doc["compacted"]]

@@ -47,6 +47,7 @@ from ..block.builder import (
     BlockBuilder,
     FinalizedBlock,
     compute_row_groups,
+    publish_block_meta,
     write_block,
 )
 from ..block.colio import CODEC_CONST, CODEC_RAW, CODEC_ZSTD, is_broadcast
@@ -519,19 +520,21 @@ class ColumnarPlan:
 
 
 def plan_columnar(backend: RawBackend, job: CompactionJob, cfg: CompactorConfig,
-                  device=None) -> ColumnarPlan:
+                  device=None, blocks: list[BackendBlock] | None = None) -> ColumnarPlan:
     """Fetch + merge planning: decode sources, compute the global merge
     order (collisions combined), merge dictionaries, cut the run table
     into per-output chunk lists. Raises UnsupportedColumnar when the
     inputs can't merge columnar-ly. The device defaults to the first
-    card (an error without one)."""
+    card (an error without one). `blocks`: readers already opened (the
+    pipeline's prefetch stage passes preloaded ones)."""
     device = resolve_device(device)
     tenant = job.tenant
     from ..block.versioned import open_block_versioned
 
     # version dispatch: an unknown-format input must fail the job
     # loudly, never be misparsed as vtpu1 bytes
-    blocks = [open_block_versioned(backend, m) for m in job.blocks]
+    if blocks is None:
+        blocks = [open_block_versioned(backend, m) for m in job.blocks]
     # one output block => _assemble drops each source column after its
     # pass; multi-output jobs read the sources again, so never (estimate
     # from input bytes: single iff everything fits one target block)
@@ -700,10 +703,12 @@ class PassthroughOutput:
         return self.blk.meta
 
 
-def copy_block_through(backend: RawBackend, blk: BackendBlock, out_level: int) -> BlockMeta:
+def copy_block_through(backend: RawBackend, blk: BackendBlock, out_level: int,
+                       defer_meta: bool = False) -> BlockMeta:
     """Produce a compaction output by verbatim object copy: data, dict
     and bloom shards move backend-side (local: hardlink; stores:
-    server-side copy), compressed chunks never decode. Meta last, as write_block."""
+    server-side copy), compressed chunks never decode. Meta last, and
+    held back with defer_meta, as write_block."""
     src = blk.meta
     m = BlockMeta.from_json(src.to_json())
     m.block_id = str(uuid.uuid4())
@@ -716,17 +721,20 @@ def copy_block_through(backend: RawBackend, blk: BackendBlock, out_level: int) -
         except DoesNotExist:
             if name == DATA_NAME:
                 raise  # a block without data is corrupt; fail the job
-    backend.write(m.tenant_id, m.block_id, "meta.json", m.to_json())
+    if not defer_meta:
+        publish_block_meta(backend, m)
     return m
 
 
-def write_output(backend: RawBackend, out, cfg: CompactorConfig, out_level: int) -> BlockMeta:
+def write_output(backend: RawBackend, out, cfg: CompactorConfig, out_level: int,
+                 defer_meta: bool = False) -> BlockMeta:
     """Write one iter_outputs product: FinalizedBlock -> full
     recompress through write_block, PassthroughOutput -> verbatim
-    object copies."""
+    object copies. The sequential and the pipelined drivers both write
+    here, so a passthrough behaves the same under either."""
     if isinstance(out, PassthroughOutput):
-        return copy_block_through(backend, out.blk, out_level)
-    return write_block(backend, out, level=cfg.level_for(out_level))
+        return copy_block_through(backend, out.blk, out_level, defer_meta=defer_meta)
+    return write_block(backend, out, level=cfg.level_for(out_level), defer_meta=defer_meta)
 
 
 def iter_outputs(plan: ColumnarPlan, cfg: CompactorConfig):

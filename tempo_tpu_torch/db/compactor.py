@@ -14,7 +14,7 @@ when the inputs are not columnar-mergeable. The output bloom is the OR
 union of the inputs' filters (B10a, ops/bloom_ops.py) when their
 geometries match and the union stays within design load; the wire
 route's builder cuts on the device (B9a/B9b/B9c). The pipelined sweep
-(db/compact_pipeline.py of the JAX package) is not ported yet.
+over many jobs and tenants is db/compact_pipeline.py.
 """
 
 from __future__ import annotations
@@ -75,6 +75,19 @@ class CompactorConfig:
     # level-0 jobs whose inputs are ALL at most this size take the
     # no-decode concat path into a compound block; 0 disables
     concat_small_input_bytes: int = 8 << 20
+    # ---- the pipelined sweep (db/compact_pipeline.py) ----
+    # worker threads running jobs at once; None resolves from the
+    # TEMPO_COMPACT_CONCURRENCY env (default 1: sequential). Jobs own
+    # disjoint input blocks, so they are safe to run in parallel.
+    concurrency: int | None = None
+    # host-RAM admission budget for jobs in flight; None resolves from
+    # TEMPO_COMPACT_MEM_BUDGET (bytes, default 1 GiB). A job's peak is
+    # estimated as its input bytes x compact_pipeline.EXPANSION; one job
+    # always admits, so an oversized job stalls the pipeline, never
+    # deadlocks it
+    pipeline_mem_budget_bytes: int | None = None
+    # jobs the prefetch stage may open ahead of the workers (0: none)
+    prefetch_depth: int = 2
 
     def level_for(self, out_level: int) -> int:
         """Output zstd level for a block produced at out_level."""

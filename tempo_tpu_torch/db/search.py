@@ -31,9 +31,11 @@ from ..ops.filter import T_RATTR, T_RES, T_TRACE, Operands, eval_block, required
 from ..ops.device import PAD_I32, bucket
 from ..ops.select import k_bucket, select_topk_device, select_topk_device_multi, select_topk_host
 from ..ops.stage import stage_block
-from ..traceql.plan import plan_search_request
+from ..traceql.plan import _WELL_KNOWN_RES, plan_search_request
+from ..util.distinct import DistinctStringCollector
 
 DEFAULT_LIMIT = 20
+_INTRINSIC_NAME = "name"
 # staged span-axis bytes of one fused multi-block search, and stacked
 # column bytes of one mesh search group, before each falls back to
 # per-block search (one budget for both, as in the JAX package)
@@ -570,3 +572,62 @@ def stack_group(items, tree, conds, mesh):
     operands = [Operands.build(p.rows, p.tables or None) for _, p in items]
     operands += [Operands.build([(0, 0, 0, 0.0, 0.0)] * len(conds))] * (Bp - B)
     return host, n_spans, operands, NT_b
+
+
+# ---- tag name / value discovery (the reference's /api/search/tags
+# endpoints; host numpy over the block's columns, no kernel)
+
+
+def search_tags(blk: BackendBlock, collector: DistinctStringCollector) -> None:
+    """Every attribute key of the block (span, then resource attrs, each
+    in code order) and the well-known resource tags it holds."""
+    d = blk.dictionary
+    for col in ("sattr.key_id", "rattr.key_id"):
+        for c in np.unique(blk.pack.read(col)):
+            if c >= 0:
+                collector.collect(d.string(int(c)))
+    # well-known resource attrs live only in dedicated columns
+    for tag, col in _WELL_KNOWN_RES.items():
+        if blk.pack.has(col) and (blk.pack.read(col) >= 0).any():
+            collector.collect(tag)
+
+
+def search_tag_values(blk: BackendBlock, tag: str, collector: DistinctStringCollector) -> None:
+    """Every value of `tag` in the block: the intrinsic `name`, a
+    well-known resource column, then the span and resource attribute rows
+    with that key (strings, ints, bools; floats are not listed). The
+    reference collects row by row; here each distinct (type, value) is
+    collected once, in the order of its first row, which leaves the
+    collector (its set, its byte cap, `exceeded`) exactly as the
+    reference's row loop leaves it."""
+    d = blk.dictionary
+    kcode = d.lookup(tag)
+    if tag == _INTRINSIC_NAME:
+        for c in np.unique(blk.pack.read("span.name_id")):
+            if c >= 0:
+                collector.collect(d.string(int(c)))
+        return
+    ded = _WELL_KNOWN_RES.get(tag)
+    if ded and blk.pack.has(ded):
+        for c in np.unique(blk.pack.read(ded)):
+            if c >= 0:
+                collector.collect(d.string(int(c)))
+    if kcode < 0:
+        return
+    for pre in ("sattr", "rattr"):
+        mask = blk.pack.read(f"{pre}.key_id") == kcode
+        if not mask.any():
+            continue
+        vt = blk.pack.read(f"{pre}.vtype")[mask]
+        keep = (vt == 0) | (vt == 1) | (vt == 3)
+        kind = vt[keep].astype(np.int64)
+        i64 = blk.pack.read(f"{pre}.int64")[mask][keep].astype(np.int64)
+        sid = blk.pack.read(f"{pre}.str_id")[mask][keep].astype(np.int64)
+        val = np.where(kind == 0, sid, np.where(kind == 1, i64, (i64 != 0).astype(np.int64)))
+        if not kind.size:
+            continue
+        _, first = np.unique(np.stack([kind, val], axis=1), axis=0, return_index=True)
+        for j in np.sort(first):
+            k, v = int(kind[j]), int(val[j])
+            collector.collect(d.string(v) if k == 0 else str(v) if k == 1
+                              else ("true" if v else "false"))

@@ -2,10 +2,14 @@
 tempo_tpu/db/tempodb.py).
 
 write_block cuts a block on the device (B9a/B9b/B9c, block/builder.py)
-and adds it to the blocklist (db/blocklist.py, refreshed by poll_now);
-compact_once and retention_once compact and expire a tenant's blocks
-(db/compactor.py: concat, columnar and wire routes; the bloom union on
-B10a). Find-by-ID runs the
+and adds it to the blocklist (db/blocklist.py, refreshed by poll_now or
+by the thread enable_polling starts; close stops it); compact_once and
+retention_once compact and expire a tenant's blocks (db/compactor.py:
+concat, columnar and wire routes; the bloom union on B10a), and
+compact_tenants runs every tenant's owned jobs through the pipelined
+sweep (db/compact_pipeline.py). search_tags and search_tag_values list
+the attribute keys and values of a tenant's blocks (host numpy), and
+find_candidates the blocks that may hold an id. Find-by-ID runs the
 host bloom gate and ONE batched bisection (K3) over every surviving
 block's device index; search runs the fused multi-block device search
 (db/search.py: K1 per block, one K2 across blocks). Concurrent
@@ -16,8 +20,8 @@ B6 (db/metrics_exec.py). On a mesh of more than one rank
 (parallel/launch) finds run the sharded find, batched search windows
 the mesh multi-query program, multi-block searches the stacked sharded
 search and metrics the stacked mesh fold, where the reference routes
-them. The WAL, the pipelined compaction sweep, the chaos wrap and the
-cost ledger of the JAX package are not part of this port yet.
+them. The WAL, the chaos wrap and the cost ledger of the JAX package
+are not part of this port yet.
 
 The device is the first card unless the caller names another one
 (`device="cpu"` runs every kernel's plain PyTorch version).
@@ -39,6 +43,7 @@ from ..block.reader import BackendBlock
 from ..block.versioned import open_block_versioned
 from ..ops.device import resolve_device
 from ..ops.find import lookup_ids_blocks_cached
+from ..util.distinct import DistinctStringCollector
 from ..wire.combine import combine_traces
 from ..wire.model import Trace
 from . import compactor as comp
@@ -51,6 +56,7 @@ from .batchexec import (
     find_key,
 )
 from .blocklist import Blocklist, Poller
+from .compact_pipeline import CompactionPipeline, CompactionStats, JobOutcome
 from .metrics_exec import MetricsRequest, MetricsResponse, metrics_query_range_blocks
 from .search import (
     SearchRequest,
@@ -58,6 +64,8 @@ from .search import (
     search_block,
     search_blocks_device,
     search_blocks_fused,
+    search_tag_values,
+    search_tags,
 )
 
 
@@ -67,6 +75,8 @@ class TempoDBConfig:
     row_group_spans: int = 1 << 16
     # chunk codec for written blocks (colio codec matrix)
     block_codec: str = "zstd"
+    # seconds between the polls of the thread enable_polling starts
+    blocklist_poll_s: float = 15.0
     block_cache_blocks: int = 64
     search_default_limit: int = 20
     # searches of a block before the batching executor takes it (the
@@ -96,10 +106,15 @@ class TempoDB:
         self.backend = backend or open_backend(cfg.backend)
         self.blocklist = Blocklist()
         self.poller = Poller(self.backend)
-        # compaction ownership hook; a compactor ring would override it
+        # compaction ownership hook; services/compactor installs its ring's
         self.owns_job = lambda job_hash: True
         self._block_cache: dict[tuple[str, str], BackendBlock] = {}
         self._lock = threading.Lock()
+        self._poll_thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        self.poll_errors = 0
+        # the pipelined sweeps' stage walls, occupancy and prefetch outcomes
+        self.compaction_stats = CompactionStats()
         # concurrent search / find jobs that share a coalesce key merge
         # into one fused kernel launch
         self._mesh = None
@@ -166,6 +181,29 @@ class TempoDB:
         self.blocklist.apply_poll_results(metas, compacted)
         self._drop_readers({(t, m.block_id) for t in metas for m in metas[t]})
 
+    def enable_polling(self) -> None:
+        """Poll now, then every blocklist_poll_s seconds on a daemon thread
+        until close(); a failed poll keeps the last list."""
+        if self._poll_thread:
+            return
+
+        def loop():
+            while not self._stop.wait(self.cfg.blocklist_poll_s):
+                try:
+                    self.poll_now()
+                except Exception:  # noqa: BLE001 - poll errors keep the last list
+                    self.poll_errors += 1
+
+        self.poll_now()
+        self._poll_thread = threading.Thread(target=loop, daemon=True, name="blocklist-poller")
+        self._poll_thread.start()
+
+    def close(self) -> None:
+        """Stop the poll thread and join it."""
+        self._stop.set()
+        if self._poll_thread:
+            self._poll_thread.join(timeout=2)
+
     def _drop_readers(self, live: set | None = None, gone: set | None = None) -> None:
         """Forget cached readers of blocks outside `live` or inside `gone`."""
         with self._lock:
@@ -175,16 +213,21 @@ class TempoDB:
                 del self._block_cache[key]
 
     # ------------------------------------------------------------- find
+    def find_candidates(
+        self, tenant: str, trace_id: bytes, time_start: int = 0, time_end: int = 0
+    ) -> list[BlockMeta]:
+        """Blocks whose id range and time window may hold the trace (the
+        unit a frontend's id-space sharder partitions)."""
+        hex_id = trace_id.rjust(16, b"\x00").hex()
+        return [m for m in self.metas(tenant)
+                if m.may_contain_id(hex_id) and m.overlaps_time(time_start, time_end)]
+
     def find_trace_by_id(
         self, tenant: str, trace_id: bytes, time_start: int = 0, time_end: int = 0
     ) -> Trace | None:
         """Candidate-block lookup + combine (reference: tempodb.Find,
         tempodb/tempodb.go:271-352)."""
-        hex_id = trace_id.rjust(16, b"\x00").hex()
-        candidates = [
-            m for m in self.metas(tenant)
-            if m.may_contain_id(hex_id) and m.overlaps_time(time_start, time_end)
-        ]
+        candidates = self.find_candidates(tenant, trace_id, time_start, time_end)
         return self.find_in_blocks(tenant, trace_id, candidates)
 
     def find_in_blocks(
@@ -348,9 +391,28 @@ class TempoDB:
         mesh = self.mesh if self.mesh.size > 1 else None
         return metrics_query_range_blocks(blocks, req, device=self.device, mesh=mesh)
 
+    # ------------------------------------------------------ tag discovery
+    def search_tags(self, tenant: str, max_bytes: int = 0) -> list[str]:
+        """Every attribute key of the tenant's blocks, sorted; max_bytes
+        caps the collected bytes (0: none)."""
+        c = DistinctStringCollector(max_bytes)
+        for m in self.metas(tenant):
+            search_tags(self.open_block(m), c)
+        return c.strings()
+
+    def search_tag_values(self, tenant: str, tag: str, max_bytes: int = 0) -> list[str]:
+        """Every value of `tag` in the tenant's blocks, sorted."""
+        c = DistinctStringCollector(max_bytes)
+        for m in self.metas(tenant):
+            search_tag_values(self.open_block(m), tag, c)
+        return c.strings()
+
     # --------------------------------------------------------- compaction
     def _apply_compaction_result(self, tenant: str, res: comp.CompactionResult,
                                  metas_by_id: dict[str, BlockMeta]) -> None:
+        """One job's result into the blocklist: the same update for the
+        sequential (compact_once) and the pipelined (compact_tenants)
+        sweep."""
         removed = set(res.compacted_ids)
         self.blocklist.update(
             tenant,
@@ -373,6 +435,33 @@ class TempoDB:
             self._apply_compaction_result(tenant, res, metas_by_id)
             results.append(res)
         return results
+
+    def compact_tenants(self, tenants: list[str] | None = None) -> list[JobOutcome]:
+        """The pipelined sweep across tenants (db/compact_pipeline): every
+        tenant's owned jobs run on this database's device with
+        resolve_concurrency(...) workers under the host-RAM admission
+        budget, tenants admitted round robin; each job's blocklist update
+        lands from its worker the moment it commits, the update
+        compact_once makes. Returns the JobOutcome list; a job's error
+        rides in its outcome."""
+        if tenants is None:
+            tenants = self.tenants()
+        jobs_by_tenant: dict[str, list[comp.CompactionJob]] = {}
+        metas_by_tenant: dict[str, dict[str, BlockMeta]] = {}
+        for tenant in tenants:
+            metas = self.blocklist.metas(tenant)
+            jobs = [j for j in comp.select_jobs(tenant, metas, self.cfg.compaction)
+                    if self.owns_job(j.hash)]
+            if jobs:
+                jobs_by_tenant[tenant] = jobs
+                metas_by_tenant[tenant] = {m.block_id: m for m in metas}
+
+        def on_result(tenant: str, job: comp.CompactionJob, res: comp.CompactionResult) -> None:
+            self._apply_compaction_result(tenant, res, metas_by_tenant[tenant])
+
+        pipeline = CompactionPipeline(self.backend, self.cfg.compaction, device=self.device,
+                                      stats=self.compaction_stats)
+        return pipeline.run(jobs_by_tenant, on_result=on_result)
 
     def retention_once(self, tenant: str) -> comp.RetentionResult:
         """Mark blocks past retention compacted and delete compacted

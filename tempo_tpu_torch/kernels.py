@@ -21,7 +21,8 @@ blocks (a descriptor a block, no stack), and one find_elect (K3's search
 and M1's election) the same; one res_to_span, over every resource column
 of a staged block or a stacked fold, one kernel a RES_COLS columns; one
 multiquery, one live_find, one live_append over every column of a
-refresh, one bloom_bits over every id of a cut, one live_patch, one
+refresh, one bloom_bits over every id of a cut, one bloom_test over
+every id of a batch, one live_patch, one
 edge_reduce, one span_reduce, one timeseries (without a res pass), one
 timeseries_stacked fold (its finish is a second call), one remap over
 every code column of a cut, one search_partial over span_off, one
@@ -77,7 +78,7 @@ chip_smoke.py times; the port calls none):
 | bloom_bits  | one per cut without a given bloom        | 16 B an id, the words read and written | none: a hash of each id and a scatter-OR        |
 | rowgroup    | one per cut with spans (G x C CTAs, rowgroup_plan) | 8 B a span + 12 B a group | torch.segment_reduce (max of [-start, start, dur]) |
 | bloom_union | one per compaction job whose union fits; a mesh union 1 (1 x 1) or 3 a rank | K + 1 words per output word | none: no bitwise-OR reduction over a dimension |
-| bloom_test  | none (no caller, as in the JAX package)  | K words and K index triples a query | none: a gather, a shift and an all                 |
+| bloom_test  | one per batch_test (no path calls it, as in the JAX package) | 17 B an id, K words, 1 B out | none: a hash of each id, a gather, a shift and an all |
 
 The live head's kernels (ops/livestage.py, the ingester's staged
 live/cut/flushing traces):
@@ -212,7 +213,7 @@ _SIGNATURES = {
     "tt_bloom_bits": ("blockcut", [_P, _L, _P, _I, _I, _L, _I, _P]),
     "tt_rowgroup": ("blockcut", [_P, _P, _I, _I, _I, _P, _I, _P]),
     "tt_bloom_union": ("bloom", [_P, _I, _L, _P, _P]),
-    "tt_bloom_test": ("bloom", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
+    "tt_bloom_test_ids": ("bloom", [_P, _I, _L, _P, _P, _I, _I, _L, _I, _P, _P]),
     "tt_live_filter": ("livestage", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "tt_live_find": ("livestage", [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
@@ -1168,21 +1169,38 @@ def bloom_union(stacked: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ B10b
-def bloom_test(words: torch.Tensor, word_idx: torch.Tensor, bit_idx: torch.Tensor) -> torch.Tensor:
-    """B10b: words (S, W) uint32 (int32 storage), word_idx (Q, K, 2)
-    [shard, word], bit_idx (Q, K) -> (Q,) bool: every bit set. Bound:
-    bytes (K words and K index triples a query)."""
+BLOOM_TEST_KMAX = 8  # csrc/bloom.cu BT_KMAX
+
+
+def bloom_test(words: torch.Tensor, ids: torch.Tensor, lens: torch.Tensor, n_shards: int,
+               shard_bits: int, k: int) -> torch.Tensor:
+    """B10b: (Q,) bool, every id's k bloom bits set in words. words: (S, W)
+    uint32 bit patterns in int32; ids: (Q, 16) uint8 zero-padded slots,
+    16-byte aligned; lens: (Q,) uint8, each id's length (at most 16). An
+    id hashes over its own bytes: shard FNV-1a 32 % n_shards, bit i (h1 + i
+    h2) mod shard_bits (any shard_bits), the shard and word clamped into
+    words. One launch, a thread an id. Bound: bytes (an id, k words, a
+    byte out)."""
     dev = _cuda_device(words)
     _check(words, "words", torch.int32, dev)
     if words.dim() != 2 or 0 in words.shape:
         raise KernelError("bloom_test: non-empty (S, W) words expected")
-    q, k = bit_idx.shape if bit_idx.dim() == 2 else (-1, -1)
-    _check(bit_idx, "bit_idx", torch.int32, dev, (q, k))
-    _check(word_idx, "word_idx", torch.int32, dev, (q, k, 2))
+    q = ids.shape[0] if ids.dim() == 2 else -1
+    _check(ids, "ids", torch.uint8, dev, (q, 16))
+    _check(lens, "lens", torch.uint8, dev, (q,))
+    if int(n_shards) < 1 or int(shard_bits) < 1 or not 1 <= int(k) <= BLOOM_TEST_KMAX \
+            or q > 2**31 - 1:
+        raise KernelError(f"bloom_test: {q} ids, {n_shards} shards of {shard_bits} bits, "
+                          f"k = {k}")
     out = torch.empty(q, dtype=torch.bool, device=dev)
+    if q == 0:
+        return out
+    if ids.data_ptr() % 16:
+        raise KernelError("bloom_test: ids not 16-byte aligned")
     with _on(dev):
-        _call("tt_bloom_test", words.data_ptr(), words.shape[0], words.shape[1],
-              word_idx.data_ptr(), bit_idx.data_ptr(), q, k, out.data_ptr(), _stream(dev))
+        _call("tt_bloom_test_ids", words.data_ptr(), words.shape[0], words.shape[1],
+              ids.data_ptr(), lens.data_ptr(), q, int(n_shards), int(shard_bits), int(k),
+              out.data_ptr(), _stream(dev))
     _count("bloom_test")
     return out
 

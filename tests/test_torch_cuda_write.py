@@ -167,15 +167,29 @@ def test_bloom_union_kernel(cuda, shape):
 
 
 def test_bloom_test_kernel(cuda):
+    """B10b (kernels.bloom_test) on random words against the plain id
+    route: ids of 0-16 bytes, a power-of-two and an odd shard_bits, more
+    shards asked than the words hold and words narrower than shard_bits
+    (both clamp, as XLA's gather clamps); one launch a call."""
+    from tempo_tpu_torch import kernels
     from tempo_tpu_torch.ops import bloom_ops as BO
 
     rng = np.random.default_rng(4)
-    words = torch.from_numpy(_rand_i32(rng, (3, 64)) | 0x11111111).to(cuda)
-    wi = torch.from_numpy(rng.integers(-2, 70, size=(500, 7, 2)).astype(np.int32)).to(cuda)
-    bi = torch.from_numpy(rng.integers(-1, 34, size=(500, 7)).astype(np.int32)).to(cuda)
-    got = BO.bits_set(words, wi, bi)
-    want = BO._test_plain(words.cpu(), wi.cpu(), bi.cpu())
-    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < 500
+    q = 500
+    lens = rng.integers(0, 17, size=q).astype(np.uint8)
+    ids = rng.integers(0, 256, size=(q, 16), dtype=np.uint8)
+    ids[np.arange(16)[None, :] >= lens[:, None]] = 0
+    words = _rand_i32(rng, (3, 64)) | 0x11111111
+    for n_shards, shard_bits in ((3, 2048), (3, 1000), (5, 2048), (3, 1 << 14)):
+        args = [torch.from_numpy(a) for a in (words, ids, lens)]
+        want = BO._test_ids_plain(*args, n_shards, shard_bits)
+        kernels.reset_counts()
+        got = BO.test_ids(*[a.to(cuda) for a in args], n_shards, shard_bits)
+        assert kernels.grid_launches()["bloom_test"] == 1
+        assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < q
+    with pytest.raises(kernels.KernelError):
+        BO.bits_set(torch.from_numpy(words).to(cuda), torch.zeros((1, 7, 2), dtype=torch.int32),
+                    torch.zeros((1, 7), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("route", ["plan", "shared", "l2"])
