@@ -161,6 +161,27 @@ Phases, in order (any failure raises; no CPU fallback):
                beside torch.segment_reduce,
                and the device µs of M1, M4, M6, M7, M8 and the fused
                route queued
+  16. app      the read plane and the single binary on the card: an App
+               (target all, multitenancy on, TempoDB, Ingester and
+               generator on cuda:0) over a hard-linked copy of the corpus
+               as phases 5-10 saw it, HTTP on 127.0.0.1, tenant `smoke`:
+               phase 5's 48 + 16 finds via /api/traces (equal traces,
+               404s), the 10 searches at limit 20 (each holds min(20,
+               matches) traces, each equal to the facade's search at a
+               limit above every match count), two of them at limit 65,536
+               against the facade's whole answer, a repeat (X-Tempo-Cache
+               hit, equal body), a stream whose final event equals the
+               blocking body, search/tags and service.name's values equal
+               to the facade's, the count query of phase 10 through
+               /api/metrics/query_range (two time-shard jobs) equal to
+               phase 10's series, the 10 searches again through a
+               dispatcher-only Frontend drained by one thread over the
+               wire job plane (poll_job -> worker.execute_job ->
+               complete_job; a `multi` job at least), then 16 OTLP JSON
+               pushes found live, searched, flushed and found in the
+               backend; no failed job, and K1, K2, K3, B6 and B7a launched
+               through the App; each step's wall beside the card's name
+               and power limit
 Each path's launch counts are set to 0 just before it and read just
 after. The line before the last is the kernel table (JSON); the last
 line is {"ok": true, "device": {...}}.
@@ -180,6 +201,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -2700,6 +2722,258 @@ def phase_15_search_table(shards: dict, row) -> dict:
     return m5_splits
 
 
+APP_HIGH_LIMIT = 1 << 16  # above the match count of phase 16's two high-limit searches
+FACADE_LIMIT = 1 << 19  # above every query's match count: the corpus holds 327,680 traces
+
+
+def _http(base: str, path: str, body: bytes | None = None, ctype: str = "application/json"):
+    """(status, body, headers) of one request to the App, as tenant `smoke`."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"X-Scope-OrgID": TENANT}
+    if body is not None:
+        headers["Content-Type"] = ctype
+    req = urllib.request.Request(base + path, data=body, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+def _held_by_facade(want: dict, q: str, got: list, limit: int) -> None:
+    """Phase 16's rule for a search answered at `limit` through the
+    frontend (its jobs merge in completion order, each capped at the
+    limit): it holds min(limit, matches) traces, each one that the
+    facade's search at a limit above the match count (`want`: trace id
+    -> its wire fields) returns, with equal fields."""
+    if len(got) != min(limit, len(want)):
+        raise AssertionError(f"app search {q}: {len(got)} traces, {len(want)} matches")
+    for t in got:
+        if want.get(t["traceID"]) != t:
+            raise AssertionError(f"app search {q}: trace {t['traceID']} {t} is not the "
+                                 f"facade's {want.get(t['traceID'])}")
+
+
+def phase_16(store, dev, present, absent, seq_found, metrics_want, lo_s, hi_s, smi) -> dict:
+    """The read plane and the single binary: an App (target all,
+    multitenancy on) on the card over a hard-linked copy of the corpus
+    as phases 5-10 saw it, served over HTTP on 127.0.0.1, driven as
+    tenant `smoke`: phase 5's finds, the 10 searches (held against the
+    facade by _held_by_facade), two of them at APP_HIGH_LIMIT against
+    the facade's whole answer, a repeat served by the result cache, a
+    stream, tag discovery, a count query against phase 10's answer, the
+    10 searches again through a second, dispatcher-only Frontend that
+    one thread drains over the wire job plane (poll_job ->
+    worker.execute_job -> complete_job), then 16 OTLP JSON pushes found
+    live, searched, flushed and found in the backend. Counts from 0
+    just before; returns the wrapper calls, each step's wall and the
+    failed jobs."""
+    import socket
+
+    from tempo_tpu_torch import kernels
+    from tempo_tpu_torch.db import SearchRequest
+    from tempo_tpu_torch.db import metrics_exec as ME
+    from tempo_tpu_torch.services.app import App, AppConfig
+    from tempo_tpu_torch.services.frontend import Frontend
+    from tempo_tpu_torch.services.ingester import IngesterConfig
+    from tempo_tpu_torch.services.worker import execute_job
+    from tempo_tpu_torch.util.testdata import make_traces
+    from tempo_tpu_torch.wire import otlp_json
+
+    walls: dict = {}
+
+    def step(name: str, t0: float) -> None:
+        walls[name] = time.perf_counter() - t0
+        log(f"[app] {name}: {walls[name]:.2f} s ({smi})")
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    kernels.reset_counts()
+    t_phase = t0 = time.perf_counter()
+    app = App(AppConfig(target="all", multitenancy=True, storage_path=store, http_port=port,
+                        compaction_cycle_s=9999, device=str(dev), instance_id="smoke-app",
+                        ingester=IngesterConfig(max_trace_idle_s=0.0, max_block_age_s=0.0,
+                                                flush_check_period_s=9999)))
+    fe2 = None
+    try:
+        app.start()
+        app.serve_http(background=True)
+        base = f"http://127.0.0.1:{port}"
+        if _http(base, "/ready")[0] != 200 or len(app.db.metas(TENANT)) != N_BLOCKS:
+            raise AssertionError(f"app not ready over {len(app.db.metas(TENANT))} blocks")
+        step("start", t0)
+
+        # ---- finds: phase 5's ids
+        t0 = time.perf_counter()
+        for tid in present:
+            st, body, _ = _http(base, f"/api/traces/{tid.hex()}")
+            if st != 200 or canon_trace(otlp_json.loads(body)) != canon_trace(seq_found[tid]):
+                raise AssertionError(f"app find {tid.hex()}: {st}, not phase 5's trace")
+        for tid in absent:
+            st, _, _ = _http(base, f"/api/traces/{tid.hex()}")
+            if st != 404:
+                raise AssertionError(f"app find {tid.hex()} (absent): {st}")
+        step(f"{len(present)} + {len(absent)} finds", t0)
+
+        # ---- the 10 searches at limit 20, held against the facade
+        t0 = time.perf_counter()
+        app_answers, heads = [], []
+        for q in SEARCH_QUERIES:
+            st, body, h = _http(base, f"/api/search?q={urllib.parse.quote(q)}&limit=20")
+            if st != 200:
+                raise AssertionError(f"app search {q}: {st} {body[:200]}")
+            app_answers.append(json.loads(body))
+            heads.append(h["X-Tempo-Cache"])
+        step("10 searches (first touch)", t0)
+        t0 = time.perf_counter()
+        facade = {}
+        for q, a in zip(SEARCH_QUERIES, app_answers):
+            want = app.db.search(TENANT, SearchRequest(query=q, limit=FACADE_LIMIT))
+            if len(want.traces) >= FACADE_LIMIT:
+                raise AssertionError(f"facade {q}: {len(want.traces)} traces at {FACADE_LIMIT}")
+            facade[q] = {t.trace_id: t.to_dict() for t in want.traces}
+            _held_by_facade(facade[q], q, a["traces"], 20)
+        log("[app] matches a query (the facade at limit " + str(FACADE_LIMIT) + "): "
+            + ", ".join(str(len(facade[q])) for q in SEARCH_QUERIES))
+        step("facade check of the 10 answers", t0)
+        t0 = time.perf_counter()
+        high = {}
+        for qi in (1, 2):  # svc-007 and the sattr form: their matches fit APP_HIGH_LIMIT
+            q = SEARCH_QUERIES[qi]
+            st, body, _ = _http(base, f"/api/search?q={urllib.parse.quote(q)}"
+                                      f"&limit={APP_HIGH_LIMIT}")
+            got = json.loads(body)
+            if st != 200 or not 0 < len(facade[q]) < APP_HIGH_LIMIT or \
+                    {t["traceID"]: t for t in got["traces"]} != facade[q]:
+                raise AssertionError(f"app search {q} at {APP_HIGH_LIMIT}: {len(got['traces'])} "
+                                     f"traces, the facade {len(facade[q])}")
+            high[qi] = got
+            log(f"[app] {q} at limit {APP_HIGH_LIMIT}: {len(facade[q])} traces, equal sets")
+        step("2 searches at the high limit", t0)
+
+        # ---- a repeat (the result cache) and a stream
+        t0 = time.perf_counter()
+        st, body, h = _http(base, f"/api/search?q={urllib.parse.quote(SEARCH_QUERIES[0])}"
+                                  "&limit=20")
+        if st != 200 or h["X-Tempo-Cache"] != "hit" or json.loads(body) != app_answers[0]:
+            raise AssertionError(f"app repeat: {st} {h['X-Tempo-Cache']}, heads {heads}")
+        app.frontend.result_cache.clear()
+        st, body, h = _http(base, f"/api/search?q={urllib.parse.quote(SEARCH_QUERIES[2])}"
+                                  f"&limit={APP_HIGH_LIMIT}&stream=true")
+        events = [json.loads(ln) for ln in body.decode().splitlines() if ln]
+        final = events[-1] if events else {}
+        if st != 200 or not final.get("done") or final["traces"] != high[2]["traces"] or \
+                final["metrics"]["inspectedSpans"] != high[2]["metrics"]["inspectedSpans"]:
+            raise AssertionError(f"app stream: {st}, {len(events)} events, final differs from "
+                                 "the blocking body")
+        log(f"[app] repeat: X-Tempo-Cache hit, equal body (first pass: {heads}); stream: "
+            f"{len(events)} events, {final['jobsCompleted']}/{final['jobsTotal']} jobs, final "
+            "event equal to the blocking body")
+        step("repeat and stream", t0)
+
+        # ---- tags
+        t0 = time.perf_counter()
+        st1, b1, _ = _http(base, "/api/search/tags")
+        st2, b2, _ = _http(base, "/api/search/tag/service.name/values")
+        if (st1, st2) != (200, 200) or \
+                json.loads(b1)["tagNames"] != app.db.search_tags(TENANT) or \
+                json.loads(b2)["tagValues"] != app.db.search_tag_values(TENANT, "service.name"):
+            raise AssertionError("app tags differ from the facade's")
+        step("tags", t0)
+
+        # ---- metrics: the count query, against phase 10's answer
+        t0 = time.perf_counter()
+        mq = METRICS_QUERIES[1]
+        st, body, _ = _http(base, f"/api/metrics/query_range?q={urllib.parse.quote(mq)}"
+                                  f"&start={lo_s}&end={hi_s}&step={METRICS_STEP_S}")
+        if st != 200 or json.loads(body) != json.loads(json.dumps(ME.to_prometheus(metrics_want))):
+            raise AssertionError(f"app metrics {mq}: {st}, series differ from phase 10")
+        step(f"metrics {mq} ({len(metrics_want.series)} series)", t0)
+
+        # ---- the wire job plane: a second, dispatcher-only frontend
+        t0 = time.perf_counter()
+        fe2 = Frontend(app.querier, n_workers=0, hedge_after_s=0.0)
+        for w in ("smoke-w1", "smoke-w2"):  # two cache domains: the affinity scan merges
+            fe2.poll_job(wait_s=0.01, worker_id=w)
+        outs: list = [None] * len(SEARCH_QUERIES)
+
+        def run(i, q):
+            outs[i] = fe2.search(TENANT, SearchRequest(query=q, limit=20))
+
+        threads = [threading.Thread(target=run, args=(i, q), daemon=True)
+                   for i, q in enumerate(SEARCH_QUERIES)]
+        for t in threads:
+            t.start()
+        n_jobs = len(SEARCH_QUERIES) * len(fe2._build_search_jobs(
+            TENANT, SearchRequest(), {}, app.db.metas(TENANT)))
+        deadline = time.monotonic() + 60
+        while sum(fe2.queue.depths().values()) < n_jobs and time.monotonic() < deadline:
+            time.sleep(0.01)
+        kinds: dict = {}
+        while any(t.is_alive() for t in threads):
+            job = fe2.poll_job(wait_s=0.2, worker_id="smoke-w1")
+            if job is None:
+                continue
+            kinds[job["kind"]] = kinds.get(job["kind"], 0) + 1
+            out = execute_job(app.querier, job["tenant"], job["kind"], job["payload"])
+            fe2.complete_job(job["id"], True, result=out)
+        for t in threads:
+            t.join(timeout=5)
+        if "multi" not in kinds:
+            raise AssertionError(f"job plane: no multi job among {kinds}")
+        for q, o, a in zip(SEARCH_QUERIES, outs, app_answers):
+            if o is None or [t.to_dict() for t in o.traces] != a["traces"]:
+                raise AssertionError(f"job plane search {q} differs from the app's answer")
+        log(f"[app] job plane: {n_jobs} jobs of 10 searches, wire jobs by kind {kinds}, "
+            f"remote results {fe2.stats_jobs_remote}, placements {fe2.stats['placements']}")
+        step("job plane (10 searches)", t0)
+
+        # ---- live data: pushed, found live, searched, flushed, found again
+        t0 = time.perf_counter()
+        live = make_traces(16, seed=16, n_spans=8)
+        for _, tr in live:
+            st, body, _ = _http(base, "/v1/traces", otlp_json.dumps(tr).encode())
+            if st != 200:
+                raise AssertionError(f"push: {st} {body[:200]}")
+        for tid, tr in live:
+            st, body, _ = _http(base, f"/api/traces/{tid.hex()}")
+            if st != 200 or canon_trace(otlp_json.loads(body)) != canon_trace(tr):
+                raise AssertionError(f"live find {tid.hex()}: {st}")
+        lq = urllib.parse.quote('{ resource.k8s.cluster.name = "prod" }')
+        st, body, _ = _http(base, f"/api/search?q={lq}&limit=100")
+        if st != 200 or sorted(t["traceID"] for t in json.loads(body)["traces"]) != \
+                sorted(t.hex() for t, _ in live):
+            raise AssertionError(f"live search: {st}")
+        if _http(base, "/flush", b"")[0] != 204:
+            raise AssertionError("flush refused")
+        for tid, tr in live:
+            st, body, _ = _http(base, f"/api/traces/{tid.hex()}")
+            if st != 200 or canon_trace(otlp_json.loads(body)) != canon_trace(tr):
+                raise AssertionError(f"find {tid.hex()} after the flush: {st}")
+        if len(app.db.metas(TENANT)) != N_BLOCKS + 1:
+            raise AssertionError(f"flush: {len(app.db.metas(TENANT))} blocks")
+        step("16 pushes, live finds and search, flush, backend finds", t0)
+        counts = dict(kernels.LAUNCHES)
+        failed = {"app": dict(app.frontend.stats["jobs_failed"]),
+                  "job plane": dict(fe2.stats["jobs_failed"])}
+    finally:
+        if fe2 is not None:
+            fe2.stop()
+        app.stop()
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"[app] frontend stats {app.frontend.stats}; cache {app.frontend.result_cache.stats()}")
+    log(f"[app] wrapper calls {nonzero(counts)}")
+    missing = [k for k in ("filter", "select", "find", "timeseries", "live_filter")
+               if counts[k] <= 0]
+    if missing or any(failed.values()):
+        raise AssertionError(f"phase 16: kernels not launched {missing}, failed jobs {failed}")
+    return {"counts": counts, "walls": walls}
+
+
 def b6_sweep(prog, buf, staged, ns: int, n_b: int, t0: int, step: int, splits: dict) -> None:
     """B6 over block 0's spans (`{ true }`, 61 buckets of the rate query's
     axis) at counts-only and value grids of 3,904, 31,232 and 200,019
@@ -3639,6 +3913,9 @@ def main() -> int:
         # copy of the store (phase 12 compacts and expires the original)
         mesh_store = os.path.join(tmp, "store-mesh")
         shutil.copytree(os.path.join(tmp, "store"), mesh_store, copy_function=os.link)
+        # and phase 16's App, which writes its flush into its own copy
+        app_store = os.path.join(tmp, "store-app")
+        shutil.copytree(os.path.join(tmp, "store"), app_store, copy_function=os.link)
 
         # ---- 11. the cut at full width; 12. compaction, last
         t0 = time.perf_counter()
@@ -3683,6 +3960,11 @@ def main() -> int:
                        metrics_card, lo_s, hi_s, responses)
         log(f"[mesh] phase 15 took {time.perf_counter() - t0:.1f} s")
         splits.update(phase_15_table(p15, table))
+
+        # ---- 16. the read plane and the single binary, served over HTTP
+        t0 = time.perf_counter()
+        phase_16(app_store, dev, present, absent, seq_found, metrics_card[1], lo_s, hi_s, smi)
+        log(f"[app] phase 16 took {time.perf_counter() - t0:.1f} s")
         k2_split(mask10, key10, cnt10, k10)
         for what, fns in splits.items():
             device_split(what, fns)

@@ -128,6 +128,16 @@ def align_params(query: str, start_s: float, end_s: float, step_s: float) -> Met
                           step_ms=step_ms)
 
 
+def request_to_dict(req: MetricsRequest) -> dict:
+    return {"query": req.query, "start_ms": req.start_ms,
+            "end_ms": req.end_ms, "step_ms": req.step_ms}
+
+
+def request_from_dict(d: dict) -> MetricsRequest:
+    return MetricsRequest(query=d["query"], start_ms=int(d["start_ms"]),
+                          end_ms=int(d["end_ms"]), step_ms=int(d["step_ms"]))
+
+
 # ------------------------------------------------------------- response
 
 # mergeable per-series accumulator state, by metrics fn
@@ -188,6 +198,35 @@ class MetricsResponse:
             self.add_partial(labels, state, offset=off)
         self.inspected_spans += other.inspected_spans
         self.inspected_bytes += other.inspected_bytes
+
+
+def response_to_dict(resp: MetricsResponse) -> dict:
+    return {
+        "fn": resp.fn, "start_ms": resp.start_ms, "step_ms": resp.step_ms,
+        "n_buckets": resp.n_buckets, "label_names": list(resp.label_names),
+        "series": [
+            {"labels": list(labels),
+             "state": {f: a.tolist() for f, a in state.items()}}
+            for labels, state in resp.series.items()
+        ],
+        "inspectedSpans": resp.inspected_spans,
+        "inspectedBytes": resp.inspected_bytes,
+    }
+
+
+def response_from_dict(d: dict) -> MetricsResponse:
+    resp = MetricsResponse(
+        fn=d["fn"], start_ms=int(d["start_ms"]), step_ms=int(d["step_ms"]),
+        n_buckets=int(d["n_buckets"]), label_names=tuple(d.get("label_names", [])),
+        inspected_spans=int(d.get("inspectedSpans", 0)),
+        inspected_bytes=int(d.get("inspectedBytes", 0)),
+    )
+    for s in d.get("series", []):
+        resp.series[tuple(s["labels"])] = {
+            f: np.asarray(a, dtype=np.int64 if f in ("count", "vcnt") else np.float64)
+            for f, a in s["state"].items()
+        }
+    return resp
 
 
 def series_values(resp: MetricsResponse, state: dict) -> np.ndarray:

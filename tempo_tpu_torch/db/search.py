@@ -66,6 +66,15 @@ class SearchResult:
     duration_ms: int
     matched_spans: int = 0
 
+    def to_dict(self) -> dict:
+        return {
+            "traceID": self.trace_id,
+            "rootServiceName": self.root_service_name,
+            "rootTraceName": self.root_trace_name,
+            "startTimeUnixNano": str(self.start_time_unix_nano),
+            "durationMs": self.duration_ms,
+        }
+
 
 @dataclass
 class SearchResponse:
@@ -81,6 +90,62 @@ class SearchResponse:
                 seen.add(t.trace_id)
         self.inspected_bytes += other.inspected_bytes
         self.inspected_spans += other.inspected_spans
+
+
+# ---- wire forms (what the frontend's remote job plane, the serverless
+# handler and the result cache serialize)
+
+
+def request_to_dict(req: SearchRequest) -> dict:
+    return {
+        "tags": req.tags,
+        "query": req.query,
+        "min_duration_ms": req.min_duration_ms,
+        "max_duration_ms": req.max_duration_ms,
+        "start": req.start,
+        "end": req.end,
+        "limit": req.limit,
+    }
+
+
+def request_from_dict(d: dict) -> SearchRequest:
+    return SearchRequest(
+        tags=d.get("tags", {}),
+        query=d.get("query", ""),
+        min_duration_ms=d.get("min_duration_ms", 0),
+        max_duration_ms=d.get("max_duration_ms", 0),
+        start=d.get("start", 0),
+        end=d.get("end", 0),
+        limit=d.get("limit", DEFAULT_LIMIT),
+    )
+
+
+def response_to_dict(resp: SearchResponse) -> dict:
+    return {
+        "traces": [
+            {**t.to_dict(), "matchedSpans": t.matched_spans} for t in resp.traces
+        ],
+        "inspectedBytes": resp.inspected_bytes,
+        "inspectedSpans": resp.inspected_spans,
+    }
+
+
+def response_from_dict(d: dict) -> SearchResponse:
+    resp = SearchResponse()
+    resp.inspected_bytes = d.get("inspectedBytes", 0)
+    resp.inspected_spans = d.get("inspectedSpans", 0)
+    for t in d.get("traces", []):
+        resp.traces.append(
+            SearchResult(
+                trace_id=t["traceID"],
+                root_service_name=t.get("rootServiceName", ""),
+                root_trace_name=t.get("rootTraceName", ""),
+                start_time_unix_nano=int(t.get("startTimeUnixNano", "0")),
+                duration_ms=t.get("durationMs", 0),
+                matched_spans=t.get("matchedSpans", 0),
+            )
+        )
+    return resp
 
 
 def _plan_for_block(blk: BackendBlock, req: SearchRequest, allow_struct: bool = True):

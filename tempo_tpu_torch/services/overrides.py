@@ -1,16 +1,18 @@
 """Per-tenant runtime limits (port of tempo_tpu/services/overrides.py;
 reference: modules/overrides/limits.go).
 
-Defaults mirror limits.go:90-108. The per-tenant YAML file and its
-hot reload are not ported yet: limits come from `defaults` and the
-`per_tenant` overlay the caller sets. RateLimiter is the distributor's
-per-tenant ingestion bucket.
+Defaults mirror limits.go:90-108; a per-tenant overrides file (YAML,
+read with PyYAML, imported only when a file is set) hot-reloads on a
+period, same as the reference's runtime-config watcher. RateLimiter is
+the distributor's per-tenant ingestion bucket; QueryAdmission is the
+query frontend's per-tenant QoS gate.
 """
 
 from __future__ import annotations
 
+import os
 import threading
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, replace
 
 
 @dataclass(frozen=True)
@@ -39,13 +41,122 @@ class Limits:
 
 @dataclass
 class Overrides:
-    """Defaults + per-tenant overlay."""
+    """Defaults + per-tenant overlay, optionally file-backed."""
 
     defaults: Limits = field(default_factory=Limits)
     per_tenant: dict[str, Limits] = field(default_factory=dict)
+    path: str = ""
+    reload_period_s: float = 10.0
+
+    def __post_init__(self):
+        self._lock = threading.Lock()
+        self._mtime = 0.0
+        self._stop = threading.Event()
+        self._reloader: threading.Thread | None = None
+        if self.path:
+            self.reload()
+
+    def start_reloader(self) -> None:
+        """Hot reload every reload_period_s (reference reloads the
+        runtime-config file every 10s, modules/overrides/overrides.go)."""
+        if self._reloader is not None or not self.path:
+            return
+
+        def loop():
+            while not self._stop.wait(self.reload_period_s):
+                try:
+                    self.reload()
+                except Exception:  # noqa: BLE001 - keep last good overrides
+                    pass
+
+        self._reloader = threading.Thread(target=loop, daemon=True, name="overrides-reload")
+        self._reloader.start()
+
+    def stop(self) -> None:
+        self._stop.set()
 
     def for_tenant(self, tenant: str) -> Limits:
-        return self.per_tenant.get(tenant, self.defaults)
+        with self._lock:
+            return self.per_tenant.get(tenant, self.defaults)
+
+    # ------------------------------------------------------------ reload
+    def reload(self) -> None:
+        """Read the overrides file if it changed (reference reloads every
+        10s; callers drive the period)."""
+        if not self.path or not os.path.exists(self.path):
+            return
+        mtime = os.path.getmtime(self.path)
+        if mtime == self._mtime:
+            return
+        import yaml
+
+        with open(self.path) as f:
+            data = yaml.safe_load(f) or {}
+        valid = {f.name for f in fields(Limits)}
+        per_tenant = {}
+        for tenant, vals in (data.get("overrides") or {}).items():
+            kw = {k: v for k, v in (vals or {}).items() if k in valid}
+            if "metrics_generator_processors" in kw:
+                kw["metrics_generator_processors"] = tuple(kw["metrics_generator_processors"])
+            per_tenant[tenant] = replace(self.defaults, **kw)
+        with self._lock:
+            self.per_tenant = per_tenant
+            self._mtime = mtime
+
+
+class QueryAdmission:
+    """Per-tenant read-plane QoS gate (used by the query frontend):
+    bounds how many queries a tenant runs concurrently and how many
+    block bytes it may reference in flight, so one heavy tenant cannot
+    monopolize the queue or churn every other tenant's staged device
+    columns out of HBM. Overrides-driven like the ingest limits;
+    try_admit never blocks -- an over-budget query sheds with 429
+    (frontend.TooManyRequests), the reference's queue-full response
+    applied per tenant instead of per process."""
+
+    def __init__(self, overrides: Overrides):
+        self.overrides = overrides
+        self._lock = threading.Lock()
+        self._queries: dict[str, int] = {}  # tenant -> queries in flight
+        self._bytes: dict[str, int] = {}  # tenant -> referenced block bytes
+
+    def try_admit(self, tenant: str, est_bytes: int = 0) -> str | None:
+        """Admit one query referencing est_bytes of block data. Returns
+        None on admission, else the name of the refusing budget
+        ("concurrency" | "bytes"). A tenant with nothing in flight
+        always admits: a single query larger than its own byte budget
+        is the budget's unit of progress, not a livelock."""
+        lim = self.overrides.for_tenant(tenant)
+        with self._lock:
+            q = self._queries.get(tenant, 0)
+            b = self._bytes.get(tenant, 0)
+            if q > 0:
+                if 0 < lim.max_concurrent_queries <= q:
+                    return "concurrency"
+                if (lim.max_inflight_query_bytes > 0
+                        and b + est_bytes > lim.max_inflight_query_bytes):
+                    return "bytes"
+            self._queries[tenant] = q + 1
+            self._bytes[tenant] = b + est_bytes
+            return None
+
+    def release(self, tenant: str, est_bytes: int = 0) -> None:
+        """Return one admitted query's budget. Must be called exactly
+        once per successful try_admit (callers pair them try/finally)."""
+        with self._lock:
+            q = self._queries.get(tenant, 0) - 1
+            if q <= 0:
+                self._queries.pop(tenant, None)
+                self._bytes.pop(tenant, None)
+            else:
+                self._queries[tenant] = q
+                self._bytes[tenant] = max(
+                    0, self._bytes.get(tenant, 0) - est_bytes)
+
+    def inflight(self, tenant: str) -> tuple[int, int]:
+        """(queries, bytes) a tenant currently holds (status surfaces)."""
+        with self._lock:
+            return self._queries.get(tenant, 0), self._bytes.get(tenant, 0)
 
 
 class RateLimiter:
